@@ -1,0 +1,98 @@
+"""PyTorch port hygiene: the package and `chip_smoke.py` never import
+JAX or the JAX package (the machine with the card has neither), and the
+port does not fall back to the CPU when nobody asked for it."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "mxnet_tpu_torch")
+_FORBIDDEN = ("jax", "mxnet_tpu", "jaxlib")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden_imports(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [n for n in names if n.split(".")[0] in _FORBIDDEN]
+    return bad
+
+
+def test_no_jax_import_in_port_sources():
+    files = _port_files()
+    assert len(files) > 15
+    bad = {os.path.relpath(f, ROOT): _forbidden_imports(f) for f in files}
+    assert {f: b for f, b in bad.items() if b} == {}
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, importlib, pkgutil\n"
+            "import mxnet_tpu_torch as m\n"
+            "for info in pkgutil.walk_packages(m.__path__, m.__name__ + '.'):\n"
+            "    importlib.import_module(info.name)\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            f"{_FORBIDDEN!r}]\n"
+            "assert not bad, bad\n"
+            "print('ok', len([k for k in sys.modules "
+            "if k.startswith('mxnet_tpu_torch')]))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok") and int(out.stdout.split()[1]) > 15
+
+
+def test_entry_points_refuse_a_missing_card(monkeypatch):
+    from mxnet_tpu_torch import context, pages
+    from mxnet_tpu_torch.models import gpt
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gpt.GPTForCausalLM(gpt.gpt_tiny_config())
+    with pytest.raises(RuntimeError):
+        pages.PagePool(4, 2, 1, {"target": []})
+    with pytest.raises(RuntimeError):
+        context.resolve("cuda")
+    assert context.resolve("cpu") == torch.device("cpu")
+
+
+def test_wrappers_refuse_other_devices():
+    from mxnet_tpu_torch.cuda_ops import flash_attention as fa
+    from mxnet_tpu_torch.cuda_ops import paged_attention as pa
+    q = torch.zeros((1, 1, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_fwd(q, q, q, torch.zeros((1, 4), device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        pa.paged_attention(q[:, :, :1], q, q,
+                           torch.zeros((1, 1), dtype=torch.int32),
+                           torch.zeros((1,), dtype=torch.int32))
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """With no CUDA device visible, chip_smoke (here a copy standing alone
+    in a directory) exits non-zero and prints no result line."""
+    lone = tmp_path / "chip_smoke.py"
+    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
+        lone.write_text(fh.read())
+    out = subprocess.run([sys.executable, str(lone)], cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode == 2, out.stderr
+    assert '"ok"' not in out.stdout
