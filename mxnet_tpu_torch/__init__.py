@@ -7,12 +7,15 @@ Hopper (`cuda_ops/`, sources in `csrc/`). The package imports torch and
 never jax or mxnet_tpu. Entry points run on the card unless the caller
 passes `device="cpu"`.
 
-This slice serves GPT-2 through the paged continuous-batching server
-(`serve.Server(model, pages="on")`) and `GPTForCausalLM.generate`.
+It serves GPT-2 through the paged continuous-batching server
+(`serve.Server(model, pages="on")`) and `GPTForCausalLM.generate`, and
+pretrains BERT through `parallel.ShardedTrainer` with fused flat-master
+LAMB.
 """
-from . import (config, context, dataflow, gluon, initializer, models, pages,
-               random, serve, weights)
+from . import (config, context, dataflow, gluon, initializer, models,
+               optimizer, pages, parallel, random, serve, weights)
 from .context import cpu, gpu
 
 __all__ = ["config", "context", "dataflow", "gluon", "initializer", "models",
-           "pages", "random", "serve", "weights", "cpu", "gpu"]
+           "optimizer", "pages", "parallel", "random", "serve", "weights",
+           "cpu", "gpu"]

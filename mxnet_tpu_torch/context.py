@@ -30,6 +30,10 @@ def resolve(device=None):
                 "is available; pass device='cpu' to run on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is "
+                               "unavailable")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

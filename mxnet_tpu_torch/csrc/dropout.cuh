@@ -1,0 +1,95 @@
+// The attention-dropout keep mask shared by the flash forward and both
+// backward kernels (flash_fwd.cu, flash_bwd.cu), and its test entry.
+//
+// The TPU kernels re-seed the core PRNG per (seed, flat tile id)
+// (`_keep_tile`, mxnet_tpu/pallas_ops/flash_attention.py), so forward, dq
+// and dkv regenerate one mask in their different loop orders. On the card
+// blocks run unordered and the three kernels tile differently, so the keep
+// bit of score element (bh, row, col) is keyed by its COORDINATES instead:
+//
+//   bits(bh, row, col) = philox4x32_10(counter = (col >> 2, row, bh, 0),
+//                                      key = (seed_lo, seed_hi))[col & 3]
+//   keep = bits >= threshold,  threshold = min(round(p * 2^32), 2^32 - 1)
+//
+// (the TPU kernel's rule `bits >= round(p * 2^32)`). One Philox call gives
+// the bits of four neighbouring columns. Any tiling gives the same mask,
+// and the plain version (`dropout_keep_mask` in cuda_ops/flash_attention.py)
+// reproduces it bit for bit.
+//
+// A kernel fills a tile's mask into shared memory once per (64-row,
+// 64-column) tile with every thread of the block -- one byte per (row,
+// 4-column group), bit j for column 4g + j -- so each Philox call is made
+// once, whatever fragment layout later reads the bits.
+#pragma once
+
+#include <stdint.h>
+
+namespace mxt {
+
+struct DropoutArgs {
+  uint32_t seed_lo, seed_hi;
+  uint32_t threshold;   // drop when bits < threshold
+  float inv_keep;       // 1 / (1 - p)
+  int on;               // p > 0
+};
+
+__host__ __device__ __forceinline__ void philox_round(uint32_t c[4],
+                                                      uint32_t k0,
+                                                      uint32_t k1) {
+  const uint64_t p0 = (uint64_t)0xD2511F53u * c[0];
+  const uint64_t p1 = (uint64_t)0xCD9E8D57u * c[2];
+  const uint32_t hi0 = (uint32_t)(p0 >> 32), lo0 = (uint32_t)p0;
+  const uint32_t hi1 = (uint32_t)(p1 >> 32), lo1 = (uint32_t)p1;
+  const uint32_t n0 = hi1 ^ c[1] ^ k0;
+  const uint32_t n2 = hi0 ^ c[3] ^ k1;
+  c[0] = n0;
+  c[1] = lo1;
+  c[2] = n2;
+  c[3] = lo0;
+}
+
+// Philox-4x32 with 10 rounds (Salmon et al., SC'11; Random123's constants)
+__host__ __device__ __forceinline__ void philox4x32_10(uint32_t c[4],
+                                                       uint32_t k0,
+                                                       uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    philox_round(c, k0, k1);
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+}
+
+// keep bits of columns 4*grp .. 4*grp+3 of row `row` in head `bh`, bit j
+// for column 4*grp + j
+__device__ __forceinline__ uint32_t keep_nibble(const DropoutArgs& d, int bh,
+                                                int row, int grp) {
+  uint32_t c[4] = {(uint32_t)grp, (uint32_t)row, (uint32_t)bh, 0u};
+  philox4x32_10(c, d.seed_lo, d.seed_hi);
+  return (uint32_t)(c[0] >= d.threshold) |
+         ((uint32_t)(c[1] >= d.threshold) << 1) |
+         ((uint32_t)(c[2] >= d.threshold) << 2) |
+         ((uint32_t)(c[3] >= d.threshold) << 3);
+}
+
+constexpr int kMaskGroups = 16;   // 4-column groups of a 64-column tile
+
+// Fill mask[r * 16 + g] for the 64 x 64 tile at (row0, col0) with the
+// block's `nthreads` threads. Rows and columns past the tensor get
+// arbitrary bits: their scores carry zero weight either way.
+__device__ __forceinline__ void fill_tile_mask(uint8_t* mask,
+                                               const DropoutArgs& d, int bh,
+                                               int row0, int col0,
+                                               int nthreads) {
+  for (int i = threadIdx.x; i < 64 * kMaskGroups; i += nthreads) {
+    const int r = i / kMaskGroups, g = i % kMaskGroups;
+    mask[i] = (uint8_t)keep_nibble(d, bh, row0 + r, (col0 >> 2) + g);
+  }
+}
+
+// keep bit of (row0 + r, col0 + c) from a filled tile mask
+__device__ __forceinline__ bool tile_keep(const uint8_t* mask, int r, int c) {
+  return (mask[r * kMaskGroups + (c >> 2)] >> (c & 3)) & 1;
+}
+
+}  // namespace mxt

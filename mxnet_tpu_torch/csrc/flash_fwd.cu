@@ -1,13 +1,17 @@
 // Flash attention forward for Hopper (sm_90a), hand-written CUDA C++.
 //
 // Replaces the TPU kernel `_fwd_kernel` of
-// mxnet_tpu/pallas_ops/flash_attention.py (launched by `_flash_fwd_pallas`)
-// for dropout = 0: scores = q.k^T * sm_scale + bias[b, key], then the causal
+// mxnet_tpu/pallas_ops/flash_attention.py (launched by `_flash_fwd_pallas`):
+// scores = q.k^T * sm_scale + bias[b, key], then the causal
 // mask aligned so the last query sees the last key (offset Lk - Lq; masked
 // scores are REPLACED by -1e30), an online softmax with a running max and
 // denominator in float32, P rounded to the model dtype before P.V, and the
 // output O (in q's dtype) plus the row log-sum-exp (float32), which the
-// training slice's backward kernels and ring attention read.
+// backward kernels (flash_bwd.cu) read. Attention dropout follows the TPU
+// kernel exactly: the denominator l and the LSE sum the UNDROPPED p; only
+// the P.V accumulation sees the kept p scaled by 1/(1-p). The keep bits
+// come from the coordinate-keyed Philox of dropout.cuh, filled into shared
+// memory once per tile.
 //
 // What bounds it: a causal pass does about 2*L^2*D operations per (b, h)
 // for 4*L*D elements moved. Against the card's bf16 tensor-core rate that
@@ -33,55 +37,29 @@
 //    and the output float4 groups g + 4i.
 // In both, the threads that share a row are neighbouring lanes, so row max
 // and row sum are two shuffles.
-#include "common.cuh"
+#include "dropout.cuh"
+#include "flash_common.cuh"
 
 namespace mxt {
 namespace {
 
-constexpr int BM = 64;        // query rows per block
-constexpr int BN = 64;        // keys per tile
 constexpr int THREADS = 256;
 constexpr int PS = BN + 4;    // padded row stride of the P tile
 
 // ---- float32 on the CUDA cores ----------------------------------------------
 
 template <int DMAX> struct Smem {
-  static constexpr int SD = DMAX + 4;   // padded row stride (16-byte rows)
+  static constexpr int SD = F32Rows<DMAX>::SD;
   static constexpr int floats = BM * SD + 2 * BN * SD + BM * PS;
-  static constexpr int bytes = floats * 4;
+  static constexpr int bytes = floats * 4 + BM * kMaskGroups;  // + keep mask
 };
-
-// rows [0, nvalid) of a (rows, D) float tile into smem rows of
-// stride SD, zero-filled past D (up to DMAX) and past nvalid
-template <int DMAX>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int nvalid, int D) {
-  constexpr int VEC = 4;
-  constexpr int VPR = DMAX / VEC;
-  constexpr int SD = Smem<DMAX>::SD;
-  for (int i = threadIdx.x; i < BM * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * VEC;
-    float tmp[VEC];
-    if (r < nvalid && c < D) {
-      load_vec_f32<float>(tmp, src + (size_t)r * D + c);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) tmp[e] = 0.f;
-    }
-    float4* d4 = reinterpret_cast<float4*>(dst + r * SD + c);
-#pragma unroll
-    for (int e = 0; e < VEC / 4; ++e)
-      d4[e] = make_float4(tmp[4 * e], tmp[4 * e + 1], tmp[4 * e + 2],
-                          tmp[4 * e + 3]);
-  }
-}
 
 template <int DMAX>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ bias,
                  float* __restrict__ o, float* __restrict__ lse, int H, int Lq,
-                 int Lk, int D, float sm_scale, int causal) {
+                 int Lk, int D, float sm_scale, int causal, DropoutArgs drop) {
   constexpr int SD = Smem<DMAX>::SD;
   constexpr int NJ = BN / 4;       // score columns per thread
   constexpr int NG = DMAX / 16;    // output float4 groups per thread
@@ -90,6 +68,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* Ks = Qs + BM * SD;
   float* Vs = Ks + BN * SD;
   float* Ps = Vs + BN * SD;
+  uint8_t* Mk = reinterpret_cast<uint8_t*>(Ps + BM * PS);
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -102,7 +81,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + (size_t)bh * Lk * D;
   const float* brow = bias + (size_t)b * Lk;
 
-  load_tile<DMAX>(Qs, q + ((size_t)bh * Lq + q0) * D, min(BM, Lq - q0), D);
+  load_tile_f32<DMAX, THREADS>(Qs, q + ((size_t)bh * Lq + q0) * D,
+                               min(BM, Lq - q0), D);
 
   // a causal tile stops at the last key its last real row sees; with
   // Lq > Lk some rows see no key and average over all of them (the
@@ -118,8 +98,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int k0 = 0; k0 < hi; k0 += BN) {
     __syncthreads();                       // last tile's readers are done
     const int nk = min(BN, Lk - k0);
-    load_tile<DMAX>(Ks, kb + (size_t)k0 * D, nk, D);
-    load_tile<DMAX>(Vs, vb + (size_t)k0 * D, nk, D);
+    load_tile_f32<DMAX, THREADS>(Ks, kb + (size_t)k0 * D, nk, D);
+    load_tile_f32<DMAX, THREADS>(Vs, vb + (size_t)k0 * D, nk, D);
+    if (drop.on) fill_tile_mask(Mk, drop, bh, q0, k0, THREADS);
     __syncthreads();
 
     float s[NJ];
@@ -164,7 +145,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < NJ; ++j) {
       const float p = expf(s[j] - m_new);
       ls += p;                             // the denominator sums unrounded p
-      prow[g + 4 * j] = p;
+      prow[g + 4 * j] =                    // P.V sees the kept, scaled p
+          drop.on ? (tile_keep(Mk, row, g + 4 * j) ? p * drop.inv_keep : 0.f)
+                  : p;
     }
     ls += __shfl_xor_sync(0xffffffffu, ls, 1);
     ls += __shfl_xor_sync(0xffffffffu, ls, 2);
@@ -207,22 +190,17 @@ template <int DMAX>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const void* bias, void* o, void* lse, int B, int H,
                        int Lq, int Lk, int D, float sm_scale, int causal,
-                       cudaStream_t stream) {
+                       const DropoutArgs& drop, cudaStream_t stream) {
   constexpr int bytes = Smem<DMAX>::bytes;
   static bool configured = false;          // above 48 KB needs an opt-in
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<DMAX>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  cudaError_t e = allow_smem(flash_fwd_kernel<DMAX>, bytes, configured);
+  if (e != cudaSuccess) return e;
   dim3 grid(B * H, (Lq + BM - 1) / BM);
   flash_fwd_kernel<DMAX><<<grid, THREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias),
       static_cast<float*>(o), static_cast<float*>(lse), H, Lq, Lk, D, sm_scale,
-      causal);
+      causal, drop);
   return cudaGetLastError();
 }
 
@@ -230,62 +208,10 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 
 constexpr int MMA_THREADS = 128;   // 4 warps x 16 query rows
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), float32 accumulate
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int DMAX> struct MmaSmem {
-  static constexpr int SK = DMAX + 8;   // row stride (bf16): ldmatrix rows
-                                        // land on distinct banks
-  static constexpr int bytes = (BM + 2 * BN) * SK * 2;
+  static constexpr int SK = Bf16Rows<DMAX>::SK;
+  static constexpr int bytes = (BM + 2 * BN) * SK * 2 + BM * kMaskGroups;
 };
-
-// rows [0, nvalid) of a (rows, D) bf16 tile into smem rows of stride SK,
-// zero-filled past D (up to DMAX) and past nvalid
-template <int DMAX>
-__device__ __forceinline__ void copy_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int nvalid, int D) {
-  constexpr int VPR = DMAX / 8;
-  constexpr int SK = MmaSmem<DMAX>::SK;
-  for (int i = threadIdx.x; i < BM * VPR; i += MMA_THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < nvalid && c < D)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
-    *reinterpret_cast<uint4*>(dst + r * SK + c) = val;
-  }
-}
 
 template <int DMAX>
 __global__ void __launch_bounds__(MMA_THREADS)
@@ -294,7 +220,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ v,
                      const float* __restrict__ bias,
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int H, int Lq, int Lk, int D, float sm_scale, int causal) {
+                     int H, int Lq, int Lk, int D, float sm_scale, int causal,
+                     DropoutArgs drop) {
   constexpr int SK = MmaSmem<DMAX>::SK;
   constexpr int NT = BN / 8;       // score n-tiles of 8 keys
   constexpr int KQ = DMAX / 16;    // k-steps over the head dim
@@ -303,6 +230,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + BM * SK;
   __nv_bfloat16* Vs = Ks + BN * SK;
+  uint8_t* Mk = reinterpret_cast<uint8_t*>(Vs + BN * SK);
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -315,16 +243,15 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + (size_t)bh * Lk * D;
   const float* brow = bias + (size_t)b * Lk;
 
-  copy_tile<DMAX>(Qs, q + ((size_t)bh * Lq + q0) * D, min(BM, Lq - q0), D);
+  load_tile_bf16<DMAX, MMA_THREADS>(Qs, q + ((size_t)bh * Lq + q0) * D,
+                                    min(BM, Lq - q0), D);
   int hi = Lk;
   if (causal && off >= 0) hi = min(Lk, min(q0 + BM, Lq) + off);
   __syncthreads();
 
   uint32_t qf[KQ][4];              // A fragments of this warp's 16 rows
 #pragma unroll
-  for (int kk = 0; kk < KQ; ++kk)
-    ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * SK + kk * 16 +
-                            (lane >> 4) * 8);
+  for (int kk = 0; kk < KQ; ++kk) load_a_frag<SK>(qf[kk], Qs, warp * 16, kk * 16);
 
   float oacc[NO][4];
 #pragma unroll
@@ -335,24 +262,15 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int k0 = 0; k0 < hi; k0 += BN) {
     __syncthreads();                       // last tile's readers are done
     const int nk = min(BN, Lk - k0);
-    copy_tile<DMAX>(Ks, kb + (size_t)k0 * D, nk, D);
-    copy_tile<DMAX>(Vs, vb + (size_t)k0 * D, nk, D);
+    load_tile_bf16<DMAX, MMA_THREADS>(Ks, kb + (size_t)k0 * D, nk, D);
+    load_tile_bf16<DMAX, MMA_THREADS>(Vs, vb + (size_t)k0 * D, nk, D);
+    if (drop.on) fill_tile_mask(Mk, drop, bh, q0, k0, MMA_THREADS);
     __syncthreads();
 
     float s[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KQ; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t bf[4];                    // B fragments of key tiles j, j+1
-        ldmatrix_x4(bf, Ks + ((j + (lane >> 4)) * 8 + (lane & 7)) * SK +
-                            kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[j], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[j + 1], qf[kk], bf[2], bf[3]);
-      }
-    }
+    mma_rows_t<DMAX>(s, qf, Ks);
 
     // accumulator (j, e): row e < 2 ? r0 : r1, key k0 + 8j + 2 tig + (e & 1)
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -396,6 +314,17 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l1 = l1 * a1 + ls1;
     m0 = mn0;
     m1 = mn1;
+    if (drop.on) {                         // P.V sees the kept, scaled p
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = warp * 16 + gid + (e < 2 ? 0 : 8);
+          s[j][e] = tile_keep(Mk, r, j * 8 + tig * 2 + (e & 1))
+                        ? s[j][e] * drop.inv_keep : 0.f;
+        }
+      }
+    }
 #pragma unroll
     for (int i = 0; i < NO; ++i) {
       oacc[i][0] *= a0;
@@ -406,22 +335,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
     // O += P V: the score accumulators of key tiles 2kk, 2kk+1 are the A
     // fragment of key step kk, rounded to bf16 on the way
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < NO; dt += 2) {
-        uint32_t vf[4];                    // B fragments of dim tiles dt, dt+1
-        ldmatrix_x4_trans(vf, Vs + (kk * 16 + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * SK +
-                                  (dt + (lane >> 4)) * 8);
-        mma_bf16(oacc[dt], pa, vf[0], vf[1]);
-        mma_bf16(oacc[dt + 1], pa, vf[2], vf[3]);
-      }
-    }
+    mma_acc_rows<DMAX>(oacc, s, Vs);
   }
 
   l0 = fmaxf(l0, 1e-30f);
@@ -448,22 +362,17 @@ template <int DMAX>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* bias, void* o, void* lse, int B, int H,
                        int Lq, int Lk, int D, float sm_scale, int causal,
-                       cudaStream_t stream) {
+                       const DropoutArgs& drop, cudaStream_t stream) {
   constexpr int bytes = MmaSmem<DMAX>::bytes;
   static bool configured = false;          // above 48 KB needs an opt-in
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_mma_kernel<DMAX>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  cudaError_t e = allow_smem(flash_fwd_mma_kernel<DMAX>, bytes, configured);
+  if (e != cudaSuccess) return e;
   dim3 grid(B * H, (Lq + BM - 1) / BM);
   flash_fwd_mma_kernel<DMAX><<<grid, MMA_THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
       static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, Lq, Lk, D,
-      sm_scale, causal);
+      sm_scale, causal, drop);
   return cudaGetLastError();
 }
 
@@ -472,26 +381,63 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 
 // q (B,H,Lq,D), k/v (B,H,Lk,D) contiguous, dtype 0 = float32, 1 = bfloat16;
 // bias (B,Lk) float32; o like q; lse (B*H, Lq) float32. D % 8 == 0, D <= 128.
-// Returns the CUDA error of the launch (0 on success).
+// Dropout (p > 0 when dropout_on): keep where Philox bits >= threshold,
+// kept p scaled by inv_keep (dropout.cuh). Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
                             const void* bias, void* o, void* lse, int B, int H,
                             int Lq, int Lk, int D, float sm_scale, int causal,
-                            int dtype, void* stream) {
+                            int dtype, uint32_t seed_lo, uint32_t seed_hi,
+                            uint32_t threshold, float inv_keep, int dropout_on,
+                            void* stream) {
   using namespace mxt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 0 || D > 128 || D % 8 != 0 || Lq <= 0 || Lk <= 0)
     return cudaErrorInvalidValue;
+  const DropoutArgs drop{seed_lo, seed_hi, threshold, inv_keep, dropout_on};
   if (dtype == kF32) {
     return D <= 64 ? launch_f32<64>(q, k, v, bias, o, lse, B, H, Lq, Lk, D,
-                                    sm_scale, causal, s)
+                                    sm_scale, causal, drop, s)
                    : launch_f32<128>(q, k, v, bias, o, lse, B, H, Lq, Lk, D,
-                                     sm_scale, causal, s);
+                                     sm_scale, causal, drop, s);
   }
   if (dtype == kBF16) {
     return D <= 64 ? launch_mma<64>(q, k, v, bias, o, lse, B, H, Lq, Lk, D,
-                                    sm_scale, causal, s)
+                                    sm_scale, causal, drop, s)
                    : launch_mma<128>(q, k, v, bias, o, lse, B, H, Lq, Lk, D,
-                                     sm_scale, causal, s);
+                                     sm_scale, causal, drop, s);
   }
   return cudaErrorInvalidValue;
+}
+
+namespace {
+
+__global__ void dropout_mask_kernel(uint8_t* __restrict__ out, int Lq, int Lk,
+                                    mxt::DropoutArgs drop) {
+  const int bh = blockIdx.z;
+  const int r = blockIdx.y;
+  const int grp = blockIdx.x * blockDim.x + threadIdx.x;
+  if (4 * grp >= Lk) return;
+  const uint32_t nib = mxt::keep_nibble(drop, bh, r, grp);
+  uint8_t* row = out + ((size_t)bh * Lq + r) * Lk;
+  for (int j = 0; j < 4 && 4 * grp + j < Lk; ++j)
+    row[4 * grp + j] = (nib >> j) & 1;
+}
+
+}  // namespace
+
+// The keep mask itself, (BH, Lq, Lk) uint8 (1 = keep), from the same device
+// function the attention kernels use: lets a test hold the kernels' mask
+// against the plain version bit for bit. Not on any model path.
+extern "C" int mx_dropout_mask(void* out, int BH, int Lq, int Lk,
+                               uint32_t seed_lo, uint32_t seed_hi,
+                               uint32_t threshold, void* stream) {
+  if (BH <= 0 || Lq <= 0 || Lk <= 0 || BH > 65535 || Lq > 65535)
+    return cudaErrorInvalidValue;
+  const mxt::DropoutArgs drop{seed_lo, seed_hi, threshold, 1.f, 1};
+  const int groups = (Lk + 3) / 4;
+  dim3 grid((groups + 127) / 128, Lq, BH);
+  dropout_mask_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(out), Lq, Lk, drop);
+  return cudaGetLastError();
 }

@@ -1,0 +1,168 @@
+// Fused-LAMB passes over the flat float32 master for Hopper (sm_90a),
+// hand-written CUDA C++.
+//
+// Replaces the TPU kernels `_lamb1_kernel` and `_lamb2_kernel` of
+// mxnet_tpu/pallas_ops/fused_update.py (launched by `lamb_pass1` /
+// `lamb_pass2` from `FusedLamb._apply_flat_pallas`). The master weights W,
+// gradient G and moments m, v are (R, 512) float32 row views of flat
+// vectors in which every parameter is a whole range of rows:
+//   pass 1: g = clip(G * rescale); m = b1 m + (1-b1) g; v = b2 v + (1-b2) g^2
+//           (written in place); u = m/c1 / (sqrt(v/c2) + eps) + wd_row W;
+//           per-row sum(W^2) and sum(u^2) for the trust-ratio norms
+//   pass 2: u recomputed from the stored m, v;  W -= lr * trust_row * u
+//           (in place)
+// The per-segment norms and the trust ratio between the passes are a few
+// hundred elements and stay in plain torch. Recomputing u in pass 2 instead
+// of storing it is the TPU design too: arithmetic is free here, a full-size
+// temporary is not.
+//
+// What bounds it: bytes. Pass 1 reads 4 and writes 2 floats per element,
+// pass 2 reads 3 and writes 1, against 7 and 4 operations: far below the
+// ~20 operations per byte where the card's float32 rate would bind. One
+// warp owns one 512-lane row (16 elements a lane, float4 loads), so a row's
+// sums are a warp shuffle reduction with no cross-block pass.
+#include "common.cuh"
+
+namespace mxt {
+namespace {
+
+constexpr int LANES = 512;            // row width of the flat layout
+constexpr int ROWS_PER_BLOCK = 8;     // one warp per row
+
+struct LambArgs {
+  float b1, omb1, b2, omb2;           // beta1, 1 - beta1, beta2, 1 - beta2
+  float eps, rescale, clip;           // clip <= 0: no clipping
+  float c1, c2;                       // bias-correction denominators
+  int bias_correction;
+};
+
+__device__ __forceinline__ float lamb_update(const LambArgs& a, float m,
+                                             float v, float w, float wd) {
+  const float mh = a.bias_correction ? m / a.c1 : m;
+  const float vh = a.bias_correction ? v / a.c2 : v;
+  return mh / (sqrtf(vh) + a.eps) + wd * w;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
+lamb1_kernel(const float* __restrict__ W, const float* __restrict__ G,
+             float* __restrict__ M, float* __restrict__ V,
+             const float* __restrict__ wd_rows, float* __restrict__ rw,
+             float* __restrict__ ru, int R, LambArgs a) {
+  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= R) return;
+  const float wd = wd_rows[row];
+  const size_t base = (size_t)row * LANES;
+  float sw = 0.f, su = 0.f;
+#pragma unroll
+  for (int i = 0; i < LANES / 128; ++i) {
+    const size_t idx = base + (size_t)(i * 32 + lane) * 4;
+    const float4 w4 = *reinterpret_cast<const float4*>(W + idx);
+    const float4 g4 = *reinterpret_cast<const float4*>(G + idx);
+    float4 m4 = *reinterpret_cast<const float4*>(M + idx);
+    float4 v4 = *reinterpret_cast<const float4*>(V + idx);
+    const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+    const float gi[4] = {g4.x, g4.y, g4.z, g4.w};
+    float m[4] = {m4.x, m4.y, m4.z, m4.w};
+    float v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float g = gi[e] * a.rescale;
+      if (a.clip > 0.f) g = fminf(fmaxf(g, -a.clip), a.clip);
+      m[e] = a.b1 * m[e] + a.omb1 * g;
+      v[e] = a.b2 * v[e] + a.omb2 * (g * g);
+      const float u = lamb_update(a, m[e], v[e], w[e], wd);
+      sw += w[e] * w[e];
+      su += u * u;
+    }
+    *reinterpret_cast<float4*>(M + idx) = make_float4(m[0], m[1], m[2], m[3]);
+    *reinterpret_cast<float4*>(V + idx) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  sw = warp_sum(sw);
+  su = warp_sum(su);
+  if (lane == 0) {
+    rw[row] = sw;
+    ru[row] = su;
+  }
+}
+
+__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
+lamb2_kernel(float* __restrict__ W, const float* __restrict__ M,
+             const float* __restrict__ V, const float* __restrict__ wd_rows,
+             const float* __restrict__ trust_rows, int R, LambArgs a,
+             float lr) {
+  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= R) return;
+  const float wd = wd_rows[row];
+  const float step = lr * trust_rows[row];
+  const size_t base = (size_t)row * LANES;
+#pragma unroll
+  for (int i = 0; i < LANES / 128; ++i) {
+    const size_t idx = base + (size_t)(i * 32 + lane) * 4;
+    float4 w4 = *reinterpret_cast<const float4*>(W + idx);
+    const float4 m4 = *reinterpret_cast<const float4*>(M + idx);
+    const float4 v4 = *reinterpret_cast<const float4*>(V + idx);
+    w4.x -= step * lamb_update(a, m4.x, v4.x, w4.x, wd);
+    w4.y -= step * lamb_update(a, m4.y, v4.y, w4.y, wd);
+    w4.z -= step * lamb_update(a, m4.z, v4.z, w4.z, wd);
+    w4.w -= step * lamb_update(a, m4.w, v4.w, w4.w, wd);
+    *reinterpret_cast<float4*>(W + idx) = w4;
+  }
+}
+
+LambArgs make_args(float b1, float omb1, float b2, float omb2, float eps,
+                   float rescale, float clip, float c1, float c2,
+                   int bias_correction) {
+  return LambArgs{b1, omb1, b2, omb2, eps, rescale, clip, c1, c2,
+                  bias_correction};
+}
+
+}  // namespace
+}  // namespace mxt
+
+// W, G, M, V (R, 512) float32 contiguous; wd_rows, rw, ru (R,) float32.
+// M and V are updated in place. Returns the CUDA error of the launch.
+extern "C" int mx_lamb_pass1(const void* W, const void* G, void* M, void* V,
+                             const void* wd_rows, void* rw, void* ru, int R,
+                             float b1, float omb1, float b2, float omb2,
+                             float eps, float rescale, float clip, float c1,
+                             float c2, int bias_correction, void* stream) {
+  using namespace mxt;
+  if (R <= 0) return cudaErrorInvalidValue;
+  const LambArgs a =
+      make_args(b1, omb1, b2, omb2, eps, rescale, clip, c1, c2, bias_correction);
+  const int blocks = (R + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+  lamb1_kernel<<<blocks, ROWS_PER_BLOCK * 32, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(W), static_cast<const float*>(G),
+      static_cast<float*>(M), static_cast<float*>(V),
+      static_cast<const float*>(wd_rows), static_cast<float*>(rw),
+      static_cast<float*>(ru), R, a);
+  return cudaGetLastError();
+}
+
+// W (R, 512) float32, updated in place; M, V (R, 512); wd_rows, trust_rows
+// (R,) float32. Returns the CUDA error of the launch.
+extern "C" int mx_lamb_pass2(void* W, const void* M, const void* V,
+                             const void* wd_rows, const void* trust_rows,
+                             int R, float eps, float c1, float c2,
+                             int bias_correction, float lr, void* stream) {
+  using namespace mxt;
+  if (R <= 0) return cudaErrorInvalidValue;
+  const LambArgs a =
+      make_args(0.f, 0.f, 0.f, 0.f, eps, 1.f, 0.f, c1, c2, bias_correction);
+  const int blocks = (R + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+  lamb2_kernel<<<blocks, ROWS_PER_BLOCK * 32, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(W), static_cast<const float*>(M),
+      static_cast<const float*>(V), static_cast<const float*>(wd_rows),
+      static_cast<const float*>(trust_rows), R, a, lr);
+  return cudaGetLastError();
+}

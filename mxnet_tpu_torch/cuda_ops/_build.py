@@ -6,7 +6,7 @@ library with a plain C interface, `_build/libmxtorch_kernels.so`, which
 is loaded with ctypes. The build happens at first use (the first CUDA
 call of a wrapper, or `chip_smoke.py`), never at import: a machine
 without nvcc imports every module. A content stamp of the sources and
-flags skips the rebuild when nothing changed. `_build/build.log` keeps
+flags (headers included) skips the rebuild when nothing changed. `_build/build.log` keeps
 nvcc's `-Xptxas -v` report (registers, shared memory, spills).
 """
 from __future__ import annotations
@@ -65,7 +65,7 @@ def build():
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     out = os.path.join(BUILD_DIR, LIB_NAME)
     stamp = out + ".sha256"
-    digest = _digest(sources)
+    digest = _digest(sources + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))))
     if _fresh(out, stamp, digest):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -5,6 +5,10 @@ exactly as the JAX package's `collect_params()` does
 (`gpt.layers.0.attn.qkv.weight`), so carrying weights between the two
 packages is the identity on names. PyTorch runs eagerly, so there is
 no hybridize/jit cache: `HybridBlock` is the same class.
+
+A block starts in evaluation mode (`training` False), as the JAX
+package runs outside a train step; `train()` (what the trainer's step
+sets around its forward) turns dropout on, `eval()` off.
 """
 from __future__ import annotations
 
@@ -19,6 +23,10 @@ __all__ = ["Block", "HybridBlock", "HybridSequential"]
 
 
 class Block(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.training = False
+
     def collect_params(self, select=None):
         """All parameters of this subtree keyed by dotted path
         (optionally filtered by a regex)."""

@@ -3,9 +3,13 @@
 A parameter is a `torch.nn.Parameter` that remembers its own
 initializer, so `Block.initialize()` can apply the JAX package's rule:
 the initializer passed to `initialize`, else the parameter's own, else
-uniform. The slice is inference-only, so parameters carry no gradient.
-Storage is allocated on torch's current default device, which the model
-constructors set to the model's device.
+uniform. It also carries the JAX package's `grad_req` ('write' trains
+it, 'null' leaves it out of training). The tensor itself records no
+gradient, so serving builds no autograd graph: training goes through
+`parallel.ShardedTrainer`, which substitutes views of its flat float32
+master (which do record gradients) for every parameter whose grad_req
+is not 'null'. Storage is allocated on torch's current default device,
+which the model constructors set to the model's device.
 """
 from __future__ import annotations
 
@@ -24,9 +28,14 @@ def dtype_of(dtype):
     return _DTYPES[str(dtype)]
 
 
-def Parameter(name, shape, dtype="float32", init=None):  # noqa: N802
+def Parameter(name, shape, dtype="float32", init=None,  # noqa: N802
+              grad_req="write"):
+    if grad_req not in ("write", "null"):
+        raise ValueError(f"Parameter {name}: grad_req {grad_req!r} is not "
+                         "'write' or 'null'")
     p = torch.nn.Parameter(torch.empty(tuple(shape), dtype=dtype_of(dtype)),
                            requires_grad=False)
     p.mx_name = name
     p.mx_init = init
+    p.grad_req = grad_req
     return p

@@ -1,4 +1,4 @@
-"""Model families of the port (this slice: the GPT-2 family)."""
-from . import gpt
+"""Model families of the port: BERT (pretraining) and the GPT-2 family."""
+from . import bert, gpt
 
-__all__ = ["gpt"]
+__all__ = ["bert", "gpt"]

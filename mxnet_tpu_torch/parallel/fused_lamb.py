@@ -1,0 +1,153 @@
+"""Fused multi-tensor LAMB with float32 master weights (counterpart of
+`mxnet_tpu/parallel/fused_lamb.py`).
+
+The master weights and both moments live as ONE flat float32 vector
+each, every parameter a segment padded to a whole number of 512-lane
+rows (zeros in the padding, which every derived quantity keeps at zero).
+The train step runs the model on `unflatten(master)`, per-tensor views
+cast to the model dtype whose backward scatters each gradient into one
+flat float32 vector, so the optimizer receives the gradient already flat.
+`apply_flat` is two passes over the (rows, 512) view
+(`cuda_ops.fused_update`: hand-written kernels on the card, plain torch
+on the CPU); between them, the per-segment norms are a segment
+scatter-add of the per-row sums of squares (never a cumsum difference:
+float32 cancellation on ~1e8-sized prefixes loses small segments) and
+the trust ratio.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..cuda_ops import fused_update as _fu
+
+__all__ = ["FusedLamb"]
+
+_CHUNK = _fu.LANES
+
+
+class _Unflatten(torch.autograd.Function):
+    """flat float32 -> per-tensor views in the model dtypes; the backward
+    writes each incoming gradient into its segment of ONE flat float32
+    gradient (padding stays zero)."""
+
+    @staticmethod
+    def forward(ctx, flat, layout):
+        ctx.layout = layout
+        ctx.total, ctx.device = flat.numel(), flat.device
+        # a float32 view is copied: a custom Function hands out no views
+        # of its input
+        return tuple(
+            flat[off:off + n].view(shape).to(dt, copy=True)
+            for off, n, shape, dt in layout)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = torch.zeros(ctx.total, dtype=torch.float32, device=ctx.device)
+        for (off, n, _, _), gi in zip(ctx.layout, grads):
+            if gi is not None:
+                g[off:off + n].copy_(gi.reshape(-1))
+        return g, None
+
+
+class FusedLamb:
+    """Precomputed flat layout + the two-pass fused LAMB update."""
+
+    def __init__(self, shapes, dtypes, wds, beta1, beta2, epsilon,
+                 bias_correction, rescale_grad, clip_gradient,
+                 lower_bound, upper_bound):
+        self.shapes = [tuple(s) for s in shapes]
+        self.dtypes = list(dtypes)
+        self.b1, self.b2, self.eps = beta1, beta2, epsilon
+        self.bias_correction = bias_correction
+        self.rescale = rescale_grad
+        self.clip = clip_gradient
+        self.lo, self.hi = lower_bound, upper_bound
+
+        sizes = [int(np.prod(s)) if s else 1 for s in self.shapes]
+        padded = [(n + _CHUNK - 1) // _CHUNK * _CHUNK for n in sizes]
+        self.sizes = sizes
+        self.offsets = np.cumsum([0] + padded).tolist()
+        self.total = self.offsets[-1]
+        self.n_rows = self.total // _CHUNK
+        # row r belongs to segment row_seg[r]; segments are whole row ranges
+        row_seg = np.zeros(self.n_rows, np.int64)
+        for i, (off, pad) in enumerate(zip(self.offsets[:-1], padded)):
+            row_seg[off // _CHUNK: (off + pad) // _CHUNK] = i
+        self.row_seg = torch.from_numpy(row_seg)
+        self.wd_seg = torch.tensor(np.asarray(wds, np.float32))
+        self._layout = [(off, n, s, dt) for off, n, s, dt in zip(
+            self.offsets[:-1], sizes, self.shapes, self.dtypes)]
+        self._on = {}
+
+    def _rows(self, device):
+        """(row_seg, wd_rows) on `device`, cached."""
+        key = str(device)
+        if key not in self._on:
+            row_seg = self.row_seg.to(device)
+            self._on[key] = (row_seg, self.wd_seg.to(device)[row_seg])
+        return self._on[key]
+
+    # -- flat <-> per-param ---------------------------------------------
+    def flatten(self, arrs):
+        """One flat float32 vector of the tensors `arrs`, each padded to
+        whole rows."""
+        parts = []
+        for a, n in zip(arrs, self.sizes):
+            flat = a.detach().reshape(-1).to(torch.float32)
+            pad = (n + _CHUNK - 1) // _CHUNK * _CHUNK - n
+            if pad:
+                flat = torch.cat([flat, flat.new_zeros(pad)])
+            parts.append(flat)
+        return torch.cat(parts) if parts else torch.zeros(0)
+
+    def unflatten(self, flat):
+        """Per-tensor model-dtype tensors of the flat master,
+        differentiable: the gradient of a loss over them arrives FLAT
+        (one float32 vector in the master's layout)."""
+        return list(_Unflatten.apply(flat, self._layout))
+
+    def unflatten_master(self, flat):
+        """Per-tensor float32 views WITHOUT the model-dtype cast (the
+        checkpoint layout of master weights and moments)."""
+        return [flat[off:off + n].view(shape)
+                for off, n, shape in zip(self.offsets[:-1], self.sizes,
+                                         self.shapes)]
+
+    # -- the fused step --------------------------------------------------
+    def apply_flat(self, w, g, m, v, t, lr):
+        """One LAMB step at update count t (>= 1) and learning rate lr on
+        the flat float32 state. w, m and v update IN PLACE (the JAX
+        package donated them and wrote new buffers); g is the flat float32
+        gradient. Returns (w, m, v)."""
+        R, C = self.n_rows, _CHUNK
+        W, G = w.view(R, C), g.view(R, C)
+        M, V = m.view(R, C), v.view(R, C)
+        c1 = (1 - self.b1 ** t) if self.bias_correction else 1.0
+        c2 = (1 - self.b2 ** t) if self.bias_correction else 1.0
+        row_seg, wd_rows = self._rows(w.device)
+        rw, ru = _fu.lamb_pass1(
+            W, G, M, V, wd_rows, c1, c2, beta1=self.b1, beta2=self.b2,
+            epsilon=self.eps, rescale_grad=self.rescale,
+            clip_gradient=self.clip, bias_correction=self.bias_correction)
+
+        def seg_norm(rows_sq):
+            # segment scatter-add, NOT a cumsum difference (see module doc)
+            return torch.zeros(len(self.sizes), dtype=torch.float32,
+                               device=w.device).index_add_(
+                0, row_seg, rows_sq).sqrt()
+
+        r1, r2 = seg_norm(rw), seg_norm(ru)
+        # zero norms become 1 BEFORE the ratio (lamb_update_phase2), so a
+        # zero-init parameter gets trust = 1/||u||
+        r1 = torch.where(r1 > 0, r1, 1.0)
+        r2 = torch.where(r2 > 0, r2, 1.0)
+        trust = r1 / r2
+        if self.lo and self.lo > 0:
+            trust = torch.clamp(trust, min=self.lo)
+        if self.hi and self.hi > 0:
+            trust = torch.clamp(trust, max=self.hi)
+        _fu.lamb_pass2(W, M, V, wd_rows, trust[row_seg].contiguous(), c1, c2,
+                       lr, epsilon=self.eps,
+                       bias_correction=self.bias_correction)
+        return w, m, v

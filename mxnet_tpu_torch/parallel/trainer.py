@@ -1,0 +1,114 @@
+"""ShardedTrainer: the train step on one device (counterpart of
+`mxnet_tpu/parallel/trainer.py`).
+
+The JAX package jits forward, loss, backward and optimizer into one
+computation over a mesh. The port runs the same step eagerly on one
+device, with LAMB in its fused flat-master form (`FusedLamb`, the JAX
+package's path for LAMB in 'replicate' mode): the parameters live as one
+flat float32 master; each step runs the block in training mode on
+`unflatten(master)` through `torch.func.functional_call`, so autograd
+delivers the gradient already flat in float32, and `apply_flat` updates
+master and moments in place. The step counter goes up first; the
+bias-correction constants and the learning rate are host floats; `step`
+returns the loss tensor without waiting for the card.
+
+Single device and `param_mode="replicate"` only: meshes, fsdp/tp
+modes, gradient accumulation, zero, memsafe, guard, check, telemetry
+and resilience are not in the port yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from .. import context
+from .. import optimizer as opt_mod
+from .functional_opt import FunctionalOptimizer
+from .fused_lamb import FusedLamb
+
+__all__ = ["ShardedTrainer", "call_loss"]
+
+
+def call_loss(loss_fn, outs, labels):
+    """The user loss over the model outputs and labels, reduced to its
+    float32 mean (a scalar loss stays itself)."""
+    return loss_fn(*outs, *labels).float().mean()
+
+
+def _as_tensor(x, device):
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device)
+
+
+class ShardedTrainer:
+    def __init__(self, block, loss_fn, optimizer="lamb", optimizer_params=None,
+                 mesh=None, param_mode="replicate", device=None):
+        if mesh is not None or param_mode != "replicate":
+            raise NotImplementedError(
+                "the port trains on one device: meshes and sharded "
+                "param modes are not in it yet")
+        self.device = context.resolve(device)
+        self.block = block
+        self.loss_fn = loss_fn
+        self._opt = opt_mod.create(optimizer, **(optimizer_params or {}))
+        self.num_update = 0
+        params = [(n, p) for n, p in block.named_parameters()
+                  if getattr(p, "grad_req", "write") != "null"]
+        for name, p in params:
+            if p.device != self.device:
+                raise ValueError(f"ShardedTrainer: parameter {name} is on "
+                                 f"{p.device}, the trainer on {self.device}")
+        self._names = [n for n, _ in params]
+        self.fopt = FunctionalOptimizer(self._opt, self._names)
+        o = self.fopt.opt
+        self._fl = FusedLamb(
+            [p.shape for _, p in params], [p.dtype for _, p in params],
+            [self.fopt._wd_for(i) for i in range(len(params))],
+            o.beta1, o.beta2, o.epsilon, o.bias_correction, o.rescale_grad,
+            o.clip_gradient or -1.0, o.lower_bound or -1.0,
+            o.upper_bound or -1.0)
+        self.params = self._fl.flatten([p for _, p in params])
+        self.opt_state = (torch.zeros_like(self.params),
+                          torch.zeros_like(self.params))
+
+    def step(self, data, labels):
+        """One train step on a batch: `data` and `labels` are tensors or
+        numpy arrays (or lists of them), moved to the trainer's device.
+        Returns the float32 loss (a 0-d tensor, not synchronised)."""
+        data = data if isinstance(data, (list, tuple)) else [data]
+        labels = labels if isinstance(labels, (list, tuple)) else [labels]
+        data = [_as_tensor(x, self.device) for x in data]
+        labels = [_as_tensor(x, self.device) for x in labels]
+        self.num_update += 1
+        t = self.num_update
+        lr = self.fopt.lr_at(t)
+        master = self.params.detach().requires_grad_(True)
+        was_training = self.block.training
+        self.block.train()
+        try:
+            with torch.enable_grad():
+                views = dict(zip(self._names, self._fl.unflatten(master)))
+                outs = functional_call(self.block, views, tuple(data))
+                outs = outs if isinstance(outs, (list, tuple)) else (outs,)
+                loss = call_loss(self.loss_fn, outs, labels)
+                grad, = torch.autograd.grad(loss, master)
+        finally:
+            self.block.train(was_training)
+        m, v = self.opt_state
+        self._fl.apply_flat(self.params, grad, m, v, t, lr)
+        return loss.detach()
+
+    def sync_to_block(self):
+        """Write the master back into the block's parameters (model
+        dtype), e.g. before serving or saving them."""
+        with torch.no_grad():
+            for name, w in zip(self._names,
+                               self._fl.unflatten_master(self.params)):
+                p = self.block.get_parameter(name)
+                p.copy_(w.to(p.dtype))
+
+    @property
+    def param_count(self):
+        return sum(self._fl.sizes)

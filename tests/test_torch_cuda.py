@@ -7,15 +7,19 @@ it runs on a machine with PyTorch for CUDA alone:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py -q
 
-Tolerances: float32 2e-5 (paged) and 1e-4 (flash: a 64-key tile loop
-sums in another order than the reference's one softmax); bfloat16 2e-2,
-as the JAX package's own kernel tests use.
+Tolerances: float32 2e-5 (paged) and 1e-4 (flash forward and backward:
+a 64-key tile loop sums in another order than the reference's one
+softmax); bfloat16 2e-2 relative to the output's largest magnitude, as
+the JAX package's own kernel tests use; LAMB rtol 1e-5 (FMA contraction
+and another summation order of the 512-lane rows). The dropout keep mask
+is compared bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 from mxnet_tpu_torch.cuda_ops import flash_attention as fa
+from mxnet_tpu_torch.cuda_ops import fused_update as fu
 from mxnet_tpu_torch.cuda_ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -96,8 +100,138 @@ def test_flash_kernel_matches_plain(dev, dtype, Lq, Lk, D, causal, padded):
 
 def test_flash_dropout_raises_on_card(dev):
     q, k, v = _qkv(dev, torch.float32, 1, 1, 8, 8, 64)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, k, v, dropout=0.1)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v, dropout=1.0, seed=1)
+
+
+def _close(got, ref, dtype, what):
+    """float32: atol/rtol 1e-4; bf16: 2e-2 of the reference's scale."""
+    scale = max(float(ref.float().abs().max()), 1.0)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2 * scale
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= tol, f"{what}: max abs err {err} > {tol}"
+
+
+@pytest.mark.parametrize("BH,Lq,Lk", [(3, 70, 130), (24, 64, 64),
+                                      (2, 513, 77)])
+def test_dropout_mask_kernel_matches_plain_bit_for_bit(dev, BH, Lq, Lk):
+    seed = 0xDEADBEEF_12345678
+    for p in (0.1, 0.5):
+        got = fa.dropout_mask(seed, BH, Lq, Lk, p, dev)
+        ref = fa.dropout_keep_mask(seed, BH, Lq, Lk, p, dev)
+        assert torch.equal(got, ref)
+
+
+_BWD_CASES = [(128, 128, 64, False, False), (128, 128, 64, True, False),
+              (100, 100, 64, False, True), (77, 77, 128, True, True),
+              (64, 192, 64, True, False), (65, 130, 40, False, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("Lq,Lk,D,causal,padded", _BWD_CASES)
+def test_flash_fwd_bwd_kernels_match_plain(dev, dtype, dropout, Lq, Lk, D,
+                                           causal, padded):
+    B, H = 2, 3
+    q, k, v = _qkv(dev, dtype, B, H, Lq, Lk, D, seed=Lq + Lk)
+    g = torch.tensor(np.random.RandomState(1).randn(B, H, Lq, D),
+                     dtype=dtype, device=dev)
+    bias = torch.zeros((B, Lk), dtype=torch.float32, device=dev)
+    if padded:
+        bias[1, Lk * 2 // 3:] = -1e30
+    seed = 1234567890123
+    n = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    out, lse = fa.flash_fwd(q, k, v, bias, causal, dropout=dropout, seed=seed)
+    ro, rlse = fa.flash_fwd_reference(q, k, v, bias, causal, dropout=dropout,
+                                      seed=seed)
+    _close(out, ro, dtype, "O")
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+    delta = (g.float() * ro.float()).sum(-1).reshape(B * H, Lq)
+    got = fa.flash_bwd(q, k, v, bias, g, rlse, delta, causal,
+                       dropout=dropout, seed=seed)
+    torch.cuda.synchronize()
+    ref = fa.flash_bwd_reference(q, k, v, bias, g, rlse, delta, causal,
+                                 dropout=dropout, seed=seed)
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == \
+        (n[0] + 1, n[1] + 1, n[2] + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        _close(a, b, dtype, name)
+
+
+def test_autograd_on_card_goes_through_the_kernels(dev):
+    q, k, v = (x.requires_grad_(True) for x in
+               _qkv(dev, torch.bfloat16, 2, 2, 96, 96, 64))
+    n = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    out = fa.flash_attention(q, k, v, dropout=0.1, seed=7)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == \
+        (n[0] + 1, n[1] + 1, n[2] + 1)
+    assert all(torch.isfinite(x.grad.float()).all() for x in (q, k, v))
+
+
+@pytest.mark.parametrize("R", [1, 9, 200])
+@pytest.mark.parametrize("bias_correction", [True, False])
+def test_lamb_kernels_match_plain(dev, R, bias_correction):
+    rng = np.random.RandomState(R)
+
+    def rows(scale=1.0):
+        return torch.tensor(rng.randn(R, 512) * scale, dtype=torch.float32,
+                            device=dev)
+
+    W, G, m = rows(), rows(3.0), rows(0.1)
+    v = rows(0.1).abs()
+    wd = torch.tensor(np.where(np.arange(R) % 2, 0.0, 0.01),
+                      dtype=torch.float32, device=dev)
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-6, rescale_grad=0.5,
+              clip_gradient=1.0, bias_correction=bias_correction)
+    c1, c2 = 1 - 0.9 ** 2, 1 - 0.999 ** 2
+    m2, v2 = m.clone(), v.clone()
+    n1, n2 = fu.launches_pass1, fu.launches_pass2
+    rw, ru = fu.lamb_pass1(W, G, m, v, wd, c1, c2, **kw)
+    rrw, rru = fu.lamb_pass1_reference(W, G, m2, v2, wd, c1, c2, **kw)
+    for a, b in ((m, m2), (v, v2), (rw, rrw), (ru, rru)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+    trust = torch.linspace(0.5, 2.0, R, device=dev)
+    W2 = W.clone()
+    fu.lamb_pass2(W, m, v, wd, trust, c1, c2, 0.01, epsilon=1e-6,
+                  bias_correction=bias_correction)
+    fu.lamb_pass2_reference(W2, m, v, wd, trust, c1, c2, 0.01, epsilon=1e-6,
+                            bias_correction=bias_correction)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(W, W2, rtol=1e-5, atol=1e-7)
+    assert (fu.launches_pass1, fu.launches_pass2) == (n1 + 1, n2 + 1)
+
+
+def test_tiny_bert_training_on_card_matches_cpu(dev):
+    """Three float32 LAMB steps of a tiny BERT on the card (flash and LAMB
+    kernels) against the same steps on the CPU (plain versions)."""
+    from mxnet_tpu_torch import parallel, random as mxrandom
+    from mxnet_tpu_torch.models import bert
+    cfg = bert.bert_tiny_config()
+    b = bert.make_synthetic_batch(cfg, 4, 64, 6)
+    b["valid_length"][1] = 40
+    data = [b[k] for k in ("input_ids", "token_types", "valid_length",
+                           "masked_positions")]
+    labels = [b[k] for k in ("mlm_labels", "mlm_weights", "nsp_labels")]
+    runs = {}
+    for where in ("cpu", "cuda"):
+        m = bert.BERTForPretraining(cfg, device="cpu")
+        m.initialize(generator=mxrandom.seed(0, "cpu"))
+        m.to(where)
+        tr = parallel.ShardedTrainer(m, bert.bert_pretrain_loss, "lamb",
+                                     {"learning_rate": 1e-3, "wd": 0.01},
+                                     device=where)
+        n = (fa.launches_dq, fu.launches_pass2)
+        losses = [float(tr.step(data, labels)) for _ in range(3)]
+        if where == "cuda":
+            assert fa.launches_dq - n[0] == 3 * cfg["num_layers"]
+            assert fu.launches_pass2 - n[1] == 3
+        runs[where] = (losses, tr.params.cpu())
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], atol=1e-4)
+    torch.testing.assert_close(runs["cuda"][1], runs["cpu"][1], rtol=0,
+                               atol=1e-4)
 
 
 def test_tiny_gpt_paths_on_card(dev):

@@ -7,7 +7,11 @@ side runs its Pallas kernels in interpret mode
 do, and its plain references. Tolerances: paged attention rtol/atol
 2e-6 (both sides are float32 reductions of the same expression), flash
 attention atol 1e-5 (the Pallas kernel's 128-key tiles sum in another
-order than one softmax). CPU tensors never launch a CUDA kernel.
+order than one softmax), the flash backward atol 2e-5 (a few more
+float32 products per element), the LAMB passes rtol 2e-6 / atol 2e-7 as
+the JAX package's own kernel-vs-XLA test holds them (sums of squares
+rtol 1e-5: 512-lane rows summed in another order). The dropout keep mask
+is compared bit for bit. CPU tensors never launch a CUDA kernel.
 """
 import importlib
 
@@ -15,13 +19,18 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mxnet_tpu_torch.cuda_ops import flash_attention as fa_t
+from mxnet_tpu_torch.cuda_ops import fused_update as fu_t
 from mxnet_tpu_torch.cuda_ops import paged_attention as pa_t
+from mxnet_tpu_torch.parallel import FusedLamb as FusedLambT
 
 fa_j = importlib.import_module("mxnet_tpu.pallas_ops.flash_attention")
+fu_j = importlib.import_module("mxnet_tpu.pallas_ops.fused_update")
 pa_j = importlib.import_module("mxnet_tpu.pallas_ops.paged_attention")
+fl_j = importlib.import_module("mxnet_tpu.parallel.fused_lamb")
 
 
 @pytest.fixture
@@ -151,16 +160,253 @@ def test_flash_plain_matches_mha_reference(case):
 
 
 def test_flash_dropout_raises():
+    """A dropout rate outside [0, 1) is refused."""
     q, k, v, _ = _flash_case(8, 8, False)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fa_t.flash_attention(_t(q), _t(k), _t(v), dropout=0.1)
+    for rate in (1.0, -0.1):
+        with pytest.raises(ValueError, match="dropout"):
+            fa_t.flash_attention(_t(q), _t(k), _t(v), dropout=rate, seed=1)
+
+
+def test_flash_dropout_without_seed_is_off():
+    """As in the JAX package (no dropout key), no seed means no dropout."""
+    q, k, v, _ = _flash_case(16, 16, False)
+    np.testing.assert_array_equal(
+        fa_t.flash_attention(_t(q), _t(k), _t(v), dropout=0.5).numpy(),
+        fa_t.flash_attention(_t(q), _t(k), _t(v)).numpy())
 
 
 def test_cpu_tensors_never_launch_a_kernel():
-    fa_t.launches = 0
+    fa_t.launches = fa_t.launches_dq = fa_t.launches_dkv = 0
     pa_t.launches = 0
+    fu_t.launches_pass1 = fu_t.launches_pass2 = 0
     q, k, v, mask = _flash_case(40, 40, True)
-    fa_t.flash_attention(_t(q), _t(k), _t(v), _t(mask), causal=True)
+    qt = _t(q).requires_grad_(True)
+    out = fa_t.flash_attention(qt, _t(k), _t(v), _t(mask), causal=True,
+                               dropout=0.1, seed=3)
+    out.sum().backward()
     fa_t.flash_fwd(_t(q), _t(k), _t(v), torch.zeros(2, 40))
     pa_t.paged_attention(*[_t(a) for a in _paged_case(**_PAGED["small"])])
-    assert fa_t.launches == 0 and pa_t.launches == 0
+    W, G, m, v2, wd, _ = _lamb_rows(4)
+    fu_t.lamb_pass1(W, G, m, v2, wd, 0.1, 0.001, **_LAMB_KW)
+    fu_t.lamb_pass2(W, m, v2, wd, torch.ones(4), 0.1, 0.001, 0.01,
+                    epsilon=1e-6, bias_correction=True)
+    assert fa_t.launches == fa_t.launches_dq == fa_t.launches_dkv == 0
+    assert pa_t.launches == 0
+    assert fu_t.launches_pass1 == fu_t.launches_pass2 == 0
+
+
+# -- the dropout keep mask ---------------------------------------------------
+
+# Philox-4x32-10 known answers (Random123's kat_vectors): counter, key, out
+_PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+
+
+@pytest.mark.parametrize("i", range(len(_PHILOX_KAT)))
+def test_philox_known_answers(i):
+    ctr, key, want = _PHILOX_KAT[i]
+    got = fa_t._philox4x32_10(*[torch.tensor([c], dtype=torch.int64)
+                                for c in ctr], *key)
+    assert [int(x) for x in got] == list(want)
+
+
+def test_keep_mask_pinned_values():
+    """Element (bh, row, col) is word col & 3 of Philox at counter
+    (col >> 2, row, bh, 0), key (seed lo, seed hi): with seed 0 and
+    (bh, row) = (0, 0), columns 0-3 are the first known answer."""
+    kat = _PHILOX_KAT[0][2]
+    for p in (0.1, 0.5, 0.9):
+        thr = fa_t.dropout_threshold(p)
+        got = fa_t.dropout_keep_mask(0, 1, 1, 4, p)[0, 0].tolist()
+        assert got == [w >= thr for w in kat]
+    assert fa_t.dropout_threshold(0.1) == 429496730
+    assert fa_t.dropout_threshold(1.0) == 0xFFFFFFFF
+    # the high 32 bits of the seed are the key's second word
+    seed = (0x299F31D0 << 32) | 0xA4093822
+    m = fa_t.dropout_keep_mask(seed, 1, 1, 4, 0.5)
+    assert m.shape == (1, 1, 4) and m.dtype == torch.bool
+
+
+def test_keep_mask_is_deterministic_and_tiling_free():
+    seed, p = 0x1234_5678_9ABC_DEF0, 0.1
+    whole = fa_t.dropout_keep_mask(seed, 6, 70, 90, p)
+    assert torch.equal(whole, fa_t.dropout_keep_mask(seed, 6, 70, 90, p))
+    # the mask of a bigger grid, cut down, is the same mask: each element
+    # depends on its coordinates alone
+    big = fa_t.dropout_keep_mask(seed, 7, 100, 130, p)
+    assert torch.equal(big[:6, :70, :90], whole)
+    assert not torch.equal(whole, fa_t.dropout_keep_mask(seed + 1, 6, 70,
+                                                          90, p))
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5])
+def test_keep_rate_within_four_sigma(p):
+    m = fa_t.dropout_keep_mask(77, 8, 128, 128, p)
+    n = m.numel()
+    sigma = (p * (1 - p) / n) ** 0.5
+    assert abs(float(m.float().mean()) - (1 - p)) < 4 * sigma
+
+
+# -- the flash backward --------------------------------------------------------
+
+_BWD = {"plain": (64, 64, False, False), "padded": (48, 48, False, True),
+        "causal": (40, 40, True, False),
+        "causal_lq_lt_lk": (24, 56, True, True)}
+
+
+def _bwd_case(Lq, Lk, padded, seed=4):
+    q, k, v, mask = _flash_case(Lq, Lk, padded, seed=seed)
+    g = np.random.RandomState(seed + 1).randn(*q.shape).astype(np.float32)
+    bias = np.zeros((q.shape[0], Lk), np.float32) if mask is None \
+        else np.where(mask, 0.0, -1e30).astype(np.float32)
+    return q, k, v, bias, g
+
+
+def _plain_bwd(q, k, v, bias, g, causal, dropout=0.0, seed=0):
+    out, lse = fa_t.flash_fwd_reference(_t(q), _t(k), _t(v), _t(bias),
+                                        causal, dropout=dropout, seed=seed)
+    delta = (_t(g) * out).sum(-1).reshape(lse.shape)
+    return fa_t.flash_bwd(_t(q), _t(k), _t(v), _t(bias), _t(g), lse, delta,
+                          causal, dropout=dropout, seed=seed)
+
+
+@pytest.mark.parametrize("case", sorted(_BWD))
+def test_flash_bwd_plain_matches_jax_grad(case):
+    Lq, Lk, causal, padded = _BWD[case]
+    q, k, v, bias, g = _bwd_case(Lq, Lk, padded)
+
+    def f(q_, k_, v_):
+        return jnp.sum(fa_j.mha_reference(
+            q_, k_, v_, bias=jnp.asarray(bias)[:, None, None, :],
+            causal=causal) * jnp.asarray(g))
+
+    ref = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v))
+    got = _plain_bwd(q, k, v, bias, g, causal)
+    for name, a, b in zip("qkv", got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-5,
+                                   rtol=1e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.2])
+@pytest.mark.parametrize("case", sorted(_BWD))
+def test_flash_bwd_plain_matches_torch_autograd(case, dropout):
+    """The plain backward's formulas against torch autograd through the
+    plain forward, which applies `dropout_keep_mask`."""
+    Lq, Lk, causal, padded = _BWD[case]
+    q, k, v, bias, g = _bwd_case(Lq, Lk, padded, seed=6)
+    leaves = [_t(x).requires_grad_(True) for x in (q, k, v)]
+    out, _ = fa_t.flash_fwd_reference(*leaves, _t(bias), causal,
+                                      dropout=dropout, seed=99)
+    ref = torch.autograd.grad(out, leaves, _t(g))
+    got = _plain_bwd(q, k, v, bias, g, causal, dropout=dropout, seed=99)
+    for name, a, b in zip("qkv", got, ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5,
+                                   rtol=1e-5, err_msg=f"d{name}")
+    # and the differentiable op routes its backward through flash_bwd
+    leaves2 = [_t(x).requires_grad_(True) for x in (q, k, v)]
+    mask = None if not padded else _t(bias == 0)
+    o2 = fa_t.flash_attention(*leaves2, mask, causal=causal,
+                              dropout=dropout, seed=99)
+    np.testing.assert_allclose(o2.detach().numpy(), out.detach().numpy(),
+                               atol=1e-6)
+    o2.backward(_t(g))
+    for name, a, b in zip("qkv", leaves2, got):
+        np.testing.assert_allclose(a.grad.numpy(), b.numpy(), atol=1e-6,
+                                   err_msg=f"d{name}")
+
+
+def test_flash_fwd_dropout_keeps_the_undropped_lse():
+    q, k, v, bias, _ = _bwd_case(32, 32, True)
+    o0, l0 = fa_t.flash_fwd_reference(_t(q), _t(k), _t(v), _t(bias))
+    o1, l1 = fa_t.flash_fwd_reference(_t(q), _t(k), _t(v), _t(bias),
+                                      dropout=0.3, seed=5)
+    assert torch.equal(l0, l1)
+    assert not torch.allclose(o0, o1)
+
+
+# -- the LAMB passes ---------------------------------------------------------
+
+_LAMB_KW = dict(beta1=0.9, beta2=0.999, epsilon=1e-6, rescale_grad=0.5,
+                clip_gradient=1.0, bias_correction=True)
+
+
+def _lamb_rows(R, seed=0):
+    rng = np.random.RandomState(seed)
+    W, G, m = (rng.randn(R, 512).astype(np.float32) for _ in range(3))
+    v = np.abs(rng.randn(R, 512)).astype(np.float32) * 0.01
+    wd = np.where(np.arange(R) % 2, 0.0, 0.01).astype(np.float32)
+    return _t(W), _t(G) * 3, _t(m) * 0.1, _t(v), _t(wd), rng
+
+
+@pytest.mark.parametrize("bias_correction", [True, False])
+def test_lamb_passes_plain_match_pallas_interpret(interpret, bias_correction):
+    R = 32
+    W, G, m, v, wd, _ = _lamb_rows(R)
+    kw = dict(_LAMB_KW, bias_correction=bias_correction)
+    c1, c2 = 1 - 0.9 ** 3, 1 - 0.999 ** 3
+    fu_j._load_pallas()
+    jm, jv, jrw, jru = fu_j.lamb_pass1(
+        *[jnp.asarray(x.numpy()) for x in (W, G, m, v, wd)], c1, c2, **kw)
+    rw, ru = fu_t.lamb_pass1(W, G, m, v, wd, c1, c2, **kw)     # m, v in place
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm)[:R], rtol=2e-6,
+                               atol=2e-7)
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv)[:R], rtol=2e-6,
+                               atol=2e-7)
+    np.testing.assert_allclose(rw.numpy(), np.asarray(jrw), rtol=1e-5)
+    np.testing.assert_allclose(ru.numpy(), np.asarray(jru), rtol=1e-5)
+    trust = torch.linspace(0.5, 2.0, R)
+    jw = fu_j.lamb_pass2(jnp.asarray(W.numpy()), jm, jv, jnp.asarray(
+        wd.numpy()), jnp.asarray(trust.numpy()), c1, c2, 0.01,
+        beta1=0.9, beta2=0.999, epsilon=1e-6,
+        bias_correction=bias_correction)
+    out = fu_t.lamb_pass2(W, m, v, wd, trust, c1, c2, 0.01, epsilon=1e-6,
+                          bias_correction=bias_correction)
+    assert out is W                                          # in place
+    np.testing.assert_allclose(W.numpy(), np.asarray(jw), rtol=2e-6,
+                               atol=2e-7)
+
+
+_FL_SHAPES = [(64, 32), (100,), (7, 13), (), (3, 600)]
+
+
+@pytest.mark.parametrize("clip,lo,hi", [(1.0, 0.0, 10.0), (None, 0.5, 0.9),
+                                        (None, None, None)])
+@pytest.mark.parametrize("bias_correction", [True, False])
+def test_fused_lamb_apply_flat_matches_jax(clip, lo, hi, bias_correction):
+    """The port's FusedLamb (its plain passes, a segment scatter-add for
+    the norms) against the JAX package's apply_flat over three steps:
+    wd 0.01 and 0 segments, a ()-shaped parameter, clip and bounds."""
+    rng = np.random.RandomState(2)
+    wds = [0.01, 0.0, 0.01, 0.0, 0.01]
+    args = (0.9, 0.999, 1e-6, bias_correction, 1.0, clip or -1.0,
+            lo if lo is not None else -1.0, hi if hi is not None else -1.0)
+    fj = fl_j.FusedLamb(_FL_SHAPES, [jnp.float32] * 5, wds, *args)
+    ft = FusedLambT(_FL_SHAPES, [torch.float32] * 5, wds, *args)
+    ws = [np.asarray(rng.randn(*s), np.float32) for s in _FL_SHAPES]
+    ws[1][:] = 0.0                                   # a zero-init segment
+    jw = fj.flatten([jnp.asarray(w) for w in ws])
+    tw = ft.flatten([torch.from_numpy(np.asarray(w)) for w in ws])
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    jm = jv = jnp.zeros_like(jw)
+    tm, tv = torch.zeros_like(tw), torch.zeros_like(tw)
+    for t in (1, 2, 3):
+        gs = [np.asarray(rng.randn(*s), np.float32) * 2 for s in _FL_SHAPES]
+        jg = fj.flatten([jnp.asarray(g) for g in gs])
+        tg = ft.flatten([torch.from_numpy(np.asarray(g)) for g in gs])
+        jw, jm, jv = fj.apply_flat(jw, jg, jm, jv, jnp.float32(t),
+                                   jnp.float32(0.01))
+        out = ft.apply_flat(tw, tg, tm, tv, t, 0.01)
+        assert out[0] is tw and out[1] is tm and out[2] is tv
+        for name, a, b in (("w", tw, jw), ("m", tm, jm), ("v", tv, jv)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-6,
+                                       atol=2e-7, err_msg=f"step {t} {name}")
+    for a, b in zip(ft.unflatten_master(tw), fj.unflatten_master(jw)):
+        assert tuple(a.shape) == tuple(b.shape)
