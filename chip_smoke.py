@@ -29,13 +29,33 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      under torch.profiler;
   7. trains a small float32 BERT (dropout 0) 3 LAMB steps on the card and
      the same 3 steps on the CPU (plain versions) from the same weights,
-     and holds losses and the final flat master against each other.
+     and holds losses and the final flat master against each other;
+  8. pretrains GPT-2 117M (bfloat16, full published widths and depth,
+     seeded weights, dropout 0.1, attention dropout 0) at batch 16 x 1024
+     through `parallel.ShardedTrainer(model, gpt_lm_loss, "adam",
+     {"learning_rate": 1e-3})` on a repeated synthetic batch: 2 warm-up
+     steps, 16 timed steps ended by one host fetch, then one step under
+     torch.profiler;
+  9. trains a small float32 GPT (dropout 0) 3 Adam steps and, from the
+     same start, 3 AdamW steps (wd 0.01, clip 1.0) on the card and on the
+     CPU, and holds losses and every parameter against each other;
+ 10. writes phase 8's weights back into its model, quantizes it to int8
+     (`contrib.quantization.quantize_block`, calibrated on two training
+     batches), serves phase 2's traffic through it and runs `generate`;
+     then, on a small float32 GPT, checks that the int8 server's greedy
+     tokens equal its `simulate=True` twin's and that a quantized
+     forward on the card agrees with the same forward on the CPU.
 
 Phase 1 also holds the training kernels against their plain versions at
 the training shapes: the flash forward with dropout 0.1 (its keep mask
 bit for bit), the dq and dkv backward kernels over a grid of dtypes,
-masks, causality and dropout, and both LAMB passes at BERT-base's flat
-master size.
+masks, causality and dropout, the forward, dq and dkv at GPT-2
+pretraining's (16,12,1024,64) causal shape, both LAMB passes at
+BERT-base's flat master size, the Adam/AdamW update at GPT-2's largest
+parameter (the 50257 x 768 token embedding, bfloat16) and at a
+768-element float32 LayerNorm vector, bit for bit, and the int8 GEMM at
+the four (K, O) shapes of a GPT-2 layer for M = 8 (decode) and M = 1024
+(prefill), bit for bit.
 
 Each path runs with the kernels' launch counters set to 0 just before
 it and read just after; a kernel of the path that never launched fails
@@ -67,9 +87,14 @@ TOL = {"paged": {"float32": 2e-5, "bfloat16": 2e-2},
 TOL_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
 TOL_LAMB = 1e-5
 TOL_TRAIN = 1e-4
+# Adam (w, m and v) and the int8 GEMM: bit for bit (each kernel rounds
+# every operation as its plain version does). Card-vs-CPU quantized
+# forward: see int8_narrow_phase.
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                # dense tensor-core bf16 peak
 F32_FLOPS = 67e12                  # float32 outside the tensor cores
+INT8_OPS = 1979e12                 # dense tensor-core int8 peak
+TOL_INT8_FWD = 2e-2
 
 
 def check(cond, msg):
@@ -95,6 +120,61 @@ def time_ms(fn, iters=25, warmup=3):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(fn, iters=20, match=None, attempts=3):
+    """Device time per call of fn from torch.profiler: the summed device
+    time of the kernels it launched (only those whose name contains
+    `match` when given), L2 flushed before each call and the flush left
+    out. Unlike time_ms it does not count the caller's host time, which
+    exceeds the device time of a small kernel (an int8 GEMM at M = 8).
+    The profiler can lose kernel records: a window whose count of such
+    kernels is not a whole multiple of `iters` is profiled again, and
+    `attempts` windows without a whole one fail the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        total, launched = 0.0, 0
+        for name, us, count in kernel_rows(prof):
+            low = name.lower()
+            if "fill" in low or "memset" in low:
+                continue
+            if match is None or match in name:
+                total += us
+                launched += count
+        if launched and launched % iters == 0:
+            return total / 1e3 / iters
+    check(False, f"profiler lost kernel records in {attempts} windows "
+          f"({launched} kernels for {iters} calls, match={match!r})")
+
+
+def kernel_rows(prof):
+    """(kernel name, device µs, launches) of a torch.profiler window
+    (kernel rows only: an op row's self device time repeats its
+    kernels')."""
+    from torch.autograd import DeviceType
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type == DeviceType.CUDA and us > 0:
+            yield e.key, us, e.count
+
+
+def kernel_times(prof):
+    """{kernel name: device µs} of a torch.profiler window."""
+    out = {}
+    for key, us, _ in kernel_rows(prof):
+        out[key] = out.get(key, 0.0) + us
+    return out
 
 
 def max_err(a, b):
@@ -392,6 +472,54 @@ def train_flash_phase(dev, B=32, grid_B=2, p=0.1, seed=0x5EED_1234_ABCD):
     return rows
 
 
+def gpt_flash_phase(dev, B=16, L=1024, seed=1):
+    """The flash kernels at GPT-2 pretraining's shape (phase 8's path):
+    (B,12,L,64) bf16, causal, dropout 0, every key valid (16 key tiles and
+    the causal tile skip), forward, dq and dkv against their plain
+    versions on the same inputs, then timed. Returns {row: extra fields}."""
+    import torch
+    from mxnet_tpu_torch.cuda_ops import flash_attention as fa
+    q, k, v, g, bias = train_flash_case(dev, torch.bfloat16, B, L=L,
+                                        seed=seed)
+    BH, D, es = B * 12, q.shape[3], q.element_size()
+    o, lse = fa.flash_fwd(q, k, v, bias, True)
+    ro, rlse = fa.flash_fwd_reference(q, k, v, bias, True)
+    e_o, e_lse = max_err(o, ro), max_err(lse, rlse)
+    check(max(e_o, e_lse) <= TOL["flash"]["bfloat16"],
+          f"flash fwd GPT-2 shape: O {e_o}, LSE {e_lse}")
+    del o, lse
+    delta = (g.float() * ro.float()).sum(-1).reshape(BH, L)
+    bw = (q, k, v, bias, g, rlse, delta, True, None, 0.0, 0)
+    ref = fa.flash_bwd_reference(*bw)
+    tol = TOL_BWD["bfloat16"] * max(float(x.float().abs().max()) for x in ref)
+    e_dq = max_err(fa.flash_bwd_dq(*bw), ref[0])
+    dk, dv = fa.flash_bwd_dkv(*bw)
+    e_dk, e_dv = max_err(dk, ref[1]), max_err(dv, ref[2])
+    check(max(e_dq, e_dk, e_dv) <= tol,
+          f"flash bwd GPT-2 shape: dq {e_dq}, dk {e_dk}, dv {e_dv} > {tol}")
+    del ro, ref, dk, dv
+    io = BH * L * D * es
+    pairs = BH * L * (L + 1) // 2                     # causal (q, k) pairs
+    shape = f"q/k/v/dO ({B},12,{L},{D}) bf16, causal, dropout 0"
+    out = {}
+    for row, err, nbytes, flops, fn in (
+            ("flash_attention_fwd", max(e_o, e_lse),
+             4 * io + 4 * BH * L + 4 * B * L, 4 * pairs * D,
+             lambda: fa.flash_fwd(q, k, v, bias, True)),
+            ("flash_attention_dq", e_dq, 5 * io + 8 * BH * L + 4 * B * L,
+             6 * pairs * D, lambda: fa.flash_bwd_dq(*bw)),
+            ("flash_attention_dkv", max(e_dk, e_dv),
+             6 * io + 8 * BH * L + 4 * B * L, 8 * pairs * D,
+             lambda: fa.flash_bwd_dkv(*bw))):
+        b_ms, b_by = bound(nbytes, flops)
+        out[row] = {"gpt2_train_shape": dict(
+            shapes=shape, max_abs_err=err, ms=time_ms(fn), bound_ms=b_ms,
+            bound_by=b_by)}
+    out["flash_attention_dq"]["gpt2_train_shape"]["tol"] = tol
+    out["flash_attention_dkv"]["gpt2_train_shape"]["tol"] = tol
+    return out
+
+
 def bert_base_rows():
     """Rows of BERT-base's flat float32 master (FusedLamb layout), from
     the parameter shapes alone (the model built on the meta device)."""
@@ -466,6 +594,188 @@ def lamb_phase(dev, seed=0):
     return out
 
 
+def adam_case(dev, n, dtype, seed=0):
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    w = (torch.randn(n, generator=gen, device=dev) * 0.05).to(dtype)
+    g = (torch.randn(n, generator=gen, device=dev) * 1e-2).to(dtype)
+    m = torch.randn(n, generator=gen, device=dev) * 1e-3
+    v = (torch.randn(n, generator=gen, device=dev) * 1e-3).square()
+    return w, g, m, v
+
+
+def adam_phase(dev):
+    """adam_update against its plain version: Adam and AdamW, clip off
+    and on, a bf16 weight of GPT-2's token-embedding size and a float32
+    LayerNorm vector; then kernel, plain version and torch's fused Adam
+    timed at the large size."""
+    import torch
+    from mxnet_tpu_torch.cuda_ops import fused_update as fu
+    n_big = 50257 * 768
+    lr_t = 1e-3 * (1 - 0.999 ** 3) ** 0.5 / (1 - 0.9 ** 3)
+    worst = {"w_bf16_ulps": 0.0, "w_f32_rel": 0.0, "moments_rel": 0.0}
+    for n, dtype in ((n_big, torch.bfloat16), (768, torch.float32)):
+        for decoupled in (False, True):
+            for clip in (-1.0, 1e-2):
+                kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8,
+                          wd=0.01 if decoupled else 0.0, rescale_grad=1.0,
+                          clip_gradient=clip, decoupled_wd=decoupled)
+                w, g, m, v = adam_case(dev, n, dtype)
+                rw, rm, rv = fu.adam_update_reference(w, g, m, v, lr_t, **kw)
+                fu.adam_update(w, g, m, v, lr_t, **kw)       # in place
+                torch.cuda.synchronize()
+                # diagnostics only: the gate is equality
+                for a, b in ((m, rm), (v, rv)):
+                    e = max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                    worst["moments_rel"] = max(worst["moments_rel"], e)
+                if dtype == torch.bfloat16:
+                    ulp = rw.float().abs().clamp(min=1e-38) * 2.0 ** -7
+                    worst["w_bf16_ulps"] = max(worst["w_bf16_ulps"], float(
+                        ((w.float() - rw.float()).abs() / ulp).max()))
+                else:
+                    worst["w_f32_rel"] = max(
+                        worst["w_f32_rel"],
+                        max_err(w, rw) / float(rw.abs().max()))
+                for name, a, b in (("w", w, rw), ("m", m, rm), ("v", v, rv)):
+                    check(torch.equal(a, b),
+                          f"adam {name} n={n} {kw}: {int((a != b).sum())} "
+                          f"elements differ, max_abs_err {max_err(a, b)}")
+                del w, g, m, v, rw, rm, rv
+    w, g, m, v = adam_case(dev, n_big, torch.bfloat16, seed=1)
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+              clip_gradient=-1.0)
+
+    def kernel():
+        fu.adam_update(w, g, m, v, lr_t, **kw)
+
+    k_ms = device_ms(kernel)
+    ev_ms = time_ms(kernel)
+    p_ms = device_ms(lambda: fu.adam_update_reference(w, g, m, v, lr_t,
+                                                      **kw), iters=5)
+    del w, g, m, v
+    # torch's fused Adam keeps its moments in the parameter's dtype, so the
+    # yardstick and a second kernel timing run all-float32 at the same n
+    w, g, m, v = adam_case(dev, n_big, torch.float32, seed=2)
+    k32_ms = device_ms(kernel)
+    step = torch.tensor(3.0, device=dev)
+    lib_ms = device_ms(lambda: torch._fused_adam_(
+        [w], [g], [m], [v], [], [step], lr=1e-3, beta1=0.9, beta2=0.999,
+        weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False))
+    del w, g, m, v
+    b_ms, b_by = bound(22 * n_big, 15 * n_big, F32_FLOPS)
+    return {"adam_update": dict(
+        name="adam_update", route="cuda",
+        source="mxnet_tpu_torch/csrc/fused_update.cu",
+        replaces="mxnet_tpu/pallas_ops/fused_update.py:86",
+        max_abs_err=worst["w_bf16_ulps"],
+        bit_exact=True,
+        error_is="gate: w, m and v equal the plain version's (torch.equal); "
+                 "reported: largest |kernel - plain| of a bf16 weight in "
+                 "bf16 ulps of the plain value, float32 weight and moments "
+                 "relative to the largest |plain| in max_rel_err_f32_w / "
+                 "max_rel_err_moments",
+        max_rel_err_f32_w=worst["w_f32_rel"],
+        max_rel_err_moments=worst["moments_rel"],
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, kernel_ms_f32_same_n=k32_ms, event_ms=ev_ms,
+        times_are="device time per call (torch.profiler, L2 flushed); "
+                  "event_ms: CUDA events around the wrapper call",
+        library="torch._fused_adam_, all float32 at the same element count "
+                "(its moments take the parameter's dtype; its epsilon and "
+                "weight decay differ from MXNet's): a time yardstick only",
+        shapes=f"w, g ({n_big},) bf16 (GPT-2 word_embed), m, v float32; "
+               "errors also at 768 float32")}
+
+
+GPT2_GEMMS = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+
+
+def int8_case(dev, M, K, O, seed=0):
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    x_q = torch.tensor(rng.randint(-127, 128, (M, K)), dtype=torch.int8,
+                       device=dev)
+    w_q = torch.tensor(rng.randint(-127, 128, (K, O)), dtype=torch.int8,
+                       device=dev)
+    s_x = torch.tensor(0.017, device=dev)
+    w_s = torch.tensor(rng.rand(O) * 1e-2 + 1e-4, dtype=torch.float32,
+                       device=dev)
+    b = torch.tensor(rng.randn(O), dtype=torch.float32, device=dev)
+    return x_q, w_q, s_x, w_s, b
+
+
+def int8_phase(dev):
+    """int8_matmul against its plain version, bit for bit, at GPT-2's four
+    layer GEMMs for M = 8 and 1024: with bias, without, with relu, with
+    a per-tensor scale; then kernel, plain version and cuBLASLt's int8
+    product (torch._int_mm) plus the epilogue in torch timed, bias on."""
+    import torch
+    from mxnet_tpu_torch.cuda_ops import int8_matmul as im
+    by_shape = {}
+    for M in (8, 1024):
+        for K, O in GPT2_GEMMS:
+            x_q, w_q, s_x, w_s, b = int8_case(dev, M, K, O, seed=M + K + O)
+            for what, kw in (("bias", dict(bias=b)), ("no bias", {}),
+                             ("bias relu", dict(bias=b, relu=True)),
+                             ("per-tensor", dict(bias=b))):
+                ws = w_s[:1].contiguous() if what == "per-tensor" else w_s
+                got = im.int8_matmul(x_q, w_q, s_x, ws, **kw)
+                ref = im.int8_matmul_reference(x_q, w_q, s_x, ws, **kw)
+                check(torch.equal(got, ref) and not got.isnan().any(),
+                      f"int8_matmul ({M},{K},{O}) {what}: max_abs_err "
+                      f"{max_err(got, ref)}, not bit for bit")
+            Mp = max(24, (M + 7) // 8 * 8)            # what _int_mm takes
+            x_pad = torch.zeros((Mp, K), dtype=torch.int8, device=dev)
+            x_pad[:M] = x_q
+            s = s_x * w_s
+
+            def library():
+                return torch._int_mm(x_pad, w_q)[:M].float() * s + b
+
+            check(torch.equal(library(), im.int8_matmul_reference(
+                x_q, w_q, s_x, w_s, bias=b)), f"_int_mm yardstick ({M},{K},"
+                  f"{O}) disagrees")
+            b_ms, b_by = bound(M * K + K * O + 8 * O + 4 * M * O,
+                               2 * M * K * O, INT8_OPS)
+            def kernel():
+                return im.int8_matmul(x_q, w_q, s_x, w_s, bias=b)
+
+            by_shape[f"{M}x{K}x{O}"] = dict(
+                ms=device_ms(kernel, match="int8_gemm"),
+                wrapper_ms=device_ms(kernel), event_ms=time_ms(kernel),
+                plain_ms=device_ms(lambda: im.int8_matmul_reference(
+                    x_q, w_q, s_x, w_s, bias=b), iters=5),
+                library_ms=device_ms(library), bound_ms=b_ms, bound_by=b_by)
+    keys = ("ms", "wrapper_ms", "event_ms", "plain_ms", "library_ms",
+            "bound_ms")
+    layer = {M: {k: sum(v[k] for key, v in by_shape.items()
+                        if key.startswith(f"{M}x")) for k in keys}
+             for M in (8, 1024)}
+    return {"int8_matmul": dict(
+        name="int8_matmul", route="cuda",
+        source="mxnet_tpu_torch/csrc/int8_matmul.cu",
+        replaces="mxnet_tpu/pallas_ops/int8_matmul.py:51",
+        max_abs_err=0.0, bit_exact=True,
+        ms=layer[8]["ms"], plain_ms=layer[8]["plain_ms"],
+        library_ms=layer[8]["library_ms"], bound_ms=layer[8]["bound_ms"],
+        bound_by="bytes",
+        wrapper_ms=layer[8]["wrapper_ms"], event_ms=layer[8]["event_ms"],
+        times_are="sums over one GPT-2 layer's four GEMMs (K,O) = "
+                  "(768,2304), (768,768), (768,3072), (3072,768) at M = 8 "
+                  "(decode); M = 1024 in layer_m1024, each in by_shape. "
+                  "Device time per call (torch.profiler, L2 flushed): ms "
+                  "the GEMM kernel alone, wrapper_ms every kernel of the "
+                  "wrapper call (with the scale product), plain_ms and "
+                  "library_ms every kernel of theirs; event_ms: CUDA "
+                  "events around the wrapper call, host time included",
+        layer_m1024=layer[1024], by_shape=by_shape,
+        library="torch._int_mm (cuBLASLt int8, M padded to 24 at M = 8) "
+                "+ the rescale and bias in torch",
+        shapes="x_q (M, K) int8, w_q_t (K, O) int8, s, bias (O,) float32")}
+
+
 # ---------------------------------------------------------------------------
 # phases 2-4: the port's entry points
 # ---------------------------------------------------------------------------
@@ -477,6 +787,8 @@ _COUNTERS = {
     "paged_attention": ("paged_attention", "launches"),
     "lamb_pass1": ("fused_update", "launches_pass1"),
     "lamb_pass2": ("fused_update", "launches_pass2"),
+    "adam_update": ("fused_update", "launches_adam"),
+    "int8_matmul": ("int8_matmul", "launches"),
 }
 
 
@@ -488,6 +800,13 @@ def _counter_module(mod):
 def reset_counts():
     for mod, attr in _COUNTERS.values():
         setattr(_counter_module(mod), attr, 0)
+
+
+def expect(**launches):
+    """Launch counts of a path: the given ones, 0 for every other kernel."""
+    want = dict.fromkeys(_COUNTERS, 0)
+    want.update(launches)
+    return want
 
 
 def read_counts():
@@ -622,7 +941,10 @@ def breakdown_phase(model, n_req=8, prompt=64, new=40, rounds=8):
 
 def _kernel_class(name):
     if "mxt::" in name:
-        return "lamb kernels" if "lamb" in name else "attention kernels"
+        for part in ("lamb", "adam", "int8"):
+            if part in name:
+                return f"{part} kernels"
+        return "attention kernels"
     if "gemm" in name or name.startswith(("nvjet", "cutlass")):
         return "gemm"
     return "other"
@@ -633,19 +955,12 @@ def device_profile(prof, per, n_top):
     repetitions of a torch.profiler window. Kernel rows only: an op row's
     self device time repeats its kernels'. Names are cut to 70
     characters and kernels whose cut names agree are summed."""
-    from torch.autograd import DeviceType
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     by_name, by_class = {}, {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and dev_us(e) > 0:
-            ms = dev_us(e) / 1e3 / per
-            by_name[e.key[:70]] = by_name.get(e.key[:70], 0.0) + ms
-            cls = _kernel_class(e.key)
-            by_class[cls] = by_class.get(cls, 0.0) + ms
+    for key, us in kernel_times(prof).items():
+        ms = us / 1e3 / per
+        by_name[key[:70]] = by_name.get(key[:70], 0.0) + ms
+        cls = _kernel_class(key)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
     if not by_name:
         return None, {}, {}
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)
@@ -703,9 +1018,10 @@ def training_phase(dev, batch=32, seq_len=512, masked=76, warmup=2,
     losses = [float(x) for x in losses]
     check(np.isfinite(losses).all(), f"training losses {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    want = {"flash_attention_fwd": 12 * steps, "flash_attention_dq":
-            12 * steps, "flash_attention_dkv": 12 * steps,
-            "lamb_pass1": steps, "lamb_pass2": steps, "paged_attention": 0}
+    want = expect(flash_attention_fwd=12 * steps,
+                  flash_attention_dq=12 * steps,
+                  flash_attention_dkv=12 * steps, lamb_pass1=steps,
+                  lamb_pass2=steps)
     check(counts == want, f"training launches {counts} != {want}")
 
     torch.cuda.synchronize()
@@ -767,14 +1083,281 @@ def train_parity_phase(dev, steps=3):
     check(e_loss <= TOL_TRAIN and e_w <= TOL_TRAIN,
           f"card vs CPU training: losses {lg} vs {lc}, master err {e_w}")
     L = cfg["num_layers"]
-    want = {"flash_attention_fwd": L * steps, "flash_attention_dq": L * steps,
-            "flash_attention_dkv": L * steps, "lamb_pass1": steps,
-            "lamb_pass2": steps, "paged_attention": 0}
+    want = expect(flash_attention_fwd=L * steps,
+                  flash_attention_dq=L * steps,
+                  flash_attention_dkv=L * steps, lamb_pass1=steps,
+                  lamb_pass2=steps)
     check(counts == want, f"parity launches {counts} != {want}")
     check(all(v == 0 for v in out["cpu"][2].values()),
           f"CPU run launched kernels {out['cpu'][2]}")
     return {"losses_card": lg, "losses_cpu": lc, "max_loss_err": e_loss,
             "max_master_err": e_w, "master_elements": int(wg.numel())}
+
+
+# ---------------------------------------------------------------------------
+# phases 8-10: GPT-2 pretraining with Adam, then int8 serving
+# ---------------------------------------------------------------------------
+
+_GPT_DATA = ("input_ids", "valid_length")
+_GPT_LABELS = ("labels", "weights")
+
+
+def gpt_pretrain_phase(dev, batch=16, seq_len=1024, warmup=2, steps=16,
+                       lr=1e-3, **cfg_overrides):
+    """GPT-2 117M pretraining steps with Adam on one repeated synthetic
+    batch (examples/gpt/pretrain.py's optimizer and learning rate; the
+    16,384 tokens per step of phase 6). Returns the result dict, the
+    launch counts of the timed steps, the model and its trainer."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.models import gpt
+    cfg = gpt.gpt2_117m_config(dtype="bfloat16", **cfg_overrides)
+    model = build_model(cfg, 0, dev)
+    trainer = parallel.ShardedTrainer(model, gpt.gpt_lm_loss, "adam",
+                                      {"learning_rate": lr}, device=dev)
+    n_params = len(trainer.params)
+    b = gpt.make_synthetic_batch(cfg, batch, seq_len, seed=0)
+    data = [torch.from_numpy(b[k]).to(dev) for k in _GPT_DATA]
+    labels = [torch.from_numpy(b[k]).to(dev) for k in _GPT_LABELS]
+    losses = [trainer.step(data, labels) for _ in range(warmup)]
+    float(losses[-1])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(trainer.step(data, labels))
+    float(losses[-1])                         # one host fetch fences all
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    check(np.isfinite(losses).all(), f"GPT-2 training losses {losses}")
+    check(losses[-1] < losses[0], f"GPT-2 loss did not fall: {losses}")
+    L = cfg["num_layers"]
+    want = expect(flash_attention_fwd=L * steps, flash_attention_dq=L * steps,
+                  flash_attention_dkv=L * steps,
+                  adam_update=n_params * steps)
+    check(counts == want, f"GPT-2 training launches {counts} != {want}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        float(trainer.step(data, labels))
+        prof_ms = (time.perf_counter() - t1) * 1e3
+    busy_ms, top, by_class = device_profile(prof, 1, 10)
+    step_ms = secs * 1e3 / steps
+    res = {"model": "gpt2_117m_config(dtype='bfloat16')", "batch": batch,
+           "seq_len": seq_len, "steps": steps, "warmup": warmup,
+           "optimizer": f"adam lr {lr}", "seconds": secs,
+           "tokens_per_s": batch * seq_len * steps / secs,
+           "ms_per_step": step_ms,
+           "max_memory_allocated_bytes": peak,
+           "param_count": trainer.param_count,
+           "trainable_parameters": n_params, "losses": losses,
+           "profiled_step_ms": prof_ms,
+           "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": None if busy_ms is None
+           else 1 - busy_ms / step_ms,
+           "adam_share_of_device_time": None if busy_ms is None
+           else by_class.get("adam kernels", 0.0) / busy_ms,
+           "device_ms_per_step_by_class": by_class,
+           "top_device_ms_per_step": top}
+    return res, counts, model, trainer
+
+
+def adam_parity_phase(dev, steps=3):
+    """A small float32 GPT (dropout 0) trained `steps` Adam steps, and from
+    the same start `steps` AdamW steps (wd 0.01, clip 1.0), on the card
+    (flash and Adam kernels) and on the CPU (plain versions): losses and
+    every parameter must agree within TOL_TRAIN."""
+    import numpy as np
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.models import gpt
+    cfg = gpt.gpt2_117m_config(num_layers=2, units=256, hidden_size=1024,
+                               num_heads=4, max_length=128, dropout=0.0)
+    b = gpt.make_synthetic_batch(cfg, 8, 128, seed=2)
+    b["valid_length"][::2] = 100
+    b["weights"][::2, 100:] = 0.0
+    out = {}
+    for kind, opts in (("adam", {"learning_rate": 1e-3}),
+                       ("adamw", {"learning_rate": 1e-3, "wd": 0.01,
+                                  "clip_gradient": 1.0})):
+        runs = {}
+        for where in ("cpu", dev):
+            model = build_model(cfg, 5, "cpu")
+            model.to(where)
+            tr = parallel.ShardedTrainer(model, gpt.gpt_lm_loss, kind,
+                                         dict(opts), device=where)
+            reset_counts()
+            losses = [float(tr.step([b[k] for k in _GPT_DATA],
+                                    [b[k] for k in _GPT_LABELS]))
+                      for _ in range(steps)]
+            runs[str(where)] = (losses, [p.cpu() for p in tr.params],
+                                read_counts(), len(tr.params))
+        (lc, wc, cc, _), (lg, wg, counts, n) = runs["cpu"], runs[str(dev)]
+        e_loss = float(np.abs(np.subtract(lg, lc)).max())
+        e_w = max(max_err(a, c) for a, c in zip(wg, wc))
+        check(e_loss <= TOL_TRAIN and e_w <= TOL_TRAIN,
+              f"card vs CPU {kind}: losses {lg} vs {lc}, param err {e_w}")
+        L = cfg["num_layers"]
+        want = expect(flash_attention_fwd=L * steps,
+                      flash_attention_dq=L * steps,
+                      flash_attention_dkv=L * steps, adam_update=n * steps)
+        check(counts == want, f"{kind} parity launches {counts} != {want}")
+        check(all(v == 0 for v in cc.values()), f"CPU run launched {cc}")
+        out[kind] = {"losses_card": lg, "losses_cpu": lc,
+                     "max_loss_err": e_loss, "max_param_err": e_w}
+    return out
+
+
+def int8_serving_phase(model, bf16_serving):
+    """Phase 8's trained model (its weights written back), quantized to
+    int8 with scales calibrated on the first 128 tokens of two training
+    batches, serving phase 2's traffic; every Dense runs the int8
+    kernel, 48 launches per one-token model step, which the phase counts
+    itself. Then one `generate` call (its prefill reaches the kernel at
+    M = 4 x 128) and a profiled steady decode round."""
+    import numpy as np
+    from mxnet_tpu_torch.contrib import quantization as quant
+    from mxnet_tpu_torch.models import gpt
+    cfg = model.cfg
+    calib = [gpt.make_synthetic_batch(cfg, 16, 1024, seed=s)["input_ids"]
+             [:, :128] for s in (0, 1)]
+    quant.quantize_block(model, calib_data=calib)
+    n_dense = sum(isinstance(m, quant.QuantizedDense)
+                  for m in model.modules())
+    check(n_dense == 4 * cfg["num_layers"], f"{n_dense} int8 layers")
+    check(all(m._act_scale is not None for m in model.modules()
+              if isinstance(m, quant.QuantizedDense)),
+          "a layer was not calibrated")
+    token_steps = [0]
+    chunk = model.decode_paged_chunk
+
+    def counted(toks, *args):
+        token_steps[0] += toks.shape[1]
+        return chunk(toks, *args)
+
+    model.decode_paged_chunk = counted
+    reset_counts()
+    reqs, stats, secs = serving_phase(model)
+    counts = read_counts()
+    del model.decode_paged_chunk
+    check(all(r.verdict == "200 ok" for r in reqs),
+          f"int8 verdicts {[r.verdict for r in reqs]}")
+    check(all(len(r.tokens) == 64 for r in reqs), "int8 token counts")
+    check(counts["int8_matmul"] == n_dense * token_steps[0],
+          f"int8 launches {counts['int8_matmul']} != {n_dense} x "
+          f"{token_steps[0]} one-token steps")
+    check(counts["paged_attention"] > 0, "paged kernel never launched")
+    n_tok = sum(len(r.tokens) for r in reqs)
+    ttft = np.array([r.ttft_s for r in reqs]) * 1e3
+    res = {"requests": len(reqs), "tokens": n_tok, "seconds": secs,
+           "tokens_per_s": n_tok / secs,
+           "ttft_ms_p50": float(np.percentile(ttft, 50)),
+           "ttft_ms_p99": float(np.percentile(ttft, 99)),
+           "prefix_hit_rate": stats["prefix_hit_rate"],
+           "one_token_model_steps": token_steps[0],
+           "launches": counts,
+           "bf16_tokens_per_s": bf16_serving["tokens_per_s"],
+           "bf16_ttft_ms_p50": bf16_serving["ttft_ms_p50"],
+           "bf16_ttft_ms_p99": bf16_serving["ttft_ms_p99"]}
+    gp = np.random.RandomState(2).randint(0, 50257, (4, 100)).astype(np.int32)
+    reset_counts()
+    toks = model.generate(gp, max_new_tokens=32)
+    counts = read_counts()
+    check(toks.shape == (4, 32) and (toks >= 0).all()
+          and (toks < 50257).all(), f"int8 generate tokens {toks.shape}")
+    # one prefill pass (M = 4 x 128 rows) and 31 one-token steps
+    check(counts["int8_matmul"] == n_dense * 32
+          and counts["flash_attention_fwd"] == cfg["num_layers"],
+          f"int8 generate launches {counts}")
+    res["generate_launches"] = counts
+    res["breakdown"] = breakdown_phase(model)
+    return res
+
+
+def int8_narrow_phase(dev, new=16):
+    """A float32 GPT of 2 layers x 256 units and gpt_tiny's vocabulary of
+    128: the int8 server's greedy tokens equal its simulate=True twin's
+    (the JAX package's gate, `Server(model, slots=2)`,
+    tests/unittest/test_serve.py), and one quantized forward on `dev`
+    agrees with the same forward on the CPU.
+
+    The vocabulary is gpt_tiny's because the gate needs logit margins
+    wider than the activation-quantization error: with GPT-2's 50257
+    tokens the flat logits of random weights put near-ties at almost
+    every step (on the CPU plain versions, 6 of 6 seeds left the
+    simulate twin's tokens within 64 tokens; at vocabulary 128, 1 of 6).
+
+    The serving gate runs the JAX gate's model, whose biases start at 0.
+    The forward runs the same weights with every Dense bias drawn nonzero
+    (0.05 x randn), so the int8 kernel's bias epilogue takes part in it.
+
+    Tolerance of the forward: TOL_INT8_FWD of the largest |logit|. The
+    int8 products are exact on both devices, but the float32 LayerNorm,
+    attention and head around them round differently on the card, and a
+    one-ulp difference can move an activation across a rounding boundary
+    of the int8 grid, which moves that layer's output by one grid step
+    (max|x|/127) times a weight. The phase measures that effect on the
+    CPU and reports it (`perturbed_rel`): the same forward with every
+    LayerNorm gain scaled by (1 + 2e-7), two float32 ulps."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import serve, weights
+    from mxnet_tpu_torch.contrib import quantization as quant
+    from mxnet_tpu_torch.models import gpt
+    cfg = gpt.gpt2_117m_config(num_layers=2, units=256, hidden_size=1024,
+                               num_heads=4, max_length=128, dropout=0.0,
+                               vocab_size=128)
+    base = build_model(cfg, 0, "cpu")
+    arrays = {k: p.detach().numpy() for k, p in base.collect_params().items()}
+    brng = np.random.RandomState(7)
+    biased = {k: (brng.randn(*a.shape) * 0.05).astype(np.float32)
+              if k.endswith(".bias") else a for k, a in sorted(arrays.items())}
+
+    def twin(where, simulate, arrays=arrays):
+        m = gpt.GPTForCausalLM(cfg, device=where)
+        weights.load_named_arrays(m, arrays)
+        return quant.quantize_block(m, simulate=simulate)
+
+    qm, sm = twin(dev, False), twin(dev, True)
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(0, 128, (n,)).astype(np.int32)
+               for n in (5, 9, 3, 17)]
+    toks = {}
+    reset_counts()
+    for name, m in (("int8", qm), ("simulate", sm)):
+        srv = serve.Server(m, slots=2)
+        reqs = [srv.submit(p, max_new_tokens=new) for p in prompts]
+        srv.drain()
+        srv.stop()
+        check(all(r.verdict == "200 ok" for r in reqs),
+              f"narrow {name} verdicts {[r.verdict for r in reqs]}")
+        toks[name] = [list(r.tokens) for r in reqs]
+        if name == "int8":
+            n_int8 = read_counts()["int8_matmul"]
+    check(toks["int8"] == toks["simulate"],
+          f"int8 tokens {toks['int8']} != simulate {toks['simulate']}")
+    check(str(dev) == "cpu" or n_int8 > 0, "int8 kernel never launched")
+    ids = torch.from_numpy(rng.randint(0, 128, (2, 64)).astype(np.int32))
+    perturbed = {k: a * np.float32(1 + 2e-7) if k.endswith(".gamma") else a
+                 for k, a in biased.items()}
+    with torch.no_grad():
+        got = twin(dev, False, biased)(ids.to(dev)).cpu()
+        ref = twin("cpu", False, biased)(ids)
+        pert = twin("cpu", False, perturbed)(ids)
+    err = max_err(got, ref)
+    scale = float(ref.abs().max())
+    check(err <= TOL_INT8_FWD * scale,
+          f"quantized forward card vs CPU: {err} > {TOL_INT8_FWD} x {scale}")
+    return {"tokens_equal_simulate": True, "tokens": toks["int8"],
+            "forward_max_abs_err": err, "forward_max_abs_logit": scale,
+            "forward_rel": err / scale, "tol_rel": TOL_INT8_FWD,
+            "perturbed_rel": max_err(pert, ref) / scale,
+            "int8_launches_in_serving": n_int8}
 
 
 def build_model(cfg, seed, device=None):
@@ -820,7 +1403,13 @@ def main():
     kernels = {"paged_attention": paged_phase(dev),
                "flash_attention_fwd": flash_phase(dev)}
     kernels.update(train_flash_phase(dev))
+    for row, extra in gpt_flash_phase(dev).items():
+        kernels[row].update(extra)
+        print(f"chip_smoke: {row} at GPT-2 training's shape "
+              + json.dumps(extra["gpt2_train_shape"]))
     kernels.update(lamb_phase(dev))
+    kernels.update(adam_phase(dev))
+    kernels.update(int8_phase(dev))
     for k in kernels.values():
         lib = "none" if k["library_ms"] is None \
             else f"{k['library_ms']:.4f} ms"
@@ -911,6 +1500,28 @@ def main():
     # 7. float32 training on the card == on the CPU
     parity = train_parity_phase(dev)
     print("chip_smoke: card-vs-CPU training " + json.dumps(parity))
+
+    # 8. GPT-2 117M pretraining steps with Adam
+    gtrain, counts, gmodel, gtrainer = gpt_pretrain_phase(dev)
+    print("chip_smoke: GPT-2 training " + json.dumps(gtrain))
+    print(f"chip_smoke: GPT-2 training launches {counts}")
+    kernels["adam_update"]["launches"] = counts["adam_update"]
+
+    # 9. float32 Adam and AdamW on the card == on the CPU
+    aparity = adam_parity_phase(dev)
+    print("chip_smoke: card-vs-CPU Adam/AdamW " + json.dumps(aparity))
+
+    # 10. the trained model, quantized to int8, serving
+    gtrainer.sync_to_block()
+    del gtrainer
+    torch.cuda.empty_cache()
+    qserve = int8_serving_phase(gmodel, serving)
+    del gmodel
+    torch.cuda.empty_cache()
+    print("chip_smoke: int8 serving " + json.dumps(qserve))
+    kernels["int8_matmul"]["launches"] = qserve["launches"]["int8_matmul"]
+    narrow = int8_narrow_phase(dev)
+    print("chip_smoke: int8 float32 narrow model " + json.dumps(narrow))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -8,14 +8,15 @@ never jax or mxnet_tpu. Entry points run on the card unless the caller
 passes `device="cpu"`.
 
 It serves GPT-2 through the paged continuous-batching server
-(`serve.Server(model, pages="on")`) and `GPTForCausalLM.generate`, and
-pretrains BERT through `parallel.ShardedTrainer` with fused flat-master
-LAMB.
+(`serve.Server(model, pages="on")`) and `GPTForCausalLM.generate`, also
+int8-quantized (`contrib.quantization.quantize_block`); it pretrains
+BERT through `parallel.ShardedTrainer` with fused flat-master LAMB, and
+GPT-2 with per-parameter Adam or AdamW.
 """
-from . import (config, context, dataflow, gluon, initializer, models,
-               optimizer, pages, parallel, random, serve, weights)
+from . import (config, context, contrib, dataflow, gluon, initializer,
+               models, optimizer, pages, parallel, random, serve, weights)
 from .context import cpu, gpu
 
-__all__ = ["config", "context", "dataflow", "gluon", "initializer", "models",
-           "optimizer", "pages", "parallel", "random", "serve", "weights",
-           "cpu", "gpu"]
+__all__ = ["config", "context", "contrib", "dataflow", "gluon", "initializer",
+           "models", "optimizer", "pages", "parallel", "random", "serve",
+           "weights", "cpu", "gpu"]

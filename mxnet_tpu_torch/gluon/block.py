@@ -36,11 +36,14 @@ class Block(torch.nn.Module):
     def initialize(self, init=None, device=None, generator=None):
         """Fill every parameter in place: `init` when given, else the
         parameter's own initializer, else uniform (the JAX package's
-        precedence). `device` moves the block first; `generator` is the
-        explicit random source (its device must be the parameters')."""
+        precedence); a `Constant` keeps its value. `device` moves the
+        block first; `generator` is the explicit random source (its
+        device must be the parameters')."""
         if device is not None:
             self.to(context.resolve(device))
         for _, p in self.named_parameters():
+            if getattr(p, "mx_constant", False):
+                continue
             _init.create(init or getattr(p, "mx_init", None) or "uniform")(
                 p.data, generator)
         return self

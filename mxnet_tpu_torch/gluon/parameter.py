@@ -10,12 +10,16 @@ gradient, so serving builds no autograd graph: training goes through
 master (which do record gradients) for every parameter whose grad_req
 is not 'null'. Storage is allocated on torch's current default device,
 which the model constructors set to the model's device.
+
+A `Constant` is a 'null' parameter that holds a given value of any dtype
+(int8 included) and that `Block.initialize` leaves alone.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["Parameter", "dtype_of"]
+__all__ = ["Parameter", "Constant", "dtype_of"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -38,4 +42,18 @@ def Parameter(name, shape, dtype="float32", init=None,  # noqa: N802
     p.mx_name = name
     p.mx_init = init
     p.grad_req = grad_req
+    return p
+
+
+def Constant(name, value):  # noqa: N802
+    """A non-trainable parameter holding `value` (a tensor, kept on its
+    device, or an array-like, put on the default device) in its own
+    dtype."""
+    if not isinstance(value, torch.Tensor):
+        value = torch.tensor(np.array(value))
+    p = torch.nn.Parameter(value.detach().clone(), requires_grad=False)
+    p.mx_name = name
+    p.mx_init = None
+    p.mx_constant = True
+    p.grad_req = "null"
     return p

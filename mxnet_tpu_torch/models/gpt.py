@@ -2,17 +2,21 @@
 `mxnet_tpu/models/gpt.py`).
 
 Pre-LN blocks over the fused-QKV attention of `bert.BERTAttention`
-with `causal=True`; the LM head ties the token embedding. The decode
-surface the server drives is the JAX package's: `decode_step_slots`
-(dense per-slot caches) and `decode_paged_chunk` (block-table pages),
-plus `generate`, whose prompt prefill is one causal flash pass.
+with `causal=True`; the LM head ties the token embedding. Training runs
+`forward` in training mode (dropout on the embeddings and after
+attention and the MLP; the causal flash kernels forward and backward)
+under `parallel.ShardedTrainer` with `gpt_lm_loss`. The decode surface
+the server drives is the JAX package's: `decode_step_slots` (dense
+per-slot caches) and `decode_paged_chunk` (block-table pages), plus
+`generate`, whose prompt prefill is one causal flash pass. A model whose
+Dense layers `contrib.quantization.quantize_block` swapped for int8 runs
+the same decode surface.
 
 Differences from the JAX package, all of them idiom: PyTorch runs
 eagerly, so there is no jit cache, `lax.scan` is a Python loop and
 caches are updated in place (see `_decode`); the configs' `remat` and
-`scan_layers` flags are compile/training-time choices with no effect on
-inference and are accepted as no-ops; sequence parallelism and beam
-search are not in this slice.
+`scan_layers` flags are compile-time choices that the port accepts as
+no-ops; sequence parallelism and beam search are not in the port.
 """
 import numpy as np
 import torch
@@ -59,9 +63,8 @@ def gpt_tiny_config(**overrides):
 
 
 class GPTBlock(HybridBlock):
-    """Pre-LN decoder block (LN -> attn -> +res, LN -> MLP -> +res).
-    Inference only: `dropout` applies in training, which this slice does
-    not run."""
+    """Pre-LN decoder block (LN -> attn -> dropout -> +res, LN -> MLP ->
+    dropout -> +res); dropout is active in training mode only."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
                  dtype="float32", attn_dropout=0.0):
@@ -74,6 +77,7 @@ class GPTBlock(HybridBlock):
                                dtype=dtype, weight_initializer="xavier")
         self.ffn_out = nn.Dense(units, in_units=hidden_size, flatten=False,
                                 dtype=dtype, weight_initializer="xavier")
+        self.dropout = nn.Dropout(dropout) if dropout else None
 
     def _mlp(self, x):
         return self.ffn_out(nn_ops.gelu(self.ffn_in(self.ln2(x))))
@@ -85,8 +89,14 @@ class GPTBlock(HybridBlock):
                                   self.attn._num_heads)
 
     def forward(self, x, mask=None):
-        x = x + self.attn(self.ln1(x), mask)
-        return x + self._mlp(x)
+        a = self.attn(self.ln1(x), mask)
+        if self.dropout:
+            a = self.dropout(a)
+        x = x + a
+        h = self._mlp(x)
+        if self.dropout:
+            h = self.dropout(h)
+        return x + h
 
     def prefill(self, x, k_cache, v_cache):
         """Full-prompt forward that also writes K/V[0:Lp] into the caches
@@ -144,6 +154,7 @@ class GPTModel(HybridBlock):
                                        weight_initializer="xavier")
         self.position_embed = Parameter("position_weight",
                                         (max_length, units), dtype, "xavier")
+        self.embed_dropout = nn.Dropout(dropout) if dropout else None
         self.layers = nn.HybridSequential()
         for _ in range(num_layers):
             self.layers.add(GPTBlock(units, hidden_size, num_heads, dropout,
@@ -154,6 +165,8 @@ class GPTModel(HybridBlock):
         B, L = inputs.shape
         x = self.word_embed(inputs) \
             + _positions(self.position_embed, L)[None]
+        if self.embed_dropout:
+            x = self.embed_dropout(x)
         mask = None
         if valid_length is not None:
             mask = torch.arange(L, device=x.device)[None, :] \
@@ -365,3 +378,28 @@ class GPTForCausalLM(HybridBlock):
             if allf.any():
                 toks = toks[:, :int(np.argmax(allf)) + 1]
         return toks
+
+
+def gpt_lm_loss(logits, labels, weights):
+    """Next-token cross entropy: logits (B, L, V) at the input positions,
+    labels (B, L) the NEXT token at each position (pre-shifted by the
+    data pipeline), weights (B, L) 0/1. float32 log-softmax; the weighted
+    mean over max(sum of weights, 1)."""
+    logp = torch.log_softmax(logits.float(), -1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    w = weights.float()
+    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def make_synthetic_batch(cfg, batch_size, seq_len, seed=0):
+    """Tokens + pre-shifted next-token labels + weights, numpy (the JAX
+    package's generator: the same arrays for the same seed)."""
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, cfg["vocab_size"],
+                       (batch_size, seq_len + 1)).astype(np.int32)
+    return {
+        "input_ids": toks[:, :-1],
+        "labels": toks[:, 1:],
+        "weights": np.ones((batch_size, seq_len), np.float32),
+        "valid_length": np.full((batch_size,), seq_len, np.int32),
+    }

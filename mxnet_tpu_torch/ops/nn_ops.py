@@ -33,12 +33,12 @@ def gelu(data):
     return tF.gelu(data, approximate="tanh")
 
 
-_ACTIVATIONS = {"tanh": torch.tanh, "gelu": gelu}
+_ACTIVATIONS = {"tanh": torch.tanh, "gelu": gelu, "relu": torch.relu}
 
 
 def activation(data, act_type):
     """`Activation(data, act_type)` for the act types the port's models
-    use (tanh, gelu)."""
+    and quantized layers use (tanh, gelu, relu)."""
     if act_type not in _ACTIVATIONS:
         raise NotImplementedError(
             f"activation {act_type!r} is not in the port (have "

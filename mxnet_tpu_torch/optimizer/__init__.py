@@ -1,23 +1,26 @@
 """Optimizers (counterpart of `mxnet_tpu/optimizer/__init__.py`).
 
-This slice trains with fused flat-master LAMB through
-`parallel.ShardedTrainer`, so an optimizer here holds hyperparameters
-only: the update itself is `parallel.fused_lamb.FusedLamb`. `create`
-resolves a name as the JAX package's does; the other optimizers and the
-lr schedulers are not ported yet.
+The port trains through `parallel.ShardedTrainer`, so an optimizer here
+holds hyperparameters only: the update itself is
+`parallel.fused_lamb.FusedLamb` for LAMB and
+`cuda_ops.fused_update.adam_update` (through `FunctionalOptimizer`) for
+Adam and AdamW. `create` resolves a name as the JAX package's does; the
+other optimizers and the lr schedulers are not ported yet.
 """
 from __future__ import annotations
 
-__all__ = ["Optimizer", "LAMB", "create"]
+__all__ = ["Optimizer", "Adam", "AdamW", "LAMB", "create"]
 
 
 def create(name, **kwargs):
     if isinstance(name, Optimizer):
         return name
-    if str(name).lower() != "lamb":
+    cls = _REGISTRY.get(str(name).lower())
+    if cls is None:
         raise NotImplementedError(
-            f"optimizer {name!r} is not in the port yet (LAMB only)")
-    return LAMB(**kwargs)
+            f"optimizer {name!r} is not in the port yet (have "
+            f"{sorted(_REGISTRY)})")
+    return cls(**kwargs)
 
 
 class Optimizer:
@@ -45,3 +48,23 @@ class LAMB(Optimizer):
         self.lower_bound = lower_bound or -1.0
         self.upper_bound = upper_bound or -1.0
         self.bias_correction = bias_correction
+
+
+class Adam(Optimizer):
+    """Adam with MXNet's update (the JAX package's defaults: lr 1e-3,
+    beta1 0.9, beta2 0.999, epsilon 1e-8); weight decay folds into the
+    gradient. The port has no row-sparse gradients, so `lazy_update` is
+    not an option here."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+
+class AdamW(Adam):
+    """Adam with decoupled weight decay (MXNet's contrib adamw_update:
+    the decay is not scaled by the learning rate)."""
+
+
+_REGISTRY = {"adam": Adam, "adamw": AdamW, "lamb": LAMB}

@@ -3,14 +3,23 @@
 
 The JAX package jits forward, loss, backward and optimizer into one
 computation over a mesh. The port runs the same step eagerly on one
-device, with LAMB in its fused flat-master form (`FusedLamb`, the JAX
-package's path for LAMB in 'replicate' mode): the parameters live as one
-flat float32 master; each step runs the block in training mode on
-`unflatten(master)` through `torch.func.functional_call`, so autograd
-delivers the gradient already flat in float32, and `apply_flat` updates
-master and moments in place. The step counter goes up first; the
-bias-correction constants and the learning rate are host floats; `step`
-returns the loss tensor without waiting for the card.
+device, on one of two paths, as the JAX package chooses them:
+  * LAMB, in its fused flat-master form (`FusedLamb`, the JAX package's
+    path for LAMB in 'replicate' mode): the parameters live as one flat
+    float32 master; each step runs the block in training mode on
+    `unflatten(master)` through `torch.func.functional_call`, so autograd
+    delivers the gradient already flat in float32, and `apply_flat`
+    updates master and moments in place;
+  * Adam and AdamW, per parameter: the trainer holds its own detached
+    copies of the trainable parameters in the model dtype (as the JAX
+    trainer keeps `params` apart from the block until `sync_to_block`)
+    and float32 (m, v) for each; each step runs the block on those
+    copies through `functional_call`, `torch.autograd.grad` returns one
+    gradient per parameter in its dtype, and `FunctionalOptimizer.apply`
+    updates copies and moments in place.
+The step counter goes up first; the bias-correction constants and the
+learning rate are host floats; `step` returns the loss tensor without
+waiting for the card.
 
 Single device and `param_mode="replicate"` only: meshes, fsdp/tp
 modes, gradient accumulation, zero, memsafe, guard, check, telemetry
@@ -63,6 +72,11 @@ class ShardedTrainer:
         self._names = [n for n, _ in params]
         self.fopt = FunctionalOptimizer(self._opt, self._names)
         o = self.fopt.opt
+        if self.fopt.kind != "lamb":
+            self._fl = None
+            self.params = [p.detach().clone() for _, p in params]
+            self.opt_state = self.fopt.init(self.params)
+            return
         self._fl = FusedLamb(
             [p.shape for _, p in params], [p.dtype for _, p in params],
             [self.fopt._wd_for(i) for i in range(len(params))],
@@ -84,31 +98,50 @@ class ShardedTrainer:
         self.num_update += 1
         t = self.num_update
         lr = self.fopt.lr_at(t)
+        if self._fl is None:
+            leaves = [p.detach().requires_grad_(True) for p in self.params]
+            loss, grads = self._loss_and_grads(leaves, lambda: leaves, data,
+                                               labels)
+            self.fopt.apply(self.params, grads, self.opt_state, t, lr)
+            return loss.detach()
         master = self.params.detach().requires_grad_(True)
-        was_training = self.block.training
-        self.block.train()
-        try:
-            with torch.enable_grad():
-                views = dict(zip(self._names, self._fl.unflatten(master)))
-                outs = functional_call(self.block, views, tuple(data))
-                outs = outs if isinstance(outs, (list, tuple)) else (outs,)
-                loss = call_loss(self.loss_fn, outs, labels)
-                grad, = torch.autograd.grad(loss, master)
-        finally:
-            self.block.train(was_training)
+        loss, (grad,) = self._loss_and_grads(
+            [master], lambda: self._fl.unflatten(master), data, labels)
         m, v = self.opt_state
         self._fl.apply_flat(self.params, grad, m, v, t, lr)
         return loss.detach()
 
+    def _loss_and_grads(self, leaves, views, data, labels):
+        """Forward in training mode on the parameter tensors that
+        `views()` builds (inside the recorded region), the float32 mean
+        loss and its gradients with respect to `leaves`."""
+        was_training = self.block.training
+        self.block.train()
+        try:
+            with torch.enable_grad():
+                outs = functional_call(self.block,
+                                       dict(zip(self._names, views())),
+                                       tuple(data))
+                outs = outs if isinstance(outs, (list, tuple)) else (outs,)
+                loss = call_loss(self.loss_fn, outs, labels)
+                grads = torch.autograd.grad(loss, leaves)
+        finally:
+            self.block.train(was_training)
+        return loss, grads
+
     def sync_to_block(self):
-        """Write the master back into the block's parameters (model
-        dtype), e.g. before serving or saving them."""
+        """Write the trained parameters (the LAMB master, or the Adam
+        copies) back into the block's parameters (model dtype), e.g.
+        before serving or saving them."""
+        trained = self.params if self._fl is None \
+            else self._fl.unflatten_master(self.params)
         with torch.no_grad():
-            for name, w in zip(self._names,
-                               self._fl.unflatten_master(self.params)):
+            for name, w in zip(self._names, trained):
                 p = self.block.get_parameter(name)
                 p.copy_(w.to(p.dtype))
 
     @property
     def param_count(self):
+        if self._fl is None:
+            return sum(p.numel() for p in self.params)
         return sum(self._fl.sizes)

@@ -11,8 +11,10 @@ Tolerances: float32 2e-5 (paged) and 1e-4 (flash forward and backward:
 a 64-key tile loop sums in another order than the reference's one
 softmax); bfloat16 2e-2 relative to the output's largest magnitude, as
 the JAX package's own kernel tests use; LAMB rtol 1e-5 (FMA contraction
-and another summation order of the 512-lane rows). The dropout keep mask
-is compared bit for bit.
+and another summation order of the 512-lane rows). The dropout keep
+mask, the Adam update (w, m and v: the kernel rounds every operation as
+the plain version does) and the int8 GEMM's output are compared bit for
+bit.
 """
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ import torch
 
 from mxnet_tpu_torch.cuda_ops import flash_attention as fa
 from mxnet_tpu_torch.cuda_ops import fused_update as fu
+from mxnet_tpu_torch.cuda_ops import int8_matmul as im
 from mxnet_tpu_torch.cuda_ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -263,3 +266,166 @@ def test_tiny_gpt_paths_on_card(dev):
     gen = model.generate(prompts, max_new_tokens=8)
     assert fa.launches == len(model.gpt.layers)
     assert gen.tolist() == out["off"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 7, 37, 1000, 1001, 4099])
+@pytest.mark.parametrize("decoupled,clip,wd", [(False, -1.0, 0.0),
+                                               (False, 0.5, 0.01),
+                                               (True, 0.5, 0.01)])
+def test_adam_kernel_matches_plain(dev, dtype, n, decoupled, clip, wd):
+    """In place, against the plain version, bit for bit; n % 4 != 0
+    takes the element-at-a-time tail."""
+    rng = np.random.RandomState(n)
+
+    def vec(scale, dt=torch.float32):
+        return torch.tensor(rng.randn(n) * scale, device=dev).to(dt)
+
+    w, g = vec(1.0, dtype), vec(3.0, dtype)
+    m, v = vec(0.1), vec(0.1).abs()
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, wd=wd, rescale_grad=0.5,
+              clip_gradient=clip, decoupled_wd=decoupled)
+    rw, rm, rv = fu.adam_update_reference(w, g, m, v, 2e-3, **kw)
+    n0 = fu.launches_adam
+    out = fu.adam_update(w, g, m, v, 2e-3, **kw)
+    torch.cuda.synchronize()
+    assert fu.launches_adam == n0 + 1
+    assert out[0] is w and out[1] is m and out[2] is v
+    for got, ref in ((w, rw), (m, rm), (v, rv)):
+        assert torch.equal(got, ref), float((got.float() - ref.float())
+                                            .abs().max())
+
+
+def test_adam_kernel_refuses_what_it_cannot_take(dev):
+    w = torch.zeros(8, device=dev)
+    m = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError):
+        fu.adam_update(w, torch.zeros(8, device=dev, dtype=torch.bfloat16),
+                       m, m.clone(), 1e-3)
+    with pytest.raises(ValueError):
+        fu.adam_update(w, w.clone(), m.half(), m.clone(), 1e-3)
+    with pytest.raises(ValueError):
+        big = torch.zeros((4, 4), device=dev)
+        fu.adam_update(big.t(), big.clone(), big.clone(), big.clone(), 1e-3)
+    n0 = fu.launches_adam
+    for which in range(4):                 # one array off the 16-byte grid
+        x = [torch.zeros(9, device=dev)[:8] for _ in range(4)]
+        x[which] = torch.zeros(9, device=dev)[1:]
+        with pytest.raises(ValueError, match="16-byte"):
+            fu.adam_update(*x, 1e-3)
+    assert fu.launches_adam == n0
+
+
+def _int8(dev, shape, seed):
+    rng = np.random.RandomState(seed)
+    return torch.tensor(rng.randint(-127, 128, shape), dtype=torch.int8,
+                        device=dev)
+
+
+@pytest.mark.parametrize("M,K,O", [(1, 64, 96), (8, 768, 2304), (17, 96, 200),
+                                   (64, 3072, 768), (130, 100, 37),
+                                   (5, 48, 7), (300, 768, 3072)])
+@pytest.mark.parametrize("variant", ["bias", "no bias", "relu",
+                                     "per-tensor", "bf16 scale"])
+def test_int8_kernel_matches_plain_bit_for_bit(dev, M, K, O, variant):
+    rng = np.random.RandomState(M * K + O)
+    x_q, w_q = _int8(dev, (M, K), 1), _int8(dev, (K, O), 2)
+    w_s = torch.tensor(rng.rand(O) * 1e-2 + 1e-4, dtype=torch.float32,
+                       device=dev)
+    kw = dict(bias=torch.tensor(rng.randn(O), dtype=torch.float32,
+                                device=dev))
+    s_x = torch.tensor(0.0173, device=dev)
+    if variant == "no bias":
+        kw = {}
+    elif variant == "relu":
+        kw["relu"] = True
+    elif variant == "per-tensor":
+        w_s = w_s[:1].contiguous()
+    elif variant == "bf16 scale":
+        s_x = s_x.bfloat16()
+    n0 = im.launches
+    got = im.int8_matmul(x_q, w_q, s_x, w_s, **kw)
+    torch.cuda.synchronize()
+    ref = im.int8_matmul_reference(x_q, w_q, s_x, w_s, **kw)
+    assert im.launches == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (M, O)
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+def test_int8_kernel_3d_input_and_extreme_values(dev):
+    x_q = torch.full((3, 1, 3072), 127, dtype=torch.int8, device=dev)
+    w_q = torch.full((3072, 40), -127, dtype=torch.int8, device=dev)
+    got = im.int8_matmul(x_q, w_q, 1.0, torch.ones(40, device=dev))
+    assert got.shape == (3, 1, 40)
+    assert float(got.min()) == float(got.max()) == -127.0 ** 2 * 3072
+
+
+def test_int8_kernel_refuses_what_it_cannot_take(dev):
+    x = _int8(dev, (4, 8), 0)
+    w = _int8(dev, (8, 4), 1)
+    with pytest.raises(TypeError):
+        im.int8_matmul(x.float(), w, 1.0, torch.ones(4, device=dev))
+    with pytest.raises(ValueError):
+        im.int8_matmul(x, _int8(dev, (6, 4), 2), 1.0,
+                       torch.ones(4, device=dev))
+    with pytest.raises(ValueError):
+        im.int8_matmul(x, w.t().contiguous().t(), 1.0,
+                       torch.ones(4, device=dev))
+
+
+def test_tiny_gpt_adam_training_on_card_matches_cpu(dev):
+    """Three float32 Adam steps of a tiny GPT on the card (flash and Adam
+    kernels) against the same steps on the CPU (plain versions)."""
+    from mxnet_tpu_torch import parallel, random as mxrandom
+    from mxnet_tpu_torch.models import gpt
+    cfg = gpt.gpt_tiny_config()
+    b = gpt.make_synthetic_batch(cfg, 4, 48, seed=1)
+    b["valid_length"][1] = 30
+    b["weights"][1, 30:] = 0.0
+    runs = {}
+    for where in ("cpu", "cuda"):
+        m = gpt.GPTForCausalLM(cfg, device="cpu")
+        m.initialize(generator=mxrandom.seed(0, "cpu"))
+        m.to(where)
+        tr = parallel.ShardedTrainer(m, gpt.gpt_lm_loss, "adamw",
+                                     {"learning_rate": 1e-3, "wd": 0.01,
+                                      "clip_gradient": 1.0}, device=where)
+        n = (fa.launches_dq, fu.launches_adam)
+        losses = [float(tr.step([b["input_ids"], b["valid_length"]],
+                                [b["labels"], b["weights"]]))
+                  for _ in range(3)]
+        if where == "cuda":
+            assert fa.launches_dq - n[0] == 3 * cfg["num_layers"]
+            assert fu.launches_adam - n[1] == 3 * len(tr.params)
+        runs[where] = (losses, [p.cpu() for p in tr.params])
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], atol=1e-4)
+    for a, c in zip(runs["cuda"][1], runs["cpu"][1]):
+        torch.testing.assert_close(a, c, rtol=0, atol=1e-4)
+
+
+def test_tiny_gpt_int8_serving_on_card(dev):
+    """A quantized tiny GPT on the card: every Dense launches the int8
+    kernel, and the greedy tokens of `Server(model, slots=2)` equal the
+    simulate=True twin's (the JAX package's gate)."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch import serve
+    from mxnet_tpu_torch.contrib import quantization as quant
+    from mxnet_tpu_torch.models import gpt
+    cfg = gpt.gpt_tiny_config()
+    out = {}
+    for simulate in (False, True):
+        m = gpt.GPTForCausalLM(cfg)
+        m.initialize(generator=mxrandom.seed(0))
+        quant.quantize_block(m, simulate=simulate)
+        im.launches = 0
+        srv = serve.Server(m, slots=2)
+        prompts = np.random.RandomState(3).randint(0, 128, (3, 9)) \
+            .astype(np.int32)
+        reqs = [srv.submit(p, max_new_tokens=6) for p in prompts]
+        srv.drain()
+        srv.stop()
+        assert all(r.verdict == "200 ok" for r in reqs)
+        out[simulate] = [list(r.tokens) for r in reqs]
+        assert (im.launches > 0) == (not simulate)
+        assert im.launches % (4 * cfg["num_layers"]) == 0
+    assert out[False] == out[True]

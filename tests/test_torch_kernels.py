@@ -10,8 +10,12 @@ attention atol 1e-5 (the Pallas kernel's 128-key tiles sum in another
 order than one softmax), the flash backward atol 2e-5 (a few more
 float32 products per element), the LAMB passes rtol 2e-6 / atol 2e-7 as
 the JAX package's own kernel-vs-XLA test holds them (sums of squares
-rtol 1e-5: 512-lane rows summed in another order). The dropout keep mask
-is compared bit for bit. CPU tensors never launch a CUDA kernel.
+rtol 1e-5: 512-lane rows summed in another order), Adam rtol 2e-6 /
+atol 2e-7 in float32 (the same elementwise expression; XLA may contract
+a multiply-add that torch rounds twice) and one bf16 ulp for a bf16
+weight, the int8 matmul rtol/atol 1e-6 (an exact int32 product, then one
+float32 rescale and bias add on both sides). The dropout keep mask is
+compared bit for bit. CPU tensors never launch a CUDA kernel.
 """
 import importlib
 
@@ -24,6 +28,7 @@ import jax.numpy as jnp
 
 from mxnet_tpu_torch.cuda_ops import flash_attention as fa_t
 from mxnet_tpu_torch.cuda_ops import fused_update as fu_t
+from mxnet_tpu_torch.cuda_ops import int8_matmul as im_t
 from mxnet_tpu_torch.cuda_ops import paged_attention as pa_t
 from mxnet_tpu_torch.parallel import FusedLamb as FusedLambT
 
@@ -31,6 +36,7 @@ fa_j = importlib.import_module("mxnet_tpu.pallas_ops.flash_attention")
 fu_j = importlib.import_module("mxnet_tpu.pallas_ops.fused_update")
 pa_j = importlib.import_module("mxnet_tpu.pallas_ops.paged_attention")
 fl_j = importlib.import_module("mxnet_tpu.parallel.fused_lamb")
+im_j = importlib.import_module("mxnet_tpu.pallas_ops.int8_matmul")
 
 
 @pytest.fixture
@@ -410,3 +416,186 @@ def test_fused_lamb_apply_flat_matches_jax(clip, lo, hi, bias_correction):
                                        atol=2e-7, err_msg=f"step {t} {name}")
     for a, b in zip(ft.unflatten_master(tw), fj.unflatten_master(jw)):
         assert tuple(a.shape) == tuple(b.shape)
+
+
+# -- Adam / AdamW ------------------------------------------------------------
+
+@pytest.fixture
+def kernels_on_every_size():
+    """Pallas kernels in interpret mode for every buffer size, as the JAX
+    package's own kernel tests run them."""
+    from mxnet_tpu import config
+    config.set("kernels", "auto")
+    config.set("kernels_min_elements", 1)
+    yield
+    config.reset("kernels")
+    config.reset("kernels_min_elements")
+
+
+_ADAM_SHAPES = [(300,), (7, 13), (), (2, 1024)]
+
+
+def _adam_state(shape, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    w = np.asarray(rng.randn(*shape), np.float32)
+    g = np.asarray(rng.randn(*shape) * 3, np.float32)
+    m = np.asarray(rng.randn(*shape) * 0.1, np.float32)
+    v = np.abs(np.asarray(rng.randn(*shape), np.float32)) * 0.01
+    jw, jg = jnp.asarray(w).astype(dtype), jnp.asarray(g).astype(dtype)
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    tw, tg = _t(w).to(tdt), _t(g).to(tdt)
+    return (jw, jg, jnp.asarray(m), jnp.asarray(v)), (tw, tg, _t(m), _t(v))
+
+
+def _ulp_close(a, b, dtype, what):
+    """float32: rtol 2e-6 / atol 2e-7; bfloat16: one bf16 ulp."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b.astype(jnp.float32) if hasattr(b, "astype") else b,
+                   np.float32)
+    if dtype == "bfloat16":
+        ulp = np.abs(b) * 2.0 ** -7 + 1e-38
+        assert (np.abs(a - b) <= ulp).all(), what
+    else:
+        np.testing.assert_allclose(a, b, rtol=2e-6, atol=2e-7, err_msg=what)
+
+
+@pytest.mark.parametrize("shape", _ADAM_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("decoupled,clip,wd", [(False, -1.0, 0.0),
+                                               (False, 1.0, 0.01),
+                                               (True, 1.0, 0.01),
+                                               (True, -1.0, 0.1)])
+def test_adam_plain_matches_pallas_interpret(interpret, kernels_on_every_size,
+                                             shape, dtype, decoupled, clip,
+                                             wd):
+    """`adam_update` on CPU tensors (its plain version, in place) against
+    the JAX package's `adam_update`, whose `_adam_kernel` runs in
+    interpret mode, over three steps."""
+    fu_j._load_pallas()
+    (jw, jg, jm, jv), (tw, tg, tm, tv) = _adam_state(shape, dtype)
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, wd=wd, rescale_grad=0.5,
+              clip_gradient=clip, decoupled_wd=decoupled)
+    for t in (1, 2, 3):
+        lr_t = 1e-2 * np.sqrt(1 - 0.999 ** t) / (1 - 0.9 ** t)
+        jw, jm, jv = fu_j.adam_update(jw, jg, jm, jv, np.float32(lr_t), **kw)
+        out = fu_t.adam_update(tw, tg, tm, tv, float(np.float32(lr_t)), **kw)
+        assert out[0] is tw and out[1] is tm and out[2] is tv
+        assert tw.dtype == tg.dtype and tm.dtype == torch.float32
+        _ulp_close(tw.float().numpy(), jw, dtype, f"w step {t}")
+        for name, a, b in (("m", tm, jm), ("v", tv, jv)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-6,
+                                       atol=2e-7, err_msg=f"{name} step {t}")
+
+
+@pytest.mark.parametrize("decoupled", [False, True])
+def test_adam_plain_is_the_jax_reference(decoupled):
+    """The plain version against `adam_update_reference` (the JAX
+    package's registered optimizer ops), with no clip and eta 0.5."""
+    (jw, jg, jm, jv), (tw, tg, tm, tv) = _adam_state((5, 40), "float32", 3)
+    kw = dict(beta1=0.8, beta2=0.99, epsilon=1e-6, wd=0.05, rescale_grad=1.0,
+              clip_gradient=-1.0, decoupled_wd=decoupled, eta=0.5)
+    ref = fu_j.adam_update_reference(jw, jg, jm, jv, 3e-3, **kw)
+    got = fu_t.adam_update_reference(tw, tg, tm, tv, 3e-3, **kw)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-6,
+                                   atol=2e-7)
+    # the plain version leaves its inputs alone
+    assert torch.equal(tw, _t(np.array(jw)))
+
+
+def test_adam_is_not_torch_adamw():
+    """MXNet's AdamW decays by eta·wd·w, not lr·wd·w as torch.optim does:
+    with lr 0 the weight still shrinks."""
+    w = torch.ones(4)
+    fu_t.adam_update(w, torch.zeros(4), torch.zeros(4), torch.zeros(4), 0.0,
+                     wd=0.1, decoupled_wd=True)
+    torch.testing.assert_close(w, torch.full((4,), 0.9))
+
+
+# -- int8 matmul -------------------------------------------------------------
+
+def _int8_case(M=5, K=96, O=200, lead=(), seed=0):
+    """The JAX package's kernel-test case (`tests/unittest/test_kernels.py`)."""
+    rng = np.random.RandomState(seed)
+    shape = tuple(lead) + (M, K) if lead else (M, K)
+    x_q = rng.randint(-127, 128, shape).astype(np.int8)
+    w_q = rng.randint(-127, 128, (K, O)).astype(np.int8)
+    w_scale = (rng.rand(O) * 0.1 + 1e-3).astype(np.float32)
+    bias = rng.randn(O).astype(np.float32)
+    return x_q, w_q, np.float32(0.017), w_scale, bias
+
+
+def _int8_both(x_q, w_q, s_x, w_scale, bias=None, relu=False):
+    jb = None if bias is None else jnp.asarray(bias)
+    tb = None if bias is None else _t(bias)
+    j_args = (jnp.asarray(x_q), jnp.asarray(w_q), jnp.float32(s_x),
+              jnp.asarray(w_scale))
+    t_args = (_t(x_q), _t(w_q), float(s_x), _t(w_scale))
+    pallas = im_j.int8_matmul(*j_args, bias=jb, relu=relu)
+    ref = im_j.int8_matmul_reference(*j_args, bias=jb, relu=relu)
+    n0 = im_t.launches
+    got = im_t.int8_matmul(*t_args, bias=tb, relu=relu)
+    assert im_t.launches == n0
+    plain = im_t.int8_matmul_reference(*t_args, bias=tb, relu=relu)
+    assert torch.equal(got, plain)
+    return got, np.asarray(pallas), np.asarray(ref)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_int8_plain_matches_pallas_interpret(interpret, kernels_on_every_size,
+                                             relu):
+    got, pallas, ref = _int8_both(*_int8_case(), relu=relu)
+    assert got.dtype == torch.float32 and got.shape == (5, 200)
+    for want in (pallas, ref):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    if relu:
+        assert float(got.min()) == 0.0
+
+
+def test_int8_plain_3d_and_no_bias(interpret, kernels_on_every_size):
+    # the decode path shape: (B, 1, E) activations
+    x_q, w_q, s_x, w_scale, _ = _int8_case(M=1, K=64, O=96, lead=(3,))
+    got, pallas, ref = _int8_both(x_q, w_q, s_x, w_scale)
+    assert got.shape == (3, 1, 96)
+    for want in (pallas, ref):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_int8_plain_per_tensor_scale_broadcasts(interpret,
+                                                kernels_on_every_size):
+    x_q, w_q, s_x, _, _ = _int8_case(O=96)
+    got, pallas, ref = _int8_both(x_q, w_q, s_x,
+                                  np.asarray([0.05], np.float32))
+    for want in (pallas, ref):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_int8_plain_product_is_exact():
+    """At the widest K of GPT-2 (3072) every product is +-127^2: the
+    int32 accumulator must hold 127^2 * 3072 exactly."""
+    x_q = np.full((2, 3072), 127, np.int8)
+    w_q = np.full((3072, 4), -127, np.int8)
+    got = im_t.int8_matmul_reference(_t(x_q), _t(w_q), 1.0,
+                                     torch.ones(4))
+    assert float(got.min()) == float(got.max()) == -127.0 ** 2 * 3072
+
+
+def test_int8_rejects_fp_operands():
+    with pytest.raises(TypeError, match="int8"):
+        im_t.int8_matmul(torch.ones((4, 8)), torch.ones((8, 4),
+                                                        dtype=torch.int8),
+                         1.0, torch.ones(4))
+    with pytest.raises(TypeError, match="int8"):
+        im_t.int8_matmul_reference(torch.ones((4, 8), dtype=torch.int8),
+                                   torch.ones((8, 4)), 1.0, torch.ones(4))
+
+
+def test_new_wrappers_refuse_other_devices():
+    w = torch.zeros(8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fu_t.adam_update(w, w, w, w, 1e-3)
+    x = torch.zeros((2, 8), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        im_t.int8_matmul(x, torch.zeros((8, 4), dtype=torch.int8,
+                                        device="meta"), 1.0,
+                         torch.ones(4, device="meta"))
