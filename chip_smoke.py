@@ -44,7 +44,19 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      batches), serves phase 2's traffic through it and runs `generate`;
      then, on a small float32 GPT, checks that the int8 server's greedy
      tokens equal its `simulate=True` twin's and that a quantized
-     forward on the card agrees with the same forward on the CPU.
+     forward on the card agrees with the same forward on the CPU;
+ 11. trains the Switch-FFN mixture-of-experts LM (the JAX package's
+     `_dryrun_moe` model: embedding, `h + parallel.moe_apply(h)`, Dense
+     head, loss ce + 0.01 aux) at full width, GPT-2's vocabulary of
+     50257, d_model 768, d_ff 3072, 8 experts, capacity factor 1.25,
+     bfloat16, at batch 16 x 1024 through `parallel.ShardedTrainer(model,
+     switch_lm_loss, "adam", {"learning_rate": 1e-3})` on one ep = 1
+     mesh: 2 warm-up steps, 16 timed steps ended by one host fetch, then
+     one step under torch.profiler; each step launches exactly 2 MoE
+     dispatch, 3 MoE combine and 6 Adam kernels;
+ 12. trains a small float32 Switch LM 3 Adam steps on the card and on
+     the CPU from the same weights: equal routing at every step, losses
+     and every parameter within TOL_TRAIN.
 
 Phase 1 also holds the training kernels against their plain versions at
 the training shapes: the flash forward with dropout 0.1 (its keep mask
@@ -55,7 +67,10 @@ BERT-base's flat master size, the Adam/AdamW update at GPT-2's largest
 parameter (the 50257 x 768 token embedding, bfloat16) and at a
 768-element float32 LayerNorm vector, bit for bit, and the int8 GEMM at
 the four (K, O) shapes of a GPT-2 layer for M = 8 (decode) and M = 1024
-(prefill), bit for bit.
+(prefill), bit for bit, and the MoE dispatch and combine at the Switch
+LM's full width (16,384 tokens, 768 wide, 8 experts of capacity 2,560)
+on `moe_route`'s routing with capacity drops, bit for bit, and on random
+routing with duplicate slots (dispatch within rtol and atol 1e-6).
 
 Each path runs with the kernels' launch counters set to 0 just before
 it and read just after; a kernel of the path that never launched fails
@@ -122,15 +137,18 @@ def time_ms(fn, iters=25, warmup=3):
     return times[len(times) // 2]
 
 
-def device_ms(fn, iters=20, match=None, attempts=3):
+def device_ms(fn, iters=20, match=None, attempts=3,
+              skip=("fill", "memset")):
     """Device time per call of fn from torch.profiler: the summed device
     time of the kernels it launched (only those whose name contains
     `match` when given), L2 flushed before each call and the flush left
-    out. Unlike time_ms it does not count the caller's host time, which
-    exceeds the device time of a small kernel (an int8 GEMM at M = 8).
-    The profiler can lose kernel records: a window whose count of such
-    kernels is not a whole multiple of `iters` is profiled again, and
-    `attempts` windows without a whole one fail the run."""
+    out (with every kernel whose lower-cased name contains a word of
+    `skip`; `FLUSH_ONLY` leaves out the flush alone, so a zero-fill of
+    fn's own counts). Unlike time_ms it does not count the caller's host
+    time, which exceeds the device time of a small kernel (an int8 GEMM
+    at M = 8). The profiler can lose kernel records: a window whose count
+    of such kernels is not a whole multiple of `iters` is profiled again,
+    and `attempts` windows without a whole one fail the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -143,18 +161,25 @@ def device_ms(fn, iters=20, match=None, attempts=3):
                 flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        total, launched = 0.0, 0
+        total, launched, skipped = 0.0, 0, 0
         for name, us, count in kernel_rows(prof):
             low = name.lower()
-            if "fill" in low or "memset" in low:
+            if any(word in low for word in skip):
+                skipped += count
                 continue
             if match is None or match in name:
                 total += us
                 launched += count
-        if launched and launched % iters == 0:
+        # the flushes are among the skipped kernels, or they were counted
+        if launched and launched % iters == 0 and skipped >= iters:
             return total / 1e3 / iters
     check(False, f"profiler lost kernel records in {attempts} windows "
-          f"({launched} kernels for {iters} calls, match={match!r})")
+          f"({launched} kernels for {iters} calls, {skipped} skipped, "
+          f"match={match!r})")
+
+
+# the L2 flush of time_ms and device_ms: a uint8 zero-fill
+FLUSH_ONLY = ("fillfunctor<unsigned char>", "memset")
 
 
 def kernel_rows(prof):
@@ -776,6 +801,133 @@ def int8_phase(dev):
         shapes="x_q (M, K) int8, w_q_t (K, O) int8, s, bias (O,) float32")}
 
 
+MOE_FULL = dict(N=16 * 1024, D=768, E=8)       # phase 11's tokens and widths
+
+
+def moe_case(dev, N, D, E, C, seed=0):
+    """Full-width MoE inputs: tokens with a shared offset and a router that
+    leans to expert 0, so `moe_route` overflows its capacity (about a
+    tenth of the tokens dropped); plus random routing with duplicate
+    slots, invalid experts (-1, E) and positions (-1, >= C)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    x = torch.tensor(rng.randn(N, D).astype(np.float32) + 0.2, device=dev)
+    router = rng.randn(D, E).astype(np.float32) * 0.02
+    router[:, 0] += 0.004
+    dup = (torch.tensor(rng.randint(-1, E + 1, N), dtype=torch.int32,
+                        device=dev),
+           torch.tensor(rng.randint(-1, C + 2, N), dtype=torch.int32,
+                        device=dev),
+           torch.tensor(rng.rand(N), dtype=torch.float32, device=dev))
+    return x, torch.tensor(router, device=dev), dup
+
+
+def moe_phase(dev):
+    """dispatch_to_experts and combine_from_experts against their plain
+    versions (the one-hot einsums, TF32 off) at the Switch LM's full
+    width, N = 16,384 tokens of D = 768 over E = 8 experts of capacity
+    C = 2,560: on `moe_route`'s routing of a seeded router (capacity
+    drops included) bit for bit, and on random routing with duplicates
+    and invalid entries (combine bit for bit; dispatch, whose duplicate
+    slots sum in another order, within the JAX kernel test's rtol and
+    atol of 1e-6).
+    Then kernel, plain version and the library call (index_add_ for
+    dispatch, index_select and a multiply for combine) timed on the
+    moe_route routing, device time, L2 flushed."""
+    import torch
+    from mxnet_tpu_torch.cuda_ops import moe_kernels as mk
+    from mxnet_tpu_torch.parallel import moe
+    N, D, E = MOE_FULL["N"], MOE_FULL["D"], MOE_FULL["E"]
+    C = max(int(N * 1.25 / E), 1)
+    x, router, dup = moe_case(dev, N, D, E, C)
+    expert, pos, gate, _ = moe.moe_route(x, router, E)
+    kept = int(((pos >= 0) & (pos < C)).sum())
+    check(0 < kept < N, f"moe_route kept {kept} of {N} tokens")
+    errs = {}
+    for what, (e, p, g) in (("moe_route", (expert, pos, gate)),
+                            ("duplicates", dup)):
+        buf = mk.dispatch_to_experts(x, e, p, E, C)
+        ref = mk.dispatch_reference(x, e, p, E, C)
+        errs[f"dispatch_{what}"] = max_err(buf, ref)
+        if what == "moe_route":
+            check(torch.equal(buf, ref), f"moe dispatch ({what}): max_abs_err "
+                  f"{errs[f'dispatch_{what}']}, not bit for bit")
+        else:                # the JAX test's assert_allclose(1e-6, 1e-6)
+            check(bool(((buf - ref).abs() <= 1e-6 + 1e-6 * ref.abs()).all()),
+                  f"moe dispatch ({what}): max_abs_err "
+                  f"{errs[f'dispatch_{what}']} beyond 1e-6 + 1e-6 |plain|")
+        y = mk.combine_from_experts(buf, e, p, g)
+        yref = mk.combine_reference(buf, e, p, g)
+        errs[f"combine_{what}"] = max_err(y, yref)
+        check(torch.equal(y, yref), f"moe combine ({what}): max_abs_err "
+              f"{errs[f'combine_{what}']}, not bit for bit")
+        del buf, ref, y, yref
+    torch.cuda.synchronize()
+    buf = mk.dispatch_to_experts(x, expert, pos, E, C)
+    valid = (pos >= 0) & (pos < C)
+    slot = expert.long() * C + pos.long()
+
+    def index_add():
+        out = torch.zeros((E * C + 1, D), device=dev)
+        out.index_add_(0, torch.where(valid, slot, E * C), x)
+        return out[:-1].view(E, C, D)
+
+    def index_select():
+        rows = buf.view(E * C, D).index_select(0, torch.where(valid, slot, 0))
+        return rows * torch.where(valid, gate, 0.0)[:, None]
+
+    check(torch.equal(index_add(), buf), "index_add_ yardstick disagrees")
+    check(torch.equal(index_select(), mk.combine_reference(
+        buf, expert, pos, gate)), "index_select yardstick disagrees")
+    rows = {
+        "moe_dispatch": dict(
+            replaces="mxnet_tpu/pallas_ops/moe_kernels.py:90",
+            fn=lambda: mk.dispatch_to_experts(x, expert, pos, E, C),
+            plain=lambda: mk.dispatch_reference(x, expert, pos, E, C),
+            library=index_add, library_name="torch.Tensor.index_add_ into a "
+            "zeroed (E*C+1, D) buffer (dropped tokens to the extra row)",
+            # expert and pos, the kept rows of x, all of buf
+            nbytes=8 * N + 4 * kept * D + 4 * E * C * D, ops=0,
+            max_abs_err=errs["dispatch_duplicates"]),
+        "moe_combine": dict(
+            replaces="mxnet_tpu/pallas_ops/moe_kernels.py:114",
+            fn=lambda: mk.combine_from_experts(buf, expert, pos, gate),
+            plain=lambda: mk.combine_reference(buf, expert, pos, gate),
+            library=index_select, library_name="torch.index_select of the "
+            "slot rows and a multiply by the gate (0 for dropped tokens)",
+            # expert, pos and gate, the kept rows of buf, all of y
+            nbytes=12 * N + 4 * kept * D + 4 * N * D, ops=kept * D,
+            max_abs_err=errs["combine_duplicates"]),
+    }
+    out = {}
+    for name, r in rows.items():
+        b_ms, b_by = bound(r["nbytes"], r["ops"], F32_FLOPS)
+        out[name] = dict(
+            name=name, route="cuda",
+            source="mxnet_tpu_torch/csrc/moe_kernels.cu",
+            replaces=r["replaces"], max_abs_err=r["max_abs_err"],
+            errors=errs,
+            error_is="gate: on moe_route's routing the kernel equals the "
+                     "plain version (torch.equal), combine also on "
+                     "duplicate routing; dispatch with duplicate slots "
+                     "within 1e-6 + 1e-6 |plain| (max_abs_err: that case)",
+            ms=device_ms(r["fn"], match="moe", skip=FLUSH_ONLY),
+            event_ms=time_ms(r["fn"]),
+            plain_ms=device_ms(r["plain"], iters=5, skip=FLUSH_ONLY),
+            library_ms=device_ms(r["library"], skip=FLUSH_ONLY),
+            library=r["library_name"], bound_ms=b_ms, bound_by=b_by,
+            times_are="device time per call (torch.profiler, L2 flushed); "
+                      "ms counts the kernels of the wrapper call (dispatch: "
+                      "clear, route, gather, duplicate pass); event_ms: "
+                      "CUDA events around the wrapper call",
+            kept_tokens=kept,
+            shapes=f"x ({N}, {D}) float32, expert/pos ({N},) int32, gate "
+                   f"({N},) float32, buf ({E}, {C}, {D}) float32; "
+                   "moe_route routing of a seeded router")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 2-4: the port's entry points
 # ---------------------------------------------------------------------------
@@ -789,6 +941,8 @@ _COUNTERS = {
     "lamb_pass2": ("fused_update", "launches_pass2"),
     "adam_update": ("fused_update", "launches_adam"),
     "int8_matmul": ("int8_matmul", "launches"),
+    "moe_dispatch": ("moe_kernels", "launches_dispatch"),
+    "moe_combine": ("moe_kernels", "launches_combine"),
 }
 
 
@@ -941,7 +1095,7 @@ def breakdown_phase(model, n_req=8, prompt=64, new=40, rounds=8):
 
 def _kernel_class(name):
     if "mxt::" in name:
-        for part in ("lamb", "adam", "int8"):
+        for part in ("lamb", "adam", "int8", "moe"):
             if part in name:
                 return f"{part} kernels"
         return "attention kernels"
@@ -1360,6 +1514,193 @@ def int8_narrow_phase(dev, new=16):
             "int8_launches_in_serving": n_int8}
 
 
+# ---------------------------------------------------------------------------
+# phases 11-12: the Switch-FFN mixture-of-experts LM
+# ---------------------------------------------------------------------------
+
+SWITCH_FULL = dict(V=50257, D=768, F=3072, E=8)   # GPT-2 vocab; Switch-Base-8
+
+
+def switch_batch(V, B, T, seed=0):
+    """The JAX package's `_dryrun_moe` batch: random tokens, labels the
+    tokens rolled by one position."""
+    import numpy as np
+    toks = np.random.RandomState(seed).randint(0, V, (B, T)).astype(np.int32)
+    return toks, np.roll(toks, 1, axis=1).astype(np.int32)
+
+
+def switch_routing(trainer, toks, E, capacity_factor=1.25):
+    """(expert, pos, capacity) of the trainer's current embedding and
+    router on a batch, as `moe_ffn` routes it."""
+    import torch
+    from mxnet_tpu_torch.parallel import moe
+    p = dict(zip(trainer._names, trainer.params))
+    with torch.no_grad():
+        h = p["embed.weight"][torch.as_tensor(toks, device=trainer.device)
+                              .long()].reshape(-1, p["router_w"].shape[0])
+        expert, pos, _, _ = moe.moe_route(h, p["router_w"], E)
+    return expert, pos, max(int(h.shape[0] * capacity_factor / E), 1)
+
+
+def switch_phase(dev, batch=16, seq_len=1024, warmup=2, steps=16, lr=1e-3,
+                 **widths):
+    """The Switch-FFN LM at full width (GPT-2's vocabulary, Switch-Base's
+    d_model 768 and d_ff 3072, 8 experts, capacity factor 1.25, tanh
+    gelu, bf16 parameters with the MoE math in float32) trained through
+    `ShardedTrainer(..., "adam", {"learning_rate": 1e-3})` (the JAX
+    package's `_dryrun_moe` optimizer) on one repeated batch: 2 warm-up
+    steps, 16 timed steps ended by one host fetch, one profiled step.
+    Returns the result dict and the launch counts of the timed steps."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import parallel
+    w = dict(SWITCH_FULL, **widths)
+    model = build_switch_lm(**w, dtype="bfloat16", seed=0, device=dev)
+    trainer = parallel.ShardedTrainer(model, switch_lm_loss, "adam",
+                                      {"learning_rate": lr}, device=dev)
+    toks, labels = switch_batch(w["V"], batch, seq_len)
+    data = [torch.from_numpy(toks).to(dev)]
+    lab = [torch.from_numpy(labels).to(dev)]
+    _, pos0, C = switch_routing(trainer, toks, w["E"])
+    losses = [trainer.step(data, lab) for _ in range(warmup)]
+    float(losses[-1])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(trainer.step(data, lab))
+    float(losses[-1])                         # one host fetch fences all
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    check(np.isfinite(losses).all(), f"Switch LM losses {losses}")
+    check(losses[-1] < losses[0], f"Switch LM loss did not fall: {losses}")
+    n_params = len(trainer.params)
+    want = expect(moe_dispatch=2 * steps, moe_combine=3 * steps,
+                  adam_update=n_params * steps)
+    check(n_params == 6 and counts == want,
+          f"Switch LM launches {counts} != {want} ({n_params} parameters)")
+    expert, pos, _ = switch_routing(trainer, toks, w["E"])
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        float(trainer.step(data, lab))
+        prof_ms = (time.perf_counter() - t1) * 1e3
+    busy_ms, top, by_class = device_profile(prof, 1, 10)
+    step_ms = secs * 1e3 / steps
+    return {"model": "Switch-FFN LM " + json.dumps(w) + ", bf16",
+            "batch": batch, "seq_len": seq_len, "capacity": C,
+            "steps": steps, "warmup": warmup, "optimizer": f"adam lr {lr}",
+            "seconds": secs,
+            "tokens_per_s": batch * seq_len * steps / secs,
+            "ms_per_step": step_ms, "max_memory_allocated_bytes": peak,
+            "param_count": trainer.param_count, "losses": losses,
+            "dropped_share_first_step": float((pos0 >= C).float().mean()),
+            "dropped_share_last_step": float((pos >= C).float().mean()),
+            "tokens_per_expert_last_step":
+                torch.bincount(expert.long(), minlength=w["E"]).tolist(),
+            "profiled_step_ms": prof_ms,
+            "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": None if busy_ms is None
+            else 1 - busy_ms / step_ms,
+            "moe_share_of_device_time": None if busy_ms is None
+            else by_class.get("moe kernels", 0.0) / busy_ms,
+            "device_ms_per_step_by_class": by_class,
+            "top_device_ms_per_step": top}, counts
+
+
+def switch_parity_phase(dev, steps=3, batch=16, seq_len=64, cf=1.0):
+    """A small float32 Switch LM (V 128, D 64, F 128, E 4, capacity
+    factor 1.0, so that a few tokens overflow) trained `steps` Adam steps
+    on the card (dispatch, combine and Adam kernels) and on the CPU
+    (plain versions) from the same weights: the routing of every step is
+    equal, and losses and every parameter agree within TOL_TRAIN."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import parallel, weights
+    w = dict(V=128, D=64, F=128, E=4)
+    base = build_switch_lm(**w, seed=5, device="cpu", capacity_factor=cf)
+    arrays = {k: p.detach().numpy() for k, p in base.collect_params().items()}
+    toks, labels = switch_batch(w["V"], batch, seq_len, seed=1)
+    runs = {}
+    for where in ("cpu", dev):
+        model = build_switch_lm(**w, seed=5, device=where,
+                                capacity_factor=cf)
+        weights.load_named_arrays(model, arrays)
+        tr = parallel.ShardedTrainer(model, switch_lm_loss, "adam",
+                                     {"learning_rate": 1e-3}, device=where)
+        reset_counts()
+        losses, routes = [], []
+        for _ in range(steps):
+            expert, pos, C = switch_routing(tr, toks, w["E"], cf)
+            routes.append((expert.cpu(), pos.cpu()))
+            losses.append(float(tr.step([toks], [labels])))
+        runs[str(where)] = (losses, [p.cpu() for p in tr.params], routes,
+                            read_counts())
+    (lc, wc, rc, cc), (lg, wg, rg, counts) = runs["cpu"], runs[str(dev)]
+    check(all(torch.equal(a, b) for ra, rb in zip(rg, rc)
+              for a, b in zip(ra, rb)), "card vs CPU Switch LM routing differs")
+    e_loss = float(np.abs(np.subtract(lg, lc)).max())
+    e_w = max(max_err(a, c) for a, c in zip(wg, wc))
+    check(e_loss <= TOL_TRAIN and e_w <= TOL_TRAIN,
+          f"card vs CPU Switch LM: losses {lg} vs {lc}, param err {e_w}")
+    want = expect(moe_dispatch=2 * steps, moe_combine=3 * steps,
+                  adam_update=6 * steps)
+    check(counts == want, f"Switch LM parity launches {counts} != {want}")
+    check(all(v == 0 for v in cc.values()), f"CPU run launched {cc}")
+    return {"losses_card": lg, "losses_cpu": lc, "max_loss_err": e_loss,
+            "max_param_err": e_w, "routing_equal": True,
+            "capacity": C, "dropped_share_per_step":
+                [float((p >= C).float().mean()) for _, p in rg]}
+
+
+def build_switch_lm(V, D, F, E, dtype="float32", seed=0, device=None,
+                    capacity_factor=1.25):
+    """The Switch-FFN LM of the JAX package's `_dryrun_moe`
+    (__graft_entry__.py), composed of the port's gluon blocks: an
+    embedding, `h + moe_apply(h)` with E experts of width F, and a Dense
+    head; forward returns (logits, aux_loss). Weights: uniform(0.07)
+    (the JAX model's default initializer; the head's bias 0)."""
+    from mxnet_tpu_torch import context, gluon, parallel
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon import nn
+
+    class SwitchLM(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(V, D, dtype=dtype)
+            self.router_w = gluon.Parameter("router_w", (D, E), dtype)
+            self.moe_w1 = gluon.Parameter("moe_w1", (E, D, F), dtype)
+            self.moe_w2 = gluon.Parameter("moe_w2", (E, F, D), dtype)
+            self.head = nn.Dense(V, in_units=D, flatten=False, dtype=dtype)
+
+        def forward(self, toks):
+            h = self.embed(toks)
+            B, T, _ = h.shape
+            y, aux = parallel.moe_apply(h.reshape(B * T, D), self.router_w,
+                                        self.moe_w1, self.moe_w2,
+                                        capacity_factor=capacity_factor)
+            return self.head(h + y.reshape(B, T, D)), aux
+
+    dev = context.resolve(device)
+    with dev:
+        model = SwitchLM()
+    model.initialize(generator=mxrandom.seed(seed, dev))
+    return model
+
+
+def switch_lm_loss(logits, aux, labels):
+    """Mean token cross entropy (float32 log-softmax) + 0.01 x aux."""
+    import torch
+    logp = torch.log_softmax(logits.float(), -1)
+    ce = -logp.gather(-1, labels.long()[..., None]).mean()
+    return ce + 0.01 * aux
+
+
 def build_model(cfg, seed, device=None):
     from mxnet_tpu_torch import random as mxrandom
     from mxnet_tpu_torch.models import gpt
@@ -1410,6 +1751,7 @@ def main():
     kernels.update(lamb_phase(dev))
     kernels.update(adam_phase(dev))
     kernels.update(int8_phase(dev))
+    kernels.update(moe_phase(dev))
     for k in kernels.values():
         lib = "none" if k["library_ms"] is None \
             else f"{k['library_ms']:.4f} ms"
@@ -1522,6 +1864,18 @@ def main():
     kernels["int8_matmul"]["launches"] = qserve["launches"]["int8_matmul"]
     narrow = int8_narrow_phase(dev)
     print("chip_smoke: int8 float32 narrow model " + json.dumps(narrow))
+
+    # 11. the Switch-FFN LM at full width, Adam
+    switch, counts = switch_phase(dev)
+    torch.cuda.empty_cache()
+    print("chip_smoke: Switch LM training " + json.dumps(switch))
+    print(f"chip_smoke: Switch LM training launches {counts}")
+    for name in ("moe_dispatch", "moe_combine"):
+        kernels[name]["launches"] = counts[name]
+
+    # 12. a float32 Switch LM on the card == on the CPU
+    sparity = switch_parity_phase(dev)
+    print("chip_smoke: card-vs-CPU Switch LM " + json.dumps(sparity))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -13,8 +13,10 @@ softmax); bfloat16 2e-2 relative to the output's largest magnitude, as
 the JAX package's own kernel tests use; LAMB rtol 1e-5 (FMA contraction
 and another summation order of the 512-lane rows). The dropout keep
 mask, the Adam update (w, m and v: the kernel rounds every operation as
-the plain version does) and the int8 GEMM's output are compared bit for
-bit.
+the plain version does), the int8 GEMM's output, MoE combine and MoE
+dispatch on routing with one token a slot are compared bit for bit;
+MoE dispatch with duplicate slots (summed by float atomics in any
+order) at 1e-6.
 """
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ import torch
 from mxnet_tpu_torch.cuda_ops import flash_attention as fa
 from mxnet_tpu_torch.cuda_ops import fused_update as fu
 from mxnet_tpu_torch.cuda_ops import int8_matmul as im
+from mxnet_tpu_torch.cuda_ops import moe_kernels as mk
 from mxnet_tpu_torch.cuda_ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -429,3 +432,115 @@ def test_tiny_gpt_int8_serving_on_card(dev):
         assert (im.launches > 0) == (not simulate)
         assert im.launches % (4 * cfg["num_layers"]) == 0
     assert out[False] == out[True]
+
+
+def _moe_case(dev, N, D, E, C, dup, seed=0, misaligned=False):
+    """Routing with duplicates, invalid (-1, E) experts and overflow
+    positions, or (dup False) moe_route-like routing: one token a slot,
+    the tokens past capacity dropped."""
+    rng = np.random.RandomState(seed)
+    xs = torch.tensor(rng.randn(N * D + 1), dtype=torch.float32, device=dev)
+    x = (xs[1:] if misaligned else xs[:-1]).view(N, D)
+    if dup:
+        expert = rng.randint(-1, E + 1, N)
+        pos = rng.randint(-1, C + 2, N)
+    else:
+        expert = rng.randint(0, E, N)
+        pos = np.array([(expert[:i] == e).sum() for i, e in enumerate(expert)])
+    gate = torch.tensor(rng.rand(N), dtype=torch.float32, device=dev)
+    as_i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)  # noqa
+    return x, as_i32(expert), as_i32(pos), gate
+
+
+_MOE_SHAPES = [(50, 40, 4, 16), (37, 13, 3, 5), (0, 8, 2, 3), (1, 4, 1, 1),
+               (1000, 768, 8, 160), (333, 70, 5, 64)]
+
+
+@pytest.mark.parametrize("dup", [True, False])
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("N,D,E,C", _MOE_SHAPES)
+def test_moe_kernels_match_plain(dev, N, D, E, C, dup, misaligned):
+    x, expert, pos, gate = _moe_case(dev, N, D, E, C, dup,
+                                     misaligned=misaligned)
+    n0 = (mk.launches_dispatch, mk.launches_combine)
+    buf = mk.dispatch_to_experts(x, expert, pos, E, C)
+    y = mk.combine_from_experts(buf, expert, pos, gate)
+    torch.cuda.synchronize()
+    assert mk.launches_dispatch == n0[0] + 1
+    assert mk.launches_combine == n0[1] + (1 if N else 0)
+    bref = mk.dispatch_reference(x, expert, pos, E, C)
+    yref = mk.combine_reference(buf, expert, pos, gate)
+    assert buf.shape == (E, C, D) and y.shape == (N, D)
+    if dup:
+        torch.testing.assert_close(buf, bref, rtol=1e-6, atol=1e-6)
+    else:
+        assert torch.equal(buf, bref)
+    assert torch.equal(y, yref)
+
+
+def test_moe_autograd_on_card_goes_through_the_kernels(dev):
+    """The backward passes launch the kernels as the JAX VJPs do: the
+    dispatch gradient is a combine, the combine gradient a dispatch (buf)
+    and a combine (gate); gradients equal the CPU plain versions'."""
+    N, D, E, C = 300, 36, 4, 60
+    x, expert, pos, gate = _moe_case(dev, N, D, E, C, dup=False, seed=2)
+    w = torch.randn(E, C, D, device=dev)
+    grads = {}
+    for where in ("cpu", "cuda"):
+        xt = x.to(where).requires_grad_(True)
+        gt = gate.to(where).requires_grad_(True)
+        e, p = expert.to(where), pos.to(where)
+        n0 = (mk.launches_dispatch, mk.launches_combine)
+        buf = mk.dispatch_to_experts(xt, e, p, E, C) * w.to(where)
+        y = mk.combine_from_experts(buf, e, p, gt)
+        (y ** 2).sum().backward()
+        launched = (mk.launches_dispatch - n0[0], mk.launches_combine - n0[1])
+        assert launched == ((2, 3) if where == "cuda" else (0, 0))
+        grads[where] = (xt.grad.cpu(), gt.grad.cpu())
+    for a, c in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+
+
+def test_moe_kernels_refuse_what_they_cannot_take(dev):
+    x, expert, pos, gate = _moe_case(dev, 16, 8, 2, 4, dup=False)
+    with pytest.raises(ValueError):
+        mk.dispatch_to_experts(x.double(), expert, pos, 2, 4)
+    with pytest.raises(ValueError):
+        mk.dispatch_to_experts(x, expert.long(), pos, 2, 4)
+    with pytest.raises(ValueError):
+        mk.dispatch_to_experts(x.t().contiguous().t(), expert, pos, 2, 4)
+    with pytest.raises(ValueError):
+        mk.dispatch_to_experts(x, expert.cpu(), pos, 2, 4)
+    buf = mk.dispatch_to_experts(x, expert, pos, 2, 4)
+    with pytest.raises(ValueError):
+        mk.combine_from_experts(buf, expert, pos, gate.double())
+    with pytest.raises(ValueError):
+        mk.combine_from_experts(buf.bfloat16(), expert, pos, gate)
+
+
+def test_tiny_switch_lm_training_on_card_matches_cpu(dev):
+    """Three float32 Adam steps of a small Switch-FFN LM on the card
+    (dispatch, combine and Adam kernels) against the same steps on the
+    CPU: per step 2 dispatch, 3 combine and 6 Adam launches."""
+    import chip_smoke
+    from mxnet_tpu_torch import parallel, weights
+    lm = dict(V=128, D=64, F=128, E=4)
+    base = chip_smoke.build_switch_lm(**lm, seed=0, device="cpu")
+    arrays = {k: p.detach().numpy() for k, p in base.collect_params().items()}
+    toks = np.random.RandomState(0).randint(0, 128, (8, 16)).astype(np.int32)
+    labels = np.roll(toks, 1, axis=1)
+    runs = {}
+    for where in ("cpu", "cuda"):
+        m = chip_smoke.build_switch_lm(**lm, seed=0, device=where)
+        weights.load_named_arrays(m, arrays)
+        tr = parallel.ShardedTrainer(m, chip_smoke.switch_lm_loss, "adam",
+                                     {"learning_rate": 1e-3}, device=where)
+        n = (mk.launches_dispatch, mk.launches_combine, fu.launches_adam)
+        losses = [float(tr.step([toks], [labels])) for _ in range(3)]
+        got = (mk.launches_dispatch - n[0], mk.launches_combine - n[1],
+               fu.launches_adam - n[2])
+        assert got == ((6, 9, 18) if where == "cuda" else (0, 0, 0))
+        runs[where] = (losses, [p.cpu() for p in tr.params])
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], atol=1e-4)
+    for a, c in zip(runs["cuda"][1], runs["cpu"][1]):
+        torch.testing.assert_close(a, c, rtol=0, atol=1e-4)
