@@ -2,6 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --flash-ab PATH   # flash fwd/dq: PATH's vs ours
 
 Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
 
@@ -71,6 +72,15 @@ the four (K, O) shapes of a GPT-2 layer for M = 8 (decode) and M = 1024
 LM's full width (16,384 tokens, 768 wide, 8 experts of capacity 2,560)
 on `moe_route`'s routing with capacity drops, bit for bit, and on random
 routing with duplicate slots (dispatch within rtol and atol 1e-6).
+
+The flash rows' library yardsticks are SDPA calls computing the same
+function: the causal forward, the forward with dropout_p 0.1 at BERT's
+shape (its mask is its own: times only, the dropout-0 time beside it)
+and SDPA's backward alone over one kept forward (dq, dk and dv
+together). After the build, the script prints the HGMMA (wgmma),
+UTMALDG/UTMASTG (TMA) and HMMA (mma.sync) counts of the bf16 flash
+forward and dq kernels from `cuobjdump -sass`, and fails if they do not
+run wgmma fed by TMA.
 
 Each path runs with the kernels' launch counters set to 0 just before
 it and read just after; a kernel of the path that never launched fails
@@ -200,6 +210,35 @@ def kernel_times(prof):
     for key, us, _ in kernel_rows(prof):
         out[key] = out.get(key, 0.0) + us
     return out
+
+
+def sass_mix(lib, kernels=("flash_fwd_wgmma_kernel", "dq_wgmma_kernel"),
+             ops=("HGMMA", "UTMALDG", "UTMASTG", "HMMA")):
+    """{kernel symbol: {op: count}} of the SASS that `cuobjdump -sass`
+    shows for the kernels of the built library whose names hold one of
+    `kernels` (None where the toolkit has no cuobjdump): HGMMA is wgmma,
+    UTMALDG / UTMASTG are TMA loads / stores, HMMA is mma.sync."""
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+    text = subprocess.run([exe, "-sass", lib], capture_output=True,
+                          text=True, timeout=300).stdout
+    mix, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            cur = name if any(k in name for k in kernels) else None
+            if cur:
+                mix[cur] = dict.fromkeys(ops, 0)
+        elif cur and "*/" in line:
+            # "/*0090*/  @P0 HGMMA.64x128x16.F32.BF16 R24, ... ; /* 0x.. */"
+            body = line.split("*/", 1)[1].split("/*", 1)[0].split()
+            for tok in body[:2]:
+                op = tok.split(".")[0]
+                if op in mix[cur]:
+                    mix[cur][op] += 1
+    return mix
 
 
 def max_err(a, b):
@@ -468,33 +507,44 @@ def train_flash_phase(dev, B=32, grid_B=2, p=0.1, seed=0x5EED_1234_ABCD):
         rows["flash_attention_dkv"]["bound_by"] = bound(
             6 * io + 8 * BH * L + 4 * B * L, 8 * BH * L * L * D)
 
-    # library yardstick: SDPA forward + backward, dropout 0 (rows 2-3
-    # together; its dropout draws another mask, so none is compared)
-    ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-
-    def library():
-        out = tF.scaled_dot_product_attention(ql, kl, vl)
-        torch.autograd.grad(out, (ql, kl, vl), g)
-
-    lib_ms = time_ms(library)
+    # library yardsticks that compute the same functions: SDPA's forward
+    # with dropout p (its mask is its own, so times only; the dropout-0
+    # forward beside it) and SDPA's backward alone, over a kept forward
+    k_ms = time_ms(lambda: fa.flash_fwd(q, k, v, bias, False, dropout=p,
+                                        seed=seed))
     rows["flash_attention_fwd_dropout"].update(
-        ms=time_ms(lambda: fa.flash_fwd(q, k, v, bias, False, dropout=p,
-                                        seed=seed)),
+        ms=k_ms, kernel_ms=k_ms,
         plain_ms=time_ms(lambda: fa.flash_fwd_reference(
             q, k, v, bias, False, dropout=p, seed=seed), iters=5),
-        library_ms=time_ms(lambda: tF.scaled_dot_product_attention(q, k, v)),
-        library="SDPA forward, dropout 0")
-    rows["flash_attention_dq"].update(
-        ms=time_ms(lambda: fa.flash_bwd_dq(*bw)),
-        plain_ms=time_ms(lambda: fa.flash_dq_reference(*bw), iters=5),
-        library_ms=lib_ms,
-        library="SDPA forward+backward, dropout 0 (rows dq and dkv together)")
-    rows["flash_attention_dkv"].update(
-        ms=time_ms(lambda: fa.flash_bwd_dkv(*bw)),
-        plain_ms=time_ms(lambda: fa.flash_dkv_reference(*bw), iters=5),
-        library_ms=lib_ms,
-        library="SDPA forward+backward, dropout 0 (rows dq and dkv together)")
+        library_ms=time_ms(lambda: tF.scaled_dot_product_attention(
+            q, k, v, dropout_p=p)),
+        library=f"SDPA forward, dropout_p {p} (its own mask: times only)",
+        library_ms_dropout0=time_ms(
+            lambda: tF.scaled_dot_product_attention(q, k, v)))
+    lib_bwd = sdpa_backward_ms(q, k, v, g, dropout_p=p)
+    for row, fn, ref_fn in (
+            ("flash_attention_dq", fa.flash_bwd_dq, fa.flash_dq_reference),
+            ("flash_attention_dkv", fa.flash_bwd_dkv, fa.flash_dkv_reference)):
+        k_ms = time_ms(lambda: fn(*bw))
+        rows[row].update(
+            ms=k_ms, kernel_ms=k_ms,
+            plain_ms=time_ms(lambda: ref_fn(*bw), iters=5),
+            library_ms=lib_bwd,
+            library=f"SDPA backward alone, dropout_p {p} (dq, dk and dv "
+                    "together)")
     return rows
+
+
+def sdpa_backward_ms(q, k, v, g, **kw):
+    """Time of SDPA's backward alone (dq, dk and dv together): the
+    gradient of one kept forward output, taken again and again with
+    retain_graph=True."""
+    import torch
+    import torch.nn.functional as tF
+    ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = tF.scaled_dot_product_attention(ql, kl, vl, **kw)
+    return time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), g,
+                                               retain_graph=True))
 
 
 def gpt_flash_phase(dev, B=16, L=1024, seed=1):
@@ -503,6 +553,7 @@ def gpt_flash_phase(dev, B=16, L=1024, seed=1):
     the causal tile skip), forward, dq and dkv against their plain
     versions on the same inputs, then timed. Returns {row: extra fields}."""
     import torch
+    import torch.nn.functional as tF
     from mxnet_tpu_torch.cuda_ops import flash_attention as fa
     q, k, v, g, bias = train_flash_case(dev, torch.bfloat16, B, L=L,
                                         seed=seed)
@@ -526,23 +577,79 @@ def gpt_flash_phase(dev, B=16, L=1024, seed=1):
     io = BH * L * D * es
     pairs = BH * L * (L + 1) // 2                     # causal (q, k) pairs
     shape = f"q/k/v/dO ({B},12,{L},{D}) bf16, causal, dropout 0"
+    # the library yardsticks: SDPA causal, its backward alone
+    lib_fwd = (time_ms(lambda: tF.scaled_dot_product_attention(
+        q, k, v, is_causal=True)), "SDPA forward, is_causal")
+    lib_bwd = (sdpa_backward_ms(q, k, v, g, is_causal=True),
+               "SDPA backward alone, is_causal (dq, dk and dv together)")
     out = {}
-    for row, err, nbytes, flops, fn in (
+    for row, err, nbytes, flops, fn, lib in (
             ("flash_attention_fwd", max(e_o, e_lse),
              4 * io + 4 * BH * L + 4 * B * L, 4 * pairs * D,
-             lambda: fa.flash_fwd(q, k, v, bias, True)),
+             lambda: fa.flash_fwd(q, k, v, bias, True), lib_fwd),
             ("flash_attention_dq", e_dq, 5 * io + 8 * BH * L + 4 * B * L,
-             6 * pairs * D, lambda: fa.flash_bwd_dq(*bw)),
+             6 * pairs * D, lambda: fa.flash_bwd_dq(*bw), lib_bwd),
             ("flash_attention_dkv", max(e_dk, e_dv),
              6 * io + 8 * BH * L + 4 * B * L, 8 * pairs * D,
-             lambda: fa.flash_bwd_dkv(*bw))):
+             lambda: fa.flash_bwd_dkv(*bw), lib_bwd)):
         b_ms, b_by = bound(nbytes, flops)
         out[row] = {"gpt2_train_shape": dict(
             shapes=shape, max_abs_err=err, ms=time_ms(fn), bound_ms=b_ms,
-            bound_by=b_by)}
+            bound_by=b_by, library_ms=lib[0], library=lib[1])}
     out["flash_attention_dq"]["gpt2_train_shape"]["tol"] = tol
     out["flash_attention_dkv"]["gpt2_train_shape"]["tol"] = tol
     return out
+
+
+def flash_times(root):
+    """Times of the flash forward and dq of the checkout at `root` (its
+    `mxnet_tpu_torch`, built there) at the main-path shapes: the serving
+    prefill (8,12,512,64) causal, BERT's (32,12,512,64) with dropout 0.1
+    (and without, which shows what the keep bits cost) and GPT-2's
+    (16,12,1024,64) causal, bf16; CUDA events and profiler device time,
+    L2 flushed."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    from mxnet_tpu_torch.cuda_ops import _build
+    from mxnet_tpu_torch.cuda_ops import flash_attention as fa
+    check(fa.__file__.startswith(os.path.abspath(root)),
+          f"flash_attention imported from {fa.__file__}, not {root}")
+    _build.library()
+    dev = torch.device("cuda")
+    out = {}
+    for name, B, L, causal, p in (("serving", 8, 512, True, 0.0),
+                                  ("bert", 32, 512, False, 0.1),
+                                  ("bert_dropout0", 32, 512, False, 0.0),
+                                  ("gpt2", 16, 1024, True, 0.0)):
+        q, k, v, g, bias = train_flash_case(dev, torch.bfloat16, B, L=L)
+        o, lse = fa.flash_fwd(q, k, v, bias, causal, dropout=p, seed=5)
+        delta = (g.float() * o.float()).sum(-1).reshape(lse.shape)
+        bw = (q, k, v, bias, g, lse, delta, causal, None, p, 5)
+        fns = {"fwd": lambda: fa.flash_fwd(q, k, v, bias, causal, dropout=p,
+                                           seed=5)}
+        if name != "serving":
+            fns["dq"] = lambda: fa.flash_bwd_dq(*bw)
+        out[name] = {}
+        for kern, fn in fns.items():
+            out[name][f"{kern}_ms"] = time_ms(fn)
+            out[name][f"{kern}_device_ms"] = device_ms(fn, match="mxt::")
+    return out
+
+
+def flash_ab(other):
+    """The flash forward and dq of this checkout against those of the
+    checkout at `other` on one card, in the order other, this, this,
+    other, each in its own process (`--flash-times`)."""
+    rounds = []
+    for root in (other, ROOT, ROOT, other):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--flash-times", root], capture_output=True,
+                           text=True, timeout=900)
+        check(r.returncode == 0, f"--flash-times {root}: {r.stderr[-3000:]}")
+        rounds.append({"root": "other" if root == other else "this",
+                       "times": json.loads(r.stdout.strip().splitlines()[-1])})
+        print("chip_smoke: flash A/B " + json.dumps(rounds[-1]), flush=True)
+    return rounds
 
 
 def bert_base_rows():
@@ -1723,6 +1830,17 @@ def main():
         print("chip_smoke: run it from a checkout of the repository "
               "(mxnet_tpu_torch/ not found beside it)", file=sys.stderr)
         return 2
+    if len(sys.argv) == 3 and sys.argv[1] == "--flash-times":
+        print(json.dumps(flash_times(sys.argv[2])))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--flash-ab":
+        flash_ab(sys.argv[2])
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        print(smi or "nvidia-smi: no output")
+        return 0
     sys.path.insert(0, ROOT)
     import numpy as np
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1739,6 +1857,14 @@ def main():
         for line in fh:
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
+    # the instruction mix of the bf16 flash forward and dq: wgmma fed by TMA
+    mix = sass_mix(os.path.join(_build.BUILD_DIR, _build.LIB_NAME))
+    print("chip_smoke: SASS of the wgmma kernels (HGMMA = wgmma, UTMALDG/"
+          "UTMASTG = TMA, HMMA = mma.sync) " + json.dumps(mix))
+    if mix is not None:
+        check(len(mix) == 4 and all(
+            m["HGMMA"] > 0 and m["UTMALDG"] > 0 and m["HMMA"] == 0
+            for m in mix.values()), f"wgmma kernels' SASS {mix}")
 
     # 1. kernels against their plain versions
     kernels = {"paged_attention": paged_phase(dev),
@@ -1748,6 +1874,11 @@ def main():
         kernels[row].update(extra)
         print(f"chip_smoke: {row} at GPT-2 training's shape "
               + json.dumps(extra["gpt2_train_shape"]))
+    for row in ("flash_attention_fwd", "flash_attention_fwd_dropout",
+                "flash_attention_dq"):
+        want = "dq_wgmma" if row.endswith("dq") else "flash_fwd_wgmma"
+        kernels[row]["sass"] = None if mix is None else {
+            name: m for name, m in mix.items() if want in name}
     kernels.update(lamb_phase(dev))
     kernels.update(adam_phase(dev))
     kernels.update(int8_phase(dev))

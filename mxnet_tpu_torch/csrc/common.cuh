@@ -31,6 +31,17 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // elements of T in one 16-byte load
 template <typename T> struct Vec { static constexpr int n = 16 / sizeof(T); };
 
+// the shared-memory address of a generic pointer into shared memory
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// bf16 pair (lo, hi) packed into one 32-bit register, round to nearest
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // Load one 16-byte vector of T at src and widen it to float in dst.
 template <typename T>
 __device__ __forceinline__ void load_vec_f32(float* dst, const T* src) {

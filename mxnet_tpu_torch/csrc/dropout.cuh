@@ -16,10 +16,13 @@
 // and the plain version (`dropout_keep_mask` in cuda_ops/flash_attention.py)
 // reproduces it bit for bit.
 //
-// A kernel fills a tile's mask into shared memory once per (64-row,
-// 64-column) tile with every thread of the block -- one byte per (row,
-// 4-column group), bit j for column 4g + j -- so each Philox call is made
-// once, whatever fragment layout later reads the bits.
+// The CUDA-core kernels (float32 bodies, dkv) fill a tile's mask into
+// shared memory once per (64-row, 64-column) tile with every thread of the
+// block -- one byte per (row, 4-column group), bit j for column 4g + j --
+// so each Philox call is made once, whatever fragment layout later reads
+// the bits. The wgmma kernels (the bf16 forward and dq) compute the bits in
+// registers instead, in the accumulator layout (`keep_quad`), with no
+// shared memory and no block barrier.
 #pragma once
 
 #include <stdint.h>
@@ -90,6 +93,24 @@ __device__ __forceinline__ void fill_tile_mask(uint8_t* mask,
 // keep bit of (row0 + r, col0 + c) from a filled tile mask
 __device__ __forceinline__ bool tile_keep(const uint8_t* mask, int r, int c) {
   return (mask[r * kMaskGroups + (c >> 2)] >> (c & 3)) & 1;
+}
+
+// Keep bits of the four accumulator entries a thread holds in one 8-column
+// block of a wgmma (or mma.sync) tile: rows r0 and r1 = r0 + 8, columns col
+// and col + 1, where col = 8j + 2 tig is even. Bit e of the result is entry
+// e: (r0, col), (r0, col + 1), (r1, col), (r1, col + 1). The lanes tig
+// 2i and 2i + 1 hold the two halves of one 4-column group: each makes one
+// Philox call, for row r0 (even tig) or r1 (odd tig), and the two swap
+// their nibbles with one shuffle. Every lane of the warp must call it.
+__device__ __forceinline__ uint32_t keep_quad(const DropoutArgs& d, int bh,
+                                              int r0, int r1, int col,
+                                              int tig) {
+  const bool odd = tig & 1;
+  const uint32_t mine = keep_nibble(d, bh, odd ? r1 : r0, col >> 2);
+  const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
+  const uint32_t n0 = odd ? other : mine, n1 = odd ? mine : other;
+  const int co = col & 3;                // 0 or 2
+  return ((n0 >> co) & 3u) | (((n1 >> co) & 3u) << 2);
 }
 
 }  // namespace mxt

@@ -246,6 +246,10 @@ def _check_inputs(what, q, k, v, bias, extra=()):
             raise ValueError(f"{what}: {name} on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
+        # TMA (bf16) and float4 loads (float32) need 16-byte-aligned bases
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start on a 16-byte "
+                             "boundary (a fresh allocation does)")
     if D % 8 or D > 128:
         raise ValueError(f"{what}: head dim {D} must be a multiple of 8 "
                          "and <= 128")

@@ -71,6 +71,17 @@ def test_paged_kernel_matches_plain(dev, dtype, D, ps):
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
 
 
+def _bias(dev, B, Lk, padded):
+    """(B, Lk) additive bias: zeros; padded=True masks the last third of
+    batch row 1, padded="all" every key of it."""
+    bias = torch.zeros((B, Lk), dtype=torch.float32, device=dev)
+    if padded == "all":
+        bias[1] = -1e30
+    elif padded:
+        bias[1, Lk * 2 // 3:] = -1e30
+    return bias
+
+
 def _qkv(dev, dtype, B, H, Lq, Lk, D, seed=0):
     rng = np.random.RandomState(seed)
     q = torch.tensor(rng.randn(B, H, Lq, D), dtype=dtype, device=dev)
@@ -86,13 +97,23 @@ def _qkv(dev, dtype, B, H, Lq, Lk, D, seed=0):
     (100, 300, 64, True, False),
     (77, 77, 128, True, True),
     (65, 130, 40, False, False),
+    # the wgmma kernels' edges: one row or key, ragged tiles of 127, 129
+    # and 257 (H = 3, so a tile past Lk must not read the next head), head
+    # dims 8, 40, 96, 128, Lq > Lk causal (rows 0 and 1 see no key), and
+    # a batch row with every key masked
+    (1, 1, 64, False, False),
+    (1, 129, 64, True, False),
+    (127, 127, 8, False, True),
+    (129, 127, 40, True, False),
+    (257, 129, 96, False, True),
+    (129, 257, 128, True, False),
+    (257, 1, 64, False, False),
+    (127, 257, 64, False, "all"),
 ])
 def test_flash_kernel_matches_plain(dev, dtype, Lq, Lk, D, causal, padded):
     B, H = 2, 3
     q, k, v = _qkv(dev, dtype, B, H, Lq, Lk, D)
-    bias = torch.zeros((B, Lk), dtype=torch.float32, device=dev)
-    if padded:
-        bias[1, Lk * 2 // 3:] = -1e30
+    bias = _bias(dev, B, Lk, padded)
     n0 = fa.launches
     out, lse = fa.flash_fwd(q, k, v, bias, causal)
     torch.cuda.synchronize()
@@ -130,7 +151,12 @@ def test_dropout_mask_kernel_matches_plain_bit_for_bit(dev, BH, Lq, Lk):
 
 _BWD_CASES = [(128, 128, 64, False, False), (128, 128, 64, True, False),
               (100, 100, 64, False, True), (77, 77, 128, True, True),
-              (64, 192, 64, True, False), (65, 130, 40, False, True)]
+              (64, 192, 64, True, False), (65, 130, 40, False, True),
+              # as test_flash_kernel_matches_plain's edges; Lk = 300 takes
+              # three 128-key tiles of the forward (and five of dq's 64)
+              (1, 129, 64, True, False), (129, 127, 40, True, False),
+              (127, 257, 8, False, True), (257, 257, 96, False, "all"),
+              (257, 300, 128, False, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -142,9 +168,7 @@ def test_flash_fwd_bwd_kernels_match_plain(dev, dtype, dropout, Lq, Lk, D,
     q, k, v = _qkv(dev, dtype, B, H, Lq, Lk, D, seed=Lq + Lk)
     g = torch.tensor(np.random.RandomState(1).randn(B, H, Lq, D),
                      dtype=dtype, device=dev)
-    bias = torch.zeros((B, Lk), dtype=torch.float32, device=dev)
-    if padded:
-        bias[1, Lk * 2 // 3:] = -1e30
+    bias = _bias(dev, B, Lk, padded)
     seed = 1234567890123
     n = (fa.launches, fa.launches_dq, fa.launches_dkv)
     out, lse = fa.flash_fwd(q, k, v, bias, causal, dropout=dropout, seed=seed)
@@ -163,6 +187,27 @@ def test_flash_fwd_bwd_kernels_match_plain(dev, dtype, dropout, Lq, Lk, D,
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         assert a.dtype == dtype and a.shape == b.shape
         _close(a, b, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_raises_on_misaligned_view(dev, dtype):
+    """The kernels load through TMA (bf16) or 16-byte vectors (float32):
+    a view whose base is off the 16-byte grid raises, with no copy and no
+    fallback."""
+    B, H, L, D = 1, 2, 16, 64
+    n = B * H * L * D
+    q, k, v = _qkv(dev, dtype, B, H, L, L, D)
+    bias = _bias(dev, B, L, False)
+    bad = torch.zeros(n + 1, dtype=dtype, device=dev)[1:].view(B, H, L, D)
+    bad.copy_(q)
+    n0 = (fa.launches, fa.launches_dq)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_fwd(bad, k, v, bias)
+    out, lse = fa.flash_fwd(q, k, v, bias)
+    delta = (q.float() * out.float()).sum(-1).reshape(B * H, L)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_bwd_dq(q, k, v, bias, bad, lse, delta)
+    assert (fa.launches, fa.launches_dq) == (n0[0] + 1, n0[1])
 
 
 def test_autograd_on_card_goes_through_the_kernels(dev):
