@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --flash-ab PATH   # flash fwd/dq: PATH's vs ours
+    python3 chip_smoke.py --flash-ab PATH   # flash fwd/dq/dkv, int8 GEMM:
+                                            # PATH's kernels vs ours
 
 Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
 
@@ -79,8 +80,8 @@ shape (its mask is its own: times only, the dropout-0 time beside it)
 and SDPA's backward alone over one kept forward (dq, dk and dv
 together). After the build, the script prints the HGMMA (wgmma),
 UTMALDG/UTMASTG (TMA) and HMMA (mma.sync) counts of the bf16 flash
-forward and dq kernels from `cuobjdump -sass`, and fails if they do not
-run wgmma fed by TMA.
+forward, dq and dkv kernels from `cuobjdump -sass`, and fails if they do
+not run wgmma fed by TMA or if they run mma.sync.
 
 Each path runs with the kernels' launch counters set to 0 just before
 it and read just after; a kernel of the path that never launched fails
@@ -167,6 +168,9 @@ def device_ms(fn, iters=20, match=None, attempts=3,
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # one more flush opens the window: the profiler can drop the
+            # first kernel record of a window
+            flush.zero_()
             for _ in range(iters):
                 flush.zero_()
                 fn()
@@ -212,7 +216,8 @@ def kernel_times(prof):
     return out
 
 
-def sass_mix(lib, kernels=("flash_fwd_wgmma_kernel", "dq_wgmma_kernel"),
+def sass_mix(lib, kernels=("flash_fwd_wgmma_kernel", "dq_wgmma_kernel",
+                           "dkv_wgmma_kernel"),
              ops=("HGMMA", "UTMALDG", "UTMASTG", "HMMA")):
     """{kernel symbol: {op: count}} of the SASS that `cuobjdump -sass`
     shows for the kernels of the built library whose names hold one of
@@ -310,11 +315,18 @@ def paged_phase(dev, timed=True, **shape):
         lib_err = max_err(library(), pa.paged_attention_reference(*case))
         check(lib_err <= TOL["paged"]["bfloat16"],
               f"paged library yardstick disagrees ({lib_err})")
-        k_ms = time_ms(lambda: pa.paged_attention(q, kp, vp, tables, t))
-        out.update(ms=k_ms, kernel_ms=k_ms,
+        def kernel():
+            return pa.paged_attention(q, kp, vp, tables, t)
+
+        out.update(ms=device_ms(kernel, match="paged_attention"),
+                   event_ms=time_ms(kernel),
                    plain_ms=time_ms(lambda: pa.paged_attention_reference(
                        q, kp, vp, tables, t)),
-                   library_ms=time_ms(library))
+                   library_ms=time_ms(library),
+                   times_are="ms: device time of the kernel (torch.profiler, "
+                             "L2 flushed); event_ms: CUDA events around the "
+                             "wrapper call, host time included; plain_ms "
+                             "and library_ms: CUDA events")
     return out
 
 
@@ -602,11 +614,13 @@ def gpt_flash_phase(dev, B=16, L=1024, seed=1):
 
 
 def flash_times(root):
-    """Times of the flash forward and dq of the checkout at `root` (its
-    `mxnet_tpu_torch`, built there) at the main-path shapes: the serving
-    prefill (8,12,512,64) causal, BERT's (32,12,512,64) with dropout 0.1
-    (and without, which shows what the keep bits cost) and GPT-2's
-    (16,12,1024,64) causal, bf16; CUDA events and profiler device time,
+    """Times of the flash forward, dq and dkv and of the int8 GEMM of the
+    checkout at `root` (its `mxnet_tpu_torch`, built there) at the
+    main-path shapes: the serving prefill (8,12,512,64) causal (forward
+    only), BERT's (32,12,512,64) with dropout 0.1 (and without, which shows
+    what the keep bits cost) and GPT-2's (16,12,1024,64) causal, bf16; the
+    int8 GEMM at GPT-2's four layer shapes for M = 8 (decode) and 1024,
+    with bias, and their sum per M; CUDA events and profiler device time,
     L2 flushed."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -629,17 +643,34 @@ def flash_times(root):
                                            seed=5)}
         if name != "serving":
             fns["dq"] = lambda: fa.flash_bwd_dq(*bw)
+            fns["dkv"] = lambda: fa.flash_bwd_dkv(*bw)
         out[name] = {}
         for kern, fn in fns.items():
             out[name][f"{kern}_ms"] = time_ms(fn)
             out[name][f"{kern}_device_ms"] = device_ms(fn, match="mxt::")
+        del q, k, v, g, bias, o, lse, delta, bw
+    from mxnet_tpu_torch.cuda_ops import int8_matmul as im
+    check(im.__file__.startswith(os.path.abspath(root)),
+          f"int8_matmul imported from {im.__file__}, not {root}")
+    for M in (8, 1024):
+        row = out[f"int8_m{M}"] = {"ms": 0.0, "device_ms": 0.0}
+        for K, O in GPT2_GEMMS:
+            x_q, w_q, s_x, w_s, b = int8_case(dev, M, K, O, seed=M + K + O)
+
+            def gemm():
+                return im.int8_matmul(x_q, w_q, s_x, w_s, bias=b)
+
+            ms, dms = time_ms(gemm), device_ms(gemm, match="int8_")
+            row[f"{K}x{O}_ms"], row[f"{K}x{O}_device_ms"] = ms, dms
+            row["ms"] += ms
+            row["device_ms"] += dms
     return out
 
 
 def flash_ab(other):
-    """The flash forward and dq of this checkout against those of the
-    checkout at `other` on one card, in the order other, this, this,
-    other, each in its own process (`--flash-times`)."""
+    """The flash forward, dq and dkv and the int8 GEMM of this checkout
+    against those of the checkout at `other` on one card, in the order
+    other, this, this, other, each in its own process (`--flash-times`)."""
     rounds = []
     for root in (other, ROOT, ROOT, other):
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -875,7 +906,7 @@ def int8_phase(dev):
                 return im.int8_matmul(x_q, w_q, s_x, w_s, bias=b)
 
             by_shape[f"{M}x{K}x{O}"] = dict(
-                ms=device_ms(kernel, match="int8_gemm"),
+                ms=device_ms(kernel, match="int8_"),
                 wrapper_ms=device_ms(kernel), event_ms=time_ms(kernel),
                 plain_ms=device_ms(lambda: im.int8_matmul_reference(
                     x_q, w_q, s_x, w_s, bias=b), iters=5),
@@ -1857,12 +1888,13 @@ def main():
         for line in fh:
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
-    # the instruction mix of the bf16 flash forward and dq: wgmma fed by TMA
+    # the instruction mix of the bf16 flash forward, dq and dkv (two
+    # instantiations each, D <= 64 and D <= 128): wgmma fed by TMA
     mix = sass_mix(os.path.join(_build.BUILD_DIR, _build.LIB_NAME))
     print("chip_smoke: SASS of the wgmma kernels (HGMMA = wgmma, UTMALDG/"
           "UTMASTG = TMA, HMMA = mma.sync) " + json.dumps(mix))
     if mix is not None:
-        check(len(mix) == 4 and all(
+        check(len(mix) == 6 and all(
             m["HGMMA"] > 0 and m["UTMALDG"] > 0 and m["HMMA"] == 0
             for m in mix.values()), f"wgmma kernels' SASS {mix}")
 
@@ -1874,9 +1906,10 @@ def main():
         kernels[row].update(extra)
         print(f"chip_smoke: {row} at GPT-2 training's shape "
               + json.dumps(extra["gpt2_train_shape"]))
-    for row in ("flash_attention_fwd", "flash_attention_fwd_dropout",
-                "flash_attention_dq"):
-        want = "dq_wgmma" if row.endswith("dq") else "flash_fwd_wgmma"
+    for row, want in (("flash_attention_fwd", "flash_fwd_wgmma"),
+                      ("flash_attention_fwd_dropout", "flash_fwd_wgmma"),
+                      ("flash_attention_dq", "dq_wgmma"),
+                      ("flash_attention_dkv", "dkv_wgmma")):
         kernels[row]["sass"] = None if mix is None else {
             name: m for name, m in mix.items() if want in name}
     kernels.update(lamb_phase(dev))

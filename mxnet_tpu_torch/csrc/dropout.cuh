@@ -16,13 +16,16 @@
 // and the plain version (`dropout_keep_mask` in cuda_ops/flash_attention.py)
 // reproduces it bit for bit.
 //
-// The CUDA-core kernels (float32 bodies, dkv) fill a tile's mask into
-// shared memory once per (64-row, 64-column) tile with every thread of the
-// block -- one byte per (row, 4-column group), bit j for column 4g + j --
-// so each Philox call is made once, whatever fragment layout later reads
-// the bits. The wgmma kernels (the bf16 forward and dq) compute the bits in
-// registers instead, in the accumulator layout (`keep_quad`), with no
-// shared memory and no block barrier.
+// The float32 bodies (CUDA cores) fill a tile's mask into shared memory
+// once per (64-row, 64-column) tile with every thread of the block -- one
+// byte per (row, 4-column group), bit j for column 4g + j -- so each Philox
+// call is made once, whatever fragment layout later reads the bits. The
+// bf16 wgmma kernels compute the bits in registers instead, in their
+// accumulator layout, with no shared memory and no block barrier: the
+// forward and dq hold (query rows, key columns) tiles (`keep_quad`), dkv
+// holds the transpose, (key rows, query columns) (`keep_quad_t`). Either
+// way a lane makes one Philox call per 8-column block of its tile, and the
+// lanes that share the call's four words swap bits with shuffles.
 #pragma once
 
 #include <stdint.h>
@@ -111,6 +114,38 @@ __device__ __forceinline__ uint32_t keep_quad(const DropoutArgs& d, int bh,
   const uint32_t n0 = odd ? other : mine, n1 = odd ? mine : other;
   const int co = col & 3;                // 0 or 2
   return ((n0 >> co) & 3u) | (((n1 >> co) & 3u) << 2);
+}
+
+// The same for the transposed tiles of dkv, whose accumulator rows are
+// keys and columns queries. A thread holds keys kl0 = 4 g0 + u (u = gid &
+// 3, g0 = kl0 >> 2) and kl1 = kl0 + 8, for queries q and q + 1 (q even).
+// Bit e of the result is entry e: (kl0, q), (kl0, q + 1), (kl1, q),
+// (kl1, q + 1); its keep bit is word (key & 3) of the Philox call at
+// (query, key >> 2). The four lanes u = 0..3 of one tig (lanes 4 apart)
+// share q and g0 and need exactly four calls between them: (q, g0),
+// (q + 1, g0), (q, g0 + 2), (q + 1, g0 + 2). Lane u makes call u, and two
+// shuffles hand every lane all four nibbles, of which it keeps bit u.
+// Every lane of the warp must call it.
+__device__ __forceinline__ uint32_t keep_quad_t(const DropoutArgs& d, int bh,
+                                                int q, int g0, int u) {
+  uint32_t all = keep_nibble(d, bh, q + (u & 1), g0 + 2 * (u >> 1))
+                 << (4 * u);
+  all |= __shfl_xor_sync(0xffffffffu, all, 4);
+  all |= __shfl_xor_sync(0xffffffffu, all, 8);
+  const uint32_t t = (all >> u) & 0x1111u;   // bit 4e: bit u of call e
+  return (t | (t >> 3) | (t >> 6) | (t >> 9)) & 0xFu;
+}
+
+// keep_quad_t over the eight 8-query blocks of a 64-query tile, whose
+// thread-held queries are q, q + 8, ..., q + 56 (q = q0 + 2 tig): bits
+// 4j .. 4j + 3 for block j
+__device__ __forceinline__ uint32_t keep_tile_t(const DropoutArgs& d, int bh,
+                                                int q, int g0, int u) {
+  uint32_t keep = 0u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) keep |= keep_quad_t(d, bh, q + 8 * j, g0, u)
+                                      << (4 * j);
+  return keep;
 }
 
 }  // namespace mxt

@@ -12,7 +12,8 @@
 //   dq = sum_k ds.k            (dq kernel: a block per 64-row q tile (f32),
 //                               a warpgroup per 64 rows (bf16))
 //   dv = sum_q p~^T.dO, dk = sum_q ds^T.q
-//                              (dkv kernel: one block per 64-key tile)
+//                              (dkv kernel: a block per 64-key tile (f32),
+//                               a warpgroup per 64 keys (bf16))
 // where p~ is p dropped and scaled, rounded to the input dtype. The split
 // into two kernels is the TPU design: each output tile is owned by one
 // block, so there are no atomics and the result is deterministic. Keep bits
@@ -25,21 +26,33 @@
 // What bounds it: about 4*Lq*Lk*D operations per kernel per (b, h) (dq: two
 // products to rebuild p and dp, one for dq; dkv: two plus two) for
 // ~6*L*D elements moved, so at BERT-base (L = 512, D = 64) both are bound by
-// operations on the bf16 tensor cores. Bodies, chosen by dtype:
-//  * bfloat16 dq: `dq_wgmma_kernel`, built as the forward (flash_fwd.cu):
-//    persistent, one TMA producer warp feeding a ring of 64-key K/V tiles
-//    (Q and dO double-buffered per work item), three (D <= 64) or two
-//    (D <= 128) consumer warpgroups
-//    issuing wgmma: S = Q.K^T and dP = dO.V^T back to back from shared
-//    memory, so the tensor cores get both products at once, and dq += ds.K
-//    with ds in registers; the keep bits are made in registers while the
-//    first two run, and p = exp2 of one FMA less lse * log2 e.
-//    ptxas (CUDA 12.9, -Xptxas -v): 128 registers at entry at D <= 64 and
-//    168 at D <= 128, 0 bytes spilled; setmaxnreg then gives the consumers
-//    160 (three warpgroups) or 240 (two) and the producer 24.
-//  * bfloat16 dkv: `mma.sync` m16n8k16 with the score accumulators handed
-//    to the next product's A operand in registers (its redesign for wgmma
-//    is queued in ROADMAP.md).
+// operations on the bf16 tensor cores. Both bf16 bodies are built as the
+// forward (flash_fwd.cu): persistent, one TMA producer thread feeding a
+// ring of stages on mbarriers, three (D <= 64) or two (D <= 128) consumer
+// warpgroups issuing wgmma, the two score-shaped products back to back
+// from shared memory so the tensor cores get both at once, the keep bits
+// made in registers while products run, p = exp2 of one FMA less
+// lse * log2 e, and the gradient products with their A operand in
+// registers:
+//  * bfloat16 dq: `dq_wgmma_kernel`. A work item is 64 query rows per
+//    warpgroup (Q and dO double-buffered per item); the ring carries
+//    64-key K/V tiles. S = Q.K^T and dP = dO.V^T, then dq += ds.K.
+//  * bfloat16 dkv: `dkv_wgmma_kernel`, the transpose. A work item is 64
+//    keys per warpgroup, whose K and V stay in shared memory (double-
+//    buffered per item) and whose dk, dv and key bias stay in registers;
+//    the ring carries 64-query tiles of Q and dO with their lse and delta.
+//    S^T = K.Q^T and dP^T = V.dO^T, then dv += p~^T.dO and dk += ds^T.Q
+//    (`keep_quad_t` makes the transposed keep bits, one Philox call a lane
+//    per 8-query block, as dq). dk, dv, S^T and dP^T fill 128 of the 160
+//    registers a consumer has at three warpgroups, which leaves too few
+//    for Philox beside S^T and dP^T (ptxas spilled): the bits of the next
+//    tile are made while dv and dk run instead, and the first product of
+//    S^T and of dP^T writes its accumulator without reading it, so the
+//    last tile's scores hold no registers then.
+//    ptxas (-Xptxas -v, sm_90a): dq and dkv take 128 registers at entry
+//    at D <= 64 and 168 at D <= 128, 0 bytes spilled; setmaxnreg then
+//    gives the consumers 160 (three warpgroups) or 240 (two) and the
+//    producer 24.
 //  * float32: FMAs on the CUDA cores (TF32 would break the float32
 //    tolerance).
 #include "dropout.cuh"
@@ -50,7 +63,6 @@ namespace mxt {
 namespace {
 
 constexpr int THREADS = 256;      // float32 bodies: 4 threads per row
-constexpr int MMA_THREADS = 128;  // bf16 bodies: 4 warps x 16 rows
 constexpr int PS = 64 + 4;        // padded row stride of a 64-wide f32 tile
 
 __device__ __forceinline__ float rowdot4(const float* a, const float* b,
@@ -541,130 +553,352 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// ---- bfloat16 dk, dv on the tensor cores -----------------------------------
+// ---- bfloat16 dk, dv: TMA-fed wgmma, warp-specialised, persistent -----------
 
-template <int DMAX> struct MmaDkvSmem {
-  static constexpr int SK = Bf16Rows<DMAX>::SK;
-  static constexpr int bytes = 4 * 64 * SK * 2 + 2 * 64 * 4 + 64 * kMaskGroups;
+constexpr int DKV_QROWS = 64;    // queries of a Q/dO tile
+
+// shared memory, every tile on a 1024-byte boundary: two buffers of an
+// item's K and V (the item in work and the next) as [buffer][K, V]
+// [warpgroup][64-column chunk][64 keys], the bias of each buffer's keys, a
+// ring of Q and dO tiles as [stage][chunk][64 queries], the lse and delta
+// of each stage's queries, the barriers
+template <int DMAX> struct DkvPlan {
+  static constexpr int NCH = DMAX / 64;
+  // consumer warpgroups and their registers, as dq's: three with 160 at
+  // D <= 64, two with 240 at D <= 128; the producer keeps 24
+  static constexpr int NWG = DMAX == 64 ? 3 : 2;
+  static constexpr int REGS = DMAX == 64 ? 160 : 240;
+  static constexpr int KEYS = 64 * NWG;               // keys of a work item
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int STAGES = DMAX == 64 ? 4 : 2;
+  static constexpr int TILE = 64 * 128;               // 64 rows x 128 bytes
+  static constexpr int Q_BYTES = NCH * TILE;          // one Q (or dO) tile
+  static constexpr int V_OFF = NWG * NCH * TILE;      // V after K
+  static constexpr int KV_BUF = 2 * V_OFF;            // one item's K and V
+  // an item's bias, and a stage's lse (and delta): the values from the
+  // 16-byte boundary at or below the first key (query), plus 4 (a TMA box
+  // starts on a 16-byte boundary)
+  static constexpr int BIAS_BOX = KEYS + 4;
+  static constexpr int BIAS_BYTES = 1024;
+  static constexpr int ROW_BOX = DKV_QROWS + 4;
+  static constexpr int ROW_BYTES = 384;               // a 128-byte multiple
+  static constexpr int B_OFF = 2 * KV_BUF;
+  static constexpr int Q_OFF = B_OFF + 2 * BIAS_BYTES;
+  static constexpr int G_OFF = Q_OFF + STAGES * Q_BYTES;
+  static constexpr int L_OFF = G_OFF + STAGES * Q_BYTES;
+  static constexpr int E_OFF = L_OFF + STAGES * ROW_BYTES;
+  static constexpr int BAR_OFF = E_OFF + STAGES * ROW_BYTES;
+  static constexpr int bytes = BAR_OFF + (4 + 2 * STAGES) * 8 + 1024;
 };
 
-// warp w owns keys k0 + 16w .. k0 + 16w + 15 and computes the transposed
-// tiles S^T = k.q^T and dP^T = v.dO^T, whose accumulators are then the A
-// operands of dv += p~^T.dO and dk += ds^T.q
+// A work item is one (b*h, KEYS-key tile); `lo` is the first q tile that
+// can see its first key. Causal items run longest (lowest keys) first, the
+// others a head's key tiles next to each other.
+template <int KEYS> struct DkvItem {
+  int bh, k0, lo;
+  __device__ DkvItem(int i, int BH, int nk, int Lq, int Lk, int causal) {
+    int kt;
+    if (causal) {
+      kt = i / BH;
+      bh = i % BH;
+    } else {
+      bh = i / nk;
+      kt = i % nk;
+    }
+    k0 = kt * KEYS;
+    lo = 0;
+    if (causal && Lk >= Lq) lo = max(0, k0 - (Lk - Lq)) / DKV_QROWS;
+  }
+};
+
+// The transpose of dq's design: the producer warpgroup's first thread
+// loads an item's K, V and key bias into the free buffer, then streams the
+// item's 64-query tiles of Q and dO, with their lse and delta, into a ring
+// of stages, running ahead across items. Each consumer warpgroup owns 64
+// keys, whose K and V stay in shared memory and whose dk, dv and bias stay
+// in registers: S^T = K.Q^T and dP^T = V.dO^T by two back-to-back wgmma
+// batches from shared memory (the keep bits are made while they run), p =
+// exp2(x - lse log2 e), p~ (p dropped and scaled) and ds = p (dp - delta)
+// sm_scale in registers, each rounded to bf16 as the A operand of dv +=
+// p~^T.dO and dk += ds^T.Q (dO and Q query-major: the transpose bit). dk
+// and dv leave through the warpgroup's K and V tiles and TMA stores.
 template <int DMAX>
-__global__ void __launch_bounds__(MMA_THREADS)
-dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v,
-               const float* __restrict__ bias,
-               const __nv_bfloat16* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-               int H, int Lq, int Lk, int D, float sm_scale, int causal,
-               DropoutArgs drop) {
-  constexpr int SK = MmaDkvSmem<DMAX>::SK;
-  constexpr int KQ = DMAX / 16;
-  constexpr int NO = DMAX / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + 64 * SK;
-  __nv_bfloat16* Qs = Vs + 64 * SK;
-  __nv_bfloat16* Gs = Qs + 64 * SK;      // dO tile
-  float* Ls = reinterpret_cast<float*>(Gs + 64 * SK);   // lse of the q tile
-  float* Es = Ls + 64;                                  // delta of the q tile
-  uint8_t* Mk = reinterpret_cast<uint8_t*>(Es + 64);
-
-  const int bh = blockIdx.x, b = bh / H, k0 = blockIdx.y * BN;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int kl0 = warp * 16 + gid, kl1 = kl0 + 8;      // this thread's keys
+__global__ void __launch_bounds__(DkvPlan<DMAX>::THREADS, 1)
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tb,
+                 const __grid_constant__ CUtensorMap tg,
+                 const __grid_constant__ CUtensorMap tl,
+                 const __grid_constant__ CUtensorMap te,
+                 const __grid_constant__ CUtensorMap tdk,
+                 const __grid_constant__ CUtensorMap tdv, int BH, int H,
+                 int Lq, int Lk, float sm_scale, int causal,
+                 DropoutArgs drop) {
+  using P = DkvPlan<DMAX>;
+  constexpr int NCH = P::NCH, S = P::STAGES, NWG = P::NWG;
+  using Item = DkvItem<P::KEYS>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(base + P::BAR_OFF);
+  uint64_t* kvempty = kvfull + 2;
+  uint64_t* full = kvempty + 2;
+  uint64_t* empty = full + S;
+  const int nk = (Lk + P::KEYS - 1) / P::KEYS;
+  const int nqt = (Lq + DKV_QROWS - 1) / DKV_QROWS;
+  const int items = BH * nk;
   const int off = Lk - Lq;
-  const int nk = min(BN, Lk - k0);
-  load_tile_bf16<DMAX, MMA_THREADS>(Ks, k + ((size_t)bh * Lk + k0) * D, nk, D);
-  load_tile_bf16<DMAX, MMA_THREADS>(Vs, v + ((size_t)bh * Lk + k0) * D, nk, D);
-  const float* brow = bias + (size_t)b * Lk;
-  const float bk0 = k0 + kl0 < Lk ? brow[k0 + kl0] : 0.f;
-  const float bk1 = k0 + kl1 < Lk ? brow[k0 + kl1] : 0.f;
-  int lo = 0;
-  if (causal && off >= 0) lo = max(0, k0 - off) / BM * BM;
 
-  float dka[NO][4], dva[NO][4];
-#pragma unroll
-  for (int i = 0; i < NO; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
-
-  for (int q0 = lo; q0 < Lq; q0 += BM) {
-    __syncthreads();                     // last tile's readers are done
-    const int nq = min(BM, Lq - q0);
-    load_tile_bf16<DMAX, MMA_THREADS>(Qs, q + ((size_t)bh * Lq + q0) * D, nq, D);
-    load_tile_bf16<DMAX, MMA_THREADS>(Gs, dout + ((size_t)bh * Lq + q0) * D, nq,
-                                      D);
-    if (threadIdx.x < 64) {              // rows past Lq get p = 0
-      const int t = threadIdx.x;
-      Ls[t] = t < nq ? lse[(size_t)bh * Lq + q0 + t] : INFINITY;
-      Es[t] = t < nq ? delta[(size_t)bh * Lq + q0 + t] : 0.f;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&kvfull[i], 1);
+      mbar_init(&kvempty[i], NWG);         // one thread of each warpgroup
     }
-    if (drop.on) fill_tile_mask(Mk, drop, bh, q0, k0, MMA_THREADS);
-    __syncthreads();
-
-    float st[8][4], dpt[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-    {
-      uint32_t af[KQ][4];
-#pragma unroll
-      for (int kk = 0; kk < KQ; ++kk) load_a_frag<SK>(af[kk], Ks, warp * 16, kk * 16);
-      mma_rows_t<DMAX>(st, af, Qs);      // k.q^T
-#pragma unroll
-      for (int kk = 0; kk < KQ; ++kk) load_a_frag<SK>(af[kk], Vs, warp * 16, kk * 16);
-      mma_rows_t<DMAX>(dpt, af, Gs);     // v.dO^T
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NWG);       // one lane of each consumer warp
     }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    // accumulator (j, e): key e < 2 ? kl0 : kl1, query q0 + 8j + 2 tig + (e & 1)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = j * 8 + tig * 2 + (e & 1);
-        const int kl = e < 2 ? kl0 : kl1;
-        float x = st[j][e] * sm_scale + (e < 2 ? bk0 : bk1);
-        if (causal && k0 + kl > q0 + ql + off) x = kNeg;
-        const float p = expf(x - Ls[ql]);
-        float dp = dpt[j][e], pv = p;
-        if (drop.on) {
-          const bool keep = tile_keep(Mk, ql, kl);
-          pv = keep ? p * drop.inv_keep : 0.f;
-          dp = keep ? dp * drop.inv_keep : 0.f;
+  const int wg = tid >> 7;
+  if (wg == NWG) {                         // ---- producer
+    regs_dealloc<24>();
+    if (tid == 128 * NWG) {
+      int g = 0;
+      for (int i = blockIdx.x, it = 0; i < items; i += gridDim.x, ++it) {
+        const Item w(i, BH, nk, Lq, Lk, causal);
+        const int kb = it & 1, b = w.bh / H;
+        uint8_t* kv = base + kb * P::KV_BUF;
+        mbar_wait(&kvempty[kb], ((it >> 1) & 1) ^ 1);
+        mbar_expect_tx(&kvfull[kb], P::KV_BUF + 4 * P::BIAS_BOX);
+        for (int r = 0; r < NWG; ++r)
+          for (int c = 0; c < NCH; ++c) {
+            tma_load_3d(kv + (r * NCH + c) * P::TILE, &tk, &kvfull[kb],
+                        64 * c, w.k0 + 64 * r, w.bh);
+            tma_load_3d(kv + P::V_OFF + (r * NCH + c) * P::TILE, &tv,
+                        &kvfull[kb], 64 * c, w.k0 + 64 * r, w.bh);
+          }
+        tma_load_1d(base + P::B_OFF + kb * P::BIAS_BYTES, &tb, &kvfull[kb],
+                    (b * Lk + w.k0) & ~3);
+        for (int t = w.lo; t < nqt; ++t, ++g) {
+          const int s = g % S, q0 = t * DKV_QROWS;
+          mbar_wait(&empty[s], ((g / S) & 1) ^ 1);
+          mbar_expect_tx(&full[s], 2 * P::Q_BYTES + 8 * P::ROW_BOX);
+          for (int c = 0; c < NCH; ++c) {
+            tma_load_3d(base + P::Q_OFF + s * P::Q_BYTES + c * P::TILE, &tq,
+                        &full[s], 64 * c, q0, w.bh);
+            tma_load_3d(base + P::G_OFF + s * P::Q_BYTES + c * P::TILE, &tg,
+                        &full[s], 64 * c, q0, w.bh);
+          }
+          const int r0 = (w.bh * Lq + q0) & ~3;
+          tma_load_1d(base + P::L_OFF + s * P::ROW_BYTES, &tl, &full[s], r0);
+          tma_load_1d(base + P::E_OFF + s * P::ROW_BYTES, &te, &full[s], r0);
         }
-        st[j][e] = pv;
-        dpt[j][e] = p * (dp - Es[ql]) * sm_scale;
       }
     }
-    mma_acc_rows<DMAX>(dva, st, Gs);     // dv += p~^T (rounded) . dO
-    mma_acc_rows<DMAX>(dka, dpt, Qs);    // dk += ds^T (rounded) . q
+    return;
   }
 
+  // ---- consumers
+  regs_alloc<P::REGS>();
+  const int wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const float scale2 = sm_scale * kLog2e;
+  float dk[NCH][32], dv[NCH][32], sacc[32], dpacc[32];
+  int g = 0;
+  uint32_t keep = 0u;                      // keep bits of the next q tile
+  for (int i = blockIdx.x, it = 0; i < items; i += gridDim.x, ++it) {
+    const Item w(i, BH, nk, Lq, Lk, causal);
+    const int kb = it & 1, bh = w.bh, b = bh / H;
+    const int kw = w.k0 + 64 * wg;         // this warpgroup's first key
+    const int c0 = kw + 16 * warp + gid, c1 = c0 + 8;   // this thread's keys
+    int my_lo = nqt;                       // keys past Lk: no q tile
+    if (kw < Lk) {
+      my_lo = w.lo;
+      if (causal && off >= 0) my_lo = max(0, kw - off) / DKV_QROWS;
+    }
+    uint8_t* ks = base + kb * P::KV_BUF + wg * NCH * P::TILE;
+    uint8_t* vs = ks + P::V_OFF;
 #pragma unroll
-  for (int dt = 0; dt < NO; ++dt) {
-    const int d = dt * 8 + tig * 2;
-    if (d < D) {
-      const int c0 = k0 + kl0, c1 = k0 + kl1;
-      if (c0 < Lk) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + ((size_t)bh * Lk + c0) * D + d) =
-            __floats2bfloat162_rn(dka[dt][0], dka[dt][1]);
-        *reinterpret_cast<__nv_bfloat162*>(dv + ((size_t)bh * Lk + c0) * D + d) =
-            __floats2bfloat162_rn(dva[dt][0], dva[dt][1]);
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int k = 0; k < 32; ++k) dk[c][k] = dv[c][k] = 0.f;
+    mbar_wait(&kvfull[kb], (it >> 1) & 1);
+    // the bias of this thread's keys in the exp2 domain; keys past Lk
+    // carry zero weight (their rows are not stored)
+    const float* bsm =
+        reinterpret_cast<const float*>(base + P::B_OFF + kb * P::BIAS_BYTES) +
+        ((b * Lk + w.k0) & 3);
+    const float bk0 =
+        c0 < Lk ? __fmul_rn(bsm[c0 - w.k0], kLog2e) : -INFINITY;
+    const float bk1 =
+        c1 < Lk ? __fmul_rn(bsm[c1 - w.k0], kLog2e) : -INFINITY;
+
+    for (int t = w.lo; t < nqt; ++t, ++g) {
+      const int s = g % S;
+      mbar_wait(&full[s], (g / S) & 1);
+      if (t >= my_lo) {
+        const int q0 = t * DKV_QROWS;
+        const uint8_t* qs = base + P::Q_OFF + s * P::Q_BYTES;
+        const uint8_t* gs = base + P::G_OFF + s * P::Q_BYTES;
+        const int ro = (bh * Lq + q0) & 3;
+        const float* lsm =
+            reinterpret_cast<const float*>(base + P::L_OFF + s * P::ROW_BYTES) +
+            ro;
+        const float* esm =
+            reinterpret_cast<const float*>(base + P::E_OFF + s * P::ROW_BYTES) +
+            ro;
+
+        if (drop.on && t == my_lo)          // the item's first tile
+          keep = keep_tile_t(drop, bh, q0 + 2 * tig, c0 >> 2, gid & 3);
+
+        // S^T = K.Q^T and dP^T = V.dO^T, issued back to back; the first
+        // product of each writes its accumulator without reading it, so
+        // the last tile's values need no registers while dv and dk run
+        wg_fence();
+        wgmma_ss_n64_first(sacc, sw128_desc(ks, 16), sw128_desc(qs, 16));
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+#pragma unroll
+          for (int kk = c == 0; kk < 4; ++kk)
+            wgmma_ss_n64(sacc, sw128_desc(ks + c * P::TILE + 32 * kk, 16),
+                         sw128_desc(qs + c * P::TILE + 32 * kk, 16), 1);
+        wgmma_ss_n64_first(dpacc, sw128_desc(vs, 16), sw128_desc(gs, 16));
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+#pragma unroll
+          for (int kk = c == 0; kk < 4; ++kk)
+            wgmma_ss_n64(dpacc, sw128_desc(vs + c * P::TILE + 32 * kk, 16),
+                         sw128_desc(gs + c * P::TILE + 32 * kk, 16), 1);
+        wg_commit();
+        wg_wait<0>();
+        wg_hold(sacc);
+        wg_hold(dpacc);
+
+        // accumulator 4j + e: key e < 2 ? c0 : c1, query q0 + 8j + 2 tig +
+        // (e & 1); p~ and ds as bf16 A fragments (queries 16kk.. =
+        // pf[4kk..], df[4kk..])
+        const bool masked =
+            q0 + DKV_QROWS > Lq || (causal && kw + 63 > q0 + off);
+        uint32_t pf[16], df[16];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * j + 2 * tig;
+          // lse in the exp2 domain, rounded once (never contracted into
+          // x - lse2): a fully masked row (lse = -1e30) gets
+          // exp2(kNeg2 - kNeg2) = 1, as in dq
+          const float ls0 = __fmul_rn(lsm[col], kLog2e);
+          const float ls1 = __fmul_rn(lsm[col + 1], kLog2e);
+          const float dl0 = esm[col], dl1 = esm[col + 1];
+          float pd[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = fmaf(sacc[4 * j + e], scale2, e < 2 ? bk0 : bk1);
+            bool past = false;
+            if (masked) {
+              const int qq = q0 + col + (e & 1);
+              if (causal && (e < 2 ? c0 : c1) > qq + off) x = kNeg2;
+              past = qq >= Lq;              // past the queries: no weight
+            }
+            const float p = past ? 0.f : ex2(x - ((e & 1) ? ls1 : ls0));
+            float dp = dpacc[4 * j + e], pk = p;
+            if (drop.on) {
+              const bool kept = (keep >> (4 * j + e)) & 1u;
+              pk = kept ? p * drop.inv_keep : 0.f;
+              dp = kept ? dp * drop.inv_keep : 0.f;
+            }
+            pd[e] = pk;
+            ds[e] = past ? 0.f : p * (dp - ((e & 1) ? dl1 : dl0)) * sm_scale;
+          }
+          pf[2 * j] = pack_bf16(pd[0], pd[1]);
+          pf[2 * j + 1] = pack_bf16(pd[2], pd[3]);
+          df[2 * j] = pack_bf16(ds[0], ds[1]);
+          df[2 * j + 1] = pack_bf16(ds[2], ds[3]);
+        }
+
+        // dv += p~^T.dO and dk += ds^T.Q
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+          wg_hold(dv[c]);
+          wg_hold(dk[c]);
+        }
+        wg_hold(pf);
+        wg_hold(df);
+        wg_fence();
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t a[4] = {pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2],
+                                   pf[4 * kk + 3]};
+            wgmma_rs_n64_t(dv[c], a,
+                           sw128_desc(gs + c * P::TILE + kk * 2048, P::TILE),
+                           1);
+          }
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t a[4] = {df[4 * kk], df[4 * kk + 1], df[4 * kk + 2],
+                                   df[4 * kk + 3]};
+            wgmma_rs_n64_t(dk[c], a,
+                           sw128_desc(qs + c * P::TILE + kk * 2048, P::TILE),
+                           1);
+          }
+        wg_commit();
+        // the next tile's keep bits while the tensor cores run (there, not
+        // beside S^T and dP^T, whose accumulators leave no registers for
+        // Philox at three warpgroups)
+        if (drop.on && t + 1 < nqt)
+          keep = keep_tile_t(drop, bh, q0 + DKV_QROWS + 2 * tig, c0 >> 2,
+                             gid & 3);
+        wg_wait<0>();
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+          wg_hold(dv[c]);
+          wg_hold(dk[c]);
+        }
+        wg_hold(pf);
+        wg_hold(df);
       }
-      if (c1 < Lk) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + ((size_t)bh * Lk + c1) * D + d) =
-            __floats2bfloat162_rn(dka[dt][2], dka[dt][3]);
-        *reinterpret_cast<__nv_bfloat162*>(dv + ((size_t)bh * Lk + c1) * D + d) =
-            __floats2bfloat162_rn(dva[dt][2], dva[dt][3]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);   // the stage goes back
+    }
+
+    // ---- epilogue: dk and dv as bf16 through this warpgroup's K, V tiles
+    if (kw < Lk) {
+      named_sync(1 + wg, 128);
+      __nv_bfloat16* ko = reinterpret_cast<__nv_bfloat16*>(ks);
+      __nv_bfloat16* vo = reinterpret_cast<__nv_bfloat16*>(vs);
+      const int rl0 = 16 * warp + gid, rl1 = rl0 + 8;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * j + 2 * tig;
+          *reinterpret_cast<uint32_t*>(ko + c * 64 * 64 + sw128(rl0, col)) =
+              pack_bf16(dk[c][4 * j], dk[c][4 * j + 1]);
+          *reinterpret_cast<uint32_t*>(ko + c * 64 * 64 + sw128(rl1, col)) =
+              pack_bf16(dk[c][4 * j + 2], dk[c][4 * j + 3]);
+          *reinterpret_cast<uint32_t*>(vo + c * 64 * 64 + sw128(rl0, col)) =
+              pack_bf16(dv[c][4 * j], dv[c][4 * j + 1]);
+          *reinterpret_cast<uint32_t*>(vo + c * 64 * 64 + sw128(rl1, col)) =
+              pack_bf16(dv[c][4 * j + 2], dv[c][4 * j + 3]);
+        }
+      fence_async_smem();
+      named_sync(1 + wg, 128);
+      if (wt == 0) {                       // rows past Lk are not written
+        for (int c = 0; c < NCH; ++c) {
+          tma_store_3d(&tdk, ko + c * 64 * 64, 64 * c, kw, bh);
+          tma_store_3d(&tdv, vo + c * 64 * 64, 64 * c, kw, bh);
+        }
+        tma_store_drain();
       }
     }
+    if (wt == 0) mbar_arrive(&kvempty[kb]);   // the buffer goes back
   }
 }
 
@@ -726,15 +960,27 @@ cudaError_t launch_dkv(const BwdArgs& a, int dtype, void* dk, void* dv) {
         (const float*)a.delta, (float*)dk, (float*)dv, a.H, a.Lq, a.Lk, a.D,
         a.sm_scale, a.causal, a.drop);
   } else {
+    using P = DkvPlan<DMAX>;
+    const int BH = a.B * a.H;
+    CUtensorMap tq, tk, tv, tb, tg, tl, te, tdk, tdv;
+    if (!map_rows_bf16(&tq, a.q, BH, a.Lq, a.D, DKV_QROWS) ||
+        !map_rows_bf16(&tk, a.k, BH, a.Lk, a.D, 64) ||
+        !map_rows_bf16(&tv, a.v, BH, a.Lk, a.D, 64) ||
+        !map_flat_f32(&tb, a.bias, (size_t)a.B * a.Lk, P::BIAS_BOX) ||
+        !map_rows_bf16(&tg, a.dout, BH, a.Lq, a.D, DKV_QROWS) ||
+        !map_flat_f32(&tl, a.lse, (size_t)BH * a.Lq, P::ROW_BOX) ||
+        !map_flat_f32(&te, a.delta, (size_t)BH * a.Lq, P::ROW_BOX) ||
+        !map_rows_bf16(&tdk, dk, BH, a.Lk, a.D, 64) ||
+        !map_rows_bf16(&tdv, dv, BH, a.Lk, a.D, 64))
+      return cudaErrorInvalidValue;
     static bool configured = false;
-    constexpr int bytes = MmaDkvSmem<DMAX>::bytes;
-    if ((e = allow_smem(dkv_mma_kernel<DMAX>, bytes, configured))) return e;
-    dkv_mma_kernel<DMAX><<<grid, MMA_THREADS, bytes, a.stream>>>(
-        (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
-        (const __nv_bfloat16*)a.v, (const float*)a.bias,
-        (const __nv_bfloat16*)a.dout, (const float*)a.lse,
-        (const float*)a.delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, a.H,
-        a.Lq, a.Lk, a.D, a.sm_scale, a.causal, a.drop);
+    if ((e = allow_smem(dkv_wgmma_kernel<DMAX>, P::bytes, configured)))
+      return e;
+    const int wgrid =
+        persistent_grid(BH * ((a.Lk + P::KEYS - 1) / P::KEYS));
+    dkv_wgmma_kernel<DMAX><<<wgrid, P::THREADS, P::bytes, a.stream>>>(
+        tq, tk, tv, tb, tg, tl, te, tdk, tdv, BH, a.H, a.Lq, a.Lk,
+        a.sm_scale, a.causal, a.drop);
   }
   return cudaGetLastError();
 }

@@ -9,31 +9,47 @@
 // pre-transposed weight layout, kept so parameter names and shapes match),
 // s = x_scale * w_scale and b (O,) float32, out (M, O) float32. The int32
 // accumulator never leaves the registers, as on the TPU it never left VMEM.
-// It is exact: |acc| <= 127^2 * K < 2^31 for K < 133,000.
+// It is exact: |acc| <= 128^2 * K < 2^31 for K < 131,072.
 //
-// Tensor cores: `mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32`. Each
-// block stages a BM x BK tile of x and a BK x BN tile of w in shared memory
-// and loops over K. The B fragment of m16n8k32 wants 4 consecutive k of one
-// column in a 32-bit register, but w is k-major, and `ldmatrix.trans` has
-// no 8-bit form. So the loader reads w as 4x4 byte blocks (4 k-rows of 4
-// columns, one 32-bit word a row), transposes each block in registers with
-// `__byte_perm` and stores it n-major (Bt[n][k]); fragments are then single
-// 32-bit shared-memory reads. Rows are padded by 16 bytes, which keeps the
-// fragment reads free of bank conflicts. Edges are predicated (zeros are
-// loaded past M, K and O; nothing is padded in HBM), so any M, K, O work.
+// Tensor cores: `mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32`. The B
+// fragment of m16n8k32 wants 4 consecutive k of one column in a 32-bit
+// register, but w is k-major, and `ldmatrix.trans` has no 8-bit form, so
+// columns are gathered from 4x4 byte blocks with `__byte_perm`. (int8
+// wgmma would need a K-major copy of w.) Edges are predicated (zeros past
+// M, K and O; nothing is padded in HBM), so any M, K, O work.
 //
 // The epilogue is `__fadd_rn(__fmul_rn(__int2float_rn(acc), s[o]), b[o])`:
 // explicit rounding intrinsics keep nvcc from contracting the multiply and
 // add into one FMA, so the output equals the plain version's separate
 // float32 multiply and add bit for bit.
 //
-// What bounds it: at decode (M = 8) the bytes of w, K*O; at M = 1024 the
-// int8 operations, 2*M*K*O over the 1,979 TOP/s dense int8 peak. Two tile
-// shapes: M <= 16 takes 16 x 32 tiles with BK = 256 (more blocks over O,
-// 16 loads in flight per thread); larger M takes 64 x 64 tiles with
-// BK = 128 and 4 warps of 32 x 32. Loads are synchronous (no cp.async or
-// TMA pipeline) and the product is mma.sync, not wgmma: a first, simple
-// kernel.
+// What bounds it, and the two paths:
+//  * M <= 16 (every one-token decode step, and chunked prefill of 8): the
+//    bytes of w, K*O, read once: 7.1 MB for a GPT-2 layer's four GEMMs,
+//    2.1 us at 3.35 TB/s. The work is a few hundred kilobytes a GEMM, so
+//    what costs is latency: every SM must have its share of w in flight at
+//    once. `int8_decode_kernel` splits K over a thread-block cluster of up
+//    to 8 blocks (grid (split, O / 32)), the split chosen so that (O / 32)
+//    x split covers the 132 SMs twice where K allows: 288, 192, 384 and
+//    192 blocks for GPT-2's (768, 2304), (768, 768), (768, 3072) and
+//    (3072, 768). Each block streams
+//    its k rows of a 32-column strip of w, with the matching x columns,
+//    through an 8-stage cp.async ring (16-byte copies, 7 stages in flight
+//    before the first product), and multiplies from shared memory, its B
+//    rows swizzled so the byte gather is free of bank conflicts. Each rank
+//    writes the int32 partials of the outputs another rank owns into that
+//    rank's shared memory (distributed shared memory); after one cluster
+//    barrier the owners sum and run the epilogue: exact in any order, so
+//    the output stays bit for bit, with no second launch and no scratch
+//    in device memory. The epilogue's scales and biases are loaded before
+//    the K loop.
+//  * M > 16 (prefill, generate's M = 4 x 128): the int8 operations, 2*M*K*O
+//    over the 1,979 TOP/s dense int8 peak. 64 x 64 tiles with BK = 128 and
+//    4 warps of 32 x 32; each block stages an x tile and a w tile, w
+//    transposed to n-major (Bt[n][k]) on the way in, rows padded by 16
+//    bytes against bank conflicts, and loops over K with synchronous loads.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace mxt {
@@ -51,6 +67,16 @@ __device__ __forceinline__ void mma_s8(int* c, const unsigned* a,
 __device__ __forceinline__ unsigned pack_bytes(const int8_t* p, int n) {
   unsigned u = 0;
   for (int j = 0; j < n; ++j) u |= (unsigned)(uint8_t)p[j] << (8 * j);
+  return u;
+}
+
+// the first n (1..16) bytes at p as one 16-byte vector, zeros after them
+__device__ __forceinline__ uint4 pack16(const int8_t* p, int n) {
+  uint4 u = make_uint4(0, 0, 0, 0);
+  u.x = pack_bytes(p, n < 4 ? n : 4);
+  if (n > 4) u.y = pack_bytes(p + 4, n - 4 < 4 ? n - 4 : 4);
+  if (n > 8) u.z = pack_bytes(p + 8, n - 8 < 4 ? n - 8 : 4);
+  if (n > 12) u.w = pack_bytes(p + 12, n - 12);
   return u;
 }
 
@@ -95,15 +121,8 @@ int8_gemm_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ W,
       uint4 u = make_uint4(0, 0, 0, 0);
       if (gm < M && gk < K) {
         const int8_t* src = X + (size_t)gm * K + gk;
-        if (x_vec) {
-          u = *reinterpret_cast<const uint4*>(src);
-        } else {
-          const int n = K - gk < 16 ? K - gk : 16;
-          u.x = pack_bytes(src, n < 4 ? n : 4);
-          if (n > 4) u.y = pack_bytes(src + 4, n - 4 < 4 ? n - 4 : 4);
-          if (n > 8) u.z = pack_bytes(src + 8, n - 8 < 4 ? n - 8 : 4);
-          if (n > 12) u.w = pack_bytes(src + 12, n - 12);
-        }
+        u = x_vec ? *reinterpret_cast<const uint4*>(src)
+                  : pack16(src, K - gk < 16 ? K - gk : 16);
       }
       *reinterpret_cast<uint4*>(As + r * LDS + kc) = u;
     }
@@ -179,6 +198,244 @@ int8_gemm_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ W,
       }
 }
 
+// ---- decode (M <= 16): split K over a thread-block cluster ------------------
+
+constexpr int DEC_BN = 32;          // output columns of a block
+constexpr int DEC_BK = 64;          // k rows of a stage
+constexpr int DEC_STAGES = 8;       // the ring of w (and x) stages
+constexpr int DEC_THREADS = 128;    // 4 warps, one 8-column slice each
+constexpr int DEC_XS = DEC_BK + 16; // bytes of an x row in shared memory
+constexpr int DEC_MAX_SPLIT = 8;    // the portable cluster size
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  // copies src_bytes (16 or 0) and zero-fills the rest of the 16
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a cluster barrier in two halves: every block arrives at its start and
+// waits before its first write to another block's shared memory, which
+// then has surely started
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the shared-memory row of w's k row r (rows of DEC_BN bytes): within each
+// group of 4 rows, row r sits at slot (r ^ (r >> 2)) & 3, so the rows
+// kk + 4t + i (t = 0..3) that one B-fragment read spans fall on 4
+// different 8-bank groups
+__device__ __forceinline__ int dec_wrow(int r) {
+  return (r & ~3) | ((r ^ (r >> 2)) & 3);
+}
+
+// stage k rows k0 .. k0 + DEC_BK - 1 of w (columns n0 .. n0 + 31) and of
+// the x row block into one slot of the ring, zeros past M, K and O;
+// 16-byte cp.async copies where the operand allows them, else bytes
+__device__ __forceinline__ void dec_load(int8_t* ws, int8_t* xs,
+                                         const int8_t* __restrict__ X,
+                                         const int8_t* __restrict__ W, int M,
+                                         int K, int O, int n0, int k0,
+                                         int x_vec, int w_vec16) {
+  const int tid = threadIdx.x;
+  {                                        // w: 64 rows x 2 chunks
+    const int r = tid >> 1, ch = tid & 1;
+    const int gk = k0 + r, gn = n0 + 16 * ch;
+    int8_t* dst = ws + dec_wrow(r) * DEC_BN + 16 * ch;
+    const bool ok = gk < K && gn < O;
+    if (w_vec16)
+      cp_async16(dst, ok ? W + (size_t)gk * O + gn : W, ok ? 16 : 0);
+    else
+      *reinterpret_cast<uint4*>(dst) =
+          ok ? pack16(W + (size_t)gk * O + gn, O - gn < 16 ? O - gn : 16)
+             : make_uint4(0, 0, 0, 0);
+  }
+  if (tid < 16 * (DEC_BK / 16)) {          // x: 16 rows x 4 chunks
+    const int r = tid >> 2, ch = tid & 3;
+    const int gk = k0 + 16 * ch;
+    int8_t* dst = xs + r * DEC_XS + 16 * ch;
+    const bool ok = r < M && gk < K;
+    if (x_vec)
+      cp_async16(dst, ok ? X + (size_t)r * K + gk : X, ok ? 16 : 0);
+    else
+      *reinterpret_cast<uint4*>(dst) =
+          ok ? pack16(X + (size_t)r * K + gk, K - gk < 16 ? K - gk : 16)
+             : make_uint4(0, 0, 0, 0);
+  }
+}
+
+// the B fragment word of column c for k rows r .. r + 3 of a w stage: the
+// byte c & 3 of four row words, gathered by __byte_perm
+__device__ __forceinline__ unsigned dec_bcol(const int8_t* ws, int r, int c) {
+  const int8_t* p = ws + (c & ~3);
+  const unsigned w0 = *reinterpret_cast<const unsigned*>(p + dec_wrow(r) * DEC_BN);
+  const unsigned w1 =
+      *reinterpret_cast<const unsigned*>(p + dec_wrow(r + 1) * DEC_BN);
+  const unsigned w2 =
+      *reinterpret_cast<const unsigned*>(p + dec_wrow(r + 2) * DEC_BN);
+  const unsigned w3 =
+      *reinterpret_cast<const unsigned*>(p + dec_wrow(r + 3) * DEC_BN);
+  const unsigned sel = (c & 3) | ((4 + (c & 3)) << 4);
+  return __byte_perm(__byte_perm(w0, w1, sel), __byte_perm(w2, w3, sel),
+                     0x5410);
+}
+
+// Cluster of `split` blocks along K (grid (split, O tiles)): block rank r
+// streams its share of K's stages of w through a cp.async ring and keeps
+// a 16 x 32 int32 partial in registers (warp w: columns 8w .. 8w + 7).
+// Rank o owns outputs o * per .. (o + 1) * per - 1 (per = 512 / split):
+// every rank writes the part of its partial that rank o owns into rank
+// o's shared memory (distributed shared memory), one cluster barrier
+// later each rank sums what it received and runs the epilogue. The scales
+// and biases of a thread's outputs are loaded before the K loop, so their
+// latency hides behind w's.
+__global__ void __launch_bounds__(DEC_THREADS)
+int8_decode_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ W,
+                   const float* __restrict__ S, const float* __restrict__ Bias,
+                   float* __restrict__ Out, int M, int K, int O, int x_vec,
+                   int w_vec16, int relu) {
+  __shared__ __align__(128) int8_t Ws[DEC_STAGES][DEC_BK * DEC_BN];
+  __shared__ __align__(128) int8_t Xs[DEC_STAGES][16 * DEC_XS];
+  constexpr int MAX_OUT = 16 * DEC_BN / DEC_THREADS;   // outputs a thread
+  __shared__ int recv[16 * DEC_BN];        // [rank][per]: partials to sum
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int n0 = blockIdx.y * DEC_BN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int steps = (K + DEC_BK - 1) / DEC_BK;
+  const int s0 = (int)((long long)rank * steps / split);
+  const int n = (int)((long long)(rank + 1) * steps / split) - s0;
+  const int per = 16 * DEC_BN / split;     // split is a power of two <= 8
+  cluster_arrive_relaxed();                // this block has started
+  float sc[MAX_OUT], bi[MAX_OUT];          // this thread's outputs' s, b
+#pragma unroll
+  for (int q = 0; q < MAX_OUT; ++q) {
+    const int e = tid + q * DEC_THREADS, o = n0 + (rank * per + e) % DEC_BN;
+    sc[q] = bi[q] = 0.f;
+    if (e < per && o < O) {
+      sc[q] = S[o];
+      if (Bias != nullptr) bi[q] = Bias[o];
+    }
+  }
+
+#pragma unroll
+  for (int st = 0; st < DEC_STAGES - 1; ++st) {
+    if (st < n)
+      dec_load(Ws[st], Xs[st], X, W, M, K, O, n0, (s0 + st) * DEC_BK, x_vec,
+               w_vec16);
+    cp_async_commit();
+  }
+  int acc[4] = {0, 0, 0, 0};
+  const int c = 8 * warp + g;              // this thread's B column
+  for (int it = 0; it < n; ++it) {
+    cp_async_wait<DEC_STAGES - 2>();
+    __syncthreads();                       // stage `it` landed; it - 1 read
+    const int nxt = it + DEC_STAGES - 1;
+    if (nxt < n)
+      dec_load(Ws[nxt % DEC_STAGES], Xs[nxt % DEC_STAGES], X, W, M, K, O, n0,
+               (s0 + nxt) * DEC_BK, x_vec, w_vec16);
+    cp_async_commit();
+    const int8_t* ws = Ws[it % DEC_STAGES];
+    const int8_t* xs = Xs[it % DEC_STAGES];
+#pragma unroll
+    for (int kk = 0; kk < DEC_BK; kk += 32) {
+      const int8_t* p = xs + g * DEC_XS + kk + 4 * t;
+      const unsigned a[4] = {
+          *reinterpret_cast<const unsigned*>(p),
+          *reinterpret_cast<const unsigned*>(p + 8 * DEC_XS),
+          *reinterpret_cast<const unsigned*>(p + 16),
+          *reinterpret_cast<const unsigned*>(p + 8 * DEC_XS + 16)};
+      const unsigned b[2] = {dec_bcol(ws, kk + 4 * t, c),
+                             dec_bcol(ws, kk + 16 + 4 * t, c)};
+      mma_s8(acc, a, b);
+    }
+  }
+  cp_async_wait<0>();
+
+  // c0, c1 at row g, columns 2t, 2t + 1 of the warp's slice; c2, c3 row
+  // g + 8: each to the recv[rank] slot of the rank that owns it
+  cluster_wait();                          // every block has started
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int idx = (g + (e >= 2 ? 8 : 0)) * DEC_BN + 8 * warp + 2 * t + (e & 1);
+    cluster.map_shared_rank(&recv[0], idx / per)[rank * per + idx % per] =
+        acc[e];
+  }
+  cluster.sync();                          // every partial has arrived
+#pragma unroll
+  for (int q = 0; q < MAX_OUT; ++q) {
+    const int e = tid + q * DEC_THREADS;
+    const int idx = rank * per + e, row = idx / DEC_BN, o = n0 + idx % DEC_BN;
+    if (e < per && row < M && o < O) {
+      int sum = 0;                         // int32: exact in any order
+      for (int r = 0; r < split; ++r) sum += recv[r * per + e];
+      float v = __fmul_rn(__int2float_rn(sum), sc[q]);
+      if (Bias != nullptr) v = __fadd_rn(v, bi[q]);
+      if (relu) v = v > 0.f ? v : 0.f;
+      Out[(size_t)row * O + o] = v;
+    }
+  }
+}
+
+// the smallest power-of-two split (at most the cluster size, and at most
+// one stage per rank) that gives every SM two blocks: shorter chains of
+// stages per block, and a second block to run while one waits
+int decode_split(int K, int O) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;                           // an H100 SXM
+  }
+  const int tiles = (O + DEC_BN - 1) / DEC_BN;
+  const int steps = (K + DEC_BK - 1) / DEC_BK;
+  int split = 1;
+  while (split < DEC_MAX_SPLIT && tiles * split < 2 * sms &&
+         2 * split <= steps)
+    split *= 2;
+  return split;
+}
+
+cudaError_t launch_decode(const int8_t* X, const int8_t* W, const float* S,
+                          const float* B, float* Out, int M, int K, int O,
+                          int x_vec, int relu, cudaStream_t stream) {
+  const int split = decode_split(K, O);
+  const int w_vec16 = reinterpret_cast<uintptr_t>(W) % 16 == 0 && O % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, (O + DEC_BN - 1) / DEC_BN, 1);
+  cfg.blockDim = dim3(DEC_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, int8_decode_kernel, X, W, S, B, Out, M, K,
+                            O, x_vec, w_vec16, relu);
+}
+
 template <int BM, int BN, int BK, int WM, int WN>
 void launch(const int8_t* X, const int8_t* W, const float* S, const float* B,
             float* Out, int M, int K, int O, int x_vec, int w_vec, int relu,
@@ -207,11 +464,13 @@ extern "C" int mx_int8_matmul(const void* X, const void* W, const void* S,
   const float* b = static_cast<const float*>(Bias);
   float* out = static_cast<float*>(Out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 16)
-    launch<16, 32, 256, 16, 8>(x, w, s, b, out, M, K, O, x_vec, w_vec, relu,
-                               st);
-  else
+  if (M <= 16) {
+    const cudaError_t e =
+        launch_decode(x, w, s, b, out, M, K, O, x_vec, relu, st);
+    if (e != cudaSuccess) return e;
+  } else {
     launch<64, 64, 128, 32, 32>(x, w, s, b, out, M, K, O, x_vec, w_vec, relu,
                                 st);
+  }
   return cudaGetLastError();
 }

@@ -33,19 +33,24 @@ class Block(torch.nn.Module):
         return {path: p for path, p in self.named_parameters()
                 if select is None or re.search(select, path)}
 
-    def initialize(self, init=None, device=None, generator=None):
-        """Fill every parameter in place: `init` when given, else the
-        parameter's own initializer, else uniform (the JAX package's
-        precedence); a `Constant` keeps its value. `device` moves the
-        block first; `generator` is the explicit random source (its
-        device must be the parameters')."""
+    def initialize(self, init=None, device=None, generator=None,
+                   force_reinit=False):
+        """Fill every parameter not yet initialised in place (every one
+        with `force_reinit`): `init` when given, else the parameter's own
+        initializer, else uniform (the JAX package's precedence), through
+        the name rule of `Initializer.init_array` (biases and betas 0,
+        gammas 1); a `Constant` keeps its value. `device` moves the block
+        first; `generator` is the explicit random source (its device must
+        be the parameters'), else the device stream of `random.seed`."""
         if device is not None:
             self.to(context.resolve(device))
         for _, p in self.named_parameters():
-            if getattr(p, "mx_constant", False):
+            if getattr(p, "mx_constant", False) or (
+                    getattr(p, "mx_initialized", False) and not force_reinit):
                 continue
-            _init.create(init or getattr(p, "mx_init", None) or "uniform")(
-                p.data, generator)
+            _init.create(init or getattr(p, "mx_init", None) or "uniform") \
+                .init_array(p.mx_name, p.data, generator)
+            p.mx_initialized = True
         return self
 
 

@@ -3,7 +3,9 @@
 A parameter is a `torch.nn.Parameter` that remembers its own
 initializer, so `Block.initialize()` can apply the JAX package's rule:
 the initializer passed to `initialize`, else the parameter's own, else
-uniform. It also carries the JAX package's `grad_req` ('write' trains
+uniform. It also remembers whether it was initialised (`mx_initialized`,
+set by `initialize` and by `weights.load_named_arrays`): a second
+`initialize()` leaves it alone unless `force_reinit=True`. It also carries the JAX package's `grad_req` ('write' trains
 it, 'null' leaves it out of training). The tensor itself records no
 gradient, so serving builds no autograd graph: training goes through
 `parallel.ShardedTrainer`, which substitutes views of its flat float32
@@ -41,6 +43,7 @@ def Parameter(name, shape, dtype="float32", init=None,  # noqa: N802
                            requires_grad=False)
     p.mx_name = name
     p.mx_init = init
+    p.mx_initialized = False
     p.grad_req = grad_req
     return p
 

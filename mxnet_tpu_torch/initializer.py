@@ -1,8 +1,11 @@
 """Weight initializers (counterpart of `mxnet_tpu/initializer.py`).
 
-Each initializer fills a tensor in place from an explicit generator.
-Values are drawn in float32 and cast to the parameter's dtype, as the
-JAX package does.
+Each initializer fills a tensor in place. It draws from `generator` when
+one is given, else from the device stream of the tensor's device
+(`random.generator`), which `random.seed` reseeds, so `seed(s)` followed
+by an initialisation repeats, as `_random.next_key()` makes it repeat in
+the JAX package. Values are drawn in float32 and cast to the parameter's
+dtype, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -10,15 +13,36 @@ import math
 
 import torch
 
+from . import random as _random
+
 __all__ = ["Initializer", "Zero", "One", "Uniform", "Xavier", "create"]
+
+# the JAX package's name rule (`Initializer.init_array`): these suffixes
+# get zeros or ones whatever the initializer
+_ZERO_NAMES = ("bias", "beta", "running_mean", "moving_mean")
+_ONE_NAMES = ("gamma", "running_var", "moving_var")
 
 
 class Initializer:
     def __call__(self, tensor, generator=None):
+        if generator is None:
+            generator = _random.generator(tensor.device)
         with torch.no_grad():
             tensor.copy_(self._init(tuple(tensor.shape), tensor.device,
                                     generator).to(tensor.dtype))
         return tensor
+
+    def init_array(self, name, tensor, generator=None):
+        """Fill `tensor`, the parameter called `name`, by the name rule:
+        names ending in bias, beta, running_mean or moving_mean get
+        zeros, names ending in gamma, running_var or moving_var ones,
+        any other name this initializer."""
+        lname = name.lower()
+        if lname.endswith(_ZERO_NAMES):
+            return Zero()(tensor, generator)
+        if lname.endswith(_ONE_NAMES):
+            return One()(tensor, generator)
+        return self(tensor, generator)
 
     def _init(self, shape, device, generator):
         raise NotImplementedError

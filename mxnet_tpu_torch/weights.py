@@ -24,7 +24,8 @@ def _to_tensor(arr):
 
 def load_named_arrays(model, arrays):
     """Copy `arrays` ({dotted path: array}) into `model`'s parameters,
-    casting to each parameter's dtype and device."""
+    casting to each parameter's dtype and device. Each loaded parameter
+    counts as initialised: a later `initialize()` leaves it alone."""
     params = model.collect_params()
     missing = sorted(set(params) - set(arrays))
     extra = sorted(set(arrays) - set(params))
@@ -39,4 +40,5 @@ def load_named_arrays(model, arrays):
                 f"the model expects {tuple(p.shape)}")
         with torch.no_grad():
             p.copy_(src.to(device=p.device, dtype=p.dtype))
+        p.mx_initialized = True
     return model

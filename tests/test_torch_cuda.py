@@ -156,11 +156,17 @@ _BWD_CASES = [(128, 128, 64, False, False), (128, 128, 64, True, False),
               # three 128-key tiles of the forward (and five of dq's 64)
               (1, 129, 64, True, False), (129, 127, 40, True, False),
               (127, 257, 8, False, True), (257, 257, 96, False, "all"),
-              (257, 300, 128, False, False)]
+              (257, 300, 128, False, False),
+              # bf16 dkv work items are 192 keys (D <= 64) or 128 keys
+              # (D <= 128): Lk that they do not divide, and causal with
+              # Lq > Lk (no q tile skipped; early rows see no key)
+              (200, 200, 64, False, True), (100, 577, 64, True, False),
+              (64, 577, 128, False, True), (300, 200, 64, True, False),
+              (250, 130, 128, True, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("dropout", [0.0, 0.1, 0.5])
 @pytest.mark.parametrize("Lq,Lk,D,causal,padded", _BWD_CASES)
 def test_flash_fwd_bwd_kernels_match_plain(dev, dtype, dropout, Lq, Lk, D,
                                            causal, padded):
@@ -372,7 +378,14 @@ def _int8(dev, shape, seed):
 
 @pytest.mark.parametrize("M,K,O", [(1, 64, 96), (8, 768, 2304), (17, 96, 200),
                                    (64, 3072, 768), (130, 100, 37),
-                                   (5, 48, 7), (300, 768, 3072)])
+                                   (5, 48, 7), (300, 768, 3072),
+                                   # M <= 16 splits K over a cluster: long
+                                   # K, splits that do not divide K, odd O,
+                                   # and the path boundary 16 / 17
+                                   (1, 3072, 768), (8, 3072, 768),
+                                   (16, 3072, 768), (8, 3000, 768),
+                                   (8, 100, 768), (8, 3072, 37),
+                                   (16, 768, 768), (17, 768, 768)])
 @pytest.mark.parametrize("variant", ["bias", "no bias", "relu",
                                      "per-tensor", "bf16 scale"])
 def test_int8_kernel_matches_plain_bit_for_bit(dev, M, K, O, variant):
@@ -406,6 +419,25 @@ def test_int8_kernel_3d_input_and_extreme_values(dev):
     got = im.int8_matmul(x_q, w_q, 1.0, torch.ones(40, device=dev))
     assert got.shape == (3, 1, 40)
     assert float(got.min()) == float(got.max()) == -127.0 ** 2 * 3072
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+def test_int8_split_k_is_exact_at_extreme_values(dev, M):
+    """Operands of +-127 and -128 only at K = 3072 (split over 8 blocks at
+    O = 768): the int32 partials summed across the cluster equal the
+    plain version's product bit for bit."""
+    rng = np.random.RandomState(M)
+    vals = np.array([127, -127, -128], dtype=np.int8)
+    x_q = torch.tensor(vals[rng.randint(0, 3, (M, 3072))], device=dev)
+    w_q = torch.tensor(vals[rng.randint(0, 3, (3072, 768))], device=dev)
+    w_q[:, :5] = -128
+    x_q[0] = -128
+    w_s = torch.ones(768, device=dev)
+    got = im.int8_matmul(x_q, w_q, 1.0, w_s)
+    torch.cuda.synchronize()
+    ref = im.int8_matmul_reference(x_q, w_q, 1.0, w_s)
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+    assert float(got[0, 0]) == 128.0 ** 2 * 3072
 
 
 def test_int8_kernel_refuses_what_it_cannot_take(dev):

@@ -359,8 +359,10 @@ def test_lamb_passes_plain_match_pallas_interpret(interpret, bias_correction):
     kw = dict(_LAMB_KW, bias_correction=bias_correction)
     c1, c2 = 1 - 0.9 ** 3, 1 - 0.999 ** 3
     fu_j._load_pallas()
+    # copies: the port updates m, v and W in place, and a zero-copy JAX
+    # view of them could be read after that by JAX's asynchronous dispatch
     jm, jv, jrw, jru = fu_j.lamb_pass1(
-        *[jnp.asarray(x.numpy()) for x in (W, G, m, v, wd)], c1, c2, **kw)
+        *[jnp.array(x.numpy()) for x in (W, G, m, v, wd)], c1, c2, **kw)
     rw, ru = fu_t.lamb_pass1(W, G, m, v, wd, c1, c2, **kw)     # m, v in place
     np.testing.assert_allclose(m.numpy(), np.asarray(jm)[:R], rtol=2e-6,
                                atol=2e-7)
@@ -369,7 +371,7 @@ def test_lamb_passes_plain_match_pallas_interpret(interpret, bias_correction):
     np.testing.assert_allclose(rw.numpy(), np.asarray(jrw), rtol=1e-5)
     np.testing.assert_allclose(ru.numpy(), np.asarray(jru), rtol=1e-5)
     trust = torch.linspace(0.5, 2.0, R)
-    jw = fu_j.lamb_pass2(jnp.asarray(W.numpy()), jm, jv, jnp.asarray(
+    jw = fu_j.lamb_pass2(jnp.array(W.numpy()), jm, jv, jnp.asarray(
         wd.numpy()), jnp.asarray(trust.numpy()), c1, c2, 0.01,
         beta1=0.9, beta2=0.999, epsilon=1e-6,
         bias_correction=bias_correction)
