@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --flash-ab PATH   # flash fwd/dq/dkv, int8 GEMM:
+    python3 chip_smoke.py --flash-ab PATH   # flash fwd/dq/dkv, paged
+                                            # attention, int8 GEMM routes:
                                             # PATH's kernels vs ours
 
 Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
@@ -68,8 +69,10 @@ pretraining's (16,12,1024,64) causal shape, both LAMB passes at
 BERT-base's flat master size, the Adam/AdamW update at GPT-2's largest
 parameter (the 50257 x 768 token embedding, bfloat16) and at a
 768-element float32 LayerNorm vector, bit for bit, and the int8 GEMM at
-the four (K, O) shapes of a GPT-2 layer for M = 8 (decode) and M = 1024
-(prefill), bit for bit, and the MoE dispatch and combine at the Switch
+the four (K, O) shapes of a GPT-2 layer for M = 8 (the decode route),
+512 and 1024 (the wgmma route, on the K-major weight and on the
+wrapper's own transpose), bit for bit, each route's launch counter
+checked, and the MoE dispatch and combine at the Switch
 LM's full width (16,384 tokens, 768 wide, 8 experts of capacity 2,560)
 on `moe_route`'s routing with capacity drops, bit for bit, and on random
 routing with duplicate slots (dispatch within rtol and atol 1e-6).
@@ -81,7 +84,11 @@ and SDPA's backward alone over one kept forward (dq, dk and dv
 together). After the build, the script prints the HGMMA (wgmma),
 UTMALDG/UTMASTG (TMA) and HMMA (mma.sync) counts of the bf16 flash
 forward, dq and dkv kernels from `cuobjdump -sass`, and fails if they do
-not run wgmma fed by TMA or if they run mma.sync.
+not run wgmma fed by TMA or if they run mma.sync; likewise int8 wgmma
+(IGMMA) fed by TMA and no int8 mma.sync (IMMA) in the int8 GEMM's M > 16
+kernel, and bulk copies (UBLKCP) in the paged kernel. Phase 1 holds paged
+attention at two shapes: 64-page tables with random positions, and the
+steady-decode round's 7-page tables with contexts of 64-104.
 
 Each path runs with the kernels' launch counters set to 0 just before
 it and read just after; a kernel of the path that never launched fails
@@ -93,6 +100,7 @@ The last lines of standard output are the card's name and power limit,
 one JSON line with the kernels' numbers, and the result line
 `{"ok": true, "device": {...}}`.
 """
+import inspect
 import json
 import os
 import subprocess
@@ -175,8 +183,9 @@ def device_ms(fn, iters=20, match=None, attempts=3,
                 flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        total, launched, skipped = 0.0, 0, 0
+        total, launched, skipped, seen = 0.0, 0, 0, []
         for name, us, count in kernel_rows(prof):
+            seen.append((name[:60], count))
             low = name.lower()
             if any(word in low for word in skip):
                 skipped += count
@@ -189,7 +198,7 @@ def device_ms(fn, iters=20, match=None, attempts=3,
             return total / 1e3 / iters
     check(False, f"profiler lost kernel records in {attempts} windows "
           f"({launched} kernels for {iters} calls, {skipped} skipped, "
-          f"match={match!r})")
+          f"match={match!r}; the last window's kernels: {seen})")
 
 
 # the L2 flush of time_ms and device_ms: a uint8 zero-fill
@@ -254,7 +263,13 @@ def max_err(a, b):
 # phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def paged_case(dev, dtype, B=8, H=12, D=64, ps=16, n_pg=64, P=520, seed=0):
+# the steady-decode round of phase 5 (8 slots, prompts of 64 tokens and 40
+# new ones, pages of 16): tables of 7 pages, contexts of 64-104 positions
+PAGED_STEADY = dict(n_pg=7, t_range=(63, 104))
+
+
+def paged_case(dev, dtype, B=8, H=12, D=64, ps=16, n_pg=64, P=520, seed=0,
+               t_range=None):
     import numpy as np
     import torch
     rng = np.random.RandomState(seed)
@@ -263,70 +278,106 @@ def paged_case(dev, dtype, B=8, H=12, D=64, ps=16, n_pg=64, P=520, seed=0):
     vp = torch.tensor(rng.randn(P, H, ps, D), dtype=dtype, device=dev)
     tables = torch.tensor(rng.randint(0, P, (B, n_pg)), dtype=torch.int32,
                           device=dev)
-    t = torch.tensor(rng.randint(0, n_pg * ps, (B,)), dtype=torch.int32,
+    lo, hi = t_range or (0, n_pg * ps)
+    t = torch.tensor(rng.randint(lo, hi, (B,)), dtype=torch.int32,
                      device=dev)
     return q, kp, vp, tables, t
 
 
-def paged_phase(dev, timed=True, **shape):
+def paged_bound(case):
+    """(bound ms, bound_by, Σ(t+1)) of one paged call: q read and the
+    output written once, the K and V rows of positions <= t[b] and the
+    page ids of the pages read once."""
     import torch
-    import torch.nn.functional as tF
-    from mxnet_tpu_torch.cuda_ops import paged_attention as pa
-    errs = {}
-    for name, dtype in (("float32", torch.float32),
-                        ("bfloat16", torch.bfloat16)):
-        case = paged_case(dev, dtype, **shape)
-        got = pa.paged_attention(*case)
-        ref = pa.paged_attention_reference(*case)
-        errs[name] = max_err(got, ref)
-        check(errs[name] <= TOL["paged"][name],
-              f"paged_attention {name} max_abs_err {errs[name]}")
-    q, kp, vp, tables, t = case                       # bfloat16, main path
+    q, kp, _, tables, t = case
     B, H, _, D = q.shape
     ps, n_pg = kp.shape[2], tables.shape[1]
-    L = n_pg * ps
     es = q.element_size()
     need = int((t.long() + 1).sum())                  # positions <= t[b]
     pages_read = int(torch.clamp(t.long() // ps + 1, max=n_pg).sum())
     nbytes = (2 * B * H * D * es + 2 * need * H * D * es
               + 4 * (pages_read + B))
-    flops = 4 * need * H * D
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    ms, by = bound(nbytes, 4 * need * H * D)
+    return ms, by, need
+
+
+def paged_library(case):
+    """One PyTorch call's worth of the same function: the gather and
+    SDPA with the position mask (the library yardstick)."""
+    import torch
+    import torch.nn.functional as tF
+    q, kp, vp, tables, t = case
+    B, H, _, D = q.shape
+    L = tables.shape[1] * kp.shape[2]
+    mask = torch.arange(L, device=q.device)[None, None, None, :] \
+        <= t.long()[:, None, None, None]
+    idx = tables.long()
+
+    def library():
+        kc = kp[idx].permute(0, 2, 1, 3, 4).reshape(B, H, L, D)
+        vc = vp[idx].permute(0, 2, 1, 3, 4).reshape(B, H, L, D)
+        return tF.scaled_dot_product_attention(q, kc, vc, attn_mask=mask)
+
+    return library
+
+
+def paged_phase(dev, timed=True, **shape):
+    """The paged kernel against its plain version in float32 and bf16 at
+    phase 1's shape (64-page tables, random t) and at the steady-decode
+    round's (7 pages, contexts 64-104); bf16 timed at both."""
+    import torch
+    from mxnet_tpu_torch.cuda_ops import paged_attention as pa
+    errs, cases = {}, {}
+    for where, extra in (("phase1", {}), ("steady", PAGED_STEADY)):
+        for name, dtype in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            case = paged_case(dev, dtype, **{**shape, **extra})
+            got = pa.paged_attention(*case)
+            ref = pa.paged_attention_reference(*case)
+            errs[where, name] = err = max_err(got, ref)
+            check(err <= TOL["paged"][name],
+                  f"paged_attention {where} {name} max_abs_err {err}")
+        cases[where] = case                           # bfloat16
     out = {"name": "paged_attention", "route": "cuda",
            "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
            "replaces": "mxnet_tpu/pallas_ops/paged_attention.py:69",
-           "max_abs_err": errs["bfloat16"],
-           "max_abs_err_f32": errs["float32"],
-           "bound_ms": bound,
-           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-           >= flops / BF16_FLOPS else "operations",
-           "shapes": f"q ({B},{H},1,{D}) bf16, pages ({kp.shape[0]},{H},"
-                     f"{ps},{D}), tables ({B},{n_pg}), random t "
-                     f"(sum t+1 = {need})"}
+           "max_abs_err": errs["phase1", "bfloat16"],
+           "max_abs_err_f32": errs["phase1", "float32"]}
+    for where, case in cases.items():
+        q, kp, vp, tables, t = case
+        b_ms, b_by, need = paged_bound(case)
+        row = {"bound_ms": b_ms, "bound_by": b_by,
+               "shapes": f"q {tuple(q.shape)} bf16, pages "
+                         f"{tuple(kp.shape)}, tables {tuple(tables.shape)}, "
+                         f"random t (sum t+1 = {need})"}
+        if timed:
+            library = paged_library(case)
+            lib_err = max_err(library(), pa.paged_attention_reference(*case))
+            check(lib_err <= TOL["paged"]["bfloat16"],
+                  f"paged library yardstick disagrees ({lib_err})")
+
+            def kernel(case=case):
+                return pa.paged_attention(*case)
+
+            row.update(ms=device_ms(kernel, match="paged_attention"),
+                       event_ms=time_ms(kernel),
+                       plain_ms=time_ms(lambda case=case:
+                                        pa.paged_attention_reference(*case)),
+                       library_ms=time_ms(library),
+                       library_device_ms=device_ms(library, skip=FLUSH_ONLY))
+        if where == "phase1":
+            out.update(row)
+        else:
+            out["steady_decode"] = dict(
+                row, max_abs_err=errs[where, "bfloat16"],
+                max_abs_err_f32=errs[where, "float32"])
     if timed:
-        mask = torch.arange(L, device=dev)[None, None, None, :] \
-            <= t.long()[:, None, None, None]
-
-        def library():
-            kc = kp[tables.long()].permute(0, 2, 1, 3, 4).reshape(B, H, L, D)
-            vc = vp[tables.long()].permute(0, 2, 1, 3, 4).reshape(B, H, L, D)
-            return tF.scaled_dot_product_attention(q, kc, vc, attn_mask=mask)
-
-        lib_err = max_err(library(), pa.paged_attention_reference(*case))
-        check(lib_err <= TOL["paged"]["bfloat16"],
-              f"paged library yardstick disagrees ({lib_err})")
-        def kernel():
-            return pa.paged_attention(q, kp, vp, tables, t)
-
-        out.update(ms=device_ms(kernel, match="paged_attention"),
-                   event_ms=time_ms(kernel),
-                   plain_ms=time_ms(lambda: pa.paged_attention_reference(
-                       q, kp, vp, tables, t)),
-                   library_ms=time_ms(library),
-                   times_are="ms: device time of the kernel (torch.profiler, "
-                             "L2 flushed); event_ms: CUDA events around the "
-                             "wrapper call, host time included; plain_ms "
-                             "and library_ms: CUDA events")
+        out["times_are"] = ("ms: device time of the kernel (torch.profiler, "
+                            "L2 flushed); event_ms: CUDA events around the "
+                            "wrapper call, host time included; plain_ms "
+                            "and library_ms: CUDA events; "
+                            "library_device_ms: device time of every kernel "
+                            "of the library call")
     return out
 
 
@@ -395,11 +446,18 @@ def flash_phase(dev, timed=True, **shape):
         check(lib_err <= TOL["flash"]["bfloat16"],
               f"flash library yardstick disagrees ({lib_err})")
         k_ms = time_ms(lambda: fa.flash_fwd(q, k, v, bias, True))
+
+        def library():
+            return tF.scaled_dot_product_attention(q, k, v, is_causal=True)
+
         out.update(ms=k_ms, kernel_ms=k_ms,
+                   device_ms=device_ms(lambda: fa.flash_fwd(q, k, v, bias,
+                                                            True),
+                                       match="mxt::"),
                    plain_ms=time_ms(lambda: fa.flash_fwd_reference(
                        q, k, v, bias, True)),
-                   library_ms=time_ms(lambda: tF.scaled_dot_product_attention(
-                       q, k, v, is_causal=True)))
+                   library_ms=time_ms(library),
+                   library_device_ms=device_ms(library, skip=FLUSH_ONLY))
     return out
 
 
@@ -530,6 +588,8 @@ def train_flash_phase(dev, B=32, grid_B=2, p=0.1, seed=0x5EED_1234_ABCD):
             q, k, v, bias, False, dropout=p, seed=seed), iters=5),
         library_ms=time_ms(lambda: tF.scaled_dot_product_attention(
             q, k, v, dropout_p=p)),
+        library_device_ms=device_ms(lambda: tF.scaled_dot_product_attention(
+            q, k, v, dropout_p=p), skip=FLUSH_ONLY),
         library=f"SDPA forward, dropout_p {p} (its own mask: times only)",
         library_ms_dropout0=time_ms(
             lambda: tF.scaled_dot_product_attention(q, k, v)))
@@ -541,22 +601,25 @@ def train_flash_phase(dev, B=32, grid_B=2, p=0.1, seed=0x5EED_1234_ABCD):
         rows[row].update(
             ms=k_ms, kernel_ms=k_ms,
             plain_ms=time_ms(lambda: ref_fn(*bw), iters=5),
-            library_ms=lib_bwd,
+            library_ms=lib_bwd[0], library_device_ms=lib_bwd[1],
             library=f"SDPA backward alone, dropout_p {p} (dq, dk and dv "
                     "together)")
     return rows
 
 
 def sdpa_backward_ms(q, k, v, g, **kw):
-    """Time of SDPA's backward alone (dq, dk and dv together): the
-    gradient of one kept forward output, taken again and again with
-    retain_graph=True."""
+    """(events ms, device ms) of SDPA's backward alone (dq, dk and dv
+    together): the gradient of one kept forward output, taken again and
+    again with retain_graph=True."""
     import torch
     import torch.nn.functional as tF
     ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
     out = tF.scaled_dot_product_attention(ql, kl, vl, **kw)
-    return time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), g,
-                                               retain_graph=True))
+
+    def backward():
+        return torch.autograd.grad(out, (ql, kl, vl), g, retain_graph=True)
+
+    return time_ms(backward), device_ms(backward, skip=FLUSH_ONLY)
 
 
 def gpt_flash_phase(dev, B=16, L=1024, seed=1):
@@ -590,9 +653,12 @@ def gpt_flash_phase(dev, B=16, L=1024, seed=1):
     pairs = BH * L * (L + 1) // 2                     # causal (q, k) pairs
     shape = f"q/k/v/dO ({B},12,{L},{D}) bf16, causal, dropout 0"
     # the library yardsticks: SDPA causal, its backward alone
-    lib_fwd = (time_ms(lambda: tF.scaled_dot_product_attention(
-        q, k, v, is_causal=True)), "SDPA forward, is_causal")
-    lib_bwd = (sdpa_backward_ms(q, k, v, g, is_causal=True),
+    def sdpa():
+        return tF.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    lib_fwd = (time_ms(sdpa), device_ms(sdpa, skip=FLUSH_ONLY),
+               "SDPA forward, is_causal")
+    lib_bwd = (*sdpa_backward_ms(q, k, v, g, is_causal=True),
                "SDPA backward alone, is_causal (dq, dk and dv together)")
     out = {}
     for row, err, nbytes, flops, fn, lib in (
@@ -606,22 +672,28 @@ def gpt_flash_phase(dev, B=16, L=1024, seed=1):
              lambda: fa.flash_bwd_dkv(*bw), lib_bwd)):
         b_ms, b_by = bound(nbytes, flops)
         out[row] = {"gpt2_train_shape": dict(
-            shapes=shape, max_abs_err=err, ms=time_ms(fn), bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib[0], library=lib[1])}
+            shapes=shape, max_abs_err=err, ms=time_ms(fn),
+            device_ms=device_ms(fn, match="mxt::"), bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib[0], library_device_ms=lib[1],
+            library=lib[2])}
     out["flash_attention_dq"]["gpt2_train_shape"]["tol"] = tol
     out["flash_attention_dkv"]["gpt2_train_shape"]["tol"] = tol
     return out
 
 
 def flash_times(root):
-    """Times of the flash forward, dq and dkv and of the int8 GEMM of the
-    checkout at `root` (its `mxnet_tpu_torch`, built there) at the
-    main-path shapes: the serving prefill (8,12,512,64) causal (forward
-    only), BERT's (32,12,512,64) with dropout 0.1 (and without, which shows
-    what the keep bits cost) and GPT-2's (16,12,1024,64) causal, bf16; the
-    int8 GEMM at GPT-2's four layer shapes for M = 8 (decode) and 1024,
-    with bias, and their sum per M; CUDA events and profiler device time,
-    L2 flushed."""
+    """Times of the flash forward, dq and dkv, paged attention and the
+    int8 GEMM of the checkout at `root` (its `mxnet_tpu_torch`, built
+    there) at the main-path shapes: the serving prefill (8,12,512,64)
+    causal (forward only), BERT's (32,12,512,64) with dropout 0.1 (and
+    without, which shows what the keep bits cost) and GPT-2's
+    (16,12,1024,64) causal, bf16; paged attention at phase 1's shape and
+    at the steady-decode round's, bf16; the int8 GEMM at GPT-2's four
+    layer shapes for M = 8 (the decode route), 512 and 1024 (the wgmma
+    route, and, where the wrapper takes the K-major weight, the same
+    without it: `_selft`), with bias, and their sum per M; CUDA events
+    and profiler device time, L2 flushed; and the host time of a paged
+    and an int8 call and of the pieces such a call is made of."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from mxnet_tpu_torch.cuda_ops import _build
@@ -650,21 +722,107 @@ def flash_times(root):
             out[name][f"{kern}_device_ms"] = device_ms(fn, match="mxt::")
         del q, k, v, g, bias, o, lse, delta, bw
     from mxnet_tpu_torch.cuda_ops import int8_matmul as im
-    check(im.__file__.startswith(os.path.abspath(root)),
-          f"int8_matmul imported from {im.__file__}, not {root}")
-    for M in (8, 1024):
-        row = out[f"int8_m{M}"] = {"ms": 0.0, "device_ms": 0.0}
-        for K, O in GPT2_GEMMS:
-            x_q, w_q, s_x, w_s, b = int8_case(dev, M, K, O, seed=M + K + O)
+    from mxnet_tpu_torch.cuda_ops import paged_attention as pa
+    for mod in (im, pa):
+        check(mod.__file__.startswith(os.path.abspath(root)),
+              f"{mod.__name__} imported from {mod.__file__}, not {root}")
+    for name, extra in (("paged_phase1", {}), ("paged_steady", PAGED_STEADY)):
+        case = paged_case(dev, torch.bfloat16, **extra)
 
-            def gemm():
-                return im.int8_matmul(x_q, w_q, s_x, w_s, bias=b)
+        def paged(case=case):
+            return pa.paged_attention(*case)
 
-            ms, dms = time_ms(gemm), device_ms(gemm, match="int8_")
-            row[f"{K}x{O}_ms"], row[f"{K}x{O}_device_ms"] = ms, dms
-            row["ms"] += ms
-            row["device_ms"] += dms
+        out[name] = {"ms": time_ms(paged),
+                     "device_ms": device_ms(paged, match="paged_attention"),
+                     "host_us": host_us(paged)}
+    # a checkout whose wrapper takes the K-major weight gets it, as
+    # QuantizedDense passes it; an older one runs its own M > 16 route
+    kmajor = "w_q_k" in inspect.signature(im.int8_matmul).parameters
+    for M in INT8_MS:
+        for variant in ("", "_selft") if kmajor and M > 16 else ("",):
+            row = out[f"int8_m{M}{variant}"] = {"ms": 0.0, "device_ms": 0.0}
+            for K, O in GPT2_GEMMS:
+                x_q, w_q, s_x, w_s, b = int8_case(dev, M, K, O,
+                                                  seed=M + K + O)
+                kw = {"w_q_k": w_q.t().contiguous()} \
+                    if kmajor and not variant else {}
+
+                def gemm(kw=kw):
+                    return im.int8_matmul(x_q, w_q, s_x, w_s, bias=b, **kw)
+
+                # every kernel of the call: a transpose or a scale product
+                # the wrapper launches counts with the GEMM
+                ms, dms = time_ms(gemm), device_ms(gemm)
+                row[f"{K}x{O}_ms"], row[f"{K}x{O}_device_ms"] = ms, dms
+                row["ms"] += ms
+                row["device_ms"] += dms
+                if M == 8 and K == 768 and O == 768:
+                    row["host_us_768x768"] = host_us(gemm)
+    out["wrapper_pieces_us"] = wrapper_pieces(dev, im, pa)
     return out
+
+
+def host_us(fn, n=200):
+    """Host time of one call of fn in µs: n calls back to back, the card
+    idle at the start and not waited for (the kernels are shorter than
+    the calls, so the launch queue never fills)."""
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / n
+    torch.cuda.synchronize()
+    return us
+
+
+def wrapper_pieces(dev, im, pa):
+    """Host µs of the pieces a kernel wrapper is made of, measured alone:
+    where the host time of a paged or int8 call goes."""
+    import torch
+    q, kp, vp, tables, t = paged_case(dev, torch.bfloat16, **PAGED_STEADY)
+    x_q, w_q, s_x, w_s, b = int8_case(dev, 8, 768, 768)
+    B, H, _, D = q.shape
+    fn = pa._entry()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty_like(q)
+    args = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
+            t.data_ptr(), out.data_ptr(), B, H, kp.shape[2], D,
+            tables.shape[1], 0.125, 1, stream)
+    pieces = {
+        "torch.empty_like(q)": lambda: torch.empty_like(q),
+        "torch.empty((8, 768), float32)": lambda: torch.empty(
+            (8, 768), dtype=torch.float32, device=dev),
+        "torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "x.data_ptr()": lambda: q.data_ptr(),
+        "x.is_contiguous()": lambda: q.is_contiguous(),
+        "x.device != y.device": lambda: q.device != kp.device,
+        "x.shape unpack": lambda: tuple(kp.shape),
+        "paged: ctypes call of the C entry (launch included)":
+            lambda: fn(*args),
+        "int8: x_scale * w_scale as a separate device product "
+        "(_combined_scale)":
+            lambda: im._combined_scale(s_x, w_s, 768, dev),
+    }
+    refused = args[:6] + (0,) + args[7:]                # B = 0
+    pieces["paged: ctypes call refused at once (B = 0)"] = \
+        lambda: fn(*refused)
+    if hasattr(torch._C, "_cuda_getCurrentRawStream"):
+        pieces["torch._C._cuda_getCurrentRawStream(i)"] = \
+            lambda: torch._C._cuda_getCurrentRawStream(dev.index or 0)
+    if hasattr(pa, "_refuse"):
+        pieces["paged: _refuse (every check)"] = \
+            lambda: pa._refuse(q, kp, vp, tables, t)
+    res = {k: host_us(f, n=500) for k, f in pieces.items()}
+    # the CUDA-event time of the smallest work, and of the paged kernel's
+    # C entry called with its arguments ready: what event_ms cannot go below
+    small = torch.zeros(256, device=dev)
+    res["event_ms of a 1 KB zero fill (torch)"] = time_ms(small.zero_)
+    res["event_ms of the paged C entry alone"] = time_ms(lambda: fn(*args))
+    return res
 
 
 def flash_ab(other):
@@ -822,9 +980,13 @@ def adam_phase(dev):
     w, g, m, v = adam_case(dev, n_big, torch.float32, seed=2)
     k32_ms = device_ms(kernel)
     step = torch.tensor(3.0, device=dev)
-    lib_ms = device_ms(lambda: torch._fused_adam_(
-        [w], [g], [m], [v], [], [step], lr=1e-3, beta1=0.9, beta2=0.999,
-        weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False))
+
+    def library():
+        torch._fused_adam_(
+            [w], [g], [m], [v], [], [step], lr=1e-3, beta1=0.9, beta2=0.999,
+            weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False)
+
+    lib_ms, lib_ev_ms = device_ms(library), time_ms(library)
     del w, g, m, v
     b_ms, b_by = bound(22 * n_big, 15 * n_big, F32_FLOPS)
     return {"adam_update": dict(
@@ -841,9 +1003,11 @@ def adam_phase(dev):
         max_rel_err_f32_w=worst["w_f32_rel"],
         max_rel_err_moments=worst["moments_rel"],
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, kernel_ms_f32_same_n=k32_ms, event_ms=ev_ms,
+        library_ms=lib_ms, library_event_ms=lib_ev_ms,
+        kernel_ms_f32_same_n=k32_ms, event_ms=ev_ms,
         times_are="device time per call (torch.profiler, L2 flushed); "
-                  "event_ms: CUDA events around the wrapper call",
+                  "event_ms and library_event_ms: CUDA events around the "
+                  "call",
         library="torch._fused_adam_, all float32 at the same element count "
                 "(its moments take the parameter's dtype; its epsilon and "
                 "weight decay differ from MXNet's): a time yardstick only",
@@ -852,6 +1016,9 @@ def adam_phase(dev):
 
 
 GPT2_GEMMS = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+# the int8 GEMM's rows: one-token decode, generate's prefill (4 x 128), and
+# a longer prefill
+INT8_MS = (8, 512, 1024)
 
 
 def int8_case(dev, M, K, O, seed=0):
@@ -871,24 +1038,42 @@ def int8_case(dev, M, K, O, seed=0):
 
 def int8_phase(dev):
     """int8_matmul against its plain version, bit for bit, at GPT-2's four
-    layer GEMMs for M = 8 and 1024: with bias, without, with relu, with
-    a per-tensor scale; then kernel, plain version and cuBLASLt's int8
-    product (torch._int_mm) plus the epilogue in torch timed, bias on."""
+    layer GEMMs for M = 8 (the decode route), 512 and 1024 (the wgmma
+    route: `generate`'s prefill and a longer one): with bias, without,
+    with relu, with a per-tensor scale, with a bf16 0-d activation scale;
+    at M > 16 also without the K-major weight (the wrapper's own
+    transpose, counted), each route's counter checked. Then kernel, plain
+    version and cuBLASLt's int8 product (torch._int_mm) plus the epilogue
+    in torch timed, bias on."""
     import torch
     from mxnet_tpu_torch.cuda_ops import int8_matmul as im
     by_shape = {}
-    for M in (8, 1024):
+    for M in INT8_MS:
+        wide = M > 16
         for K, O in GPT2_GEMMS:
             x_q, w_q, s_x, w_s, b = int8_case(dev, M, K, O, seed=M + K + O)
+            w_k = w_q.t().contiguous()
             for what, kw in (("bias", dict(bias=b)), ("no bias", {}),
                              ("bias relu", dict(bias=b, relu=True)),
-                             ("per-tensor", dict(bias=b))):
+                             ("per-tensor", dict(bias=b)),
+                             ("bf16 scale", dict(bias=b)),
+                             ("self-transposed", dict(bias=b))):
                 ws = w_s[:1].contiguous() if what == "per-tensor" else w_s
-                got = im.int8_matmul(x_q, w_q, s_x, ws, **kw)
-                ref = im.int8_matmul_reference(x_q, w_q, s_x, ws, **kw)
+                sx = s_x.bfloat16() if what == "bf16 scale" else s_x
+                given = {} if what == "self-transposed" else {"w_q_k": w_k}
+                n0 = (im.launches_decode, im.launches_wgmma,
+                      im.launches_transpose)
+                got = im.int8_matmul(x_q, w_q, sx, ws, **kw, **given)
+                ref = im.int8_matmul_reference(x_q, w_q, sx, ws, **kw)
                 check(torch.equal(got, ref) and not got.isnan().any(),
                       f"int8_matmul ({M},{K},{O}) {what}: max_abs_err "
                       f"{max_err(got, ref)}, not bit for bit")
+                n1 = (im.launches_decode, im.launches_wgmma,
+                      im.launches_transpose)
+                want = (n0[0] + (not wide), n0[1] + wide,
+                        n0[2] + (wide and not given))
+                check(n1 == want, f"int8 ({M},{K},{O}) {what}: route "
+                      f"counters {n1}, expected {want}")
             Mp = max(24, (M + 7) // 8 * 8)            # what _int_mm takes
             x_pad = torch.zeros((Mp, K), dtype=torch.int8, device=dev)
             x_pad[:M] = x_q
@@ -902,41 +1087,49 @@ def int8_phase(dev):
                   f"{O}) disagrees")
             b_ms, b_by = bound(M * K + K * O + 8 * O + 4 * M * O,
                                2 * M * K * O, INT8_OPS)
+
             def kernel():
-                return im.int8_matmul(x_q, w_q, s_x, w_s, bias=b)
+                return im.int8_matmul(x_q, w_q, s_x, w_s, bias=b, w_q_k=w_k)
 
             by_shape[f"{M}x{K}x{O}"] = dict(
                 ms=device_ms(kernel, match="int8_"),
                 wrapper_ms=device_ms(kernel), event_ms=time_ms(kernel),
                 plain_ms=device_ms(lambda: im.int8_matmul_reference(
                     x_q, w_q, s_x, w_s, bias=b), iters=5),
-                library_ms=device_ms(library), bound_ms=b_ms, bound_by=b_by)
+                library_ms=device_ms(library), library_event_ms=time_ms(
+                    library), bound_ms=b_ms, bound_by=b_by)
     keys = ("ms", "wrapper_ms", "event_ms", "plain_ms", "library_ms",
-            "bound_ms")
+            "library_event_ms", "bound_ms")
     layer = {M: {k: sum(v[k] for key, v in by_shape.items()
                         if key.startswith(f"{M}x")) for k in keys}
-             for M in (8, 1024)}
-    return {"int8_matmul": dict(
-        name="int8_matmul", route="cuda",
-        source="mxnet_tpu_torch/csrc/int8_matmul.cu",
-        replaces="mxnet_tpu/pallas_ops/int8_matmul.py:51",
-        max_abs_err=0.0, bit_exact=True,
-        ms=layer[8]["ms"], plain_ms=layer[8]["plain_ms"],
-        library_ms=layer[8]["library_ms"], bound_ms=layer[8]["bound_ms"],
-        bound_by="bytes",
-        wrapper_ms=layer[8]["wrapper_ms"], event_ms=layer[8]["event_ms"],
-        times_are="sums over one GPT-2 layer's four GEMMs (K,O) = "
-                  "(768,2304), (768,768), (768,3072), (3072,768) at M = 8 "
-                  "(decode); M = 1024 in layer_m1024, each in by_shape. "
-                  "Device time per call (torch.profiler, L2 flushed): ms "
-                  "the GEMM kernel alone, wrapper_ms every kernel of the "
-                  "wrapper call (with the scale product), plain_ms and "
-                  "library_ms every kernel of theirs; event_ms: CUDA "
-                  "events around the wrapper call, host time included",
-        layer_m1024=layer[1024], by_shape=by_shape,
-        library="torch._int_mm (cuBLASLt int8, M padded to 24 at M = 8) "
-                "+ the rescale and bias in torch",
-        shapes="x_q (M, K) int8, w_q_t (K, O) int8, s, bias (O,) float32")}
+             for M in INT8_MS}
+    times_are = ("sums over one GPT-2 layer's four GEMMs (K,O) = (768,2304), "
+                 "(768,768), (768,3072), (3072,768), each in by_shape. "
+                 "Device time per call (torch.profiler, L2 flushed): ms the "
+                 "GEMM kernel alone, wrapper_ms every kernel of the wrapper "
+                 "call, plain_ms and library_ms every kernel of theirs; "
+                 "event_ms and library_event_ms: CUDA events around the "
+                 "call, host time included")
+    common = dict(route="cuda", source="mxnet_tpu_torch/csrc/int8_matmul.cu",
+                  replaces="mxnet_tpu/pallas_ops/int8_matmul.py:51",
+                  max_abs_err=0.0, bit_exact=True, bound_by="bytes",
+                  times_are=times_are,
+                  library="torch._int_mm (cuBLASLt int8, M padded to 24 at "
+                          "M = 8) + the rescale and bias in torch")
+    rows = {}
+    for name, M, what in (("int8_matmul", 8, "decode route, M = 8"),
+                          ("int8_matmul_wgmma", 1024,
+                           "wgmma route (K-major weight), M = 1024")):
+        rows[name] = dict(
+            common, name=name, **{k: layer[M][k] for k in keys},
+            shapes=f"{what}: x_q (M, K) int8, w_q_t (K, O) int8, w_scale, "
+                   "bias (O,) float32, x_scale 0-d float32")
+    rows["int8_matmul"]["by_shape"] = {k: v for k, v in by_shape.items()
+                                       if k.startswith("8x")}
+    rows["int8_matmul_wgmma"]["layer_m512"] = layer[512]
+    rows["int8_matmul_wgmma"]["by_shape"] = {
+        k: v for k, v in by_shape.items() if not k.startswith("8x")}
+    return rows
 
 
 MOE_FULL = dict(N=16 * 1024, D=768, E=8)       # phase 11's tokens and widths
@@ -1054,11 +1247,12 @@ def moe_phase(dev):
             event_ms=time_ms(r["fn"]),
             plain_ms=device_ms(r["plain"], iters=5, skip=FLUSH_ONLY),
             library_ms=device_ms(r["library"], skip=FLUSH_ONLY),
+            library_event_ms=time_ms(r["library"]),
             library=r["library_name"], bound_ms=b_ms, bound_by=b_by,
             times_are="device time per call (torch.profiler, L2 flushed); "
                       "ms counts the kernels of the wrapper call (dispatch: "
-                      "clear, route, gather, duplicate pass); event_ms: "
-                      "CUDA events around the wrapper call",
+                      "clear, route, gather, duplicate pass); event_ms and "
+                      "library_event_ms: CUDA events around the call",
             kept_tokens=kept,
             shapes=f"x ({N}, {D}) float32, expert/pos ({N},) int32, gate "
                    f"({N},) float32, buf ({E}, {C}, {D}) float32; "
@@ -1078,7 +1272,10 @@ _COUNTERS = {
     "lamb_pass1": ("fused_update", "launches_pass1"),
     "lamb_pass2": ("fused_update", "launches_pass2"),
     "adam_update": ("fused_update", "launches_adam"),
-    "int8_matmul": ("int8_matmul", "launches"),
+    "int8_matmul": ("int8_matmul", "launches"),          # every route
+    "int8_matmul_wgmma": ("int8_matmul", "launches_wgmma"),
+    "int8_matmul_mma": ("int8_matmul", "launches_mma"),
+    "int8_transpose": ("int8_matmul", "launches_transpose"),
     "moe_dispatch": ("moe_kernels", "launches_dispatch"),
     "moe_combine": ("moe_kernels", "launches_combine"),
 }
@@ -1544,6 +1741,9 @@ def int8_serving_phase(model, bf16_serving):
           f"int8 launches {counts['int8_matmul']} != {n_dense} x "
           f"{token_steps[0]} one-token steps")
     check(counts["paged_attention"] > 0, "paged kernel never launched")
+    check(counts["int8_matmul_wgmma"] == counts["int8_matmul_mma"]
+          == counts["int8_transpose"] == 0,
+          f"int8 serving left the decode route: {counts}")
     n_tok = sum(len(r.tokens) for r in reqs)
     ttft = np.array([r.ttft_s for r in reqs]) * 1e3
     res = {"requests": len(reqs), "tokens": n_tok, "seconds": secs,
@@ -1562,8 +1762,11 @@ def int8_serving_phase(model, bf16_serving):
     counts = read_counts()
     check(toks.shape == (4, 32) and (toks >= 0).all()
           and (toks < 50257).all(), f"int8 generate tokens {toks.shape}")
-    # one prefill pass (M = 4 x 128 rows) and 31 one-token steps
+    # one prefill pass (M = 4 x 128 rows, the wgmma route on the K-major
+    # weights QuantizedDense keeps: no transpose) and 31 one-token steps
     check(counts["int8_matmul"] == n_dense * 32
+          and counts["int8_matmul_wgmma"] == n_dense
+          and counts["int8_transpose"] == counts["int8_matmul_mma"] == 0
           and counts["flash_attention_fwd"] == cfg["num_layers"],
           f"int8 generate launches {counts}")
     res["generate_launches"] = counts
@@ -1897,6 +2100,21 @@ def main():
         check(len(mix) == 6 and all(
             m["HGMMA"] > 0 and m["UTMALDG"] > 0 and m["HMMA"] == 0
             for m in mix.values()), f"wgmma kernels' SASS {mix}")
+    # the int8 GEMM's M > 16 route (two instantiations): int8 wgmma (IGMMA)
+    # fed by TMA, no mma.sync (IMMA); paged attention (four): bulk copies
+    mix8 = sass_mix(os.path.join(_build.BUILD_DIR, _build.LIB_NAME),
+                    kernels=("int8_wgmma_kernel", "paged_attention_kernel"),
+                    ops=("IGMMA", "UTMALDG", "IMMA", "UBLKCP"))
+    print("chip_smoke: SASS of the int8 wgmma and paged kernels (IGMMA = "
+          "int8 wgmma, IMMA = int8 mma.sync, UBLKCP = bulk copy) "
+          + json.dumps(mix8))
+    if mix8 is not None:
+        wg = {k: m for k, m in mix8.items() if "int8_wgmma" in k}
+        pg = {k: m for k, m in mix8.items() if "paged_attention" in k}
+        check(len(wg) == 2 and all(m["IGMMA"] > 0 and m["UTMALDG"] > 0
+                                   and m["IMMA"] == 0 for m in wg.values())
+              and len(pg) == 4 and all(m["UBLKCP"] > 0 for m in pg.values()),
+              f"int8 wgmma / paged kernels' SASS {mix8}")
 
     # 1. kernels against their plain versions
     kernels = {"paged_attention": paged_phase(dev),
@@ -1915,6 +2133,10 @@ def main():
     kernels.update(lamb_phase(dev))
     kernels.update(adam_phase(dev))
     kernels.update(int8_phase(dev))
+    for row, want in (("paged_attention", "paged_attention_kernel"),
+                      ("int8_matmul_wgmma", "int8_wgmma_kernel")):
+        kernels[row]["sass"] = None if mix8 is None else {
+            name: m for name, m in mix8.items() if want in name}
     kernels.update(moe_phase(dev))
     for k in kernels.values():
         lib = "none" if k["library_ms"] is None \
@@ -2026,6 +2248,8 @@ def main():
     torch.cuda.empty_cache()
     print("chip_smoke: int8 serving " + json.dumps(qserve))
     kernels["int8_matmul"]["launches"] = qserve["launches"]["int8_matmul"]
+    kernels["int8_matmul_wgmma"]["launches"] = \
+        qserve["generate_launches"]["int8_matmul_wgmma"]
     narrow = int8_narrow_phase(dev)
     print("chip_smoke: int8 float32 narrow model " + json.dumps(narrow))
 

@@ -5,6 +5,10 @@ Symmetric int8 with float32 scales: `QuantizedDense` stores the weight as
 int8 with one scale per output channel and runs its product through
 `cuda_ops.int8_matmul` (the hand-written tensor-core kernel on the card,
 its plain version on the CPU) with the rescale, bias and relu fused.
+Beside the (K, O) parameter it keeps the (O, K) K-major copy that the
+card's int8 wgmma route reads, as a non-persistent buffer (not a
+parameter, so names and shapes stay the JAX package's), re-derived
+whenever `weight_q` changes.
 The activation is quantized on the fly: with a calibrated static scale
 (float32) when `quantize_block` was given calibration batches, else with
 a dynamic per-call scale max(|x|)/127 kept in the activation's dtype and
@@ -95,6 +99,10 @@ class QuantizedDense(HybridBlock):
             "weight_q", torch.from_numpy(np.ascontiguousarray(w_q.T)).to(dev))
         self.weight_scale = Constant("weight_scale",
                                      torch.from_numpy(w_scale).to(dev))
+        # the K-major (O, K) copy for the card's M > 16 route
+        self.register_buffer("weight_q_k", torch.from_numpy(w_q).to(dev),
+                             persistent=False)
+        self._weight_q_k_of = self._weight_q_key()
         self.bias = None
         if dense.bias is not None:
             self.bias = Constant("bias", torch.from_numpy(
@@ -112,6 +120,20 @@ class QuantizedDense(HybridBlock):
             self.register_buffer("_x_scale", torch.full(
                 (), float(np.float32(act_scale)), dtype=torch.float32,
                 device=dev), persistent=False)
+
+    def _weight_q_key(self):
+        w = self.weight_q
+        return w.data_ptr(), w._version, w.device
+
+    def kmajor_weight(self):
+        """`weight_q` as a contiguous (O, K) int8 tensor: the buffer,
+        transposed anew when `weight_q` was written (an in-place copy such
+        as `weights.load_named_arrays` bumps its version) or moved."""
+        key = self._weight_q_key()
+        if key != self._weight_q_k_of:
+            self.weight_q_k = self.weight_q.detach().t().contiguous()
+            self._weight_q_k_of = key
+        return self.weight_q_k
 
     def forward(self, x):
         relu = self._act == "relu"
@@ -134,7 +156,8 @@ class QuantizedDense(HybridBlock):
             xs = x / s_x
         x_q = torch.clamp(torch.round(xs), -127, 127).to(torch.int8)
         out = int8_matmul(x_q, self.weight_q, s_x, self.weight_scale,
-                          bias=self.bias, relu=relu)
+                          bias=self.bias, relu=relu,
+                          w_q_k=self.kmajor_weight())
         return out.to(x.dtype)
 
 

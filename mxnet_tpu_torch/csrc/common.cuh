@@ -1,5 +1,6 @@
-// Shared helpers of the port's kernels: float/bf16 conversion and the
-// 16-byte vector width of each element type.
+// Shared helpers of the port's kernels: float/bf16 conversion, the 16-byte
+// vector width of each element type, and the opt-in to more than 48 KB of
+// dynamic shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,6 +50,16 @@ __device__ __forceinline__ void load_vec_f32(float* dst, const T* src) {
   const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
   for (int i = 0; i < Vec<T>::n; ++i) dst[i] = to_f<T>(e[i]);
+}
+
+// opt a kernel into more than 48 KB of dynamic shared memory, once
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool& configured) {
+  if (configured) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) configured = true;
+  return e;
 }
 
 }  // namespace mxt

@@ -1,7 +1,6 @@
 // Tiles shared by the float32 flash attention bodies (flash_fwd.cu,
-// flash_bwd.cu): 64-row tiles staged in shared memory with 16-byte loads;
-// and the opt-in to more than 48 KB of dynamic shared memory. (The bf16
-// bodies build on hopper.cuh: TMA and wgmma.)
+// flash_bwd.cu): 64-row tiles staged in shared memory with 16-byte loads.
+// (The bf16 bodies build on hopper.cuh: TMA and wgmma.)
 #pragma once
 
 #include "common.cuh"
@@ -29,16 +28,6 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
       val = *reinterpret_cast<const float4*>(src + (size_t)r * D + c);
     *reinterpret_cast<float4*>(dst + r * SD + c) = val;
   }
-}
-
-// opt a kernel into more than 48 KB of dynamic shared memory, once
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool& configured) {
-  if (configured) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess) configured = true;
-  return e;
 }
 
 }  // namespace mxt

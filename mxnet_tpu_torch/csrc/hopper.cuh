@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the flash forward, dq and dkv kernels:
-// TMA tile loads and stores through CUtensorMap descriptors, mbarrier
+// Hopper (sm_90a) building blocks of the flash forward, dq and dkv kernels,
+// the int8 GEMM's M > 16 route and paged attention: TMA tile loads and
+// stores through CUtensorMap descriptors, 1-D bulk copies, mbarrier
 // pipelines, warpgroup register reallocation (setmaxnreg) and wgmma.
 //
 // Tiles are bf16 rows of 64 elements (128 bytes) laid out by TMA with the
@@ -83,6 +84,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// ---- clusters -----------------------------------------------------------------
+
+// a cluster barrier in two halves: every block arrives at its start and
+// waits before its first write to another block's shared memory, which
+// then has surely started
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // ---- TMA ---------------------------------------------------------------------
 
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
@@ -93,6 +107,26 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes from src (16-byte aligned) to
+// dst in shared memory, completing on bar's transaction count; no tensor map
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -169,6 +203,13 @@ template <int N>
 __device__ __forceinline__ void wg_hold(uint32_t (&a)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// the same for int32 accumulators (the int8 product)
+template <int N>
+__device__ __forceinline__ void wg_hold(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile at p: start
@@ -294,6 +335,43 @@ __device__ __forceinline__ void wgmma_rs_n64_t(float (&d)[32],
       : "memory");
 }
 
+// d (64 x 128, int32) = A . B^T (+ d when `accumulate`), A (64 x 32) and
+// B (128 x 32) K-major int8 in shared memory: the integer form has no
+// transpose or negate operands, so both operands are K-major
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate)
+      : "memory");
+}
+
 // ---- host: tensor maps --------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -317,16 +395,22 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// blocks of a persistent kernel: one per SM, at most one per work item
-inline int persistent_grid(int items) {
+// the card's SM count (132 on an H100 SXM where the query fails)
+inline int sm_count() {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
             cudaSuccess)
-      sms = 132;                           // an H100 SXM
+      sms = 132;
   }
+  return sms;
+}
+
+// blocks of a persistent kernel: one per SM, at most one per work item
+inline int persistent_grid(int items) {
+  const int sms = sm_count();
   return items < sms ? items : sms;
 }
 
@@ -341,6 +425,23 @@ inline bool map_rows_bf16(CUtensorMap* m, const void* ptr, int BH, int L,
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// 2-D map of a contiguous (rows, K) int8 matrix, K-major (K % 16 == 0):
+// boxes of (128, box_rows), 128-byte swizzle, zero fill out of bounds (a
+// zero byte adds nothing to an integer product)
+inline bool map_kmajor_s8(CUtensorMap* m, const void* ptr, int rows, int K,
+                          int box_rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K};
+  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -52,7 +52,8 @@ def _paged_case(dev, dtype, B=5, H=4, D=64, ps=16, n_pg=8, P=48, seed=0):
     t = torch.tensor(rng.randint(0, n_pg * ps, (B,)), dtype=torch.int32,
                      device=dev)
     t[0] = n_pg * ps - 1
-    t[1] = 0
+    if B > 1:
+        t[1] = 0
     return q, kp, vp, tables, t
 
 
@@ -69,6 +70,62 @@ def test_paged_kernel_matches_plain(dev, dtype, D, ps):
     assert got.dtype == dtype and got.shape == ref.shape
     tol = _TOL[dtype][0]
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+# flash-decoding shapes: (B, H, D, ps, n_pg, P). The split over pages is
+# 8 at B*H = 1 and 12, 4 at B*H = 96 with 64-page tables, 2 with 7 pages
+# of 64 positions, 1 at the steady-decode shape and with one page; page
+# ids are read from device memory past 1024 pages
+_PAGED_SPLIT_SHAPES = [(1, 1, 64, 16, 64, 80), (8, 12, 64, 16, 64, 520),
+                       (8, 12, 64, 16, 7, 60), (3, 4, 40, 4, 64, 200),
+                       (2, 5, 128, 64, 7, 20), (5, 4, 128, 8, 1, 48),
+                       (4, 3, 40, 16, 7, 30), (2, 6, 64, 8, 64, 140),
+                       # a table too wide to stage in shared memory
+                       (2, 2, 64, 4, 1100, 40)]
+
+
+def _paged_split_t(B, ps, n_pg):
+    """Per-row positions: in the first page, at the end of the first
+    page, the last position, t < 0 (every position masked), at and after
+    a 16-position unit boundary, mid-table, past the table."""
+    L = n_pg * ps
+    want = [ps // 2, ps - 1, L - 1, -1, min(47, L - 1), min(48, L - 1),
+            L // 2, L + 5]
+    return [want[b % len(want)] for b in range(B)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,D,ps,n_pg,P", _PAGED_SPLIT_SHAPES)
+def test_paged_kernel_split_over_pages_matches_plain(dev, dtype, B, H, D, ps,
+                                                     n_pg, P):
+    case = list(_paged_case(dev, dtype, B=B, H=H, D=D, ps=ps, n_pg=n_pg,
+                            P=P, seed=B * H + ps))
+    case[4] = torch.tensor(_paged_split_t(B, ps, n_pg), dtype=torch.int32,
+                           device=dev)
+    n0 = pa.launches
+    got = pa.paged_attention(*case)
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_reference(*case)
+    assert pa.launches == n0 + 1
+    tol = _TOL[dtype][0]
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_paged_kernel_refuses_what_it_cannot_take(dev):
+    q, kp, vp, tables, t = _paged_case(dev, torch.float32)
+    bad = [(q[:, :, :, :60].contiguous(), kp, vp, tables, t),   # D mismatch
+           (q, kp, vp, tables.long(), t),
+           (q, kp.bfloat16(), vp, tables, t),
+           (q, kp, vp, tables, t[:2]),
+           (q, kp.transpose(2, 3).contiguous().transpose(2, 3), vp,
+            tables, t)]
+    flat = torch.zeros(kp.numel() + 1, device=dev)
+    bad.append((q, flat[1:].view(kp.shape), vp, tables, t))    # off 16 B
+    n0 = pa.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            pa.paged_attention(*args)
+    assert pa.launches == n0
 
 
 def _bias(dev, B, Lk, padded):
@@ -451,6 +508,103 @@ def test_int8_kernel_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError):
         im.int8_matmul(x, w.t().contiguous().t(), 1.0,
                        torch.ones(4, device=dev))
+
+
+_GPT2_GEMMS = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
+
+
+@pytest.mark.parametrize("M,K,O", [(M, K, O) for M in (17, 64, 65, 512, 1024)
+                                   for K, O in _GPT2_GEMMS]
+                         + [(17, 96, 200), (300, 96, 200)])
+@pytest.mark.parametrize("variant", ["bias", "no bias", "relu",
+                                     "per-tensor", "bf16 scale",
+                                     "self-transposed"])
+def test_int8_wgmma_route_matches_plain_bit_for_bit(dev, M, K, O, variant):
+    """M > 16 with K % 16 == 0: the wgmma route on the K-major weight, or
+    without it on the wrapper's own transpose (one more, counted launch),
+    equal to the plain version bit for bit."""
+    rng = np.random.RandomState(M * K + O)
+    x_q, w_q = _int8(dev, (M, K), 1), _int8(dev, (K, O), 2)
+    w_s = torch.tensor(rng.rand(O) * 1e-2 + 1e-4, dtype=torch.float32,
+                       device=dev)
+    kw = dict(bias=torch.tensor(rng.randn(O), dtype=torch.float32,
+                                device=dev))
+    s_x = torch.tensor(0.0173, device=dev)
+    if variant == "no bias":
+        kw = {}
+    elif variant == "relu":
+        kw["relu"] = True
+    elif variant == "per-tensor":
+        w_s = w_s[:1].contiguous()
+    elif variant == "bf16 scale":
+        s_x = torch.tensor(0.0173, dtype=torch.bfloat16, device=dev)
+    given = {} if variant == "self-transposed" else \
+        {"w_q_k": w_q.t().contiguous()}
+    n0 = (im.launches, im.launches_wgmma, im.launches_transpose,
+          im.launches_decode, im.launches_mma)
+    got = im.int8_matmul(x_q, w_q, s_x, w_s, **kw, **given)
+    torch.cuda.synchronize()
+    ref = im.int8_matmul_reference(x_q, w_q, s_x, w_s, **kw)
+    n1 = (im.launches, im.launches_wgmma, im.launches_transpose,
+          im.launches_decode, im.launches_mma)
+    assert n1 == (n0[0] + 1, n0[1] + 1, n0[2] + (not given), n0[3], n0[4])
+    assert got.dtype == torch.float32 and got.shape == (M, O)
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+    if given:
+        # the K-major route equals the self-transposed one
+        again = im.int8_matmul(x_q, w_q, s_x, w_s, **kw)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("M,K,O,misaligned", [(130, 100, 37, False),
+                                              (17, 40, 64, False),
+                                              (64, 768, 768, True)])
+def test_int8_mma_route_where_tma_cannot_address(dev, M, K, O, misaligned):
+    """K % 16 != 0, or x off the 16-byte grid: the mma.sync route, with
+    its own counter, bit for bit; the K-major weight is not read."""
+    x_all = _int8(dev, (M * K + 1,), 3)
+    x_q = (x_all[1:] if misaligned else x_all[:-1]).view(M, K)
+    w_q = _int8(dev, (K, O), 4)
+    w_s = torch.rand(O, device=dev) * 1e-2 + 1e-4
+    bias = torch.randn(O, device=dev)
+    n0 = (im.launches_mma, im.launches_wgmma, im.launches_transpose)
+    got = im.int8_matmul(x_q, w_q, 0.02, w_s, bias=bias,
+                         w_q_k=w_q.t().contiguous())
+    torch.cuda.synchronize()
+    assert (im.launches_mma, im.launches_wgmma, im.launches_transpose) == \
+        (n0[0] + 1, n0[1], n0[2])
+    ref = im.int8_matmul_reference(x_q, w_q, 0.02, w_s, bias=bias)
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+def test_int8_wgmma_is_exact_at_extreme_values(dev):
+    """+-127 and -128 operands at K = 3072 through the wgmma route."""
+    rng = np.random.RandomState(5)
+    vals = np.array([127, -127, -128], dtype=np.int8)
+    x_q = torch.tensor(vals[rng.randint(0, 3, (200, 3072))], device=dev)
+    w_q = torch.tensor(vals[rng.randint(0, 3, (3072, 768))], device=dev)
+    x_q[0] = -128
+    w_q[:, :5] = -128
+    w_s = torch.ones(768, device=dev)
+    n0 = im.launches_wgmma
+    got = im.int8_matmul(x_q, w_q, 1.0, w_s, w_q_k=w_q.t().contiguous())
+    torch.cuda.synchronize()
+    assert im.launches_wgmma == n0 + 1
+    ref = im.int8_matmul_reference(x_q, w_q, 1.0, w_s)
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+    assert float(got[0, 0]) == 128.0 ** 2 * 3072
+
+
+def test_int8_wgmma_refuses_a_wrong_kmajor_weight(dev):
+    x_q, w_q = _int8(dev, (32, 64), 0), _int8(dev, (64, 48), 1)
+    w_s = torch.ones(48, device=dev)
+    n0 = im.launches
+    for w_k in (w_q.contiguous(),                      # (K, O), not (O, K)
+                w_q.t(),                               # not contiguous
+                w_q.t().contiguous().float()):
+        with pytest.raises(ValueError):
+            im.int8_matmul(x_q, w_q, 1.0, w_s, w_q_k=w_k)
+    assert im.launches == n0
 
 
 def test_tiny_gpt_adam_training_on_card_matches_cpu(dev):

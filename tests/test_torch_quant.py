@@ -189,6 +189,82 @@ def test_constant_keeps_its_value_through_initialize():
     assert c.dtype == torch.int8 and c.grad_req == "null"
 
 
+def _kmajor_layers(model):
+    return [(path, m) for path, m in model.named_modules()
+            if isinstance(m, quant_t.QuantizedDense)]
+
+
+def test_kmajor_weight_follows_weight_q():
+    """The (O, K) K-major copy the card's wgmma route reads equals
+    weight_q.T after quantize_block and again after load_named_arrays
+    writes new int8 weights in place; it is a non-persistent buffer, so
+    the parameter names and shapes stay the JAX QuantizedDense's."""
+    jm = _jax_gpt()
+    tm = _port_gpt(_arrays(jm))
+    quant_j.quantize_block(jm)
+    quant_t.quantize_block(tm)
+    layers = _kmajor_layers(tm)
+    assert len(layers) == 4 * 2
+    for path, m in layers:
+        wk = m.kmajor_weight()
+        assert wk.dtype == torch.int8 and wk.is_contiguous()
+        assert torch.equal(wk, m.weight_q.t()), path
+        assert wk.data_ptr() == m.weight_q_k.data_ptr()
+    params = tm.collect_params()
+    assert not any("weight_q_k" in k for k in params)
+    assert not any("weight_q_k" in k for k in tm.state_dict())
+    ja = _arrays(jm)
+    assert {k: tuple(p.shape) for k, p in params.items()} == \
+        {k: a.shape for k, a in ja.items()}
+    # new int8 weights written in place, by name
+    rng = np.random.RandomState(4)
+    new = {k: (rng.randint(-127, 128, a.shape).astype(np.int8)
+               if k.endswith("weight_q") else a) for k, a in ja.items()}
+    weights.load_named_arrays(tm, new)
+    for path, m in layers:
+        assert torch.equal(m.kmajor_weight(), m.weight_q.t()), path
+        np.testing.assert_array_equal(
+            m.kmajor_weight().numpy(), new[f"{path}.weight_q"].T)
+    # the forward reads the new weights on the CPU too
+    ids = np.random.RandomState(5).randint(0, _VOCAB, (2, 6)).astype(
+        np.int32)
+    for k, a in new.items():
+        jm.collect_params()[k].set_data(NDArray(jnp.asarray(a)))
+    np.testing.assert_allclose(
+        tm(torch.from_numpy(ids)).detach().float().numpy(),
+        np.asarray(jm(NDArray(jnp.asarray(ids)))._data).astype(np.float32),
+        rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("bias", [False, True])
+def test_int8_matmul_plain_matches_jax_with_bf16_dynamic_scale(relu, bias):
+    """The port's int8_matmul on the CPU (its plain version) against the
+    JAX package's int8_matmul_reference with a bf16 0-d dynamic
+    activation scale, as a bf16 model's QuantizedDense passes it: equal
+    bit for bit (the bf16 scale widens exactly to float32 on both
+    sides)."""
+    from mxnet_tpu.pallas_ops.int8_matmul import int8_matmul_reference
+    rng = np.random.RandomState(7)
+    x = rng.randint(-127, 128, (5, 40)).astype(np.int8)
+    w = rng.randint(-127, 128, (40, 24)).astype(np.int8)
+    ws = (rng.rand(24) * 1e-2 + 1e-4).astype(np.float32)
+    b = rng.randn(24).astype(np.float32) if bias else None
+    xs_j = jnp.asarray(np.float32(0.0371)).astype(jnp.bfloat16)
+    xs_t = torch.tensor(0.0371, dtype=torch.bfloat16)
+    ref = np.asarray(int8_matmul_reference(
+        jnp.asarray(x), jnp.asarray(w), xs_j, jnp.asarray(ws),
+        bias=None if b is None else jnp.asarray(b), relu=relu))
+    n0 = im_t.launches
+    got = im_t.int8_matmul(
+        torch.from_numpy(x), torch.from_numpy(w), xs_t, torch.from_numpy(ws),
+        bias=None if b is None else torch.from_numpy(b), relu=relu,
+        w_q_k=torch.from_numpy(np.ascontiguousarray(w.T)))
+    assert im_t.launches == n0
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 def _prompt(n, seed=0):
     return np.random.RandomState(seed).randint(0, _VOCAB, (n,)) \
         .astype(np.int32)
