@@ -61,6 +61,25 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      the CPU from the same weights: equal routing at every step, losses
      and every parameter within TOL_TRAIN.
 
+ 13. trains BERT-large (`bert_large_config(dtype="bfloat16")`: 24 layers
+     of 1024 units, 16 heads, per-layer remat, dropout 0.1) at 32 x 512
+     with 76 masked positions, LAMB lr 1e-3, wd 0.01, 2 warm-up + 8 timed
+     steps and one under torch.profiler (bench.py's `bench_bert_large`),
+     then the same with remat off: exactly 48 flash forwards (24 and 24
+     recomputed), 24 dq, 24 dkv and one launch of each LAMB pass a step
+     with remat, 24 forwards without; peak memory both ways;
+ 14. trains a float32 bert_large_config at 2 layers of 256 units
+     (remat on, dropout 0) 3 LAMB steps on the card and on the CPU;
+ 15. trains ResNet-50 v1 as bench.py's `bench_resnet50` does
+     (`resnet50_v1(classes=1000)`, `initialize()`, `cast("bfloat16")`,
+     SoftmaxCrossEntropyLoss, SGD lr 0.1, momentum 0.9, wd 1e-4, 128 x 3 x
+     224 x 224): 3 warm-up + 10 timed steps, one profiled, then 5 with the
+     convolutions' input NCHW in memory instead of channels-last; no repo
+     kernel launches, the first BatchNorm's running statistics move;
+ 16. trains a float32 ResNet v1 (BottleneckV1, two stages) 3 SGD steps
+     with `set_grad_accum(2)` on the card and on the CPU: losses, every
+     parameter and running statistic within TOL_TRAIN.
+
 Phase 1 also holds the training kernels against their plain versions at
 the training shapes: the flash forward with dropout 0.1 (its keep mask
 bit for bit), the dq and dkv backward kernels over a grid of dtypes,
@@ -75,7 +94,9 @@ wrapper's own transpose), bit for bit, each route's launch counter
 checked, and the MoE dispatch and combine at the Switch
 LM's full width (16,384 tokens, 768 wide, 8 experts of capacity 2,560)
 on `moe_route`'s routing with capacity drops, bit for bit, and on random
-routing with duplicate slots (dispatch within rtol and atol 1e-6).
+routing with duplicate slots (dispatch within rtol and atol 1e-6), and
+the flash forward (dropout 0.1), dq and dkv at BERT-large's
+(32,16,512,64) and both LAMB passes at BERT-large's flat master.
 
 The flash rows' library yardsticks are SDPA calls computing the same
 function: the causal forward, the forward with dropout_p 0.1 at BERT's
@@ -223,6 +244,22 @@ def kernel_times(prof):
     for key, us, _ in kernel_rows(prof):
         out[key] = out.get(key, 0.0) + us
     return out
+
+
+def host_profile(prof, per, n_top):
+    """(top host ops {name: self CPU ms}, {CUDA runtime call that waits
+    for the card: calls}) per `per` repetitions of a torch.profiler
+    window: where a step's host time goes, and whether it waits."""
+    from torch.autograd import DeviceType
+    ops, waits = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CPU:
+            continue
+        ops[e.key[:60]] = e.self_cpu_time_total / 1e3 / per
+        if "Synchronize" in e.key or "cudaMemcpy" in e.key:
+            waits[e.key] = e.count / per
+    top = sorted(ops.items(), key=lambda kv: kv[1], reverse=True)
+    return dict(top[:n_top]), waits
 
 
 def sass_mix(lib, kernels=("flash_fwd_wgmma_kernel", "dq_wgmma_kernel",
@@ -681,6 +718,75 @@ def gpt_flash_phase(dev, B=16, L=1024, seed=1):
     return out
 
 
+def bert_large_flash_phase(dev, B=32, H=16, L=512, p=0.1,
+                           seed=0x5EED_1234_ABCD):
+    """The flash kernels at BERT-large's shape (the BERT-large path):
+    (B,16,L,64) bf16, no mask, dropout p, forward (its keep mask bit for
+    bit), dq and dkv against their plain versions on the same inputs,
+    then timed, with SDPA's forward and backward beside them. Returns
+    {row: extra fields}."""
+    import torch
+    import torch.nn.functional as tF
+    from mxnet_tpu_torch.cuda_ops import flash_attention as fa
+    q, k, v, g, bias = train_flash_case(dev, torch.bfloat16, B, H=H, L=L,
+                                        seed=2)
+    BH, D, es = B * H, q.shape[3], q.element_size()
+    check(torch.equal(fa.dropout_mask(seed, BH, L, L, p, dev),
+                      fa.dropout_keep_mask(seed, BH, L, L, p, dev)),
+          "dropout keep mask at BERT-large's shape: kernel and plain differ")
+    o, lse = fa.flash_fwd(q, k, v, bias, False, dropout=p, seed=seed)
+    ro, rlse = fa.flash_fwd_reference(q, k, v, bias, False, dropout=p,
+                                      seed=seed)
+    e_fwd = max(max_err(o, ro), max_err(lse, rlse))
+    check(e_fwd <= TOL["flash"]["bfloat16"],
+          f"flash fwd BERT-large shape: max_abs_err {e_fwd}")
+    del o, lse
+    delta = (g.float() * ro.float()).sum(-1).reshape(BH, L)
+    bw = (q, k, v, bias, g, rlse, delta, False, None, p, seed)
+    ref = fa.flash_bwd_reference(*bw)
+    tol = TOL_BWD["bfloat16"] * max(float(x.float().abs().max()) for x in ref)
+    e_dq = max_err(fa.flash_bwd_dq(*bw), ref[0])
+    dk, dv = fa.flash_bwd_dkv(*bw)
+    e_dkv = max(max_err(dk, ref[1]), max_err(dv, ref[2]))
+    check(max(e_dq, e_dkv) <= tol,
+          f"flash bwd BERT-large shape: dq {e_dq}, dkv {e_dkv} > {tol}")
+    del ro, ref, dk, dv
+    io = BH * L * D * es
+    shape = f"q/k/v/dO ({B},{H},{L},{D}) bf16, no mask, dropout {p}"
+
+    def sdpa():
+        return tF.scaled_dot_product_attention(q, k, v, dropout_p=p)
+
+    lib_fwd = (time_ms(sdpa), device_ms(sdpa, skip=FLUSH_ONLY),
+               f"SDPA forward, dropout_p {p} (its own mask: times only)")
+    lib_bwd = (*sdpa_backward_ms(q, k, v, g, dropout_p=p),
+               f"SDPA backward alone, dropout_p {p} (dq, dk and dv "
+               "together)")
+    out = {}
+    for row, err, nbytes, flops, fn, plain, lib in (
+            ("flash_attention_fwd_dropout", e_fwd,
+             4 * io + 4 * BH * L + 4 * B * L, 4 * BH * L * L * D,
+             lambda: fa.flash_fwd(q, k, v, bias, False, dropout=p,
+                                  seed=seed),
+             lambda: fa.flash_fwd_reference(q, k, v, bias, False, dropout=p,
+                                            seed=seed), lib_fwd),
+            ("flash_attention_dq", e_dq, 5 * io + 8 * BH * L + 4 * B * L,
+             6 * BH * L * L * D, lambda: fa.flash_bwd_dq(*bw),
+             lambda: fa.flash_dq_reference(*bw), lib_bwd),
+            ("flash_attention_dkv", e_dkv, 6 * io + 8 * BH * L + 4 * B * L,
+             8 * BH * L * L * D, lambda: fa.flash_bwd_dkv(*bw),
+             lambda: fa.flash_dkv_reference(*bw), lib_bwd)):
+        b_ms, b_by = bound(nbytes, flops)
+        out[row] = {"bert_large_shape": dict(
+            shapes=shape, max_abs_err=err, ms=time_ms(fn),
+            device_ms=device_ms(fn, match="mxt::"),
+            plain_ms=time_ms(plain, iters=3), bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib[0], library_device_ms=lib[1], library=lib[2])}
+    out["flash_attention_dq"]["bert_large_shape"]["tol"] = tol
+    out["flash_attention_dkv"]["bert_large_shape"]["tol"] = tol
+    return out
+
+
 def flash_times(root):
     """Times of the flash forward, dq and dkv, paged attention and the
     int8 GEMM of the checkout at `root` (its `mxnet_tpu_torch`, built
@@ -841,26 +947,27 @@ def flash_ab(other):
     return rounds
 
 
-def bert_base_rows():
-    """Rows of BERT-base's flat float32 master (FusedLamb layout), from
-    the parameter shapes alone (the model built on the meta device)."""
+def bert_rows(config="bert_base_config"):
+    """Rows of a BERT config's flat float32 master (FusedLamb layout),
+    from the parameter shapes alone (the model built on the meta
+    device)."""
     from mxnet_tpu_torch.models import bert
     from mxnet_tpu_torch.parallel import FusedLamb
-    m = bert.BERTForPretraining(bert.bert_base_config(), device="meta")
+    m = bert.BERTForPretraining(getattr(bert, config)(), device="meta")
     ps = list(m.collect_params().values())
     return FusedLamb([p.shape for p in ps], [p.dtype for p in ps],
                      [0.0] * len(ps), 0.9, 0.999, 1e-6, True, 1.0, -1.0,
                      -1.0, -1.0).n_rows
 
 
-def lamb_phase(dev, seed=0):
-    """Both LAMB passes against their plain versions at BERT-base's flat
-    size (R rows of 512 float32), timed on copies so each run sees the
-    same state."""
+def lamb_phase(dev, config="bert_base_config", seed=0):
+    """Both LAMB passes against their plain versions at a BERT config's
+    flat size (R rows of 512 float32), timed on copies so each run sees
+    the same state: CUDA events and profiler device time."""
     import numpy as np
     import torch
     from mxnet_tpu_torch.cuda_ops import fused_update as fu
-    R = bert_base_rows()
+    R = bert_rows(config)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
@@ -908,10 +1015,12 @@ def lamb_phase(dev, seed=0):
             replaces=f"mxnet_tpu/pallas_ops/fused_update.py:{line}",
             max_abs_err=err, error_is="relative to the largest |reference|",
             bound_ms=b_ms, bound_by=b_by, flops_per_call=flops,
-            ms=time_ms(k_fn), plain_ms=time_ms(p_fn, iters=5),
-            library_ms=None,
+            ms=time_ms(k_fn), device_ms=device_ms(k_fn, match="mxt::"),
+            plain_ms=time_ms(p_fn, iters=5), library_ms=None,
             library="none: no single PyTorch call computes a LAMB pass",
-            shapes=shapes)
+            times_are="ms: CUDA events around the call; device_ms: "
+                      "torch.profiler device time; both L2 flushed",
+            rows=R, shapes=shapes)
     return out
 
 
@@ -1417,7 +1526,7 @@ def breakdown_phase(model, n_req=8, prompt=64, new=40, rounds=8):
         prof_ms = (time.perf_counter() - t0) * 1e3 / rounds
     srv.drain()
     srv.stop()
-    busy_ms, top, _ = device_profile(prof, rounds, 6)
+    busy_ms, top, _, _ = device_profile(prof, rounds, 6)
     # kernel times do not grow under the profiler; the round's wall does,
     # so the idle share is taken against the bare round
     return {"decode_round_ms": bare_ms, "profiled_round_ms": prof_ms,
@@ -1429,31 +1538,94 @@ def breakdown_phase(model, n_req=8, prompt=64, new=40, rounds=8):
 
 
 def _kernel_class(name):
+    """The class a device kernel's time is summed under: the repo's
+    kernels by family, then the library's by what they compute."""
     if "mxt::" in name:
         for part in ("lamb", "adam", "int8", "moe"):
             if part in name:
                 return f"{part} kernels"
         return "attention kernels"
-    if "gemm" in name or name.startswith(("nvjet", "cutlass")):
+    low = name.lower()
+    if "batch_norm" in low or "bn_" in low:
+        return "BatchNorm"
+    if "pool" in low:
+        return "pooling"
+    if any(w in low for w in ("convolution", "conv2d", "implicit_gemm",
+                              "implicitgemm", "dgrad", "wgrad", "fprop",
+                              "cudnn")):
+        return "convolutions"
+    if "gemm" in low or low.startswith(("nvjet", "cutlass")):
         return "gemm"
+    if "multi_tensor_apply" in low:
+        return "foreach updates"
+    if "elementwise" in low or "reduce" in low:
+        return "elementwise and reductions"
     return "other"
 
 
 def device_profile(prof, per, n_top):
-    """(device busy ms, top kernels {name: ms}, ms by class) per `per`
-    repetitions of a torch.profiler window. Kernel rows only: an op row's
-    self device time repeats its kernels'. Names are cut to 70
-    characters and kernels whose cut names agree are summed."""
-    by_name, by_class = {}, {}
-    for key, us in kernel_times(prof).items():
+    """(device busy ms, top kernels {name: ms}, ms by class, kernel
+    launches) per `per` repetitions of a torch.profiler window. Kernel
+    rows only: an op row's self device time repeats its kernels'. Names
+    are cut to 70 characters and kernels whose cut names agree are
+    summed."""
+    by_name, by_class, launched = {}, {}, 0
+    for key, us, count in kernel_rows(prof):
         ms = us / 1e3 / per
         by_name[key[:70]] = by_name.get(key[:70], 0.0) + ms
         cls = _kernel_class(key)
         by_class[cls] = by_class.get(cls, 0.0) + ms
+        launched += count
     if not by_name:
-        return None, {}, {}
+        return None, {}, {}, 0
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)
-    return sum(by_name.values()), dict(top[:n_top]), by_class
+    return sum(by_name.values()), dict(top[:n_top]), by_class, launched / per
+
+
+def timed_steps(trainer, data, labels, warmup, steps, profiled=True,
+                n_top=10):
+    """`warmup` trainer steps, `steps` timed ones ended by one host fetch
+    and, when `profiled`, one more under torch.profiler. Returns (the
+    losses of the warm-up and timed steps, the launch counts of the
+    timed steps, {timing and profile fields}). The peak memory is that
+    of the timed steps: it is reset after the warm-up, which allocates
+    the optimizer's state (and on a deferred model runs the probe
+    pass)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    losses = [trainer.step(data, labels) for _ in range(warmup)]
+    float(losses[-1])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(trainer.step(data, labels))
+    float(losses[-1])                         # one host fetch fences all
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    step_ms = secs * 1e3 / steps
+    res = {"steps": steps, "warmup": warmup, "seconds": secs,
+           "ms_per_step": step_ms,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    if profiled:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            float(trainer.step(data, labels))
+            prof_ms = (time.perf_counter() - t1) * 1e3
+        busy_ms, top, by_class, kernels = device_profile(prof, 1, n_top)
+        host_top, waits = host_profile(prof, 1, 12)
+        res.update({"profiled_step_ms": prof_ms,
+                    "device_busy_ms_per_step": busy_ms,
+                    "device_idle_share": None if busy_ms is None
+                    else 1 - busy_ms / step_ms,
+                    "device_ms_per_step_by_class": by_class,
+                    "kernels_per_step": kernels,
+                    "top_device_ms_per_step": top,
+                    "top_host_self_ms_per_step": host_top,
+                    "waiting_runtime_calls_per_step": waits})
+    return [float(x) for x in losses], counts, res
 
 
 # ---------------------------------------------------------------------------
@@ -1472,20 +1644,24 @@ def build_bert(cfg, seed, device):
     return model
 
 
-def training_phase(dev, batch=32, seq_len=512, masked=76, warmup=2,
-                   steps=16):
-    """BERT-base pretraining steps on one repeated synthetic batch (the
-    JAX package's bench.py configuration). Returns the result dict and
-    the launch counts of the timed steps. The NSP term of a fresh model
-    swings by tenths over the first steps while the MLM term falls
-    steadily, so the run is long enough for the last loss to sit clearly
-    below the first."""
+def training_phase(dev, config="bert_base_config", remat=None, batch=32,
+                   seq_len=512, masked=76, warmup=2, steps=16,
+                   **cfg_overrides):
+    """BERT pretraining steps on one repeated synthetic batch (bench.py's
+    configurations: bf16, dropout 0.1, LAMB lr 1e-3, wd 0.01, 32 x 512
+    with 76 masked positions), `config` with its own remat unless
+    `remat` names one (`cfg_overrides` cut it for a rehearsal on the
+    CPU). Returns the result dict and the launch counts of
+    the timed steps. The NSP term of a fresh model swings by tenths over
+    the first steps while the MLM term falls steadily, so the run is
+    long enough for the last loss to sit clearly below the first."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from mxnet_tpu_torch import parallel
     from mxnet_tpu_torch.models import bert
-    cfg = bert.bert_base_config(dtype="bfloat16")
+    if remat is not None:
+        cfg_overrides["remat"] = remat
+    cfg = getattr(bert, config)(dtype="bfloat16", **cfg_overrides)
     model = build_bert(cfg, 0, dev)
     trainer = parallel.ShardedTrainer(
         model, bert.bert_pretrain_loss, "lamb",
@@ -1493,62 +1669,39 @@ def training_phase(dev, batch=32, seq_len=512, masked=76, warmup=2,
     b = bert.make_synthetic_batch(cfg, batch, seq_len, masked, seed=0)
     data = [torch.from_numpy(b[k]).to(dev) for k in _DATA]
     labels = [torch.from_numpy(b[k]).to(dev) for k in _LABELS]
-    losses = [trainer.step(data, labels) for _ in range(warmup)]
-    float(losses[-1])
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        losses.append(trainer.step(data, labels))
-    float(losses[-1])                         # one host fetch fences all
-    secs = time.perf_counter() - t0
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(x) for x in losses]
-    check(np.isfinite(losses).all(), f"training losses {losses}")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    want = expect(flash_attention_fwd=12 * steps,
-                  flash_attention_dq=12 * steps,
-                  flash_attention_dkv=12 * steps, lamb_pass1=steps,
+    losses, counts, timing = timed_steps(trainer, data, labels, warmup,
+                                         steps)
+    name = f"{config}(dtype='bfloat16', remat={cfg['remat']})"
+    check(np.isfinite(losses).all(), f"{name} losses {losses}")
+    check(losses[-1] < losses[0], f"{name} loss did not fall: {losses}")
+    L = cfg["num_layers"]
+    # a rematerialised layer launches its forward again in the backward
+    want = expect(flash_attention_fwd=(2 if cfg["remat"] else 1) * L * steps,
+                  flash_attention_dq=L * steps,
+                  flash_attention_dkv=L * steps, lamb_pass1=steps,
                   lamb_pass2=steps)
-    check(counts == want, f"training launches {counts} != {want}")
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        float(trainer.step(data, labels))
-        prof_ms = (time.perf_counter() - t1) * 1e3
-    busy_ms, top, by_class = device_profile(prof, 1, 10)
-    step_ms = secs * 1e3 / steps
-    res = {"model": "bert_base_config(dtype='bfloat16')", "batch": batch,
-           "seq_len": seq_len, "masked": masked, "steps": steps,
-           "warmup": warmup, "seconds": secs,
-           "tokens_per_s": batch * seq_len * steps / secs,
-           "ms_per_step": step_ms,
-           "max_memory_allocated_bytes": peak,
-           "param_count": trainer.param_count, "losses": losses,
-           "profiled_step_ms": prof_ms,
-           "device_busy_ms_per_step": busy_ms,
-           "device_idle_share": None if busy_ms is None
-           else 1 - busy_ms / step_ms,
-           "device_ms_per_step_by_class": by_class,
-           "top_device_ms_per_step": top}
+    check(counts == want, f"{name} launches {counts} != {want}")
+    res = {"model": name, "batch": batch, "seq_len": seq_len,
+           "masked": masked,
+           "tokens_per_s": batch * seq_len * steps / timing["seconds"],
+           "param_count": trainer.param_count,
+           "master_rows": trainer._fl.n_rows, "losses": losses, **timing}
     del trainer, model
     torch.cuda.empty_cache()
     return res, counts
 
 
-def train_parity_phase(dev, steps=3):
-    """A small float32 BERT (dropout 0) trained `steps` LAMB steps on the
-    card (flash fwd/dq/dkv and both LAMB kernels) and on the CPU (plain
-    versions) from the same weights: losses and the final flat master
-    must agree within TOL_TRAIN."""
+def train_parity_phase(dev, steps=3, config="bert_base_config"):
+    """A small float32 BERT (dropout 0; `config` at 2 layers of 256
+    units: bert_large_config's remat included) trained `steps` LAMB
+    steps on the card (flash fwd/dq/dkv and both LAMB kernels) and on the
+    CPU (plain versions) from the same weights: losses and the final flat
+    master must agree within TOL_TRAIN."""
     import numpy as np
     import torch
     from mxnet_tpu_torch import parallel
     from mxnet_tpu_torch.models import bert
-    cfg = bert.bert_base_config(num_layers=2, units=256, hidden_size=1024,
+    cfg = getattr(bert, config)(num_layers=2, units=256, hidden_size=1024,
                                 num_heads=4, max_length=128, dropout=0.0)
     b = bert.make_synthetic_batch(cfg, 8, 128, 20, seed=2)
     b["valid_length"][::2] = 100
@@ -1572,15 +1725,190 @@ def train_parity_phase(dev, steps=3):
     check(e_loss <= TOL_TRAIN and e_w <= TOL_TRAIN,
           f"card vs CPU training: losses {lg} vs {lc}, master err {e_w}")
     L = cfg["num_layers"]
-    want = expect(flash_attention_fwd=L * steps,
+    # a rematerialised layer launches its forward again in the backward
+    fwd = L * steps * (2 if cfg["remat"] else 1)
+    want = expect(flash_attention_fwd=fwd,
                   flash_attention_dq=L * steps,
                   flash_attention_dkv=L * steps, lamb_pass1=steps,
                   lamb_pass2=steps)
     check(counts == want, f"parity launches {counts} != {want}")
     check(all(v == 0 for v in out["cpu"][2].values()),
           f"CPU run launched kernels {out['cpu'][2]}")
+    return {"config": config, "remat": cfg["remat"], "losses_card": lg,
+            "losses_cpu": lc, "max_loss_err": e_loss, "max_master_err": e_w,
+            "master_elements": int(wg.numel()), "launches": counts}
+
+
+def bert_large_phase(dev, steps=8, **kw):
+    """BERT-large pretraining (bench.py's `bench_bert_large`: 2 + 8 steps)
+    with per-layer remat, then the same without remat at the same batch:
+    what remat saves in peak memory and costs in time. Returns
+    ({"remat": ..., "no_remat": ...}, launch counts of the remat run)."""
+    out, counts = {}, None
+    for remat in (True, False):
+        res, c = training_phase(dev, "bert_large_config", remat,
+                                steps=steps, **kw)
+        out["remat" if remat else "no_remat"] = res
+        counts = counts or c
+    r, n = out["remat"], out["no_remat"]
+    out["remat_saves_bytes"] = n["max_memory_allocated_bytes"] \
+        - r["max_memory_allocated_bytes"]
+    out["remat_costs_ms_per_step"] = r["ms_per_step"] - n["ms_per_step"]
+    return out, counts
+
+
+def resnet50_trainer(dev, dtype):
+    """bench.py's `bench_resnet50` model and trainer:
+    `resnet50_v1(classes=1000)`, `random.seed(0)`, `initialize()`,
+    `cast(dtype)` (none for float32), SoftmaxCrossEntropyLoss, SGD lr
+    0.1, momentum 0.9, wd 1e-4."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.models import resnet
+    net = resnet.resnet50_v1(classes=1000, device=dev)
+    mxrandom.seed(0, dev)
+    net.initialize()
+    if dtype is not None:
+        net.cast(dtype)
+    lfn = gloss.SoftmaxCrossEntropyLoss()
+    return net, parallel.ShardedTrainer(
+        net, lambda out, label: lfn(out, label), "sgd",
+        {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}, device=dev)
+
+
+def resnet50_phase(dev, batch=128, size=224, warmup=3, steps=10,
+                   layout_steps=5):
+    """ResNet-50 v1 training as bench.py's `bench_resnet50` runs it
+    (`resnet50_trainer(dev, "bfloat16")`, one repeated batch of 128 x 3
+    x 224 x 224 from numpy.random.RandomState(0)): 3 warm-up steps (the
+    first resolves the deferred shapes), 10 timed ones ended by one host
+    fetch, one under torch.profiler; then `layout_steps` timed with the
+    convolutions' memory format switched to NCHW. Then the same 3 + 10
+    steps in float32 (TF32 off) from the same seed: the loss trace the
+    bf16 one is read beside, and whose first loss (no update yet, the
+    same weights up to bf16 rounding) the bf16 one must meet within 5%.
+    Returns (result, launch counts)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.ops import nn_ops
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(batch, 3, size, size)
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, 1000, batch)
+                         .astype(np.float32)).to(dev)
+    net, trainer = resnet50_trainer(dev, "bfloat16")
+    losses, counts, timing = timed_steps(trainer, [x], [y], warmup, steps,
+                                         n_top=25)
+    check(np.isfinite(losses).all(), f"ResNet-50 losses {losses}")
+    check(counts == expect(), f"ResNet-50 launched repo kernels {counts}")
+    bn = net.features[1]
+    check(bn.running_mean.dtype == torch.bfloat16
+          and float(bn.running_mean.float().abs().max()) > 0
+          and float((bn.running_var.float() - 1).abs().max()) > 0,
+          "the first BatchNorm's running statistics did not move")
+    # the same steps with the convolutions' input left NCHW in memory
+    fmt = nn_ops.conv_memory_format
+    nn_ops.conv_memory_format = torch.contiguous_format
+    try:
+        float(trainer.step([x], [y]))
+        t2 = time.perf_counter()
+        for _ in range(layout_steps):
+            loss = trainer.step([x], [y])
+        float(loss)
+        nchw_ms = (time.perf_counter() - t2) * 1e3 / layout_steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            float(trainer.step([x], [y]))
+        nchw_busy, _, nchw_class, _ = device_profile(prof, 1, 0)
+    finally:
+        nn_ops.conv_memory_format = fmt
+    res = {"model": "resnet50_v1(classes=1000), cast('bfloat16')",
+           "batch": batch, "image": [3, size, size],
+           "images_per_s": batch * steps / timing["seconds"],
+           "param_count": sum(p.numel() for p in trainer.params),
+           "losses": losses,
+           "first_bn_running_mean_absmax":
+               float(bn.running_mean.float().abs().max()),
+           **timing,
+           "conv_memory_format": str(fmt),
+           "ms_per_step_nchw_memory_format": nchw_ms,
+           "device_busy_ms_per_step_nchw": nchw_busy,
+           "device_ms_per_step_by_class_nchw": nchw_class,
+           "nchw_steps": layout_steps}
+    del trainer, net
+    torch.cuda.empty_cache()
+    net, trainer = resnet50_trainer(dev, None)
+    losses32, _, t32 = timed_steps(trainer, [x], [y], warmup, steps,
+                                   profiled=False)
+    check(np.isfinite(losses32).all(),
+          f"float32 ResNet-50 losses {losses32}")
+    first = abs(losses[0] - losses32[0]) / abs(losses32[0])
+    check(first <= 0.05, f"ResNet-50 first loss: bf16 {losses[0]} vs "
+          f"float32 {losses32[0]}")
+    res["float32"] = {"losses": losses32,
+                      "images_per_s": batch * steps / t32["seconds"],
+                      "ms_per_step": t32["ms_per_step"],
+                      "max_memory_allocated_bytes":
+                          t32["max_memory_allocated_bytes"],
+                      "first_loss_rel_diff_bf16": first}
+    del trainer, net
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def resnet_parity_phase(dev, steps=3):
+    """A small float32 ResNet v1 (BottleneckV1, two stages) trained
+    `steps` SGD steps (momentum 0.9, wd 1e-4) with `set_grad_accum(2)` on
+    the card and on the CPU from the same weights, TF32 off: losses,
+    every parameter and every running statistic within TOL_TRAIN; no
+    repo kernel launches."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import parallel, weights
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.models import resnet
+
+    def net():
+        return resnet.ResNetV1(resnet.BottleneckV1, [1, 1], [16, 64, 128],
+                               classes=10, device="cpu")
+
+    rng = np.random.RandomState(3)
+    x = rng.randn(8, 3, 32, 32).astype(np.float32)
+    y = rng.randint(0, 10, 8).astype(np.float32)
+    start = net()
+    start.initialize(generator=mxrandom.seed(6, "cpu"))
+    with torch.no_grad():
+        start(torch.from_numpy(x))
+    arrays = {k: p.detach().numpy().copy()
+              for k, p in start.collect_params().items()}
+    lfn = gloss.SoftmaxCrossEntropyLoss()
+    out = {}
+    for where in ("cpu", "cuda"):
+        model = weights.load_named_arrays(net(), arrays).to(where)
+        tr = parallel.ShardedTrainer(
+            model, lambda o, l: lfn(o, l), "sgd",
+            {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
+            device=where)
+        tr.set_grad_accum(2)
+        reset_counts()
+        losses = [float(tr.step([x], [y])) for _ in range(steps)]
+        check(read_counts() == expect(),
+              f"ResNet parity ({where}) launched repo kernels")
+        state = {k: p.detach().cpu() for k, p in
+                 model.collect_params().items() if "running" in k}
+        state.update({k: w.cpu() for k, w in zip(tr._names, tr.params)})
+        out[where] = (losses, state)
+    (lc, sc), (lg, sg) = out["cpu"], out["cuda"]
+    e_loss = float(np.abs(np.subtract(lg, lc)).max())
+    e_w = max(max_err(sg[k], sc[k]) for k in sc)
+    check(e_loss <= TOL_TRAIN and e_w <= TOL_TRAIN,
+          f"ResNet card vs CPU: losses {lg} vs {lc}, state err {e_w}")
+    check(lg[-1] < lg[0], f"ResNet parity loss did not fall: {lg}")
     return {"losses_card": lg, "losses_cpu": lc, "max_loss_err": e_loss,
-            "max_master_err": e_w, "master_elements": int(wg.numel())}
+            "max_param_or_statistic_err": e_w, "tensors": len(sc)}
 
 
 # ---------------------------------------------------------------------------
@@ -1599,7 +1927,6 @@ def gpt_pretrain_phase(dev, batch=16, seq_len=1024, warmup=2, steps=16,
     launch counts of the timed steps, the model and its trainer."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from mxnet_tpu_torch import parallel
     from mxnet_tpu_torch.models import gpt
     cfg = gpt.gpt2_117m_config(dtype="bfloat16", **cfg_overrides)
@@ -1610,18 +1937,8 @@ def gpt_pretrain_phase(dev, batch=16, seq_len=1024, warmup=2, steps=16,
     b = gpt.make_synthetic_batch(cfg, batch, seq_len, seed=0)
     data = [torch.from_numpy(b[k]).to(dev) for k in _GPT_DATA]
     labels = [torch.from_numpy(b[k]).to(dev) for k in _GPT_LABELS]
-    losses = [trainer.step(data, labels) for _ in range(warmup)]
-    float(losses[-1])
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        losses.append(trainer.step(data, labels))
-    float(losses[-1])                         # one host fetch fences all
-    secs = time.perf_counter() - t0
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(x) for x in losses]
+    losses, counts, timing = timed_steps(trainer, data, labels, warmup,
+                                         steps)
     check(np.isfinite(losses).all(), f"GPT-2 training losses {losses}")
     check(losses[-1] < losses[0], f"GPT-2 loss did not fall: {losses}")
     L = cfg["num_layers"]
@@ -1629,31 +1946,15 @@ def gpt_pretrain_phase(dev, batch=16, seq_len=1024, warmup=2, steps=16,
                   flash_attention_dkv=L * steps,
                   adam_update=n_params * steps)
     check(counts == want, f"GPT-2 training launches {counts} != {want}")
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        float(trainer.step(data, labels))
-        prof_ms = (time.perf_counter() - t1) * 1e3
-    busy_ms, top, by_class = device_profile(prof, 1, 10)
-    step_ms = secs * 1e3 / steps
+    busy_ms = timing["device_busy_ms_per_step"]
     res = {"model": "gpt2_117m_config(dtype='bfloat16')", "batch": batch,
-           "seq_len": seq_len, "steps": steps, "warmup": warmup,
-           "optimizer": f"adam lr {lr}", "seconds": secs,
-           "tokens_per_s": batch * seq_len * steps / secs,
-           "ms_per_step": step_ms,
-           "max_memory_allocated_bytes": peak,
+           "seq_len": seq_len, "optimizer": f"adam lr {lr}",
+           "tokens_per_s": batch * seq_len * steps / timing["seconds"],
            "param_count": trainer.param_count,
-           "trainable_parameters": n_params, "losses": losses,
-           "profiled_step_ms": prof_ms,
-           "device_busy_ms_per_step": busy_ms,
-           "device_idle_share": None if busy_ms is None
-           else 1 - busy_ms / step_ms,
+           "trainable_parameters": n_params, "losses": losses, **timing,
            "adam_share_of_device_time": None if busy_ms is None
-           else by_class.get("adam kernels", 0.0) / busy_ms,
-           "device_ms_per_step_by_class": by_class,
-           "top_device_ms_per_step": top}
+           else timing["device_ms_per_step_by_class"].get(
+               "adam kernels", 0.0) / busy_ms}
     return res, counts, model, trainer
 
 
@@ -1894,7 +2195,6 @@ def switch_phase(dev, batch=16, seq_len=1024, warmup=2, steps=16, lr=1e-3,
     Returns the result dict and the launch counts of the timed steps."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from mxnet_tpu_torch import parallel
     w = dict(SWITCH_FULL, **widths)
     model = build_switch_lm(**w, dtype="bfloat16", seed=0, device=dev)
@@ -1904,18 +2204,7 @@ def switch_phase(dev, batch=16, seq_len=1024, warmup=2, steps=16, lr=1e-3,
     data = [torch.from_numpy(toks).to(dev)]
     lab = [torch.from_numpy(labels).to(dev)]
     _, pos0, C = switch_routing(trainer, toks, w["E"])
-    losses = [trainer.step(data, lab) for _ in range(warmup)]
-    float(losses[-1])
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        losses.append(trainer.step(data, lab))
-    float(losses[-1])                         # one host fetch fences all
-    secs = time.perf_counter() - t0
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(x) for x in losses]
+    losses, counts, timing = timed_steps(trainer, data, lab, warmup, steps)
     check(np.isfinite(losses).all(), f"Switch LM losses {losses}")
     check(losses[-1] < losses[0], f"Switch LM loss did not fall: {losses}")
     n_params = len(trainer.params)
@@ -1924,34 +2213,20 @@ def switch_phase(dev, batch=16, seq_len=1024, warmup=2, steps=16, lr=1e-3,
     check(n_params == 6 and counts == want,
           f"Switch LM launches {counts} != {want} ({n_params} parameters)")
     expert, pos, _ = switch_routing(trainer, toks, w["E"])
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        float(trainer.step(data, lab))
-        prof_ms = (time.perf_counter() - t1) * 1e3
-    busy_ms, top, by_class = device_profile(prof, 1, 10)
-    step_ms = secs * 1e3 / steps
+    busy_ms = timing["device_busy_ms_per_step"]
     return {"model": "Switch-FFN LM " + json.dumps(w) + ", bf16",
             "batch": batch, "seq_len": seq_len, "capacity": C,
-            "steps": steps, "warmup": warmup, "optimizer": f"adam lr {lr}",
-            "seconds": secs,
-            "tokens_per_s": batch * seq_len * steps / secs,
-            "ms_per_step": step_ms, "max_memory_allocated_bytes": peak,
+            "optimizer": f"adam lr {lr}",
+            "tokens_per_s": batch * seq_len * steps / timing["seconds"],
             "param_count": trainer.param_count, "losses": losses,
             "dropped_share_first_step": float((pos0 >= C).float().mean()),
             "dropped_share_last_step": float((pos >= C).float().mean()),
             "tokens_per_expert_last_step":
                 torch.bincount(expert.long(), minlength=w["E"]).tolist(),
-            "profiled_step_ms": prof_ms,
-            "device_busy_ms_per_step": busy_ms,
-            "device_idle_share": None if busy_ms is None
-            else 1 - busy_ms / step_ms,
+            **timing,
             "moe_share_of_device_time": None if busy_ms is None
-            else by_class.get("moe kernels", 0.0) / busy_ms,
-            "device_ms_per_step_by_class": by_class,
-            "top_device_ms_per_step": top}, counts
+            else timing["device_ms_per_step_by_class"].get(
+                "moe kernels", 0.0) / busy_ms}, counts
 
 
 def switch_parity_phase(dev, steps=3, batch=16, seq_len=64, cf=1.0):
@@ -2124,6 +2399,10 @@ def main():
         kernels[row].update(extra)
         print(f"chip_smoke: {row} at GPT-2 training's shape "
               + json.dumps(extra["gpt2_train_shape"]))
+    for row, extra in bert_large_flash_phase(dev).items():
+        kernels[row].update(extra)
+        print(f"chip_smoke: {row} at BERT-large's shape "
+              + json.dumps(extra["bert_large_shape"]))
     for row, want in (("flash_attention_fwd", "flash_fwd_wgmma"),
                       ("flash_attention_fwd_dropout", "flash_fwd_wgmma"),
                       ("flash_attention_dq", "dq_wgmma"),
@@ -2131,6 +2410,15 @@ def main():
         kernels[row]["sass"] = None if mix is None else {
             name: m for name, m in mix.items() if want in name}
     kernels.update(lamb_phase(dev))
+    torch.cuda.empty_cache()
+    for row, extra in lamb_phase(dev, "bert_large_config").items():
+        kernels[row]["bert_large_shape"] = {
+            k: extra[k] for k in ("rows", "shapes", "max_abs_err", "ms",
+                                  "device_ms", "plain_ms", "bound_ms",
+                                  "bound_by")}
+        print(f"chip_smoke: {row} at BERT-large's flat master "
+              + json.dumps(kernels[row]["bert_large_shape"]))
+    torch.cuda.empty_cache()
     kernels.update(adam_phase(dev))
     kernels.update(int8_phase(dev))
     for row, want in (("paged_attention", "paged_attention_kernel"),
@@ -2264,6 +2552,32 @@ def main():
     # 12. a float32 Switch LM on the card == on the CPU
     sparity = switch_parity_phase(dev)
     print("chip_smoke: card-vs-CPU Switch LM " + json.dumps(sparity))
+    torch.cuda.empty_cache()
+
+    # 13. BERT-large with per-layer remat, then without, LAMB
+    large, counts = bert_large_phase(dev)
+    print("chip_smoke: BERT-large training " + json.dumps(large))
+    print(f"chip_smoke: BERT-large training launches (remat) {counts}")
+    for name in ("flash_attention_fwd_dropout", "flash_attention_dq",
+                 "flash_attention_dkv", "lamb_pass1", "lamb_pass2"):
+        counter = "flash_attention_fwd" if name.startswith(
+            "flash_attention_fwd") else name
+        kernels[name]["bert_large_shape"]["launches"] = counts[counter]
+
+    # 14. a float32 BERT-large (2 layers, remat) on the card == on the CPU
+    lparity = train_parity_phase(dev, config="bert_large_config")
+    print("chip_smoke: card-vs-CPU BERT-large (remat) "
+          + json.dumps(lparity))
+
+    # 15. ResNet-50 v1 training, bf16, SGD
+    rn, counts = resnet50_phase(dev)
+    print("chip_smoke: ResNet-50 training " + json.dumps(rn))
+    print(f"chip_smoke: ResNet-50 training launches {counts}")
+
+    # 16. a float32 small ResNet v1 with grad accumulation, card == CPU
+    rparity = resnet_parity_phase(dev)
+    print("chip_smoke: card-vs-CPU ResNet v1 (SGD, grad accum 2) "
+          + json.dumps(rparity))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

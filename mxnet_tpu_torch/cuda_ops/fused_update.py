@@ -113,6 +113,9 @@ def _entry(name):
 def _check(what, rows, vecs):
     """rows: (name, tensor) of (R, 512) float32; vecs: of (R,) float32."""
     R = rows[0][1].shape[0]
+    if R >= 1 << 31:
+        raise ValueError(f"{what}: {R} rows exceed the kernels' int row "
+                         "count")
     dev = rows[0][1].device
     for name, x, shape in [r + ((R, LANES),) for r in rows] \
             + [r + ((R,),) for r in vecs]:

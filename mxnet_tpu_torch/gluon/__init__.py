@@ -1,7 +1,8 @@
-"""Gluon surface of the port: Block, Parameter and the layers."""
-from . import nn
+"""Gluon surface of the port: Block, Parameter, the layers and the
+losses."""
+from . import loss, nn
 from .block import Block, HybridBlock, HybridSequential
 from .parameter import Constant, Parameter
 
-__all__ = ["nn", "Block", "HybridBlock", "HybridSequential", "Parameter",
-           "Constant"]
+__all__ = ["loss", "nn", "Block", "HybridBlock", "HybridSequential",
+           "Parameter", "Constant"]

@@ -9,6 +9,15 @@ no hybridize/jit cache: `HybridBlock` is the same class.
 A block starts in evaluation mode (`training` False), as the JAX
 package runs outside a train step; `train()` (what the trainer's step
 sets around its forward) turns dropout on, `eval()` off.
+
+A layer whose parameters have deferred shapes (a 0 in the shape: `Dense`
+without `in_units`, convolutions without `in_channels`, `BatchNorm`)
+completes them at its first forward from its input
+(`_resolve_deferred` through the layer's `infer_param_shapes`), as the
+JAX package's eager forward does. `cast(dtype)` casts every
+floating-point parameter, deferred ones and running statistics
+included, as the JAX package's does; integer `Constant`s (int8 weights)
+keep their dtype.
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ import torch
 
 from .. import context
 from .. import initializer as _init
+from .parameter import dtype_of, finish_deferred
 
 __all__ = ["Block", "HybridBlock", "HybridSequential"]
 
@@ -41,29 +51,64 @@ class Block(torch.nn.Module):
         the name rule of `Initializer.init_array` (biases and betas 0,
         gammas 1); a `Constant` keeps its value. `device` moves the block
         first; `generator` is the explicit random source (its device must
-        be the parameters'), else the device stream of `random.seed`."""
+        be the parameters'), else the device stream of `random.seed`. A
+        deferred parameter draws nothing now: the choice is recorded and
+        applied when its first forward gives it a shape."""
         if device is not None:
             self.to(context.resolve(device))
         for _, p in self.named_parameters():
             if getattr(p, "mx_constant", False) or (
                     getattr(p, "mx_initialized", False) and not force_reinit):
                 continue
-            _init.create(init or getattr(p, "mx_init", None) or "uniform") \
-                .init_array(p.mx_name, p.data, generator)
+            initializer = _init.create(
+                init or getattr(p, "mx_init", None) or "uniform")
+            if getattr(p, "mx_deferred", False):
+                p.mx_init_requested = (initializer, generator)
+                continue
+            initializer.init_array(p.mx_name, p.data, generator)
             p.mx_initialized = True
         return self
+
+    def cast(self, dtype):
+        """Cast every floating-point parameter to `dtype` in place."""
+        dt = dtype_of(dtype)
+        for p in self.parameters():
+            if p.is_floating_point():
+                p.data = p.data.to(dt)
+        return self
+
+    def infer_param_shapes(self, x_shape):
+        """{parameter name: full shape} from the first input's shape; the
+        layers with deferred parameters say how."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support deferred shapes")
+
+    def _resolve_deferred(self, x):
+        """Complete this layer's deferred parameters from its input x."""
+        shapes = None
+        for name, p in self._parameters.items():
+            if p is not None and getattr(p, "mx_deferred", False):
+                if shapes is None:
+                    shapes = self.infer_param_shapes(tuple(x.shape))
+                finish_deferred(p, shapes[name], x.device)
 
 
 HybridBlock = Block
 
 
 class HybridSequential(Block):
-    """Children registered as "0", "1", ... in insertion order."""
+    """Children registered as "0", "1", ... in insertion order; a forward
+    runs them one after the other."""
 
     def add(self, *blocks):
         for b in blocks:
             self.add_module(str(len(self._modules)), b)
         return self
+
+    def forward(self, x):
+        for block in self._modules.values():
+            x = block(x)
+        return x
 
     def __iter__(self):
         return iter(self._modules.values())

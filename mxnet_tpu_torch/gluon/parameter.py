@@ -15,13 +15,22 @@ which the model constructors set to the model's device.
 
 A `Constant` is a 'null' parameter that holds a given value of any dtype
 (int8 included) and that `Block.initialize` leaves alone.
+
+A shape with a 0 in it is deferred, as the JAX package's
+`allow_deferred_init` parameters are: the tensor holds no element until
+its layer's first forward (`finish_deferred`) or
+`weights.load_named_arrays` gives it the missing dimensions.
+`Block.initialize` records its choice on a deferred parameter
+(`mx_init_requested`) without drawing; `finish_deferred` then fills it by
+`Initializer.init_array`'s name rule from that choice, on the input's
+device and from the stream `initialize` would have drawn from.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["Parameter", "Constant", "dtype_of"]
+__all__ = ["Parameter", "Constant", "dtype_of", "finish_deferred"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -44,8 +53,30 @@ def Parameter(name, shape, dtype="float32", init=None,  # noqa: N802
     p.mx_name = name
     p.mx_init = init
     p.mx_initialized = False
+    p.mx_deferred = 0 in p.shape
+    p.mx_init_requested = None
     p.grad_req = grad_req
     return p
+
+
+def finish_deferred(p, shape, device):
+    """Give the deferred parameter `p` its full `shape` (its known
+    dimensions must agree) on `device`; fill it when `initialize` asked
+    for it, else raise as the JAX package's `data()` does."""
+    shape = tuple(int(n) for n in shape)
+    if len(shape) != p.dim() or any(
+            s not in (0, n) for s, n in zip(p.shape, shape)):
+        raise ValueError(f"Parameter {p.mx_name}: shape {tuple(p.shape)} "
+                         f"cannot become {shape}")
+    if p.mx_init_requested is None:
+        raise RuntimeError(f"Parameter '{p.mx_name}' not initialized; call "
+                           ".initialize()")
+    p.data = torch.empty(shape, dtype=p.dtype, device=device)
+    p.mx_deferred = False
+    init, generator = p.mx_init_requested
+    p.mx_init_requested = None
+    init.init_array(p.mx_name, p.data, generator)
+    p.mx_initialized = True
 
 
 def Constant(name, value):  # noqa: N802

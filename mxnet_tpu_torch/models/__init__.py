@@ -1,4 +1,5 @@
-"""Model families of the port: BERT (pretraining) and the GPT-2 family."""
-from . import bert, gpt
+"""Model families of the port: BERT (pretraining), the GPT-2 family and
+ResNet v1/v2."""
+from . import bert, gpt, resnet
 
-__all__ = ["bert", "gpt"]
+__all__ = ["bert", "gpt", "resnet"]

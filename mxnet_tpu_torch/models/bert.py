@@ -10,9 +10,20 @@ logits, not (B, L, V), are computed, and decodes with the word embedding
 (tied, no weight of its own) plus a separate `mlm_bias`. Parameter paths
 are the JAX package's `collect_params()` paths.
 
+`remat=True` (or the policy name "layers") runs each encoder layer
+under `torch.utils.checkpoint`, the JAX package's "layers" policy
+(`_remat.remat_call`): only a layer's (x, mask) boundary outlives the forward,
+and the backward recomputes the rest. The recomputation replays the
+port's random streams (`random.get_state` / `set_state`), so it draws
+the hidden dropout masks and attention-dropout seeds of the first
+forward, and leaves the streams where they stood. Remat applies where
+autograd records (a training step), as the JAX package applies it only
+inside a trace.
+
 Differences from the JAX package: PyTorch runs eagerly, so the configs'
-`scan_layers` (a compile-time choice) has no effect; `remat` and
-`seq_parallel` are not in the port and raise.
+`scan_layers` (a compile-time choice) has no effect; the memsafe remat
+policies "dots_saveable" and "full" and `seq_parallel` are not in the
+port and raise.
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ from .. import context
 from ..gluon import HybridBlock, nn
 from ..gluon.parameter import Parameter
 from ..ops import nn_ops
+from ._remat import remat_policy, stack_call
 
 
 def bert_base_config(**overrides):
@@ -31,6 +43,14 @@ def bert_base_config(**overrides):
                num_heads=12, max_length=512, type_vocab_size=2, dropout=0.1,
                attn_dropout=None, seq_parallel=False, dtype="float32",
                remat=False, scan_layers=False)
+    cfg.update(overrides)
+    return cfg
+
+
+def bert_large_config(**overrides):
+    """BERT-large: 24 layers of 1024 units, 16 heads, per-layer remat."""
+    cfg = bert_base_config(units=1024, hidden_size=4096, num_layers=24,
+                           num_heads=16, remat=True, scan_layers=True)
     cfg.update(overrides)
     return cfg
 
@@ -117,9 +137,10 @@ class BERTModel(HybridBlock):
                  attn_dropout=None, seq_parallel=False, dtype="float32",
                  remat=False, scan_layers=False):
         super().__init__()
-        if seq_parallel or remat:
+        if seq_parallel:
             raise NotImplementedError(
-                "sequence parallelism and remat are not in the port")
+                "sequence parallelism is not in the port")
+        self._remat = remat_policy(remat)
         self.word_embed = nn.Embedding(vocab_size, units, dtype=dtype,
                                        weight_initializer="xavier")
         self.token_type_embed = nn.Embedding(type_vocab_size, units,
@@ -150,8 +171,7 @@ class BERTModel(HybridBlock):
         if valid_length is not None:
             mask = torch.arange(L, device=x.device)[None, :] \
                 < valid_length.to(x.device).long()[:, None]
-        for layer in self.layers:
-            x = layer(x, mask)
+        x = stack_call(self.layers, x, mask, self._remat)
         return x, self.pooler(x[:, 0])
 
 

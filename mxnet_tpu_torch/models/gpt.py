@@ -12,11 +12,15 @@ per-slot caches) and `decode_paged_chunk` (block-table pages), plus
 Dense layers `contrib.quantization.quantize_block` swapped for int8 runs
 the same decode surface.
 
+`remat=True` runs each block of a training forward under
+`torch.utils.checkpoint` with the random streams replayed, as BERT's
+encoder layers do (`_remat.stack_call`).
+
 Differences from the JAX package, all of them idiom: PyTorch runs
 eagerly, so there is no jit cache, `lax.scan` is a Python loop and
-caches are updated in place (see `_decode`); the configs' `remat` and
-`scan_layers` flags are compile-time choices that the port accepts as
-no-ops; sequence parallelism and beam search are not in the port.
+caches are updated in place (see `_decode`); the configs' `scan_layers`
+flag is a compile-time choice that the port accepts as a no-op;
+sequence parallelism and beam search are not in the port.
 """
 import numpy as np
 import torch
@@ -28,6 +32,7 @@ from ..gluon.parameter import Parameter
 from ..ops import nn_ops
 from ._decode import (batched_cached_attention_step,
                       cached_self_attention_step, paged_attention_step)
+from ._remat import remat_policy, stack_call
 from .bert import BERTAttention, _positions
 
 
@@ -150,6 +155,7 @@ class GPTModel(HybridBlock):
         if seq_parallel:
             raise NotImplementedError(
                 "sequence parallelism is not in the port's serving slice")
+        self._remat = remat_policy(remat)
         self.word_embed = nn.Embedding(vocab_size, units, dtype=dtype,
                                        weight_initializer="xavier")
         self.position_embed = Parameter("position_weight",
@@ -171,8 +177,7 @@ class GPTModel(HybridBlock):
         if valid_length is not None:
             mask = torch.arange(L, device=x.device)[None, :] \
                 < valid_length.to(x.device).long()[:, None]
-        for layer in self.layers:
-            x = layer(x, mask)
+        x = stack_call(self.layers, x, mask, self._remat)
         return self.ln_f(x)
 
 

@@ -2,14 +2,15 @@
 
 The port trains through `parallel.ShardedTrainer`, so an optimizer here
 holds hyperparameters only: the update itself is
-`parallel.fused_lamb.FusedLamb` for LAMB and
+`parallel.fused_lamb.FusedLamb` for LAMB,
 `cuda_ops.fused_update.adam_update` (through `FunctionalOptimizer`) for
-Adam and AdamW. `create` resolves a name as the JAX package's does; the
-other optimizers and the lr schedulers are not ported yet.
+Adam and AdamW, and `FunctionalOptimizer`'s plain torch for SGD and NAG.
+`create` resolves a name as the JAX package's does; the other optimizers
+and the lr schedulers are not ported yet.
 """
 from __future__ import annotations
 
-__all__ = ["Optimizer", "Adam", "AdamW", "LAMB", "create"]
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "LAMB", "create"]
 
 
 def create(name, **kwargs):
@@ -33,6 +34,20 @@ class Optimizer:
         self.clip_gradient = clip_gradient
         self.lr = learning_rate
         self.lr_scheduler = None
+
+
+class SGD(Optimizer):
+    """SGD, with momentum when `momentum` is not 0 (the JAX package's
+    defaults: lr 0.01, momentum 0). The port has no row-sparse
+    gradients, so `lazy_update` is not an option here."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+
+class NAG(SGD):
+    """Nesterov accelerated SGD."""
 
 
 class LAMB(Optimizer):
@@ -67,4 +82,5 @@ class AdamW(Adam):
     the decay is not scaled by the learning rate)."""
 
 
-_REGISTRY = {"adam": Adam, "adamw": AdamW, "lamb": LAMB}
+_REGISTRY = {"sgd": SGD, "nag": NAG, "adam": Adam, "adamw": AdamW,
+             "lamb": LAMB}

@@ -10,20 +10,32 @@ device, on one of two paths, as the JAX package chooses them:
     `unflatten(master)` through `torch.func.functional_call`, so autograd
     delivers the gradient already flat in float32, and `apply_flat`
     updates master and moments in place;
-  * Adam and AdamW, per parameter: the trainer holds its own detached
-    copies of the trainable parameters in the model dtype (as the JAX
-    trainer keeps `params` apart from the block until `sync_to_block`)
-    and float32 (m, v) for each; each step runs the block on those
-    copies through `functional_call`, `torch.autograd.grad` returns one
-    gradient per parameter in its dtype, and `FunctionalOptimizer.apply`
-    updates copies and moments in place.
+  * SGD, NAG, Adam and AdamW, per parameter: the trainer holds its own
+    detached copies of the trainable parameters in the model dtype (as
+    the JAX trainer keeps `params` apart from the block until
+    `sync_to_block`) and the optimizer's float32 state for each; each
+    step runs the block on those copies through `functional_call`,
+    `torch.autograd.grad` returns one gradient per parameter in its
+    dtype, and `FunctionalOptimizer.apply` updates copies and state in
+    place.
 The step counter goes up first; the bias-correction constants and the
 learning rate are host floats; `step` returns the loss tensor without
 waiting for the card.
 
+Parameters with grad_req 'null' (BatchNorm's running statistics) stay
+out of training: `functional_call` leaves them the block's own tensors,
+and a training forward updates them in place, so they carry from step
+to step as the JAX trainer's aux state does. A block whose parameters
+still wait for their shapes gets them from one evaluation-mode forward
+on the first step's batch (the probe pass) before the trainer collects
+its parameters. `set_grad_accum(n)` splits every batch into n equal
+microbatches: their gradients are summed and divided by n, the loss is
+the mean of theirs, BatchNorm statistics chain through them and each
+draws its own dropout.
+
 Single device and `param_mode="replicate"` only: meshes, fsdp/tp
-modes, gradient accumulation, zero, memsafe, guard, check, telemetry
-and resilience are not in the port yet.
+modes, zero, memsafe, guard, check, telemetry and resilience are not in
+the port yet.
 """
 from __future__ import annotations
 
@@ -63,6 +75,14 @@ class ShardedTrainer:
         self.loss_fn = loss_fn
         self._opt = opt_mod.create(optimizer, **(optimizer_params or {}))
         self.num_update = 0
+        self._accum = 1
+        self._ready = False
+        if not any(getattr(p, "mx_deferred", False)
+                   for p in block.parameters()):
+            self._setup()
+
+    def _setup(self):
+        block = self.block
         params = [(n, p) for n, p in block.named_parameters()
                   if getattr(p, "grad_req", "write") != "null"]
         for name, p in params:
@@ -76,6 +96,7 @@ class ShardedTrainer:
             self._fl = None
             self.params = [p.detach().clone() for _, p in params]
             self.opt_state = self.fopt.init(self.params)
+            self._ready = True
             return
         self._fl = FusedLamb(
             [p.shape for _, p in params], [p.dtype for _, p in params],
@@ -86,6 +107,32 @@ class ShardedTrainer:
         self.params = self._fl.flatten([p for _, p in params])
         self.opt_state = (torch.zeros_like(self.params),
                           torch.zeros_like(self.params))
+        self._ready = True
+
+    def _finish_setup(self, data):
+        """The probe pass: one evaluation-mode forward on `data` with no
+        gradient gives the deferred parameters their shapes (filling
+        them as `initialize` asked); then the trainer collects them."""
+        was_training = self.block.training
+        self.block.eval()
+        try:
+            with torch.no_grad():
+                self.block(*data)
+        finally:
+            self.block.train(was_training)
+        self._setup()
+
+    def set_grad_accum(self, accum):
+        """Split every later step's batch into `accum` equal microbatches
+        (every data and label array's leading dimension must divide by
+        it), summing their gradients: activation memory is one
+        microbatch's."""
+        accum = int(accum)
+        if accum < 1:
+            raise ValueError(f"grad accumulation factor must be >= 1, "
+                             f"got {accum}")
+        self._accum = accum
+        return self
 
     def step(self, data, labels):
         """One train step on a batch: `data` and `labels` are tensors or
@@ -95,21 +142,53 @@ class ShardedTrainer:
         labels = labels if isinstance(labels, (list, tuple)) else [labels]
         data = [_as_tensor(x, self.device) for x in data]
         labels = [_as_tensor(x, self.device) for x in labels]
+        if not self._ready:
+            self._finish_setup(data)
+        micro = self._microbatches(data, labels)
         self.num_update += 1
         t = self.num_update
         lr = self.fopt.lr_at(t)
         if self._fl is None:
             leaves = [p.detach().requires_grad_(True) for p in self.params]
-            loss, grads = self._loss_and_grads(leaves, lambda: leaves, data,
-                                               labels)
+            loss, grads = self._accumulate(leaves, lambda: leaves, micro)
             self.fopt.apply(self.params, grads, self.opt_state, t, lr)
             return loss.detach()
         master = self.params.detach().requires_grad_(True)
-        loss, (grad,) = self._loss_and_grads(
-            [master], lambda: self._fl.unflatten(master), data, labels)
+        loss, (grad,) = self._accumulate(
+            [master], lambda: self._fl.unflatten(master), micro)
         m, v = self.opt_state
         self._fl.apply_flat(self.params, grad, m, v, t, lr)
         return loss.detach()
+
+    def _microbatches(self, data, labels):
+        """[(data, labels)] of the step's `accum` equal microbatches."""
+        n = self._accum
+        if n == 1:
+            return [(data, labels)]
+        for b in list(data) + list(labels):
+            if b.dim() == 0 or b.shape[0] % n:
+                raise ValueError(
+                    f"grad accumulation x{n}: every batch/label array "
+                    f"needs a leading dim divisible by {n}, got shape "
+                    f"{tuple(b.shape)}")
+        data = [x.chunk(n) for x in data]
+        labels = [x.chunk(n) for x in labels]
+        return [([x[i] for x in data], [y[i] for y in labels])
+                for i in range(n)]
+
+    def _accumulate(self, leaves, views, micro):
+        """The mean loss and the mean gradients over the microbatches
+        (the plain loss and gradients for one)."""
+        loss, grads = self._loss_and_grads(leaves, views, *micro[0])
+        if len(micro) == 1:
+            return loss, grads
+        grads = list(grads)
+        for data, labels in micro[1:]:
+            l_i, g_i = self._loss_and_grads(leaves, views, data, labels)
+            loss = loss + l_i
+            torch._foreach_add_(grads, list(g_i))
+        n = len(micro)
+        return loss / n, torch._foreach_div(grads, n)
 
     def _loss_and_grads(self, leaves, views, data, labels):
         """Forward in training mode on the parameter tensors that

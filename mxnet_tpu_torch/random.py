@@ -10,6 +10,12 @@ JAX keys become explicit `torch.Generator`s, in two streams seeded by
 The two frameworks give different numbers from the same seed, so nothing
 that compares the two packages depends on this module: parity tests
 carry weights across and run without dropout.
+
+`get_state` / `set_state` snapshot and restore both streams. The JAX
+package replays a rematerialised layer's draws from its key; the port's
+rematerialised layers (`models._remat.remat_call`) replay them from a
+snapshot taken before the first forward, because
+`torch.utils.checkpoint` restores only torch's default generators.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import torch
 
 from . import context
 
-__all__ = ["seed", "generator", "next_seed"]
+__all__ = ["seed", "generator", "next_seed", "get_state", "set_state"]
 
 _seed = 0
 _host = torch.Generator()
@@ -54,3 +60,27 @@ def next_seed():
     lo, hi = torch.randint(0, 1 << 32, (2,), generator=_host,
                            dtype=torch.int64).tolist()
     return lo | (hi << 32)
+
+
+def get_state():
+    """A snapshot of both streams: the seed, the host stream's state and
+    the state of every device stream made so far."""
+    return (_seed, _host.get_state(),
+            {key: g.get_state() for key, g in _devices.items()})
+
+
+def set_state(state):
+    """Put both streams back where `get_state` found them. A device stream
+    made since is dropped: its next use makes it again from the seed, as
+    its first use did."""
+    global _seed
+    _seed, host, devices = state
+    _host.set_state(host)
+    for key in list(_devices):
+        if key not in devices:
+            del _devices[key]
+    for key, s in devices.items():
+        g = _devices.get(key)
+        if g is None:
+            g = _devices[key] = torch.Generator(device=torch.device(key))
+        g.set_state(s)

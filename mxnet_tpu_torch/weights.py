@@ -4,7 +4,9 @@ The port's parameter paths equal the JAX package's `collect_params()`
 paths, so weights carried across from `mxnet_tpu` (as
 `{path: np.asarray(param)}`) load by name with no renaming. Anything
 that does not line up raises: a missing name, an extra name, or a shape
-mismatch.
+mismatch. A parameter whose shape is still deferred takes the array's
+(its known dimensions must agree), so a model loads before its first
+forward.
 """
 from __future__ import annotations
 
@@ -34,6 +36,16 @@ def load_named_arrays(model, arrays):
                        f"unexpected {extra}")
     for name, p in params.items():
         src = _to_tensor(arrays[name])
+        if getattr(p, "mx_deferred", False):
+            if src.dim() != p.dim() or any(
+                    s not in (0, n) for s, n in zip(p.shape, src.shape)):
+                raise ValueError(
+                    f"load_named_arrays: {name} has shape "
+                    f"{tuple(src.shape)}, the model expects "
+                    f"{tuple(p.shape)} (0: any)")
+            p.data = torch.empty(src.shape, dtype=p.dtype, device=p.device)
+            p.mx_deferred = False
+            p.mx_init_requested = None
         if tuple(src.shape) != tuple(p.shape):
             raise ValueError(
                 f"load_named_arrays: {name} has shape {tuple(src.shape)}, "

@@ -775,3 +775,143 @@ def test_tiny_switch_lm_training_on_card_matches_cpu(dev):
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], atol=1e-4)
     for a, c in zip(runs["cuda"][1], runs["cpu"][1]):
         torch.testing.assert_close(a, c, rtol=0, atol=1e-4)
+
+
+def _tiny_bert_large(remat, dropout):
+    from mxnet_tpu_torch.models import bert
+    return bert.bert_large_config(vocab_size=128, units=128, hidden_size=256,
+                                  num_layers=3, num_heads=2, max_length=64,
+                                  dropout=dropout, remat=remat)
+
+
+def test_remat_on_card_is_bit_equal_and_replays_flash_seeds(dev,
+                                                            monkeypatch):
+    """BERT with per-layer remat and dropout 0.1 (hidden and attention)
+    on the card: loss and every gradient equal the run without remat bit
+    for bit over two steps, and each recomputed flash forward launches
+    with the seed of the layer's first forward."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.models import bert
+    seeds = []
+    fwd = fa.flash_fwd
+
+    def recording(*args, **kw):
+        seeds.append(args[7] if len(args) > 7 else kw.get("seed"))
+        return fwd(*args, **kw)
+
+    monkeypatch.setattr(fa, "flash_fwd", recording)
+    init = bert.BERTForPretraining(_tiny_bert_large(False, 0.1),
+                                   device="cpu")
+    init.initialize(generator=mxrandom.seed(0, "cpu"))
+    state = {k: p.detach() for k, p in init.collect_params().items()}
+    b = bert.make_synthetic_batch(init.cfg, 4, 64, 6, seed=1)
+    data = tuple(torch.from_numpy(b[k]).to(dev) for k in
+                 ("input_ids", "token_types", "valid_length",
+                  "masked_positions"))
+    labels = [torch.from_numpy(b[k]).to(dev) for k in
+              ("mlm_labels", "mlm_weights", "nsp_labels")]
+    runs = {}
+    for remat in (False, True):
+        m = bert.BERTForPretraining(_tiny_bert_large(remat, 0.1),
+                                    device="cpu")
+        m.load_state_dict(state)
+        m.to(dev)
+        mxrandom.seed(11, dev)
+        steps = []
+        for _ in range(2):
+            seeds.clear()
+            n = fa.launches
+            leaves = {k: p.detach().clone().requires_grad_(True)
+                      for k, p in m.collect_params().items()}
+            m.train()
+            outs = torch.func.functional_call(m, leaves, data)
+            loss = bert.bert_pretrain_loss(*outs, *labels)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            m.eval()
+            torch.cuda.synchronize()
+            steps.append((loss.detach(), grads, list(seeds),
+                          fa.launches - n))
+        runs[remat] = steps
+    for (l0, g0, s0, n0), (l1, g1, s1, n1) in zip(runs[False], runs[True]):
+        assert torch.equal(l0, l1)
+        assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+        assert (n0, n1) == (3, 6)
+        assert s1[:3] == s0 and s1[3:] == s0[::-1]      # backward order
+        assert len(set(s0)) == 3
+    assert runs[True][0][2] != runs[True][1][2]       # fresh seeds a step
+
+
+def test_small_resnet_sgd_on_card_matches_cpu(dev):
+    """Three float32 SGD steps (momentum 0.9, wd 1e-4, grad accumulation
+    2) of a small ResNet v1 on the card (cuDNN, TF32 off) against the
+    same steps on the CPU: losses, parameters and running statistics
+    within 1e-4; no repo kernel launches."""
+    from mxnet_tpu_torch import parallel, weights
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.models import resnet
+
+    def net():
+        return resnet.ResNetV1(resnet.BottleneckV1, [1, 1], [8, 16, 32],
+                               classes=10, device="cpu")
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(8, 3, 32, 32).astype(np.float32)
+    y = rng.randint(0, 10, 8).astype(np.float32)
+    start = net()
+    start.initialize(generator=mxrandom.seed(1, "cpu"))
+    with torch.no_grad():
+        start(torch.from_numpy(x))
+    arrays = {k: p.detach().numpy().copy()
+              for k, p in start.collect_params().items()}
+    lfn = gloss.SoftmaxCrossEntropyLoss()
+    runs = {}
+    for where in ("cpu", "cuda"):
+        m = weights.load_named_arrays(net(), arrays).to(where)
+        tr = parallel.ShardedTrainer(
+            m, lambda o, l: lfn(o, l), "sgd",
+            {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
+            device=where)
+        tr.set_grad_accum(2)
+        n = (fa.launches, fu.launches_adam, fu.launches_pass1)
+        losses = [float(tr.step([x], [y])) for _ in range(3)]
+        assert (fa.launches, fu.launches_adam, fu.launches_pass1) == n
+        state = {k: p.detach().cpu() for k, p in m.collect_params().items()
+                 if "running" in k}
+        state.update({k: w.cpu() for k, w in zip(tr._names, tr.params)})
+        runs[where] = (losses, state)
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], atol=1e-4)
+    for k, v in runs["cpu"][1].items():
+        torch.testing.assert_close(runs["cuda"][1][k], v, rtol=0, atol=1e-4)
+
+
+def test_lamb_kernels_past_2_to_26_elements(dev):
+    """Both LAMB passes on a flat master of more than 2^26 elements
+    against their plain versions."""
+    R = (1 << 26) // 512 + 1001
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+
+    def rows(scale):
+        return torch.randn((R, 512), generator=gen, device=dev) * scale
+
+    W, G, m = rows(0.05), rows(1e-3), rows(1e-4)
+    v = rows(1e-4).square()
+    wd = torch.where(torch.arange(R, device=dev) % 3 > 0, 0.01, 0.0)
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-6, rescale_grad=1.0,
+              clip_gradient=None, bias_correction=True)
+    c1, c2 = 1 - 0.9 ** 3, 1 - 0.999 ** 3
+    m2, v2 = m.clone(), v.clone()
+    rw, ru = fu.lamb_pass1(W, G, m, v, wd, c1, c2, **kw)
+    rrw, rru = fu.lamb_pass1_reference(W, G, m2, v2, wd, c1, c2, **kw)
+    for a, b in ((m, m2), (v, v2), (rw, rrw), (ru, rru)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+    trust = torch.rand(R, generator=gen, device=dev) + 0.5
+    W2 = W.clone()
+    fu.lamb_pass2(W, m, v, wd, trust, c1, c2, 1e-3, epsilon=1e-6,
+                  bias_correction=True)
+    fu.lamb_pass2_reference(W2, m, v, wd, trust, c1, c2, 1e-3, epsilon=1e-6,
+                            bias_correction=True)
+    torch.cuda.synchronize()
+    assert W.numel() > 1 << 26
+    torch.testing.assert_close(W, W2, rtol=1e-5, atol=1e-7)

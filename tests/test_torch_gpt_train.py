@@ -277,8 +277,13 @@ def test_optimizers_have_the_jax_defaults():
         assert (got.lr, got.beta1, got.beta2, got.epsilon, got.wd) == \
             (ref.lr, ref.beta1, ref.beta2, ref.epsilon, ref.wd)
     assert isinstance(opt_t.create("lamb"), opt_t.LAMB)
+    for name in ("sgd", "nag"):
+        ref, got = opt_j.create(name), opt_t.create(name)
+        assert type(got).__name__.lower() == name
+        assert (got.lr, got.momentum, got.wd) == \
+            (ref.lr, ref.momentum, ref.wd)
     with pytest.raises(NotImplementedError):
-        opt_t.create("sgd")
+        opt_t.create("rmsprop")
     with pytest.raises(NotImplementedError):
         opt_t.create("adam", lr_scheduler=object())
     with pytest.raises(TypeError):                 # no row-sparse gradients

@@ -104,7 +104,7 @@ def test_trainer_refuses_what_it_cannot_do():
         parallel_t.ShardedTrainer(tm, bert_t.bert_pretrain_loss, "lamb",
                                   device="cpu", param_mode="fsdp")
     with pytest.raises(NotImplementedError):
-        parallel_t.ShardedTrainer(tm, bert_t.bert_pretrain_loss, "sgd",
+        parallel_t.ShardedTrainer(tm, bert_t.bert_pretrain_loss, "rmsprop",
                                   device="cpu")
 
 
