@@ -5,6 +5,10 @@
     python3 chip_smoke.py --flash-ab PATH   # flash fwd/dq/dkv, paged
                                             # attention, int8 GEMM routes:
                                             # PATH's kernels vs ours
+    python3 chip_smoke.py --host-ab PATH    # ResNet-50, BERT-large with
+                                            # remat, GPT-2 pretraining and
+                                            # a decode round: PATH's step
+                                            # times vs ours
 
 Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
 
@@ -78,7 +82,23 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      kernel launches, the first BatchNorm's running statistics move;
  16. trains a float32 ResNet v1 (BottleneckV1, two stages) 3 SGD steps
      with `set_grad_accum(2)` on the card and on the CPU: losses, every
-     parameter and running statistic within TOL_TRAIN.
+     parameter and running statistic within TOL_TRAIN;
+ 17. trains Transformer base (`TransformerNMT`'s defaults: 6 + 6 layers
+     of 512 units, 2048 hidden, 8 heads, dropout 0.1, a 37,000-token
+     vocabulary; built in float32 from seed 0, then `cast("bfloat16")`)
+     through MXNet's eager loop (`nd` arrays, `autograd.record()`,
+     `label_smoothing_loss`, `loss.backward()`, `gluon.Trainer(...,
+     "adam", {lr 1e-3, beta2 0.98, epsilon 1e-9}).step(1)`) on a copy-task
+     batch of 64 sources of 16-64 tokens (targets of 65 positions): 2
+     warm-up + 16 timed steps, one profiled; exactly 18 flash forwards,
+     18 dq, 18 dkv and one Adam launch per trainable parameter a step;
+ 18. decodes 16 sources with phase 17's model greedily and by beam search
+     (beam 4) to max_len, each call exactly one encoder pass of flash
+     forwards; then
+     trains a float32 TransformerNMT (full width and vocabulary, 2 + 2
+     layers, dropout 0) 3 eager Adam steps (epsilon 1e-4) on the card and
+     on the CPU: losses and parameters within TOL_TRAIN, greedy and
+     beam-4 tokens equal, beam 1 equal to greedy.
 
 Phase 1 also holds the training kernels against their plain versions at
 the training shapes: the flash forward with dropout 0.1 (its keep mask
@@ -96,7 +116,11 @@ LM's full width (16,384 tokens, 768 wide, 8 experts of capacity 2,560)
 on `moe_route`'s routing with capacity drops, bit for bit, and on random
 routing with duplicate slots (dispatch within rtol and atol 1e-6), and
 the flash forward (dropout 0.1), dq and dkv at BERT-large's
-(32,16,512,64) and both LAMB passes at BERT-large's flat master.
+(32,16,512,64) and both LAMB passes at BERT-large's flat master, and
+the flash forward, dq and dkv at the Transformer NMT's three attention
+shapes (bf16, B 64, H 8, D 64): the encoder's (64,8,64,64) with the
+padding bias, the decoder's (64,8,65,64) causal, and cross-attention
+(q 65 over k/v 64 positions) with the bias.
 
 The flash rows' library yardsticks are SDPA calls computing the same
 function: the causal forward, the forward with dropout_p 0.1 at BERT's
@@ -177,7 +201,7 @@ def time_ms(fn, iters=25, warmup=3):
     return times[len(times) // 2]
 
 
-def device_ms(fn, iters=20, match=None, attempts=3,
+def device_ms(fn, iters=20, match=None, attempts=5,
               skip=("fill", "memset")):
     """Device time per call of fn from torch.profiler: the summed device
     time of the kernels it launched (only those whose name contains
@@ -186,15 +210,18 @@ def device_ms(fn, iters=20, match=None, attempts=3,
     `skip`; `FLUSH_ONLY` leaves out the flush alone, so a zero-fill of
     fn's own counts). Unlike time_ms it does not count the caller's host
     time, which exceeds the device time of a small kernel (an int8 GEMM
-    at M = 8). The profiler can lose kernel records: a window whose count
-    of such kernels is not a whole multiple of `iters` is profiled again,
-    and `attempts` windows without a whole one fail the run."""
+    at M = 8). The profiler can lose kernel records, now and then every
+    record of a window: a window whose count of such kernels is not a
+    whole multiple of `iters` is profiled again after a pause that grows
+    with each attempt, and `attempts` windows without a whole one fail
+    the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        time.sleep(0.5 * attempt)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             # one more flush opens the window: the profiler can drop the
@@ -946,6 +973,65 @@ def flash_ab(other):
         print("chip_smoke: flash A/B " + json.dumps(rounds[-1]), flush=True)
     return rounds
 
+
+
+def host_path_times(root):
+    """Wall and device time of the training and decode paths whose walls
+    the host sets or has moved, of the checkout at `root` (its
+    `mxnet_tpu_torch`, built there), through this script's phases:
+    ResNet-50 bf16 (3 + 10 steps), BERT-large with remat (2 + 8 steps),
+    GPT-2 117M pretraining (2 + 16 steps) and a steady serving decode
+    round of GPT-2 117M bf16 (8 slots, 8 rounds). Every layer call and
+    every dropout of these paths reads the training mode and goes through
+    `Block.__call__`."""
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.cuda_ops import _build
+    from mxnet_tpu_torch.models import gpt
+    check(gluon.__file__.startswith(os.path.abspath(root)),
+          f"gluon imported from {gluon.__file__}, not {root}")
+    _build.library()
+    dev = torch.device("cuda")
+    keys = ("ms_per_step", "device_busy_ms_per_step", "device_idle_share")
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(128, 3, 224, 224)
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, 1000, 128)
+                         .astype(np.float32)).to(dev)
+    _, trainer = resnet50_trainer(dev, "bfloat16")
+    timing = timed_steps(trainer, [x], [y], 3, 10)[2]
+    out = {"resnet50": {k: timing[k] for k in keys}}
+    del trainer, x, y
+    torch.cuda.empty_cache()
+    res, _ = training_phase(dev, "bert_large_config", True, steps=8)
+    out["bert_large_remat"] = {k: res[k] for k in keys}
+    res, _, model, trainer = gpt_pretrain_phase(dev)
+    out["gpt2_pretrain"] = {k: res[k] for k in keys}
+    del model, trainer
+    torch.cuda.empty_cache()
+    model = build_model(gpt.gpt2_117m_config(dtype="bfloat16"), seed=0)
+    br = breakdown_phase(model)
+    out["decode_round"] = {k: br[k] for k in (
+        "decode_round_ms", "device_busy_ms_per_round", "device_idle_share")}
+    return out
+
+
+def host_ab(other):
+    """The host-bound paths (`host_path_times`) of this checkout against
+    those of the checkout at `other` on one card, in the order other,
+    this, this, other, each in its own process (`--host-times`)."""
+    rounds = []
+    for root in (other, ROOT, ROOT, other):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--host-times", root], capture_output=True,
+                           text=True, timeout=900)
+        check(r.returncode == 0, f"--host-times {root}: {r.stderr[-3000:]}")
+        rounds.append({"root": "other" if root == other else "this",
+                       "times": json.loads(r.stdout.strip().splitlines()[-1])})
+        print("chip_smoke: host A/B " + json.dumps(rounds[-1]), flush=True)
+    return rounds
 
 def bert_rows(config="bert_base_config"):
     """Rows of a BERT config's flat float32 master (FusedLamb layout),
@@ -2325,6 +2411,347 @@ def build_model(cfg, seed, device=None):
     return model
 
 
+# ---------------------------------------------------------------------------
+# phase 1 (NMT shapes) and phases 17-18: the Transformer NMT through the
+# eager Gluon loop
+# ---------------------------------------------------------------------------
+
+NMT_BASE = dict(src_vocab=37000, tgt_vocab=37000, units=512, hidden_size=2048,
+                num_layers=6, num_heads=8, max_length=256, dropout=0.1)
+BOS, EOS = 1, 2
+
+
+def nmt_batch(B, Ls, V, seed=0, lo=16):
+    """The example's copy task at Ls source positions: sources of random
+    lengths in [lo, Ls] of tokens in [3, V), padded with 0;
+    tgt_in = BOS + source, tgt_out = source + EOS, padded with 0 to Ls + 1
+    positions. Returns numpy (src, tgt_in, tgt_out, src_valid)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(lo, Ls + 1, B)
+    src = np.zeros((B, Ls), np.int32)
+    tgt_in = np.zeros((B, Ls + 1), np.int32)
+    tgt_out = np.zeros((B, Ls + 1), np.int32)
+    for b, n in enumerate(lens):
+        toks = rng.randint(3, V, n)
+        src[b, :n] = toks
+        tgt_in[b, 0], tgt_in[b, 1:n + 1] = BOS, toks
+        tgt_out[b, :n], tgt_out[b, n] = toks, EOS
+    return src, tgt_in, tgt_out, lens.astype(np.float32)
+
+
+def nmt_flash_phase(dev, B=64, H=8, Ls=64, D=64, seed=3):
+    """The flash forward, dq and dkv at the Transformer NMT's three
+    attention shapes (phase 17's batch: bf16, B 64, H 8, D 64, sources of
+    16-64 valid tokens): the encoder's (B,H,64,64) with the padding bias,
+    the decoder's causal (B,H,65,64), cross-attention q (B,H,65,64) over
+    k/v (B,H,64,64) with the bias. Each against its plain version on the
+    same inputs, then timed beside SDPA with the same mask. The bound
+    counts the (q, k) pairs this data needs: valid keys only, the causal
+    triangle. Returns {row: {"nmt_shape": {attention: fields}}}."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as tF
+    from mxnet_tpu_torch.cuda_ops import flash_attention as fa
+    lens = torch.from_numpy(nmt_batch(B, Ls, 37000)[3]).to(dev)
+    rng = np.random.RandomState(seed)
+
+    def rand(L):
+        return torch.tensor(rng.randn(B, H, L, D), dtype=torch.bfloat16,
+                            device=dev)
+
+    keys = torch.arange(Ls, device=dev)[None, :] < lens[:, None]
+    pad_bias = torch.where(keys, 0.0, -1e30).float().contiguous()
+    valid = float(keys.sum())
+    cases = {"encoder": (Ls, Ls, False, pad_bias, valid * Ls),
+             "decoder": (Ls + 1, Ls + 1, True,
+                         torch.zeros((B, Ls + 1), device=dev),
+                         B * (Ls + 1) * (Ls + 2) / 2),
+             "cross": (Ls + 1, Ls, False, pad_bias, valid * (Ls + 1))}
+    out = {"flash_attention_fwd": {}, "flash_attention_dq": {},
+           "flash_attention_dkv": {}}
+    for name, (Lq, Lk, causal, bias, pairs) in cases.items():
+        q, g = rand(Lq), rand(Lq)
+        k, v = rand(Lk), rand(Lk)
+        o, lse = fa.flash_fwd(q, k, v, bias, causal)
+        ro, rlse = fa.flash_fwd_reference(q, k, v, bias, causal)
+        e_fwd = max(max_err(o, ro), max_err(lse, rlse))
+        check(e_fwd <= TOL["flash"]["bfloat16"],
+              f"flash fwd NMT {name}: max_abs_err {e_fwd}")
+        delta = (g.float() * ro.float()).sum(-1).reshape(B * H, Lq)
+        bw = (q, k, v, bias, g, rlse, delta, causal, None, 0.0, 0)
+        ref = fa.flash_bwd_reference(*bw)
+        tol = TOL_BWD["bfloat16"] * max(float(x.float().abs().max())
+                                        for x in ref)
+        e_dq = max_err(fa.flash_bwd_dq(*bw), ref[0])
+        dk, dv = fa.flash_bwd_dkv(*bw)
+        e_dkv = max(max_err(dk, ref[1]), max_err(dv, ref[2]))
+        check(max(e_dq, e_dkv) <= tol,
+              f"flash bwd NMT {name}: dq {e_dq}, dkv {e_dkv} > {tol}")
+        del o, lse, ro, ref, dk, dv
+        sdpa_kw = {"is_causal": True} if causal else {
+            "attn_mask": keys[:, None, None, :]}
+
+        def sdpa():
+            return tF.scaled_dot_product_attention(q, k, v, **sdpa_kw)
+
+        lib_fwd = (time_ms(sdpa), device_ms(sdpa, skip=FLUSH_ONLY))
+        lib_bwd = sdpa_backward_ms(q, k, v, g, **sdpa_kw)
+        es, BH = q.element_size(), B * H
+        side = 4 * B * Lk + 8 * BH * Lq            # bias; LSE and delta
+        shape = (f"q/dO ({B},{H},{Lq},{D}), k/v ({B},{H},{Lk},{D}) bf16, "
+                 + ("causal" if causal else "padding bias of sources "
+                    "16-64 long") + ", dropout 0")
+        for row, err, nbytes, flops, fn, plain, lib in (
+                ("flash_attention_fwd", e_fwd,
+                 BH * D * es * (2 * Lq + 2 * Lk) + 4 * B * Lk + 4 * BH * Lq,
+                 4 * pairs * H * D,
+                 lambda: fa.flash_fwd(q, k, v, bias, causal),
+                 lambda: fa.flash_fwd_reference(q, k, v, bias, causal),
+                 lib_fwd),
+                ("flash_attention_dq", e_dq,
+                 BH * D * es * (3 * Lq + 2 * Lk) + side, 6 * pairs * H * D,
+                 lambda: fa.flash_bwd_dq(*bw),
+                 lambda: fa.flash_dq_reference(*bw), lib_bwd),
+                ("flash_attention_dkv", e_dkv,
+                 BH * D * es * (2 * Lq + 4 * Lk) + side, 8 * pairs * H * D,
+                 lambda: fa.flash_bwd_dkv(*bw),
+                 lambda: fa.flash_dkv_reference(*bw), lib_bwd)):
+            b_ms, b_by = bound(nbytes, flops)
+            out[row][name] = dict(
+                shapes=shape, max_abs_err=err, ms=time_ms(fn),
+                device_ms=device_ms(fn, match="mxt::"),
+                plain_ms=time_ms(plain, iters=5),
+                plain_device_ms=device_ms(plain, iters=5, skip=FLUSH_ONLY),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib[0],
+                library_device_ms=lib[1],
+                library=("SDPA forward" if row.endswith("fwd") else
+                         "SDPA backward alone (dq, dk and dv together)")
+                + (", is_causal" if causal else ", boolean key mask"))
+        out["flash_attention_dq"][name]["tol"] = tol
+        out["flash_attention_dkv"][name]["tol"] = tol
+    return {row: {"nmt_shape": v} for row, v in out.items()}
+
+
+class EagerLoop:
+    """MXNet's training loop as `timed_steps` drives a trainer:
+
+        with autograd.record():
+            logits = model(src, tgt_in, src_valid)
+            loss = label_smoothing_loss(logits, tgt_out)
+        loss.backward()
+        trainer.step(1)
+
+    `step((src, tgt_in, src_valid), (tgt_out,))` takes NDArrays and
+    returns the loss NDArray (not synchronised)."""
+
+    def __init__(self, model, trainer):
+        self.model, self.trainer = model, trainer
+
+    def step(self, data, labels):
+        from mxnet_tpu_torch import autograd
+        from mxnet_tpu_torch.models.transformer import label_smoothing_loss
+        src, tgt_in, valid = data
+        with autograd.record():
+            logits = self.model(src, tgt_in, valid)
+            loss = label_smoothing_loss(logits, labels[0])
+        loss.backward()
+        self.trainer.step(1)
+        return loss
+
+
+def nmt_arrays(batch, ctx):
+    """The batch as NDArrays on ctx: ([src, tgt_in, src_valid],
+    [tgt_out])."""
+    from mxnet_tpu_torch import nd
+    src, tgt_in, tgt_out, valid = (nd.array(a, ctx=ctx) for a in batch)
+    return [src, tgt_in, valid], [tgt_out]
+
+
+def build_nmt(cfg, seed, device, dtype=None):
+    """TransformerNMT(**cfg) on `device`: `random.seed(seed)`,
+    `initialize()`, then `cast(dtype)` when given."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.models import transformer
+    model = transformer.TransformerNMT(**cfg, device=device)
+    mxrandom.seed(seed, device)
+    model.initialize()
+    return model.cast(dtype) if dtype else model
+
+
+def nmt_train_phase(dev, batch=64, src_len=64, warmup=2, steps=16,
+                    **cfg_overrides):
+    """Phase 17: Transformer base (Vaswani et al. 2017, Table 3 "base":
+    `TransformerNMT`'s defaults, the paper's shared 37,000-token BPE
+    vocabulary) built in float32 from seed 0 and cast to bfloat16, trained
+    by the eager loop with `gluon.Trainer(params, "adam", {lr 1e-3, beta2
+    0.98, epsilon 1e-9})` on one repeated copy-task batch of 64 sources of
+    16-64 tokens (padded to 64, `src_valid` passed) against targets of 65
+    positions. Returns (result dict, launch counts of the timed steps,
+    the trained model)."""
+    import numpy as np
+    from mxnet_tpu_torch import gluon
+    cfg = dict(NMT_BASE, **cfg_overrides)
+    model = build_nmt(cfg, 0, dev, "bfloat16")
+    trainer = gluon.Trainer(model.collect_params(), "adam",
+                            {"learning_rate": 1e-3, "beta2": 0.98,
+                             "epsilon": 1e-9})
+    n_params = len(trainer._params)
+    batch_np = nmt_batch(batch, src_len, cfg["tgt_vocab"])
+    data, labels = nmt_arrays(batch_np, dev)
+    losses, counts, timing = timed_steps(EagerLoop(model, trainer), data,
+                                         labels, warmup, steps)
+    check(np.isfinite(losses).all(), f"NMT training losses {losses}")
+    check(losses[-1] < losses[0], f"NMT loss did not fall: {losses}")
+    L = cfg["num_layers"]
+    want = expect(flash_attention_fwd=3 * L * steps,
+                  flash_attention_dq=3 * L * steps,
+                  flash_attention_dkv=3 * L * steps,
+                  adam_update=n_params * steps)
+    check(counts == want, f"NMT training launches {counts} != {want}")
+    real = int((batch_np[2] != 0).sum())
+    res = {"model": "TransformerNMT(37000, 37000, units 512, hidden 2048, "
+                    f"{L} + {L} layers, 8 heads, dropout 0.1), "
+                    "cast('bfloat16')",
+           "batch": batch, "src_len": src_len, "tgt_positions": src_len + 1,
+           "real_target_tokens_per_step": real,
+           "optimizer": "gluon.Trainer adam lr 1e-3, beta2 0.98, eps 1e-9",
+           "trainable_parameters": n_params,
+           "param_count": sum(p.numel() for p in trainer._params),
+           "target_tokens_per_s": real * steps / timing["seconds"],
+           "target_positions_per_s":
+               batch * (src_len + 1) * steps / timing["seconds"],
+           "launches_per_step": {k: v // steps for k, v in counts.items()
+                                 if v},
+           "losses": losses, **timing}
+    return res, counts, model
+
+
+def decode_run(model, fn, **kw):
+    """One decode call (`greedy_decode` or `beam_search`) timed, then the
+    same under torch.profiler: (tokens, {ms per step, idle share, launch
+    counts})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = fn(**kw)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    n_steps = toks.shape[1] - 1
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn(**kw)
+        prof_ms = (time.perf_counter() - t1) * 1e3
+    busy_ms, top, by_class, kernels = device_profile(prof, 1, 8)
+    return toks, {"decode_steps": n_steps, "seconds": secs,
+                  "ms_per_step": secs * 1e3 / n_steps,
+                  "profiled_ms": prof_ms, "device_busy_ms": busy_ms,
+                  "device_idle_share": None if busy_ms is None
+                  else 1 - busy_ms / (secs * 1e3),
+                  "kernels": kernels, "top_device_ms": top,
+                  "launches": {k: v for k, v in counts.items() if v}}
+
+
+def nmt_decode_phase(model, dev, n=16, src_len=64):
+    """Phase 18, first half: phase 17's bf16 model decodes 16 sources of
+    16-64 tokens greedily and by beam search (beam 4, alpha 0.6) at the
+    default max_len (2 x 64 + 8 = 136); each call encodes once, so it
+    launches exactly num_layers flash forwards and no other repo kernel.
+    Eighteen steps into the copy task the model ranks EOS (the commonest
+    target token) first everywhere, so with eos=2 a decode would stop
+    after a step or two: the calls pass eos=-1, which no row emits, and
+    run every step to max_len."""
+    import numpy as np
+    from mxnet_tpu_torch import nd
+    src, _, _, valid = nmt_batch(n, src_len, 37000, seed=1)
+    L = len(model.encoder)
+    max_len = 2 * src_len + 8
+    out = {}
+    for name, fn, kw in (("greedy", model.greedy_decode, {}),
+                         ("beam4", model.beam_search,
+                          {"beam": 4, "alpha": 0.6})):
+        toks, res = decode_run(model, fn, src_tokens=nd.array(src, ctx=dev),
+                               src_valid=nd.array(valid, ctx=dev), eos=-1,
+                               **kw)
+        check(toks.shape == (n, max_len) and (toks[:, 0] == BOS).all()
+              and ((toks >= 0) & (toks < 37000)).all(),
+              f"NMT {name} tokens {toks.shape}")
+        check(res["launches"] == {"flash_attention_fwd": L},
+              f"NMT {name} launches {res['launches']}")
+        out[name] = res
+    return out
+
+
+def nmt_parity_phase(dev, steps=3, batch=8, src_len=24, n_dec=4, lr=1e-3):
+    """Phase 18, second half: a float32 TransformerNMT at full width and
+    vocabulary, 2 + 2 layers, dropout 0, trained `steps` eager Adam steps
+    on the card and on the CPU from the same weights: losses and every
+    parameter within TOL_TRAIN; then greedy and beam-4 tokens of 4
+    sources equal on the card and on the CPU, and beam 1 equal to greedy.
+    Adam runs at epsilon 1e-4. Where a ReLU unit's input lies within
+    float32 rounding of 0 at some position, the two devices can gate it
+    differently, and that unit's weights get gradients that differ by
+    that position's share (a few 1e-6); a key projection's bias has a
+    gradient of float32 noise (zero in exact arithmetic). At epsilon
+    1e-8 Adam turns such a gradient into a step of about lr of the
+    noise's sign, so the two devices' weights part by up to 2 lr a step
+    there (0.003 after 3 steps at lr 1e-3); at 1e-4 those steps shrink
+    to about 1e-6 while a gradient of 1e-3 still steps a quarter of lr
+    at the first step."""
+    import numpy as np
+    from mxnet_tpu_torch import gluon, weights
+    from mxnet_tpu_torch.models import transformer
+    cfg = dict(NMT_BASE, num_layers=2, dropout=0.0)
+    arrays = {k: p.detach().numpy().copy() for k, p in
+              build_nmt(cfg, 7, "cpu").collect_params().items()}
+    batch_np = nmt_batch(batch, src_len, cfg["tgt_vocab"], seed=4, lo=8)
+    dsrc, _, _, dvalid = nmt_batch(n_dec, src_len, cfg["tgt_vocab"], seed=5,
+                                   lo=8)
+    runs = {}
+    for where in ("cpu", dev):
+        model = transformer.TransformerNMT(**cfg, device=where)
+        weights.load_named_arrays(model, arrays)
+        tr = gluon.Trainer(model.collect_params(), "adam",
+                           {"learning_rate": lr, "epsilon": 1e-4})
+        loop = EagerLoop(model, tr)
+        data, labels = nmt_arrays(batch_np, where)
+        reset_counts()
+        losses = [float(loop.step(data, labels)) for _ in range(steps)]
+        counts = read_counts()
+        params = {k: p.detach().cpu() for k, p in
+                  model.collect_params().items()}
+        toks = {"greedy": model.greedy_decode(dsrc, src_valid=dvalid),
+                "beam4": model.beam_search(dsrc, beam=4, src_valid=dvalid),
+                "beam1": model.beam_search(dsrc, beam=1, src_valid=dvalid)}
+        runs[str(where)] = (losses, params, counts, toks, len(tr._params))
+        del model, tr
+    (lc, pc, cc, tc, _), (lg, pg, counts, tg, n) = runs["cpu"], \
+        runs[str(dev)]
+    e_loss = float(np.abs(np.subtract(lg, lc)).max())
+    e_w = max(max_err(pg[k], pc[k]) for k in pc)
+    check(e_loss <= TOL_TRAIN and e_w <= TOL_TRAIN,
+          f"NMT card vs CPU: losses {lg} vs {lc}, param err {e_w}")
+    L = cfg["num_layers"]
+    want = expect(flash_attention_fwd=3 * L * steps,
+                  flash_attention_dq=3 * L * steps,
+                  flash_attention_dkv=3 * L * steps, adam_update=n * steps)
+    check(counts == want, f"NMT parity launches {counts} != {want}")
+    check(all(v == 0 for v in cc.values()), f"CPU run launched {cc}")
+    for name in tg:
+        check(np.array_equal(tg[name], tc[name]),
+              f"NMT {name} tokens card {tg[name].tolist()} != CPU "
+              f"{tc[name].tolist()}")
+    check(np.array_equal(tg["beam1"], tg["greedy"]),
+          f"NMT beam 1 {tg['beam1'].tolist()} != greedy "
+          f"{tg['greedy'].tolist()}")
+    return {"losses_card": lg, "losses_cpu": lc, "max_loss_err": e_loss,
+            "max_param_err": e_w, "parameters": len(pc),
+            "decode_shapes": {k: list(v.shape) for k, v in tg.items()}}
+
+
 def main():
     try:
         import torch
@@ -2339,11 +2766,14 @@ def main():
         print("chip_smoke: run it from a checkout of the repository "
               "(mxnet_tpu_torch/ not found beside it)", file=sys.stderr)
         return 2
-    if len(sys.argv) == 3 and sys.argv[1] == "--flash-times":
-        print(json.dumps(flash_times(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] in ("--flash-times",
+                                              "--host-times"):
+        times = flash_times if sys.argv[1] == "--flash-times" \
+            else host_path_times
+        print(json.dumps(times(sys.argv[2])))
         return 0
-    if len(sys.argv) == 3 and sys.argv[1] == "--flash-ab":
-        flash_ab(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] in ("--flash-ab", "--host-ab"):
+        (flash_ab if sys.argv[1] == "--flash-ab" else host_ab)(sys.argv[2])
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -2426,6 +2856,10 @@ def main():
         kernels[row]["sass"] = None if mix8 is None else {
             name: m for name, m in mix8.items() if want in name}
     kernels.update(moe_phase(dev))
+    for row, extra in nmt_flash_phase(dev).items():
+        kernels[row].update(extra)
+        print(f"chip_smoke: {row} at the Transformer NMT's shapes "
+              + json.dumps(extra["nmt_shape"]))
     for k in kernels.values():
         lib = "none" if k["library_ms"] is None \
             else f"{k['library_ms']:.4f} ms"
@@ -2578,6 +3012,25 @@ def main():
     rparity = resnet_parity_phase(dev)
     print("chip_smoke: card-vs-CPU ResNet v1 (SGD, grad accum 2) "
           + json.dumps(rparity))
+    torch.cuda.empty_cache()
+
+    # 17. Transformer base (NMT) through the eager Gluon loop, bf16, Adam
+    nmt, counts, nmt_model = nmt_train_phase(dev)
+    print("chip_smoke: NMT training " + json.dumps(nmt))
+    print(f"chip_smoke: NMT training launches {counts}")
+    for row in ("flash_attention_fwd", "flash_attention_dq",
+                "flash_attention_dkv"):
+        kernels[row]["nmt_shape"]["launches"] = counts[row]
+    kernels["adam_update"]["nmt_launches"] = counts["adam_update"]
+
+    # 18. its greedy and beam-4 decode; a float32 NMT card == CPU
+    dec = nmt_decode_phase(nmt_model, dev)
+    print("chip_smoke: NMT decode " + json.dumps(dec))
+    del nmt_model
+    torch.cuda.empty_cache()
+    nparity = nmt_parity_phase(dev)
+    print("chip_smoke: card-vs-CPU NMT (eager Adam, decode) "
+          + json.dumps(nparity))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -11,15 +11,21 @@ It serves GPT-2 through the paged continuous-batching server
 (`serve.Server(model, pages="on")`) and `GPTForCausalLM.generate`, also
 int8-quantized (`contrib.quantization.quantize_block`); it pretrains
 BERT through `parallel.ShardedTrainer` with fused flat-master LAMB, and
-GPT-2 with per-parameter Adam or AdamW; and it trains a Switch
-mixture-of-experts (`parallel.moe_apply` over the mesh's `ep` axis).
+GPT-2 with per-parameter Adam or AdamW; it trains a Switch
+mixture-of-experts (`parallel.moe_apply` over the mesh's `ep` axis); and
+it trains the Transformer NMT (`models.transformer`) through MXNet's
+eager loop (`nd`, `autograd.record()` / `backward()`, `gluon.Trainer`),
+then decodes it greedily or by beam search.
 """
-from . import (config, context, contrib, dataflow, gluon, initializer,
-               models, optimizer, pages, parallel, random, serve, weights)
+from . import (autograd, config, context, contrib, dataflow, gluon,
+               initializer, lr_scheduler, models, ndarray, optimizer, pages,
+               parallel, random, serve, weights)
+from . import ndarray as nd
 from .context import cpu, gpu
 from .parallel import current_mesh, make_mesh, moe_apply, moe_ffn
 
-__all__ = ["config", "context", "contrib", "dataflow", "gluon", "initializer",
-           "models", "optimizer", "pages", "parallel", "random", "serve",
-           "weights", "cpu", "gpu", "make_mesh", "current_mesh", "moe_apply",
+__all__ = ["autograd", "config", "context", "contrib", "dataflow", "gluon",
+           "initializer", "lr_scheduler", "models", "nd", "ndarray",
+           "optimizer", "pages", "parallel", "random", "serve", "weights",
+           "cpu", "gpu", "make_mesh", "current_mesh", "moe_apply",
            "moe_ffn"]

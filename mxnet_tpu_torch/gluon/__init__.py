@@ -1,8 +1,9 @@
-"""Gluon surface of the port: Block, Parameter, the layers and the
-losses."""
+"""Gluon surface of the port: Block, Parameter, the layers, the losses
+and the eager `Trainer`."""
 from . import loss, nn
 from .block import Block, HybridBlock, HybridSequential
-from .parameter import Constant, Parameter
+from .parameter import Constant, Parameter, ParameterDict
+from .trainer import Trainer
 
 __all__ = ["loss", "nn", "Block", "HybridBlock", "HybridSequential",
-           "Parameter", "Constant"]
+           "Parameter", "ParameterDict", "Constant", "Trainer"]

@@ -4,11 +4,18 @@ A Block is a thin `torch.nn.Module`. Attribute paths name parameters
 exactly as the JAX package's `collect_params()` does
 (`gpt.layers.0.attn.qkv.weight`), so carrying weights between the two
 packages is the identity on names. PyTorch runs eagerly, so there is
-no hybridize/jit cache: `HybridBlock` is the same class.
+no hybridize/jit cache: `HybridBlock` is the same class and
+`hybridize()` changes nothing.
 
 A block starts in evaluation mode (`training` False), as the JAX
 package runs outside a train step; `train()` (what the trainer's step
-sets around its forward) turns dropout on, `eval()` off.
+sets around its forward) turns dropout on, `eval()` off. An active
+autograd scope overrides the block's flag (`training(block)`).
+
+A call with an NDArray among its arguments is a call at the user's
+boundary: the block runs on the held tensors and its tensor outputs come
+back as NDArrays. Inside `autograd.record()` a call lets the block's
+trainable parameters record gradients (once per block).
 
 A layer whose parameters have deferred shapes (a 0 in the shape: `Dense`
 without `in_units`, convolutions without `in_channels`, `BatchNorm`)
@@ -25,23 +32,71 @@ import re
 
 import torch
 
+from .. import autograd as _autograd
 from .. import context
 from .. import initializer as _init
-from .parameter import dtype_of, finish_deferred
+from ..ndarray.ndarray import NDArray
+from .parameter import ParameterDict, dtype_of, finish_deferred
 
-__all__ = ["Block", "HybridBlock", "HybridSequential"]
+__all__ = ["Block", "HybridBlock", "HybridSequential", "training"]
+
+
+def training(block):
+    """The training mode `block` runs in: the active autograd scope's
+    flag (`record`, `pause`, `train_mode`, `predict_mode`,
+    `set_training`) while one is in effect, else the block's own."""
+    flag = _autograd._training
+    return block.training if flag is None else flag
+
+
+def _wrap(out):
+    if isinstance(out, torch.Tensor):
+        return NDArray(out)
+    if isinstance(out, (tuple, list)):
+        return type(out)(_wrap(o) for o in out)
+    return out
+
+
+def _unwrap(x):
+    return x._t if isinstance(x, NDArray) else x
 
 
 class Block(torch.nn.Module):
     def __init__(self):
         super().__init__()
         self.training = False
+        self._mx_recorded = False
+
+    def __call__(self, *args, **kwargs):
+        if _autograd._recording and not self._mx_recorded:
+            self._attach_grads()
+        for a in args:
+            if isinstance(a, NDArray):
+                return _wrap(super().__call__(
+                    *[_unwrap(x) for x in args],
+                    **{k: _unwrap(v) for k, v in kwargs.items()}))
+        return super().__call__(*args, **kwargs)
+
+    def _attach_grads(self):
+        """Let every trainable floating-point parameter of this subtree
+        record gradients (`autograd.record()`'s first forward)."""
+        for p in self.parameters():
+            if p.grad_req != "null" and p.is_floating_point():
+                _autograd.attach_grad_req(p)
+        for m in self.modules():
+            if isinstance(m, Block):
+                m._mx_recorded = True
+
+    def hybridize(self, active=True, **kwargs):
+        """Accepted for MXNet's sake; PyTorch runs eagerly."""
+        return self
 
     def collect_params(self, select=None):
         """All parameters of this subtree keyed by dotted path
         (optionally filtered by a regex)."""
-        return {path: p for path, p in self.named_parameters()
-                if select is None or re.search(select, path)}
+        return ParameterDict(
+            (path, p) for path, p in self.named_parameters()
+            if select is None or re.search(select, path))
 
     def initialize(self, init=None, device=None, generator=None,
                    force_reinit=False):
@@ -70,11 +125,15 @@ class Block(torch.nn.Module):
         return self
 
     def cast(self, dtype):
-        """Cast every floating-point parameter to `dtype` in place."""
+        """Cast every floating-point parameter, and its gradient, to
+        `dtype` in place."""
         dt = dtype_of(dtype)
         for p in self.parameters():
             if p.is_floating_point():
+                g, p.grad = p.grad, None
                 p.data = p.data.to(dt)
+                if g is not None:
+                    p.grad = g.to(dt)
         return self
 
     def infer_param_shapes(self, x_shape):

@@ -15,7 +15,7 @@ import math
 import torch
 
 from ...ops import nn_ops
-from ..block import Block, HybridBlock, HybridSequential
+from ..block import Block, HybridBlock, HybridSequential, training
 from ..parameter import Parameter
 
 __all__ = ["Dense", "Dropout", "Embedding", "LayerNorm", "BatchNorm",
@@ -60,7 +60,7 @@ class Dropout(HybridBlock):
         self._rate = rate
 
     def forward(self, x):
-        return nn_ops.dropout(x, self._rate, training=self.training)
+        return nn_ops.dropout(x, self._rate, training=training(self))
 
 
 class Embedding(HybridBlock):
@@ -138,7 +138,7 @@ class BatchNorm(HybridBlock):
             eps=self._epsilon, momentum=self._momentum,
             fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats, axis=self._axis,
-            training=self.training)
+            training=training(self))
         if mean is not self.running_mean:
             with torch.no_grad():
                 self.running_mean.copy_(mean)

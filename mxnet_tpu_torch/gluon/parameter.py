@@ -30,7 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["Parameter", "Constant", "dtype_of", "finish_deferred"]
+__all__ = ["Parameter", "ParameterDict", "Constant", "dtype_of",
+           "finish_deferred", "zero_grad"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -45,9 +46,9 @@ def dtype_of(dtype):
 
 def Parameter(name, shape, dtype="float32", init=None,  # noqa: N802
               grad_req="write"):
-    if grad_req not in ("write", "null"):
+    if grad_req not in ("write", "add", "null"):
         raise ValueError(f"Parameter {name}: grad_req {grad_req!r} is not "
-                         "'write' or 'null'")
+                         "'write', 'add' or 'null'")
     p = torch.nn.Parameter(torch.empty(tuple(shape), dtype=dtype_of(dtype)),
                            requires_grad=False)
     p.mx_name = name
@@ -56,7 +57,31 @@ def Parameter(name, shape, dtype="float32", init=None,  # noqa: N802
     p.mx_deferred = 0 in p.shape
     p.mx_init_requested = None
     p.grad_req = grad_req
+    p.lr_mult = 1.0
+    p.wd_mult = 1.0
     return p
+
+
+def zero_grad(p):
+    """Zero the parameter's gradient in place (it keeps None when no
+    backward has written one)."""
+    if p.grad is not None:
+        with torch.no_grad():
+            p.grad.zero_()
+
+
+class ParameterDict(dict):
+    """{dotted path: parameter}, what `Block.collect_params` returns
+    (counterpart of the JAX package's ParameterDict)."""
+
+    def zero_grad(self):
+        for p in self.values():
+            if p.grad_req != "null":
+                zero_grad(p)
+
+    def setattr(self, name, value):
+        for p in self.values():
+            setattr(p, name, value)
 
 
 def finish_deferred(p, shape, device):
@@ -90,4 +115,6 @@ def Constant(name, value):  # noqa: N802
     p.mx_init = None
     p.mx_constant = True
     p.grad_req = "null"
+    p.lr_mult = 1.0
+    p.wd_mult = 1.0
     return p

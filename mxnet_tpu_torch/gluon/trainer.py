@@ -1,0 +1,93 @@
+"""Trainer: applies an Optimizer to a set of Parameters (counterpart of
+`mxnet_tpu/gluon/trainer.py`), the eager loop's update:
+
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(batch_size)
+
+`step(batch_size)` sets the optimizer's `rescale_grad` to 1/batch_size
+and runs `optimizer.update(i, param, param.grad, state)` for every
+trainable parameter (grad_req not 'null'), in place, under
+`torch.no_grad()`; the optimizer's state is created at the first step.
+A parameter that no backward has reached updates with a zero gradient,
+as the JAX package's zero-initialised gradient buffers do. One device:
+there is no kvstore to reduce through, so `kvstore` and
+`update_on_kvstore` are accepted and `allreduce_grads` does nothing;
+`compression_params` raises as in the JAX package. The JAX package's
+AMP loss scaler, telemetry, diagnostics and memsafe hooks are not in the
+port.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import optimizer as opt_mod
+from .parameter import ParameterDict, zero_grad
+
+__all__ = ["Trainer"]
+
+
+class Trainer:
+    def __init__(self, params, optimizer, optimizer_params=None,
+                 kvstore="device", compression_params=None,
+                 update_on_kvstore=None):
+        if isinstance(params, ParameterDict):
+            params = list(params.values())
+        elif isinstance(params, dict):
+            params = [params[k] for k in sorted(params)]
+        if compression_params is not None:
+            raise ValueError(
+                "Trainer does not route gradients through a kvstore (one "
+                "device: nothing is reduced), so compression_params has "
+                "nothing to compress here")
+        self._params = [p for p in params if p.grad_req != "null"]
+        self._all_params = list(params)
+        self._optimizer = opt_mod.create(
+            optimizer, param_dict=dict(enumerate(self._params)),
+            **(optimizer_params or {}))
+        self._states = [None] * len(self._params)
+        self._states_created = False
+        self._kvstore_type = kvstore
+        self._num_update = 0
+
+    @property
+    def optimizer(self):
+        return self._optimizer
+
+    @property
+    def learning_rate(self):
+        return self._optimizer.learning_rate
+
+    def set_learning_rate(self, lr):
+        self._optimizer.set_learning_rate(lr)
+
+    def _create_states(self):
+        for i, p in enumerate(self._params):
+            self._states[i] = self._optimizer.create_state(i, p)
+        self._states_created = True
+
+    def step(self, batch_size, ignore_stale_grad=False):
+        """Scale the gradients by 1/batch_size and apply the updates."""
+        self._num_update += 1
+        self._optimizer.rescale_grad = 1.0 / batch_size
+        self._update(ignore_stale_grad)
+
+    def update(self, batch_size, ignore_stale_grad=False):
+        self.step(batch_size, ignore_stale_grad)
+
+    def allreduce_grads(self):
+        """Nothing to do: one device holds every gradient."""
+
+    def _update(self, ignore_stale_grad=False):
+        if not self._states_created:
+            self._create_states()
+        opt = self._optimizer
+        with torch.no_grad():
+            for i, p in enumerate(self._params):
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                opt.update(i, p, g, self._states[i])
+
+    def zero_grad(self):
+        for p in self._params:
+            zero_grad(p)

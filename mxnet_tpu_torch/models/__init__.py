@@ -1,5 +1,5 @@
-"""Model families of the port: BERT (pretraining), the GPT-2 family and
-ResNet v1/v2."""
-from . import bert, gpt, resnet
+"""Model families of the port: BERT (pretraining), the GPT-2 family,
+ResNet v1/v2 and the Sockeye Transformer NMT."""
+from . import bert, gpt, resnet, transformer
 
-__all__ = ["bert", "gpt", "resnet"]
+__all__ = ["bert", "gpt", "resnet", "transformer"]

@@ -11,6 +11,11 @@ The score/softmax/PV math is float32 whatever the cache dtype, and the
 dense steps and the paged step's plain version share it verbatim at the
 same operand shapes: that is what keeps `pages="on"` serving on the CPU
 bit-identical to `pages="off"`.
+
+`beam_search_loop` is the JAX package's host-side beam bookkeeping,
+copied verbatim (numpy on the host), so a model's beams, tokens and
+scores follow the JAX package's from the same logits; its `step`
+returns host logits.
 """
 from __future__ import annotations
 
@@ -79,3 +84,67 @@ def paged_attention_step(q, k_new, v_new, k_pages, v_pages, tables, wp, wo,
     B, H, _, D = q.shape
     o = paged_attention(q, k_pages, v_pages, tables, t)
     return o.transpose(1, 2).reshape(B, 1, H * D), k_pages, v_pages
+
+
+def beam_search_loop(logits0, step, reorder, B, beam, eos, max_steps,
+                     alpha=0.6, seqs0=None, lengths0=1):
+    """Host-side beam bookkeeping shared by TransformerNMT.beam_search and
+    GPTForCausalLM.generate(num_beams>1): device emits logits, the host
+    selects top-k continuations, and `reorder` gathers the KV caches by
+    beam parent on-device.
+
+    logits0: (B*beam, V) for the FIRST expansion (encoder bos step for
+    NMT, prompt prefill for GPT) — only beam 0 is live so the expansion
+    yields `beam` DISTINCT tokens, not copies of the argmax.
+    step(tok_flat (B*beam,) int32, i) -> (B*beam, V) logits for expansion
+    i+1.  reorder(gather (B*beam,) int32) reindexes the caches.
+    Returns (seqs (B, <=max_steps [+ seqs0 cols]), scores (B,)) — the
+    best beam per batch under Sockeye/GNMT length norm
+    lp(l) = ((5+l)/6)^alpha."""
+    import numpy as np
+
+    if seqs0 is None:
+        seqs = np.zeros((B, beam, 0), np.int32)
+    else:
+        seqs = np.asarray(seqs0, np.int32)
+    cum = np.full((B, beam), -np.inf, np.float32)
+    cum[:, 0] = 0.0
+    finished = np.zeros((B, beam), bool)
+    lengths = np.full((B, beam), lengths0, np.int32)
+    batch_off = np.arange(B)[:, None] * beam
+    logits = logits0
+
+    for i in range(max_steps):
+        lg = np.asarray(logits, np.float32)
+        V = lg.shape[-1]
+        m = lg.max(-1, keepdims=True)
+        logp = lg - np.log(np.exp(lg - m).sum(-1, keepdims=True)) - m
+        logp = logp.reshape(B, beam, V)
+        # finished beams may only emit eos, at no additional cost
+        fin_row = np.full((V,), -np.inf, np.float32)
+        fin_row[eos] = 0.0
+        logp = np.where(finished[:, :, None], fin_row[None, None, :], logp)
+        flat = (cum[:, :, None] + logp).reshape(B, beam * V)
+        top = np.argpartition(-flat, beam - 1, axis=1)[:, :beam]
+        order = np.argsort(-np.take_along_axis(flat, top, 1), axis=1)
+        top = np.take_along_axis(top, order, 1)              # sorted top-k
+        parent = top // V                                    # (B, beam)
+        tok = (top % V).astype(np.int32)
+        cum = np.take_along_axis(flat, top, 1)
+        finished = np.take_along_axis(finished, parent, 1)
+        lengths = np.take_along_axis(lengths, parent, 1) + (~finished)
+        seqs = np.take_along_axis(seqs, parent[:, :, None], 1)
+        seqs = np.concatenate([seqs, tok[:, :, None]], axis=2)
+        finished = finished | (tok == eos)
+        reorder((batch_off + parent).reshape(-1).astype(np.int32))
+        if finished.all():
+            break
+        if i < max_steps - 1:
+            logits = step(tok.reshape(-1).astype(np.int32), i)
+
+    lp = ((5.0 + lengths) / 6.0) ** alpha
+    norm = cum / lp
+    norm = np.where(np.isfinite(norm), norm, -np.inf)
+    best = norm.argmax(axis=1)
+    idx = np.arange(B)
+    return seqs[idx, best], norm[idx, best]

@@ -13,7 +13,9 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import autograd as _autograd
 from .. import random as _random
+from ..gluon.block import training
 
 
 def remat_policy(remat):
@@ -37,12 +39,14 @@ def remat_call(layer, x, mask):
     forward saw (under the trainer's `functional_call` the parameters
     are the master's views, which the modules no longer hold by the time
     of the backward: they are put back into the modules' parameter slots
-    for the recomputation). It starts from a snapshot of the random
+    for the recomputation; the modes are those the first forward ran in,
+    an autograd scope's included, and the recomputation runs outside any
+    scope's flag). It starts from a snapshot of the random
     streams taken before the first forward, so it draws exactly what the
     first forward drew, and then puts the streams back where the
     backward found them."""
     modules = list(layer.modules())
-    modes = [m.training for m in modules]
+    modes = [training(m) for m in modules]
     slots = [(m, name, p) for m in modules
              for name, p in m._parameters.items() if p is not None]
     _random.generator(x.device)        # made before the snapshot
@@ -55,6 +59,7 @@ def remat_call(layer, x, mask):
             return layer(x, mask)
         now, now_modes = _random.get_state(), [m.training for m in modules]
         held = [m._parameters[name] for m, name, _ in slots]
+        scope = _autograd.set_training(None)
         _random.set_state(before)
         for m, name, p in slots:
             m._parameters[name] = p
@@ -64,6 +69,7 @@ def remat_call(layer, x, mask):
             return layer(x, mask)
         finally:
             _random.set_state(now)
+            _autograd.set_training(scope)
             for (m, name, _), p in zip(slots, held):
                 m._parameters[name] = p
             for m, mode in zip(modules, now_modes):

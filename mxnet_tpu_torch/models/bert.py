@@ -33,6 +33,7 @@ import torch.nn.functional as tF
 
 from .. import context
 from ..gluon import HybridBlock, nn
+from ..gluon.block import training
 from ..gluon.parameter import Parameter
 from ..ops import nn_ops
 from ._remat import remat_policy, stack_call
@@ -87,7 +88,7 @@ class BERTAttention(HybridBlock):
                                           num_heads=self._num_heads,
                                           causal=self._causal,
                                           dropout=self._dropout,
-                                          training=self.training)
+                                          training=training(self))
         return self.proj(out)
 
 

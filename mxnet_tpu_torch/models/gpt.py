@@ -313,6 +313,7 @@ class GPTForCausalLM(HybridBlock):
         h_last = g.ln_f(x)[:, lp - 1]
         return self._logits(h_last).float(), ks, vs
 
+    @torch.no_grad()
     def generate(self, prompt, max_new_tokens=32, eos=None, temperature=0.0,
                  top_k=0, seed=0, num_beams=1):
         """Autoregressive generation from int prompt tokens (B, Lp):

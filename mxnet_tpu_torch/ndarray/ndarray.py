@@ -1,0 +1,385 @@
+"""NDArray (counterpart of `mxnet_tpu/ndarray/ndarray.py`).
+
+An NDArray holds one torch tensor (`_t`) and appears only at the user's
+boundary: the `nd.*` constructors, the output of a top-level
+`Block.__call__` that was given an NDArray (the block's interior runs on
+the plain tensors), `models.transformer.label_smoothing_loss` and the
+`gluon.loss` blocks. Its operations run torch ops on the held tensor,
+so inside `autograd.record()` they record as any torch op does.
+
+Only what the eager training loop uses is ported: the constructors
+`array`, `zeros`, `ones`, `full`, `arange`, `concatenate` and `waitall`;
+`shape`, `dtype` (a numpy dtype, the torch dtype for bfloat16), `size`,
+`ndim`, `context`; `asnumpy` (bfloat16 comes back as float32),
+`asscalar`, `item`, `astype`, `as_in_context`, `copy`, `detach`,
+`attach_grad`, `grad`, `backward`; `reshape(shape=...)` with MXNet's 0
+(copy the dimension) and -1, `transpose(axes=...)`; arithmetic,
+comparisons (0/1 in the left operand's dtype, as MXNet's), `argmax`
+(float32 indices), `mean` and `sum` (with `axis`, `keepdims`,
+`exclude`). Any other op raises NotImplementedError naming ROADMAP.md
+queue 1 item 4.
+
+`nd.array(x)` without `ctx` puts x on the card (`context.resolve`);
+`ctx=mx.cpu()` is the way onto the CPU. A float64 or int64 source
+becomes float32 or int32 (MXNet's default dtypes), as in the JAX
+package.
+"""
+from __future__ import annotations
+
+import weakref
+
+import numpy as np
+import torch
+
+from .. import context
+
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "arange",
+           "concatenate", "waitall"]
+
+_NOT_PORTED = ("is not in the port yet (ROADMAP.md queue 1 item 4: the "
+               "eager MXNet surface)")
+_NP = {torch.float32: np.dtype("float32"), torch.float16: np.dtype("float16"),
+       torch.float64: np.dtype("float64"), torch.int32: np.dtype("int32"),
+       torch.int64: np.dtype("int64"), torch.int8: np.dtype("int8"),
+       torch.uint8: np.dtype("uint8"), torch.bool: np.dtype("bool")}
+_TORCH = {v.name: k for k, v in _NP.items()}
+_TORCH["bfloat16"] = torch.bfloat16
+_DEFAULT = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
+def _torch_dtype(dtype):
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _TORCH[str(dtype) if isinstance(dtype, str)
+                  else np.dtype(dtype).name]
+
+
+def _unwrap(x):
+    return x._t if isinstance(x, NDArray) else x
+
+
+def _clear_for_write(ref):
+    """A tensor hook: with grad_req 'write', the leaf's gradient is
+    cleared before torch accumulates this backward's into it."""
+    def hook(_):
+        nd = ref()
+        if nd is not None and nd.grad_req == "write":
+            nd._t.grad = None
+    return hook
+
+
+def _grad_sync(ref):
+    """A post-accumulate hook: the NDArray that `grad` returns follows
+    the leaf's gradient buffer, whichever tensor torch left there."""
+    def hook(t):
+        nd = ref()
+        if nd is not None and nd._grad is not None:
+            nd._grad._t = t.grad
+    return hook
+
+
+class NDArray:
+    __slots__ = ("_t", "_grad", "grad_req", "__weakref__")
+
+    __array_priority__ = 1000.0     # beat numpy in mixed operator dispatch
+
+    def __init__(self, tensor):
+        self._t = tensor
+        self._grad = None
+        self.grad_req = "null"
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        raise NotImplementedError(f"NDArray.{name} {_NOT_PORTED}")
+
+    # -- properties --------------------------------------------------------
+    @property
+    def shape(self):
+        return tuple(self._t.shape)
+
+    @property
+    def dtype(self):
+        return _NP.get(self._t.dtype, self._t.dtype)
+
+    @property
+    def size(self):
+        return self._t.numel()
+
+    @property
+    def ndim(self):
+        return self._t.dim()
+
+    @property
+    def context(self):
+        return self._t.device
+
+    def __repr__(self):
+        return (f"\n{self.asnumpy()}\n<NDArray "
+                f"{'x'.join(map(str, self.shape))} @{self.context}>")
+
+    # -- host interop ------------------------------------------------------
+    def asnumpy(self):
+        """A host copy (waits for the card); bfloat16 comes back as
+        float32, which holds it exactly."""
+        t = self._t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy()
+
+    def asscalar(self):
+        if self._t.numel() != 1:
+            raise ValueError("asscalar() needs an array of one element")
+        return self.asnumpy().item()
+
+    def item(self):
+        return self.asscalar()
+
+    def __float__(self):
+        return float(self.asscalar())
+
+    def __bool__(self):
+        if self._t.numel() == 1:
+            return bool(self.asscalar())
+        raise ValueError("ambiguous truth value of multi-element NDArray")
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.asnumpy()
+        return a.astype(dtype) if dtype is not None else a
+
+    # -- autograd ----------------------------------------------------------
+    def _mark(self, grad, grad_req):
+        """Make the held tensor a fresh leaf that records into `grad`
+        (an NDArray of its shape) by `grad_req`."""
+        t = self._t = self._t.detach()
+        self.grad_req = grad_req
+        self._grad = None
+        if grad_req == "null":
+            return
+        t.requires_grad_(True)
+        t.grad = grad._t
+        self._grad = grad
+        ref = weakref.ref(self)
+        t.register_hook(_clear_for_write(ref))
+        t.register_post_accumulate_grad_hook(_grad_sync(ref))
+
+    @property
+    def grad(self):
+        return self._grad
+
+    def attach_grad(self, grad_req="write"):
+        """Make this array a leaf that records its gradient, into a
+        zeroed buffer (`grad`)."""
+        self._mark(NDArray(torch.zeros_like(self._t)), grad_req)
+        return self
+
+    def detach(self):
+        return NDArray(self._t.detach())
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        from .. import autograd
+        autograd.backward([self], None if out_grad is None else [out_grad],
+                          retain_graph=retain_graph, train_mode=train_mode)
+
+    # -- copies, devices and dtypes -----------------------------------------
+    def copy(self):
+        return NDArray(self._t.detach().clone())
+
+    def as_in_context(self, ctx):
+        return NDArray(self._t.to(context.resolve(ctx)))
+
+    def astype(self, dtype, copy=True):
+        out = self._t.to(_torch_dtype(dtype))
+        return NDArray(out.clone() if copy and out is self._t else out)
+
+    # -- shape -------------------------------------------------------------
+    def reshape(self, *shape, **kwargs):
+        """MXNet's reshape: `reshape(shape)`, `reshape(*shape)` or
+        `reshape(shape=...)`; 0 copies the input's dimension, -1 is
+        inferred."""
+        shape = kwargs.pop("shape", None) if not shape else shape
+        if kwargs:
+            raise NotImplementedError(f"reshape({sorted(kwargs)}) "
+                                      f"{_NOT_PORTED}")
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = shape[0]
+        shape = [self._t.shape[i] if s == 0 else s
+                 for i, s in enumerate(shape)]
+        return NDArray(self._t.reshape(shape))
+
+    def transpose(self, *axes, **kwargs):
+        """MXNet's transpose: the axes in their new order (all reversed
+        when none are given)."""
+        axes = kwargs.pop("axes", None) if not axes else axes
+        if kwargs:
+            raise NotImplementedError(f"transpose({sorted(kwargs)}) "
+                                      f"{_NOT_PORTED}")
+        if axes and len(axes) == 1 and isinstance(axes[0], (tuple, list)):
+            axes = axes[0]
+        if not axes:
+            axes = tuple(reversed(range(self._t.dim())))
+        return NDArray(self._t.permute(*axes))
+
+    # -- reductions --------------------------------------------------------
+    def _axes(self, axis, exclude):
+        if axis is None:
+            return None
+        axes = (axis,) if isinstance(axis, int) else tuple(axis)
+        if exclude:
+            n = self._t.dim()
+            axes = tuple(i for i in range(n) if i not in
+                         {a % n for a in axes})
+        return axes
+
+    def sum(self, axis=None, keepdims=False, exclude=False):
+        """The sum in the input's dtype (bool sums to int32), as jnp's."""
+        t = self._t
+        dt = torch.int32 if t.dtype == torch.bool else t.dtype
+        axes = self._axes(axis, exclude)
+        return NDArray(t.sum(dtype=dt) if axes is None else
+                       t.sum(dim=axes, keepdim=keepdims, dtype=dt))
+
+    def mean(self, axis=None, keepdims=False, exclude=False):
+        t = self._t
+        if not t.is_floating_point():
+            t = t.float()
+        axes = self._axes(axis, exclude)
+        return NDArray(t.mean() if axes is None else
+                       t.mean(dim=axes, keepdim=keepdims))
+
+    def argmax(self, axis=None, keepdims=False):
+        """Indices of the maxima as float32, as MXNet returns them."""
+        return NDArray(torch.argmax(self._t, dim=axis, keepdim=keepdims)
+                       .to(torch.float32))
+
+    # -- operators ---------------------------------------------------------
+    def _other(self, o):
+        if isinstance(o, NDArray):
+            return o._t
+        if isinstance(o, (int, float, bool)):
+            return o
+        return array(o, ctx=self._t.device)._t
+
+    def __add__(self, o):
+        return NDArray(self._t + self._other(o))
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return NDArray(self._t - self._other(o))
+
+    def __rsub__(self, o):
+        return NDArray(self._other(o) - self._t)
+
+    def __mul__(self, o):
+        return NDArray(self._t * self._other(o))
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return NDArray(self._t / self._other(o))
+
+    def __rtruediv__(self, o):
+        return NDArray(self._other(o) / self._t)
+
+    def __mod__(self, o):
+        return NDArray(self._t % self._other(o))
+
+    def __pow__(self, o):
+        return NDArray(self._t ** self._other(o))
+
+    def __rpow__(self, o):
+        return NDArray(self._other(o) ** self._t)
+
+    def __neg__(self):
+        return NDArray(-self._t)
+
+    def __abs__(self):
+        return NDArray(self._t.abs())
+
+    def _compare(self, o, op):
+        return NDArray(op(self._t, self._other(o)).to(self._t.dtype))
+
+    def __eq__(self, o):
+        return self._compare(o, torch.eq)
+
+    def __ne__(self, o):
+        return self._compare(o, torch.ne)
+
+    def __gt__(self, o):
+        return self._compare(o, torch.gt)
+
+    def __ge__(self, o):
+        return self._compare(o, torch.ge)
+
+    def __lt__(self, o):
+        return self._compare(o, torch.lt)
+
+    def __le__(self, o):
+        return self._compare(o, torch.le)
+
+    __hash__ = object.__hash__
+
+
+# -- constructors ------------------------------------------------------------
+
+def array(source, ctx=None, dtype=None):
+    """An NDArray of `source` (an NDArray, tensor, numpy array or nested
+    list) on `ctx` (the card unless the caller names another device)."""
+    dev = context.resolve(ctx)
+    if isinstance(source, NDArray):
+        t = source._t
+    elif isinstance(source, torch.Tensor):
+        t = source.detach()
+    else:
+        a = np.asarray(source)
+        if a.dtype.name in _TORCH or a.dtype == np.float64:
+            t = torch.from_numpy(np.array(a))
+        else:
+            t = torch.tensor(a.tolist())
+        if dtype is None:
+            t = t.to(_DEFAULT.get(t.dtype, t.dtype))
+    if dtype is not None:
+        t = t.to(_torch_dtype(dtype))
+    return NDArray(t.to(dev))
+
+
+def zeros(shape, ctx=None, dtype="float32"):
+    return NDArray(torch.zeros(shape, dtype=_torch_dtype(dtype),
+                               device=context.resolve(ctx)))
+
+
+def ones(shape, ctx=None, dtype="float32"):
+    return NDArray(torch.ones(shape, dtype=_torch_dtype(dtype),
+                              device=context.resolve(ctx)))
+
+
+def full(shape, val, ctx=None, dtype="float32"):
+    return NDArray(torch.full(shape, val, dtype=_torch_dtype(dtype),
+                              device=context.resolve(ctx)))
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
+    if stop is None:
+        start, stop = 0, start
+    out = torch.arange(start, stop, step, dtype=_torch_dtype(dtype),
+                       device=context.resolve(ctx))
+    if repeat > 1:
+        out = out.repeat_interleave(repeat)
+    return NDArray(out)
+
+
+def concatenate(arrays, axis=0):
+    return NDArray(torch.cat([_unwrap(a) for a in arrays], dim=axis))
+
+
+def waitall():
+    """Wait until the card has finished everything queued."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def __getattr__(name):
+    if name.startswith("_"):
+        raise AttributeError(name)
+    raise NotImplementedError(f"nd.{name} {_NOT_PORTED}")

@@ -2,13 +2,18 @@
 `mxnet_tpu/ops/nn_ops.py`).
 
 Plain PyTorch on tensors, with the JAX package's numerics where they
-are a choice: LayerNorm statistics in float32 with the normalized value
-cast back to the input dtype BEFORE gamma/beta; gelu is the tanh
-approximation (`jax.nn.gelu`'s default); dropout is inverted (kept
-values scaled by 1/(1-p)) and draws from the device stream of
+are a choice: `fully_connected` promotes as `jnp.matmul` does (a float32
+input with a bfloat16 weight gives float32; one dtype stays one GEMM
+with the bias fused); LayerNorm statistics in float32 with the
+normalized value cast back to the input dtype BEFORE gamma/beta; gelu is
+the tanh approximation (`jax.nn.gelu`'s default); dropout is inverted
+(kept values divided by 1-p rounded to the data's dtype, as jnp applies
+a Python scalar) and draws from the device stream of
 `mxnet_tpu_torch.random`. Attention goes through the hand-written flash
 kernels (`cuda_ops.flash_attention`), whose attention dropout is keyed
-by a seed from the host stream.
+by a seed from the host stream: `fused_self_attention` from a fused QKV
+projection, `flash_attention` (the counterpart of `F.flash_attention`)
+from q, k and v.
 
 Convolution, pooling and BatchNorm are XLA's in the JAX package (no
 Pallas kernel), so here they are PyTorch's (cuDNN on the card) with the
@@ -23,25 +28,36 @@ and the layout follows the activations from layer to layer.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as tF
 
+from .. import autograd as _autograd
 from .. import random as _random
-from ..cuda_ops.flash_attention import flash_attention
+from ..cuda_ops import flash_attention as _fa
 
-__all__ = ["fully_connected", "gelu", "activation", "dropout", "embedding",
-           "layer_norm", "split_heads", "fused_self_attention",
-           "convolution", "pooling", "batch_norm", "flatten"]
+__all__ = ["fully_connected", "gelu", "activation", "dropout", "weak_scalar",
+           "embedding", "layer_norm", "split_heads", "fused_self_attention",
+           "flash_attention", "convolution", "pooling", "batch_norm",
+           "flatten"]
 
 # the memory format of a 4-D convolution's input on the card
 conv_memory_format = torch.channels_last
 
 
 def fully_connected(data, weight, bias=None, flatten=True):
+    """x @ weight.T + bias in the promoted dtype of x and weight, then of
+    that and the bias (`jnp.matmul` and `+`'s promotion)."""
     x = data
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
-    return tF.linear(x, weight, bias)
+    if x.dtype != weight.dtype:
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        x, weight = x.to(dt), weight.to(dt)
+    if bias is None or bias.dtype == x.dtype:
+        return tF.linear(x, weight, bias)
+    return tF.linear(x, weight) + bias
 
 
 def gelu(data):
@@ -61,16 +77,25 @@ def activation(data, act_type):
     return _ACTIVATIONS[act_type](data)
 
 
+@functools.lru_cache(maxsize=64)
+def weak_scalar(value, dtype):
+    """The Python scalar `value` as jnp applies it to an array of
+    `dtype`: rounded to that dtype first (a weak type)."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
 def dropout(data, p=0.5, training=False):
     """Inverted dropout: identity outside training or when p <= 0; else
-    each element is kept with probability 1-p and scaled by 1/(1-p). The
-    mask draws from the device stream of `mxnet_tpu_torch.random`."""
+    each element is kept with probability 1-p and divided by 1-p rounded
+    to the data's dtype (the JAX package's `data / keep`). The mask draws
+    from the device stream of `mxnet_tpu_torch.random`."""
     if not training or p <= 0.0:
         return data
     keep = 1.0 - p
     mask = torch.rand(data.shape, generator=_random.generator(data.device),
                       device=data.device) < keep
-    return torch.where(mask, data / keep, 0.0).to(data.dtype)
+    return torch.where(mask, data / weak_scalar(keep, data.dtype),
+                       0.0).to(data.dtype)
 
 
 def embedding(data, weight):
@@ -106,9 +131,24 @@ def fused_self_attention(qkv, mask=None, num_heads=1, causal=False,
     D = E3 // 3 // H
     q, k, v = split_heads(qkv, H)
     seed = _random.next_seed() if (training and dropout > 0.0) else None
-    out = flash_attention(q, k, v, mask=mask, causal=causal, dropout=dropout,
-                          seed=seed)
+    out = _fa.flash_attention(q, k, v, mask=mask, causal=causal,
+                              dropout=dropout, seed=seed)
     return out.transpose(1, 2).reshape(B, L, H * D)
+
+
+def flash_attention(q, k, v, mask=None, causal=False, sm_scale=None,
+                    dropout=0.0, training=None):
+    """Attention on (B, H, L, D) q, k, v through the flash kernels; mask
+    (B, Lk) True where attendable. `dropout` is attention-probability
+    dropout, active in training (`training` None: the autograd scope's
+    flag, as the JAX op reads it). The kernels take contiguous operands:
+    a transposed head view pays one copy here."""
+    if training is None:
+        training = _autograd.is_training()
+    seed = _random.next_seed() if (training and dropout > 0.0) else None
+    return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), mask=mask, causal=causal,
+                               sm_scale=sm_scale, dropout=dropout, seed=seed)
 
 
 def flatten(data):

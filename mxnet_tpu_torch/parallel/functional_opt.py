@@ -1,7 +1,8 @@
 """Functional view of an optimizer for the train step (counterpart of
 `mxnet_tpu/parallel/functional_opt.py`): the kind, the per-parameter
 state and update, the per-parameter weight decay of LAMB and the
-learning rate at a step.
+learning rate at a step (the optimizer's lr scheduler at the step
+count, when it has one).
 
 LAMB runs through `FusedLamb` in the trainer; Adam and AdamW update each
 parameter with `cuda_ops.fused_update.adam_update`, in place. SGD and
@@ -112,4 +113,5 @@ class FunctionalOptimizer:
         return self.opt.wd
 
     def lr_at(self, num_update):
-        return self.opt.lr
+        o = self.opt
+        return o.lr_scheduler(num_update) if o.lr_scheduler else o.lr

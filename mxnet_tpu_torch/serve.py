@@ -448,9 +448,11 @@ class Server:
         return n
 
     # -- scheduler -------------------------------------------------------
+    @torch.no_grad()
     def step(self):
         """One scheduler iteration: admit from the queue, run one batched
-        dispatch per active bucket, stream the new tokens. Returns True
+        dispatch per active bucket, stream the new tokens (with no
+        autograd graph, also for a model trained eagerly). Returns True
         while work remains."""
         with self._lock:
             self._sched_step += 1

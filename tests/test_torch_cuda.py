@@ -915,3 +915,117 @@ def test_lamb_kernels_past_2_to_26_elements(dev):
     torch.cuda.synchronize()
     assert W.numel() > 1 << 26
     torch.testing.assert_close(W, W2, rtol=1e-5, atol=1e-7)
+
+
+def _padding_bias(dev, lens, Lk):
+    keys = torch.arange(Lk, device=dev)[None, :] < torch.tensor(
+        lens, device=dev)[:, None]
+    return torch.where(keys, 0.0, -1e30).float().contiguous(), keys
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Lq,Lk,causal", [(65, 64, False), (64, 64, False),
+                                          (65, 65, True)])
+def test_flash_at_nmt_shapes(dev, dtype, Lq, Lk, causal):
+    """The Transformer NMT's attention shapes (H 8, D 64): cross-attention
+    (65 queries over 64 keys) and the encoder's self-attention with a
+    padding bias of sources 16-64 long, the decoder's causal 65 x 65:
+    forward and both backward kernels against their plain versions."""
+    B, H, D = 4, 8, 64
+    q, k, v = _qkv(dev, dtype, B, H, Lq, Lk, D, seed=Lq)
+    g = torch.tensor(np.random.RandomState(2).randn(B, H, Lq, D),
+                     dtype=dtype, device=dev)
+    bias = _padding_bias(dev, [16, 64, 37, 63], Lk)[0] if not causal \
+        else _bias(dev, B, Lk, False)
+    n = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    out, lse = fa.flash_fwd(q, k, v, bias, causal)
+    ro, rlse = fa.flash_fwd_reference(q, k, v, bias, causal)
+    _close(out, ro, dtype, "O")
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+    delta = (g.float() * ro.float()).sum(-1).reshape(B * H, Lq)
+    got = fa.flash_bwd(q, k, v, bias, g, rlse, delta, causal)
+    torch.cuda.synchronize()
+    ref = fa.flash_bwd_reference(q, k, v, bias, g, rlse, delta, causal)
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == \
+        (n[0] + 1, n[1] + 1, n[2] + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        _close(a, b, dtype, name)
+
+
+def test_flash_op_on_head_views_goes_through_the_kernels(dev):
+    """`nn_ops.flash_attention` on the transposed (B, H, L, D) views of
+    the NMT's projections: one copy each, then the kernels, forward and
+    backward, with the gradients of the plain version."""
+    from mxnet_tpu_torch.ops import nn_ops
+    B, H, D = 3, 8, 64
+    rng = np.random.RandomState(5)
+    xq = torch.tensor(rng.randn(B, 65, H * D), device=dev,
+                      requires_grad=True)
+    xk = torch.tensor(rng.randn(B, 64, H * D), device=dev,
+                      requires_grad=True)
+    mask = torch.arange(64, device=dev)[None, :] < torch.tensor(
+        [64, 20, 41], device=dev)[:, None]
+
+    def heads(x):
+        return x.float().reshape(B, x.shape[1], H, D).transpose(1, 2)
+
+    n = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    out = nn_ops.flash_attention(heads(xq), heads(xk), heads(xk), mask)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == \
+        (n[0] + 1, n[1] + 1, n[2] + 1)
+    got = (out.detach(), xq.grad, xk.grad)
+    xq2, xk2 = (x.detach().clone().requires_grad_(True) for x in (xq, xk))
+    bias = torch.where(mask, 0.0, -1e30).float()
+    ro, _ = fa.flash_fwd_reference(heads(xq2), heads(xk2), heads(xk2), bias)
+    ro.square().sum().backward()
+    for name, a, b in zip(("O", "dxq", "dxk"), got,
+                          (ro.detach(), xq2.grad, xk2.grad)):
+        _close(a, b, torch.float32, name)
+
+
+def test_eager_trainer_launches_adam_once_per_parameter(dev):
+    """The eager loop on the card: `autograd.record()` + `backward()` +
+    `gluon.Trainer(..., "adam").step` on a small TransformerNMT launches 3
+    flash forwards, dq and dkv per layer pair and one Adam kernel per
+    trainable parameter, and its NDArrays live on the card."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.models import transformer
+    m = transformer.TransformerNMT(50, 60, units=64, hidden_size=128,
+                                   num_layers=2, num_heads=4, max_length=32,
+                                   dropout=0.1)
+    mxrandom.seed(0)
+    m.initialize()
+    tr = gluon.Trainer(m.collect_params(), "adam", {"learning_rate": 1e-3})
+    rng = np.random.RandomState(0)
+    src = nd.array(rng.randint(3, 50, (4, 12)))
+    tgt = nd.array(rng.randint(3, 60, (4, 13)))
+    valid = nd.array([12, 5, 9, 1])
+    assert src.context.type == "cuda"
+    n = (fa.launches, fa.launches_dq, fa.launches_dkv, fu.launches_adam)
+    with autograd.record():
+        loss = transformer.label_smoothing_loss(m(src, tgt, valid), tgt)
+    loss.backward()
+    tr.step(1)
+    torch.cuda.synchronize()
+    assert (fa.launches - n[0], fa.launches_dq - n[1],
+            fa.launches_dkv - n[2]) == (6, 6, 6)
+    assert fu.launches_adam - n[3] == len(tr._params) == 88
+    assert np.isfinite(loss.asscalar())
+    toks = m.greedy_decode(src, max_len=6, src_valid=valid)
+    assert toks.shape[0] == 4 and (toks[:, 0] == 1).all()
+
+
+def test_nd_array_lands_on_the_card(dev):
+    from mxnet_tpu_torch import cpu, nd
+    x = nd.array(np.arange(6.0).reshape(2, 3))
+    assert x.context == torch.device("cuda", torch.cuda.current_device())
+    assert x.dtype == np.float32
+    for y in (nd.zeros((2,)), nd.ones((2,)), nd.full((2,), 3.0),
+              nd.arange(4), x * 2, x.as_in_context(dev)):
+        assert y.context.type == "cuda"
+    assert nd.array([1.0], ctx=cpu()).context.type == "cpu"
+    np.testing.assert_array_equal((x + 1).asnumpy(),
+                                  np.arange(6.0).reshape(2, 3) + 1)

@@ -284,8 +284,11 @@ def test_optimizers_have_the_jax_defaults():
             (ref.lr, ref.momentum, ref.wd)
     with pytest.raises(NotImplementedError):
         opt_t.create("rmsprop")
-    with pytest.raises(NotImplementedError):
-        opt_t.create("adam", lr_scheduler=object())
+    # an lr scheduler is ported: it takes the optimizer's rate as its base
+    from mxnet_tpu_torch import lr_scheduler as lrs_t
+    sched = lrs_t.FactorScheduler(step=1, factor=0.5)
+    got = opt_t.create("adam", learning_rate=0.1, lr_scheduler=sched)
+    assert sched.base_lr == 0.1 and got.learning_rate == 0.1
     with pytest.raises(TypeError):                 # no row-sparse gradients
         opt_t.create("adam", lazy_update=False)
 
