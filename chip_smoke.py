@@ -98,7 +98,28 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      trains a float32 TransformerNMT (full width and vocabulary, 2 + 2
      layers, dropout 0) 3 eager Adam steps (epsilon 1e-4) on the card and
      on the CPU: losses and parameters within TOL_TRAIN, greedy and
-     beam-4 tokens equal, beam 1 equal to greedy.
+     beam-4 tokens equal, beam 1 equal to greedy;
+ 19. trains YOLOv3-tiny (`YOLOv3Tiny(20, 416)`: GluonCV's yolo3_tiny on
+     VOC's 20 classes; seed 0, `cast("bfloat16")`) through the example's
+     eager loop (`yolo_targets`, `autograd.record()`, `yolo_loss`,
+     `backward()`, `gluon.Trainer(..., "adam", {lr 1e-3}).step(1)`) at
+     batch 64 on one synthetic batch (1-4 boxes an image, padded to 16):
+     2 warm-up + 16 timed steps, one profiled; exactly 34 Adam launches
+     a step; the loss falls;
+ 20. decodes a held-out batch with phase 19's model
+     (`decode_predictions`: (64, 2,535, 6) rows, exactly one box_nms
+     launch), scores it by VOC07 mAP, and holds the box_nms kernel
+     against its plain version on that call and with force_suppress, bit
+     for bit in the keep masks and the output rows;
+ 21. trains SSD (`SSD(20)`, 30,120 anchors at 300^2, bf16) through the
+     same loop (`multibox_target`, `MultiBoxLoss` with hard negatives
+     3:1) at batch 32, then `multibox_detection` of a held-out batch
+     (one box_nms launch) and the kernel against its plain version on
+     its (32, 30,120, 6) rows;
+ 22. trains a float32 YOLOv3-tiny (64^2, 3 classes) and a float32 SSD
+     (channels (8, 16)) 3 eager Adam steps on the card and on the CPU:
+     losses within 1e-5 relative, parameters and running statistics
+     within TOL_TRAIN, detections' class ids and suppressed rows equal.
 
 Phase 1 also holds the training kernels against their plain versions at
 the training shapes: the flash forward with dropout 0.1 (its keep mask
@@ -202,7 +223,7 @@ def time_ms(fn, iters=25, warmup=3):
 
 
 def device_ms(fn, iters=20, match=None, attempts=5,
-              skip=("fill", "memset")):
+              skip=("fill", "memset"), per_kernel=False):
     """Device time per call of fn from torch.profiler: the summed device
     time of the kernels it launched (only those whose name contains
     `match` when given), L2 flushed before each call and the flush left
@@ -214,7 +235,9 @@ def device_ms(fn, iters=20, match=None, attempts=5,
     record of a window: a window whose count of such kernels is not a
     whole multiple of `iters` is profiled again after a pause that grows
     with each attempt, and `attempts` windows without a whole one fail
-    the run."""
+    the run. With `per_kernel` (fn launches exactly one kernel that
+    `match`es) a window that kept at least half of those records gives
+    their mean instead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -244,6 +267,8 @@ def device_ms(fn, iters=20, match=None, attempts=5,
         # the flushes are among the skipped kernels, or they were counted
         if launched and launched % iters == 0 and skipped >= iters:
             return total / 1e3 / iters
+        if per_kernel and 2 * launched >= iters:
+            return total / 1e3 / launched
     check(False, f"profiler lost kernel records in {attempts} windows "
           f"({launched} kernels for {iters} calls, {skipped} skipped, "
           f"match={match!r}; the last window's kernels: {seen})")
@@ -1473,6 +1498,7 @@ _COUNTERS = {
     "int8_transpose": ("int8_matmul", "launches_transpose"),
     "moe_dispatch": ("moe_kernels", "launches_dispatch"),
     "moe_combine": ("moe_kernels", "launches_combine"),
+    "box_nms": ("box_nms", "launches"),
 }
 
 
@@ -1627,7 +1653,7 @@ def _kernel_class(name):
     """The class a device kernel's time is summed under: the repo's
     kernels by family, then the library's by what they compute."""
     if "mxt::" in name:
-        for part in ("lamb", "adam", "int8", "moe"):
+        for part in ("lamb", "adam", "int8", "moe", "nms"):
             if part in name:
                 return f"{part} kernels"
         return "attention kernels"
@@ -2752,6 +2778,454 @@ def nmt_parity_phase(dev, steps=3, batch=8, src_len=24, n_dec=4, lr=1e-3):
             "decode_shapes": {k: list(v.shape) for k, v in tg.items()}}
 
 
+# ---------------------------------------------------------------------------
+# phases 19-22: detection (YOLOv3-tiny and SSD) through the eager Gluon loop
+# ---------------------------------------------------------------------------
+
+VOC_CLASSES = 20
+
+
+def detection_batch(dev, B, size, n_cls=VOC_CLASSES, G=16, seed=0,
+                    normalized=False):
+    """A seeded VOC-like batch: (B, 3, size, size) float32 images of
+    low noise with 1-4 boxes each painted in a colour of their class,
+    and the boxes (B, G, 4) corner (pixels, or [0, 1] when `normalized`)
+    with their labels (B, G), padded with -1 rows. Images are made on the
+    device; boxes and labels are numpy."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    imgs = 0.1 * torch.rand((B, 3, size, size), generator=gen, device=dev)
+    colours = torch.tensor(np.random.RandomState(99).rand(n_cls, 3),
+                           dtype=torch.float32, device=dev)
+    boxes = np.full((B, G, 4), -1.0, np.float32)
+    labels = np.full((B, G), -1.0, np.float32)
+    for b in range(B):
+        for g in range(rng.randint(1, 5)):
+            w, h = rng.randint(size // 10, size // 2, 2)
+            x, y = rng.randint(0, size - w), rng.randint(0, size - h)
+            c = rng.randint(0, n_cls)
+            imgs[b, :, y:y + h, x:x + w] = colours[c][:, None, None]
+            boxes[b, g] = (x, y, x + w, y + h)
+            labels[b, g] = c
+    if normalized:
+        boxes = np.where(labels[..., None] >= 0, boxes / size, -1.0) \
+            .astype(np.float32)
+    return imgs, boxes, labels
+
+
+class YoloLoop:
+    """examples/detection/train_yolo.py's step, as `timed_steps` drives a
+    trainer:
+
+        targets = yolo_targets(model, boxes, labels)
+        with autograd.record():
+            loss = yolo_loss(model(imgs), targets, num_classes)
+        loss.backward()
+        trainer.step(1)
+
+    `step((imgs,), (boxes, labels))` takes NDArrays and returns the loss
+    NDArray (not synchronised)."""
+
+    def __init__(self, model, trainer):
+        self.model, self.trainer = model, trainer
+
+    def step(self, data, labels):
+        from mxnet_tpu_torch import autograd
+        from mxnet_tpu_torch.models import yolo
+        targets = yolo.yolo_targets(self.model, *labels)
+        with autograd.record():
+            loss = yolo.yolo_loss(self.model(data[0]), targets,
+                                  self.model.num_classes)
+        loss.backward()
+        self.trainer.step(1)
+        return loss
+
+
+class SsdLoop:
+    """The SSD step in the same loop: `multibox_target` on the anchors,
+    then `MultiBoxLoss` (hard negatives 3:1) of the recorded forward.
+    `step((imgs,), (boxes, labels))`: boxes normalised corner, labels
+    int."""
+
+    def __init__(self, model, trainer, anchors):
+        from mxnet_tpu_torch.models import ssd
+        self.model, self.trainer, self.anchors = model, trainer, anchors
+        self.loss_fn = ssd.MultiBoxLoss()
+
+    def step(self, data, labels):
+        from mxnet_tpu_torch import autograd
+        from mxnet_tpu_torch.models import ssd
+        cls_t, box_t, mask = ssd.multibox_target(self.anchors, *labels)
+        with autograd.record():
+            cls_p, box_p, _ = self.model(data[0])
+            loss = self.loss_fn(cls_p, box_p, cls_t, box_t, mask)
+        loss.backward()
+        self.trainer.step(1)
+        return loss
+
+
+def build_detector(make, seed, device, dtype=None, probe=(1, 3, 64, 64)):
+    """make(device) from `random.seed(seed)`, `initialize()`, one no-grad
+    probe forward that completes the deferred shapes, then `cast(dtype)`
+    when given."""
+    import torch
+    from mxnet_tpu_torch import random as mxrandom
+    model = make(device)
+    mxrandom.seed(seed, device)
+    model.initialize()
+    with torch.no_grad():
+        model(torch.zeros(probe, device=device))
+    return model.cast(dtype) if dtype else model
+
+
+def detection_train(loop, model, trainer, batch, warmup, steps):
+    """timed_steps over one fixed batch: (losses, counts, timing)."""
+    import numpy as np
+    data, labels = batch
+    losses, counts, timing = timed_steps(loop, data, labels, warmup, steps)
+    check(np.isfinite(losses).all(), f"{type(model).__name__} losses "
+          f"{losses}")
+    check(losses[-1] < losses[0], f"{type(model).__name__} loss did not "
+          f"fall: {losses}")
+    want = expect(adam_update=len(trainer._params) * steps)
+    check(counts == want, f"{type(model).__name__} training launches "
+          f"{counts} != {want}")
+    return losses, counts, timing
+
+
+def yolo_train_phase(dev, batch=64, size=416, warmup=2, steps=16):
+    """Phase 19: YOLOv3-tiny at GluonCV's `yolo3_tiny` widths on VOC's 20
+    classes (`YOLOv3Tiny(20, 416)`, the JAX package's defaults), random
+    weights from seed 0, cast to bfloat16, trained by the example's
+    eager loop (`yolo_targets`, `autograd.record()`, `yolo_loss`,
+    `backward()`, `gluon.Trainer(..., "adam", {lr 1e-3}).step(1)`) at
+    GluonCV `train_yolo3.py`'s batch of 64 on one fixed synthetic batch
+    (1-4 boxes an image, padded to 16): 2 warm-up + 16 timed steps, one
+    profiled; exactly one Adam launch per trainable parameter a step.
+    Returns (result, counts, model)."""
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch.models import yolo
+    model = build_detector(lambda d: yolo.YOLOv3Tiny(VOC_CLASSES, size,
+                                                     device=d), 0, dev,
+                           "bfloat16")
+    trainer = gluon.Trainer(model.collect_params(), "adam",
+                            {"learning_rate": 1e-3})
+    n_params = len(trainer._params)
+    check(n_params == 34, f"YOLOv3-tiny trainable parameters {n_params}")
+    imgs, boxes, labels = detection_batch(dev, batch, size)
+    data = ([nd.array(imgs, ctx=dev)],
+            [nd.array(boxes, ctx=dev), nd.array(labels, ctx=dev)])
+    losses, counts, timing = detection_train(
+        YoloLoop(model, trainer), model, trainer, data, warmup, steps)
+    res = {"model": f"YOLOv3Tiny({VOC_CLASSES}, {size}), cast('bfloat16')",
+           "batch": batch, "image_size": size,
+           "gt_boxes": int((labels >= 0).sum()),
+           "optimizer": "gluon.Trainer adam lr 1e-3",
+           "trainable_parameters": n_params,
+           "param_count": sum(p.numel() for p in trainer._params),
+           "images_per_s": batch * steps / timing["seconds"],
+           "launches_per_step": {k: v // steps for k, v in counts.items()
+                                 if v},
+           "loss_ratio_last_first": losses[-1] / losses[0],
+           "losses": losses, **timing}
+    return res, counts, model
+
+
+def nms_pair(run):
+    """Run `run()` (a decode whose NMS calls `box_nms_keep` once) through
+    the kernel, then again with the plain version patched in. Returns
+    (kernel output, plain output, kernel keep, plain keep, the keep
+    call's arguments, plain ms: CUDA events around the plain call)."""
+    import torch
+    from mxnet_tpu_torch.cuda_ops import box_nms as bn
+    from mxnet_tpu_torch.ops import detection_ops
+    seen = {}
+
+    def kernel(*a, **kw):
+        seen["kernel"], seen["args"] = bn.box_nms_keep(*a, **kw), (a, kw)
+        return seen["kernel"]
+
+    def plain(*a, **kw):
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=a[0].device)
+        flush.zero_()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        seen["plain"] = bn.box_nms_keep_reference(*a, **kw)
+        t1.record()
+        t1.synchronize()
+        seen["plain_ms"] = t0.elapsed_time(t1)
+        return seen["plain"]
+
+    real = detection_ops.box_nms_keep
+    try:
+        detection_ops.box_nms_keep = kernel
+        out_k = run()
+        detection_ops.box_nms_keep = plain
+        out_p = run()
+    finally:
+        detection_ops.box_nms_keep = real
+    torch.cuda.synchronize()
+    return (out_k, out_p, seen["kernel"], seen["plain"], seen["args"],
+            seen["plain_ms"])
+
+
+def nms_check(name, run):
+    """Hold the kernel against the plain version in one decode, bit for
+    bit in the keep mask and in the output rows; then time the kernel on
+    that call's inputs (device time of the kernel alone and CUDA events
+    around the wrapper, L2 flushed). Returns the case's fields."""
+    import torch
+    from mxnet_tpu_torch.cuda_ops import box_nms as bn
+    out_k, out_p, keep_k, keep_p, (a, kw), plain_ms = nms_pair(run)
+    out_k, out_p = (o._t if hasattr(o, "_t") else o for o in (out_k, out_p))
+    check(torch.equal(keep_k, keep_p), f"box_nms {name}: keep masks differ "
+          f"in {int((keep_k != keep_p).sum())} rows")
+    check(torch.equal(out_k, out_p), f"box_nms {name}: output rows differ")
+    boxes, valid, ids = a[0], a[1], a[2]
+    B, N, _ = boxes.shape
+    fn = lambda: bn.box_nms_keep(*a, **kw)                     # noqa: E731
+    nbytes = B * N * (16 + 1 + 1 + (4 if ids is not None else 0))
+    b_ms, b_by = bound(nbytes, 0)
+    per = "per class" if ids is not None else "any class"
+    return {"shape": f"({B}, {N}) rows, {per}",
+            "valid_rows": int(valid.sum()), "kept_rows": int(keep_k.sum()),
+            "max_abs_err": max_err(out_k, out_p),
+            "keep_mismatches": int((keep_k != keep_p).sum()),
+            "ms": device_ms(fn, match="box_nms", skip=FLUSH_ONLY,
+                            per_kernel=True),
+            "event_ms": time_ms(fn), "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+
+
+def yolo_decode_phase(model, dev, batch=64, size=416):
+    """Phase 20: phase 19's model decodes a held-out synthetic batch
+    (`decode_predictions`: id_index 0, conf_thresh 0.1, topk 100, NMS
+    0.45, on the (64, 2,535, 6) rows of its two heads) under
+    `autograd.pause()`: exactly one box_nms launch a decode; VOC07 mAP of
+    the detections; then the kernel against its plain version on that
+    call and with force_suppress."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import autograd, metric, nd
+    from mxnet_tpu_torch.models import yolo
+    from mxnet_tpu_torch.ops import detection_ops
+    imgs, boxes, labels = detection_batch(dev, batch, size, seed=1)
+    with autograd.pause():
+        preds = model(nd.array(imgs, ctx=dev))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    det = yolo.decode_predictions(model, preds)
+    d = det.asnumpy()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts == expect(box_nms=1), f"YOLO decode launches {counts}")
+    n_rows = 3 * ((size // 32) ** 2 + (size // 16) ** 2)
+    check(d.shape == (batch, n_rows, 6) and np.isfinite(d).all(),
+          f"YOLO detections {d.shape}")
+    check(((d[..., 1] > 0).sum(1) <= 100).all(), "YOLO decode topk")
+    m = metric.VOC07MApMetric(iou_thresh=0.5)
+    m.update(np.concatenate([labels[:, :, None], boxes], 2), d)
+    voc = m.get()[1]
+    check(0.0 <= voc <= 1.0 or np.isnan(voc), f"VOC07 mAP {voc}")
+    rows = yolo.decode_rows(model, preds)
+    cases = {
+        "yolo_decode": nms_check("YOLO decode", lambda: (
+            yolo.decode_predictions(model, preds))),
+        "yolo_force_suppress": nms_check("YOLO force_suppress", lambda: (
+            detection_ops.box_nms(rows, overlap_thresh=0.45,
+                                  valid_thresh=0.1, topk=100, id_index=0,
+                                  force_suppress=True)))}
+    return {"rows": list(d.shape), "decode_s": secs,
+            "launches": {k: v for k, v in counts.items() if v},
+            "detections_per_image": float((d[..., 1] > 0).sum(1).mean()),
+            "voc07_map_held_out": voc, "gt_boxes": int((labels >= 0).sum())}, \
+        cases
+
+
+def ssd_train_phase(dev, batch=32, size=300, warmup=2, steps=16):
+    """Phase 21: SSD (the JAX package's `SSD(20)`: channels 64-512, four
+    scales of 4 anchors a position, 30,120 anchors at 300^2), random
+    weights from seed 0, bfloat16, trained by the eager loop
+    (`multibox_target`, `MultiBoxLoss` with hard negatives 3:1,
+    `gluon.Trainer(..., "adam", {lr 1e-3})`) at GluonCV `train_ssd.py`'s
+    batch of 32 on one fixed synthetic batch: 2 warm-up + 16 timed steps,
+    one profiled. Then `multibox_detection` (threshold 0.01, NMS 0.45,
+    nms_topk 400, GluonCV's SSD settings) of a held-out batch: exactly one
+    box_nms launch, and the kernel against its plain version on that
+    call's (32, 30,120, 6) rows. Returns (result, counts, nms case)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.models import ssd
+    from mxnet_tpu_torch.ops import detection_ops
+    model = build_detector(lambda d: ssd.SSD(VOC_CLASSES, device=d), 0, dev,
+                           "bfloat16")
+    with torch.no_grad():
+        feat = model(torch.zeros((1, 3, size, size), device=dev))[2]
+    anchors = ssd.generate_anchors(feat, image_size=size)
+    check(anchors.shape == (30120, 4), f"SSD anchors {anchors.shape}")
+    trainer = gluon.Trainer(model.collect_params(), "adam",
+                            {"learning_rate": 1e-3})
+    imgs, boxes, labels = detection_batch(dev, batch, size, seed=2,
+                                          normalized=True)
+    data = ([nd.array(imgs, ctx=dev)],
+            [nd.array(boxes, ctx=dev),
+             nd.array(labels.astype(np.int32), ctx=dev)])
+    loop = SsdLoop(model, trainer, nd.array(anchors, ctx=dev))
+    losses, counts, timing = detection_train(loop, model, trainer, data,
+                                             warmup, steps)
+    himgs, _, _ = detection_batch(dev, batch, size, seed=3)
+    with autograd.pause():
+        cls_p, box_p, _ = model(nd.array(himgs, ctx=dev))
+    cls_prob = torch.softmax(cls_p._t.float(), -1).transpose(1, 2)
+    loc = box_p._t.float().reshape(batch, -1)
+    corner = ssd._corner(torch.from_numpy(anchors).to(dev))[None]
+
+    def detect():
+        return detection_ops.multibox_detection(
+            cls_prob, loc, corner, threshold=0.01, nms_threshold=0.45,
+            nms_topk=400)
+    torch.cuda.synchronize()
+    reset_counts()
+    det = detect()
+    dcounts = read_counts()
+    check(dcounts == expect(box_nms=1), f"SSD detection launches {dcounts}")
+    check(det.shape == (batch, 30120, 6) and bool(torch.isfinite(det).all()),
+          f"SSD detections {tuple(det.shape)}")
+    case = nms_check("SSD multibox_detection", detect)
+    res = {"model": f"SSD({VOC_CLASSES}), channels (64, 128, 256, 512), "
+                    "cast('bfloat16')",
+           "batch": batch, "image_size": size, "anchors": len(anchors),
+           "gt_boxes": int((labels >= 0).sum()),
+           "optimizer": "gluon.Trainer adam lr 1e-3",
+           "trainable_parameters": len(trainer._params),
+           "param_count": sum(p.numel() for p in trainer._params),
+           "images_per_s": batch * steps / timing["seconds"],
+           "launches_per_step": {k: v // steps for k, v in counts.items()
+                                 if v},
+           "loss_ratio_last_first": losses[-1] / losses[0],
+           "detections_per_image": float((det[..., 1] > 0).sum(1).float()
+                                         .mean()),
+           "losses": losses, **timing}
+    return res, counts, case
+
+
+def detection_parity_phase(dev, steps=3, lr=1e-3):
+    """Phase 22: a float32 YOLOv3-tiny (64^2, 3 classes) and a float32 SSD
+    (channels (8, 16), 3 classes, 64^2) trained `steps` eager Adam steps
+    (epsilon 1e-4, as phase 18) on the card and on the CPU from the same
+    weights: losses within 1e-5 relative (a loss near 10 sums some 10^5
+    float32 terms in another order on each device: 1e-5 is about ten
+    ulps), every parameter and running statistic within TOL_TRAIN, and
+    the trained models' heads on held-out images reported. Detections
+    then decode the CPU model's heads on both devices (YOLO
+    `decode_predictions`; SSD `multibox_detection` of the class
+    probabilities of one softmax; one box_nms launch on the card): class
+    ids and suppressed rows equal, scores and boxes within 1e-5 relative
+    (exp's and sigmoid's last bits differ between the devices).
+    Each device decodes its own model's heads too, and the share of rows
+    whose id or suppression differ is reported: near-equal scores can
+    sort in another order once the weights differ by float32 noise."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import autograd, gluon, nd, weights
+    from mxnet_tpu_torch.models import ssd, yolo
+    from mxnet_tpu_torch.ops import detection_ops
+    C, size = 3, 64
+    out = {}
+    for name in ("yolo", "ssd"):
+        if name == "yolo":
+            make = lambda d: yolo.YOLOv3Tiny(C, size, device=d)  # noqa: E731
+        else:
+            make = lambda d: ssd.SSD(C, channels=(8, 16), device=d)  # noqa
+        arrays = {k: p.detach().numpy().copy() for k, p in
+                  build_detector(make, 5, "cpu").collect_params().items()}
+        imgs, boxes, labels = detection_batch("cpu", 8, size, n_cls=C, G=4,
+                                              seed=6,
+                                              normalized=name == "ssd")
+        himgs, _, _ = detection_batch("cpu", 4, size, n_cls=C, G=4, seed=7)
+        anchors = None
+        runs = {}
+        for where in ("cpu", dev):
+            model = weights.load_named_arrays(make(where), arrays)
+            tr = gluon.Trainer(model.collect_params(), "adam",
+                               {"learning_rate": lr, "epsilon": 1e-4})
+            if name == "yolo":
+                loop = YoloLoop(model, tr)
+                lab = [nd.array(boxes, ctx=where), nd.array(labels, ctx=where)]
+            else:
+                with torch.no_grad():
+                    feat = model(torch.zeros((1, 3, size, size),
+                                             device=where))[2]
+                anchors = torch.from_numpy(ssd.generate_anchors(
+                    feat, sizes=((0.2, 0.3), (0.4, 0.5))))
+                loop = SsdLoop(model, tr, nd.array(anchors, ctx=where))
+                lab = [nd.array(boxes, ctx=where),
+                       nd.array(labels.astype(np.int32), ctx=where)]
+            x = [nd.array(imgs, ctx=where)]
+            reset_counts()
+            losses = [float(loop.step(x, lab)) for _ in range(steps)]
+            counts = read_counts()
+            with autograd.pause():
+                heads = [h._t for h in model(nd.array(himgs, ctx=where))
+                         if isinstance(h, nd.NDArray)]
+            runs[str(where)] = (losses, {k: p.detach().cpu() for k, p in
+                                         model.collect_params().items()},
+                                counts, heads, model, len(tr._params))
+
+        def detect(model, heads, where):
+            if name == "yolo":
+                return yolo.decode_predictions(
+                    model, [h.to(where) for h in heads], conf_thresh=0.0,
+                    topk=20)
+            # the class probabilities from one softmax on the heads'
+            # device: SSD's scores tie within an ulp often enough that
+            # two devices' softmaxes would sort the rows differently
+            cls_prob = torch.softmax(heads[0], -1).transpose(1, 2)
+            return detection_ops.multibox_detection(
+                cls_prob.to(where), heads[1].reshape(len(himgs), -1).to(where),
+                ssd._corner(anchors.to(where))[None], threshold=0.05,
+                nms_threshold=0.45)
+
+        (lc, pc, cc, hc, mc, _), (lg, pg, cg, hg, mg, n) = \
+            runs["cpu"], runs[str(dev)]
+        e_loss = float((np.abs(np.subtract(lg, lc)) / np.abs(lc)).max())
+        e_w = max(max_err(pg[k], pc[k]) for k in pc)
+        check(e_loss <= 1e-5 and e_w <= TOL_TRAIN,
+              f"{name} card vs CPU: losses {lg} vs {lc}, param err {e_w}")
+        check(cg == expect(adam_update=n * steps),
+              f"{name} parity launches {cg}")
+        check(all(v == 0 for v in cc.values()), f"CPU run launched {cc}")
+        dc = detect(mc, hc, "cpu")
+        reset_counts()
+        dg = detect(mg, hc, dev).cpu()
+        counts = read_counts()
+        check(counts == expect(box_nms=1), f"{name} decode launches {counts}")
+        same_ids = torch.equal(dg[..., 0], dc[..., 0])
+        same_keep = torch.equal(dg[..., 1] < 0, dc[..., 1] < 0)
+        e_det = float(((dg - dc).abs() / dc.abs().clamp(min=1.0)).max())
+        check(same_ids and same_keep and e_det <= 1e-5,
+              f"{name} detections card vs CPU: ids equal {same_ids}, "
+              f"suppressed rows equal {same_keep}, max rel err {e_det}")
+        own = detect(mg, hg, dev).cpu()
+        differ = ((own[..., 0] != dc[..., 0])
+                  | ((own[..., 1] < 0) != (dc[..., 1] < 0)))
+        out[name] = {"losses_card": lg, "losses_cpu": lc,
+                     "max_loss_rel_err": e_loss, "max_param_err": e_w,
+                     "parameters": len(pc),
+                     "heads_max_err": max(max_err(a.cpu(), b)
+                                          for a, b in zip(hg, hc)),
+                     "detection_max_rel_err": e_det,
+                     "detections_kept": int((dg[..., 1] > 0).sum()),
+                     "own_heads_rows_differing": float(differ.float().mean())}
+    return out
+
+
 def main():
     try:
         import torch
@@ -3031,6 +3505,55 @@ def main():
     nparity = nmt_parity_phase(dev)
     print("chip_smoke: card-vs-CPU NMT (eager Adam, decode) "
           + json.dumps(nparity))
+
+    torch.cuda.empty_cache()
+
+    # 19. YOLOv3-tiny through the eager Gluon loop, bf16, Adam
+    ytrain, counts, ymodel = yolo_train_phase(dev)
+    print("chip_smoke: YOLOv3-tiny training " + json.dumps(ytrain))
+    print(f"chip_smoke: YOLOv3-tiny training launches {counts}")
+    kernels["adam_update"]["yolo_launches"] = counts["adam_update"]
+
+    # 20. its decode (box_nms kernel), VOC07 mAP; the kernel vs plain
+    ydec, nms_cases = yolo_decode_phase(ymodel, dev)
+    print("chip_smoke: YOLOv3-tiny decode " + json.dumps(ydec))
+    del ymodel
+    torch.cuda.empty_cache()
+
+    # 21. SSD through the eager Gluon loop, bf16, Adam; multibox_detection
+    strain, counts, nms_cases["ssd_multibox_detection"] = \
+        ssd_train_phase(dev)
+    print("chip_smoke: SSD training " + json.dumps(strain))
+    print(f"chip_smoke: SSD training launches {counts}")
+    kernels["adam_update"]["ssd_launches"] = counts["adam_update"]
+    torch.cuda.empty_cache()
+    main_case = nms_cases["yolo_decode"]
+    kernels["box_nms"] = dict(
+        name="box_nms", route="cuda",
+        source="mxnet_tpu_torch/csrc/box_nms.cu",
+        replaces="mxnet_tpu/ops/detection_ops.py:84 (box_nms's "
+                 "lax.fori_loop over the rows; not a Pallas kernel)",
+        launches=ydec["launches"]["box_nms"],
+        max_abs_err=max(c["max_abs_err"] for c in nms_cases.values()),
+        ms=main_case["ms"], event_ms=main_case["event_ms"],
+        plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
+        bound_by=main_case["bound_by"], library_ms=None,
+        library="none: no PyTorch call computes greedy NMS (torchvision "
+                "is a library kernel, and not installed)",
+        times_are="ms: device time of the kernel (torch.profiler, L2 "
+                  "flushed); event_ms: CUDA events around the wrapper; "
+                  "plain_ms: CUDA events around one plain call",
+        error_is="gate: keep masks and output rows equal (torch.equal) "
+                 "in every case; max_abs_err over the cases' rows",
+        shapes="YOLOv3-tiny decode (64, 2535) rows per class (phase 20); "
+               "cases: " + ", ".join(nms_cases), cases=nms_cases)
+    for c, v in nms_cases.items():
+        print(f"chip_smoke: box_nms {c}: " + json.dumps(v))
+
+    # 22. float32 YOLOv3-tiny and SSD, card == CPU
+    dparity = detection_parity_phase(dev)
+    print("chip_smoke: card-vs-CPU detection (eager Adam, decode) "
+          + json.dumps(dparity))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -15,17 +15,20 @@ GPT-2 with per-parameter Adam or AdamW; it trains a Switch
 mixture-of-experts (`parallel.moe_apply` over the mesh's `ep` axis); and
 it trains the Transformer NMT (`models.transformer`) through MXNet's
 eager loop (`nd`, `autograd.record()` / `backward()`, `gluon.Trainer`),
-then decodes it greedily or by beam search.
+then decodes it greedily or by beam search; and it trains the detection
+models YOLOv3-tiny and SSD through the same loop, decodes them through
+greedy NMS (`ops.detection_ops`) and scores them by VOC07 mAP
+(`metric`).
 """
-from . import (autograd, config, context, contrib, dataflow, gluon,
-               initializer, lr_scheduler, models, ndarray, optimizer, pages,
-               parallel, random, serve, weights)
+from . import (autograd, base, config, context, contrib, dataflow, gluon,
+               initializer, lr_scheduler, metric, models, ndarray,
+               optimizer, pages, parallel, random, serve, weights)
 from . import ndarray as nd
 from .context import cpu, gpu
 from .parallel import current_mesh, make_mesh, moe_apply, moe_ffn
 
-__all__ = ["autograd", "config", "context", "contrib", "dataflow", "gluon",
-           "initializer", "lr_scheduler", "models", "nd", "ndarray",
-           "optimizer", "pages", "parallel", "random", "serve", "weights",
-           "cpu", "gpu", "make_mesh", "current_mesh", "moe_apply",
-           "moe_ffn"]
+__all__ = ["autograd", "base", "config", "context", "contrib", "dataflow",
+           "gluon", "initializer", "lr_scheduler", "metric", "models", "nd",
+           "ndarray", "optimizer", "pages", "parallel", "random", "serve",
+           "weights", "cpu", "gpu", "make_mesh", "current_mesh",
+           "moe_apply", "moe_ffn"]

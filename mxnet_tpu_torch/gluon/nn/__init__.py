@@ -1,10 +1,11 @@
 """Gluon layers of the port (counterpart of
 `mxnet_tpu/gluon/nn/__init__.py`): Dense, Embedding, LayerNorm,
-BatchNorm, Dropout, Activation, Flatten, the convolutions, the pooling
-layers and HybridSequential, with the JAX package's parameter names,
-shapes and dtypes (Dense weight is (units, in_units), a convolution's
-(channels, in_channels / groups, *kernel); LayerNorm and BatchNorm
-parameters are float32 whatever the model dtype until `Block.cast`).
+BatchNorm, Dropout, Activation, LeakyReLU, Flatten, the convolutions,
+the pooling layers and HybridSequential, with the JAX package's
+parameter names, shapes and dtypes (Dense weight is (units, in_units),
+a convolution's (channels, in_channels / groups, *kernel); LayerNorm and
+BatchNorm parameters are float32 whatever the model dtype until
+`Block.cast`).
 
 `in_units` / `in_channels` left at 0 defer the parameter's shape to the
 layer's first forward (`Block._resolve_deferred`)."""
@@ -19,8 +20,8 @@ from ..block import Block, HybridBlock, HybridSequential, training
 from ..parameter import Parameter
 
 __all__ = ["Dense", "Dropout", "Embedding", "LayerNorm", "BatchNorm",
-           "Activation", "Flatten", "Conv1D", "Conv2D", "Conv3D",
-           "MaxPool1D", "MaxPool2D", "AvgPool1D", "AvgPool2D",
+           "Activation", "LeakyReLU", "Flatten", "Conv1D", "Conv2D",
+           "Conv3D", "MaxPool1D", "MaxPool2D", "AvgPool1D", "AvgPool2D",
            "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalAvgPool1D",
            "GlobalAvgPool2D", "HybridSequential", "Block", "HybridBlock"]
 
@@ -153,6 +154,17 @@ class Activation(HybridBlock):
 
     def forward(self, x):
         return nn_ops.activation(x, self._act)
+
+
+class LeakyReLU(HybridBlock):
+    """x where x >= 0, else alpha * x (`nn_ops.leaky_relu`)."""
+
+    def __init__(self, alpha=0.01):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return nn_ops.leaky_relu(x, "leaky", self._alpha)
 
 
 class Flatten(HybridBlock):

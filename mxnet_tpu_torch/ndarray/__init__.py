@@ -1,5 +1,7 @@
 """`mx.nd` namespace of the port (counterpart of `mxnet_tpu/ndarray/`):
-the NDArray and its constructors. Any other `nd.<op>` raises
+the NDArray, its constructors, `concat`, the detection ops under the JAX
+registry's names and `nd.contrib`. Any other `nd.<op>` raises
 NotImplementedError naming ROADMAP.md queue 1 item 4."""
+from . import contrib  # noqa: F401
 from .ndarray import *  # noqa: F401,F403
 from .ndarray import NDArray, __getattr__  # noqa: F401

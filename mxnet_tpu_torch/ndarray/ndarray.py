@@ -16,8 +16,14 @@ Only what the eager training loop uses is ported: the constructors
 (copy the dimension) and -1, `transpose(axes=...)`; arithmetic,
 comparisons (0/1 in the left operand's dtype, as MXNet's), `argmax`
 (float32 indices), `mean` and `sum` (with `axis`, `keepdims`,
-`exclude`). Any other op raises NotImplementedError naming ROADMAP.md
-queue 1 item 4.
+`exclude`), `repeat`; `concat`; the detection ops under the JAX
+registry's names (`_contrib_box_iou`, `_contrib_box_nms`,
+`_contrib_MultiBoxPrior`, `_contrib_MultiBoxTarget`,
+`_contrib_MultiBoxDetection`, `_contrib_ROIAlign`, `ROIPooling`,
+`_contrib_AdaptiveAvgPooling2D`, `_contrib_Proposal`; also as
+`nd.contrib.<name without _contrib_>`), which run `ops.detection_ops`
+on the held tensors. Any other op raises NotImplementedError naming
+ROADMAP.md queue 1 item 4.
 
 `nd.array(x)` without `ctx` puts x on the card (`context.resolve`);
 `ctx=mx.cpu()` is the way onto the CPU. A float64 or int64 source
@@ -32,9 +38,10 @@ import numpy as np
 import torch
 
 from .. import context
+from ..ops import detection_ops
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "arange",
-           "concatenate", "waitall"]
+           "concatenate", "concat", "waitall"]
 
 _NOT_PORTED = ("is not in the port yet (ROADMAP.md queue 1 item 4: the "
                "eager MXNet surface)")
@@ -247,6 +254,11 @@ class NDArray:
         return NDArray(t.mean() if axes is None else
                        t.mean(dim=axes, keepdim=keepdims))
 
+    def repeat(self, repeats, axis=None):
+        """Each element `repeats` times along `axis` (the flattened
+        array when None), as `jnp.repeat`."""
+        return NDArray(torch.repeat_interleave(self._t, repeats, dim=axis))
+
     def argmax(self, axis=None, keepdims=False):
         """Indices of the maxima as float32, as MXNet returns them."""
         return NDArray(torch.argmax(self._t, dim=axis, keepdim=keepdims)
@@ -373,13 +385,48 @@ def concatenate(arrays, axis=0):
     return NDArray(torch.cat([_unwrap(a) for a in arrays], dim=axis))
 
 
+def concat(*arrays, dim=1):
+    return NDArray(torch.cat([_unwrap(a) for a in arrays], dim=dim))
+
+
 def waitall():
     """Wait until the card has finished everything queued."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
 
 
+# the JAX registry's names of the detection ops -> ops.detection_ops
+CONTRIB_OPS = {"_contrib_box_iou": "box_iou", "_contrib_box_nms": "box_nms",
+               "_contrib_MultiBoxPrior": "multibox_prior",
+               "_contrib_MultiBoxTarget": "multibox_target",
+               "_contrib_MultiBoxDetection": "multibox_detection",
+               "_contrib_ROIAlign": "roi_align", "ROIPooling": "roi_pooling",
+               "_contrib_AdaptiveAvgPooling2D": "adaptive_avg_pooling",
+               "_contrib_Proposal": "proposal"}
+
+
+def _wrap(out):
+    if isinstance(out, tuple):
+        return tuple(NDArray(o) for o in out)
+    return NDArray(out)
+
+
+def contrib_op(name):
+    """The registry op `name` on NDArrays: the detection op on the held
+    tensors, NDArray (or a tuple of them) out."""
+    fn = getattr(detection_ops, CONTRIB_OPS[name])
+
+    def op(*args, **kwargs):
+        return _wrap(fn(*[_unwrap(a) for a in args],
+                        **{k: _unwrap(v) for k, v in kwargs.items()}))
+    op.__name__ = name
+    op.__doc__ = fn.__doc__
+    return op
+
+
 def __getattr__(name):
-    if name.startswith("_"):
+    if name in CONTRIB_OPS:
+        return contrib_op(name)
+    if name.startswith("_") and not name.startswith("_contrib_"):
         raise AttributeError(name)
     raise NotImplementedError(f"nd.{name} {_NOT_PORTED}")

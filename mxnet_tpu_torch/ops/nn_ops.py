@@ -37,7 +37,8 @@ from .. import autograd as _autograd
 from .. import random as _random
 from ..cuda_ops import flash_attention as _fa
 
-__all__ = ["fully_connected", "gelu", "activation", "dropout", "weak_scalar",
+__all__ = ["fully_connected", "gelu", "activation", "leaky_relu",
+           "dropout", "weak_scalar",
            "embedding", "layer_norm", "split_heads", "fused_self_attention",
            "flash_attention", "convolution", "pooling", "batch_norm",
            "flatten"]
@@ -75,6 +76,19 @@ def activation(data, act_type):
             f"activation {act_type!r} is not in the port (have "
             f"{sorted(_ACTIVATIONS)})")
     return _ACTIVATIONS[act_type](data)
+
+
+def leaky_relu(data, act_type="leaky", slope=0.25):
+    """`LeakyReLU(data, act_type="leaky", slope)`: x where x >= 0, else
+    slope * x with the slope rounded to the data's dtype first, as
+    `jax.nn.leaky_relu` applies it (its gradient at 0 is 1, as the
+    `where` gives; torch's leaky_relu gives the slope there). The other
+    act types of the JAX op are not in the port."""
+    if act_type != "leaky":
+        raise NotImplementedError(
+            f"LeakyReLU act_type {act_type!r} is not in the port (ROADMAP.md "
+            "queue 1 item 3)")
+    return torch.where(data >= 0, data, data * weak_scalar(slope, data.dtype))
 
 
 @functools.lru_cache(maxsize=64)

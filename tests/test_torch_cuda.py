@@ -16,7 +16,8 @@ mask, the Adam update (w, m and v: the kernel rounds every operation as
 the plain version does), the int8 GEMM's output, MoE combine and MoE
 dispatch on routing with one token a slot are compared bit for bit;
 MoE dispatch with duplicate slots (summed by float atomics in any
-order) at 1e-6.
+order) at 1e-6. The box_nms keep masks are compared bit for bit (the
+kernel rounds each IoU step as the plain version does).
 """
 import numpy as np
 import pytest
@@ -1029,3 +1030,90 @@ def test_nd_array_lands_on_the_card(dev):
     assert nd.array([1.0], ctx=cpu()).context.type == "cpu"
     np.testing.assert_array_equal((x + 1).asnumpy(),
                                   np.arange(6.0).reshape(2, 3) + 1)
+
+
+def _nms_case(dev, B, N, n_cls=3, seed=0, invalid_share=0.2):
+    """Score-sorted corner boxes on a 6 x 6 field (many overlaps), a
+    valid prefix of each row and class ids; some boxes repeat exactly
+    (IoU 1) and some are inverted (area 0)."""
+    rng = np.random.RandomState(seed)
+    xy = rng.rand(B, N, 2) * 6
+    boxes = np.concatenate([xy, xy + rng.rand(B, N, 2) * 2 + 0.05], -1)
+    if N > 3:
+        boxes[:, 3] = boxes[:, 1]
+        boxes[:, 2, 2:] = boxes[:, 2, :2] - 0.5
+    valid = np.arange(N)[None, :] < (N * (1 - invalid_share)
+                                     * rng.rand(B, 1)).astype(int) + 1
+    ids = rng.randint(0, n_cls, (B, N))
+    return (torch.tensor(boxes, dtype=torch.float32, device=dev),
+            torch.tensor(valid, device=dev),
+            torch.tensor(ids, dtype=torch.float32, device=dev))
+
+
+# N = 1, not a multiple of 32 or of the block, the YOLOv3-tiny decode's
+# 2,535 (boxes staged in shared memory) and past the shared-memory limit
+# (read from global memory)
+@pytest.mark.parametrize("B,N", [(1, 1), (3, 31), (2, 545), (4, 2535),
+                                 (2, 12000), (1, 30120)])
+@pytest.mark.parametrize("with_ids", [True, False])
+def test_box_nms_kernel_matches_plain(dev, B, N, with_ids):
+    from mxnet_tpu_torch.cuda_ops import box_nms as bn
+    boxes, valid, ids = _nms_case(dev, B, N)
+    ids = ids if with_ids else None
+    for n_sup, clamp in ((None, True), (min(N, 100), False)):
+        n0 = bn.launches
+        got = bn.box_nms_keep(boxes, valid, ids, 0.45, n_sup, clamp)
+        torch.cuda.synchronize()
+        assert bn.launches == n0 + 1
+        want = bn.box_nms_keep_reference(boxes, valid, ids, 0.45, n_sup,
+                                         clamp)
+        assert got.dtype == torch.bool and torch.equal(got, want)
+
+
+def test_box_nms_kernel_edges(dev):
+    """All rows invalid; a negative threshold (rows of other classes
+    compare as IoU 0 and are suppressed too); no row may suppress."""
+    from mxnet_tpu_torch.cuda_ops import box_nms as bn
+    boxes, valid, ids = _nms_case(dev, 2, 100)
+    none = torch.zeros_like(valid)
+    assert not bn.box_nms_keep(boxes, none, ids).any()
+    for thresh, n_sup in ((-0.5, None), (0.3, 0)):
+        got = bn.box_nms_keep(boxes, valid, ids, thresh, n_sup)
+        want = bn.box_nms_keep_reference(boxes, valid, ids, thresh, n_sup)
+        assert torch.equal(got, want)
+    assert bn.box_nms_keep(boxes, valid, ids, -0.5)[:, 1:].sum() == 0
+    with pytest.raises(ValueError):
+        bn.box_nms_keep(boxes.half(), valid, ids)
+    with pytest.raises(ValueError):
+        bn.box_nms_keep(boxes, valid.float(), ids)
+
+
+def test_detection_ops_on_card_match_cpu(dev):
+    """box_nms, multibox_detection and SSD's non_max_suppression on CUDA
+    tensors launch the kernel once a call and equal the CPU run."""
+    from mxnet_tpu_torch.cuda_ops import box_nms as bn
+    from mxnet_tpu_torch.models import ssd
+    from mxnet_tpu_torch.ops import detection_ops as do
+    rng = np.random.RandomState(1)
+    anchors = do.multibox_prior(torch.zeros(1, 3, 10, 10), sizes=(0.3, 0.15),
+                                ratios=(1.0, 2.0, 0.5))
+    A = anchors.shape[1]
+    logits = torch.tensor(rng.randn(2, 5, A), dtype=torch.float32)
+    loc = torch.tensor(rng.randn(2, A * 4) * 0.3, dtype=torch.float32)
+    for kw in ({}, {"force_suppress": True, "nms_topk": 20}):
+        args = (logits.softmax(1), loc, anchors)
+        want = do.multibox_detection(*args, threshold=0.1, **kw)
+        n0 = bn.launches
+        got = do.multibox_detection(*[a.to(dev) for a in args],
+                                    threshold=0.1, **kw)
+        assert bn.launches == n0 + 1
+        # ids and scores are selections; the boxes pass through exp,
+        # whose last bit differs between the card and the CPU
+        assert torch.equal(got[..., :2].cpu(), want[..., :2])
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+    boxes = anchors[0, :200]
+    scores = torch.tensor(rng.rand(200), dtype=torch.float32)
+    want = ssd.non_max_suppression(boxes, scores, 0.3, 50)
+    got = ssd.non_max_suppression(boxes.to(dev), scores.to(dev), 0.3, 50)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

@@ -9,13 +9,17 @@ must the gradients of sum(y^2): in the x rows and the w1 and w2 experts
 of each process, and in the replicated router summed over the processes.
 
 The processes rendezvous through a file under the test's tmp_path (no
-ports); each gets a time limit, so a hang fails this test and not the
-suite. Tolerances as tests/test_torch_moe.py's: y and aux 1e-5,
-gradients 1e-4 relative + 1e-5.
+ports), with a 60 s limit on the rendezvous and the collectives; both
+are drained together against one 120 s deadline, so a hang fails this
+test and not the suite, and a failure reports each worker's return code,
+whether it was killed at the deadline and its stderr tail. Tolerances as
+tests/test_torch_moe.py's: y and aux 1e-5, gradients 1e-4 relative +
+1e-5.
 """
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -31,6 +35,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2
 
 _WORKER = r"""
+import datetime
 import sys
 import numpy as np
 import torch
@@ -40,7 +45,8 @@ from mxnet_tpu_torch.ops import nn_ops
 
 rank, world, where = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 dist.init_process_group("gloo", init_method=f"file://{where}/rdzv",
-                        world_size=world, rank=rank)
+                        world_size=world, rank=rank,
+                        timeout=datetime.timedelta(seconds=60))
 d = np.load(f"{where}/in.npz")
 act = {"gelu": nn_ops.gelu, "relu": torch.relu}[str(d["act"])]
 mesh = parallel.make_mesh(ep=world)
@@ -59,23 +65,40 @@ dist.destroy_process_group()
 
 
 def _run_workers(where, timeout=120):
+    """Run the WORLD workers together and drain them together, against
+    one deadline: a worker that crashed is reported even while its peer
+    still waits for it. On any failure the message names, for each
+    worker, its return code, whether it was killed at the deadline, and
+    the tail of its stderr."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, "-c", _WORKER, str(r), str(WORLD), str(where)],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for r in range(WORLD)]
-    errs = []
-    try:
-        for p in procs:
-            _, err = p.communicate(timeout=timeout)
-            errs.append((p.returncode, err))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for rc, err in errs:
-        assert rc == 0, err[-3000:]
+    results = [None] * WORLD
+
+    def drain(r):
+        try:
+            _, err = procs[r].communicate(timeout=timeout)
+            results[r] = (procs[r].returncode, False, err)
+        except subprocess.TimeoutExpired:
+            procs[r].kill()
+            _, err = procs[r].communicate()
+            results[r] = (procs[r].returncode, True, err)
+
+    threads = [threading.Thread(target=drain, args=(r,))
+               for r in range(WORLD)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if any(rc != 0 for rc, _, _ in results):
+        report = "\n".join(
+            f"worker {r}: rc {rc}"
+            + (f", killed after {timeout} s" if timed_out else "")
+            + f"; stderr tail:\n{err[-1500:]}"
+            for r, (rc, timed_out, err) in enumerate(results))
+        pytest.fail(f"ep={WORLD} workers failed:\n{report}")
     return [dict(np.load(f"{where}/out{r}.npz")) for r in range(WORLD)]
 
 
