@@ -108,14 +108,17 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      a step; the loss falls;
  20. decodes a held-out batch with phase 19's model
      (`decode_predictions`: (64, 2,535, 6) rows, exactly one box_nms
-     launch), scores it by VOC07 mAP, and holds the box_nms kernel
-     against its plain version on that call and with force_suppress, bit
-     for bit in the keep masks and the output rows;
+     launch), scores it by VOC07 mAP, profiles one decode call, and holds
+     the box_nms kernel against its plain version on that call and with
+     force_suppress, bit for bit in the keep masks and the output rows,
+     on the decode's own top-k path (`max_keep` 100) and without
+     `max_keep`, each timed beside the bound of what its inputs need;
  21. trains SSD (`SSD(20)`, 30,120 anchors at 300^2, bf16) through the
      same loop (`multibox_target`, `MultiBoxLoss` with hard negatives
      3:1) at batch 32, then `multibox_detection` of a held-out batch
-     (one box_nms launch) and the kernel against its plain version on
-     its (32, 30,120, 6) rows;
+     (one box_nms launch, profiled once) and the kernel against its
+     plain version on its (32, 30,120, 6) rows, with `max_keep` 400
+     (`nms_topk`) and without;
  22. trains a float32 YOLOv3-tiny (64^2, 3 classes) and a float32 SSD
      (channels (8, 16)) 3 eager Adam steps on the card and on the CPU:
      losses within 1e-5 relative, parameters and running statistics
@@ -128,7 +131,9 @@ masks, causality and dropout, the forward, dq and dkv at GPT-2
 pretraining's (16,12,1024,64) causal shape, both LAMB passes at
 BERT-base's flat master size, the Adam/AdamW update at GPT-2's largest
 parameter (the 50257 x 768 token embedding, bfloat16) and at a
-768-element float32 LayerNorm vector, bit for bit, and the int8 GEMM at
+768-element float32 LayerNorm vector, bit for bit (and, as a yardstick,
+its 148 launches over a GPT-2 step's tensors against one
+`torch._fused_adam_` over the same list), and the int8 GEMM at
 the four (K, O) shapes of a GPT-2 layer for M = 8 (the decode route),
 512 and 1024 (the wgmma route, on the K-major weight and on the
 wrapper's own transpose), bit for bit, each route's launch counter
@@ -1150,7 +1155,8 @@ def adam_phase(dev):
     """adam_update against its plain version: Adam and AdamW, clip off
     and on, a bf16 weight of GPT-2's token-embedding size and a float32
     LayerNorm vector; then kernel, plain version and torch's fused Adam
-    timed at the large size."""
+    timed at the large size, and over a GPT-2 step's 148 tensors
+    (`adam_step_yardstick`)."""
     import torch
     from mxnet_tpu_torch.cuda_ops import fused_update as fu
     n_big = 50257 * 768
@@ -1209,6 +1215,7 @@ def adam_phase(dev):
     lib_ms, lib_ev_ms = device_ms(library), time_ms(library)
     del w, g, m, v
     b_ms, b_by = bound(22 * n_big, 15 * n_big, F32_FLOPS)
+    gpt2_step = adam_step_yardstick(dev, lr_t, kw)
     return {"adam_update": dict(
         name="adam_update", route="cuda",
         source="mxnet_tpu_torch/csrc/fused_update.cu",
@@ -1224,7 +1231,7 @@ def adam_phase(dev):
         max_rel_err_moments=worst["moments_rel"],
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms, library_event_ms=lib_ev_ms,
-        kernel_ms_f32_same_n=k32_ms, event_ms=ev_ms,
+        kernel_ms_f32_same_n=k32_ms, event_ms=ev_ms, gpt2_step=gpt2_step,
         times_are="device time per call (torch.profiler, L2 flushed); "
                   "event_ms and library_event_ms: CUDA events around the "
                   "call",
@@ -1233,6 +1240,52 @@ def adam_phase(dev):
                 "weight decay differ from MXNet's): a time yardstick only",
         shapes=f"w, g ({n_big},) bf16 (GPT-2 word_embed), m, v float32; "
                "errors also at 768 float32")}
+
+
+def adam_step_yardstick(dev, lr_t, kw):
+    """Like with like for Adam: the tensors one GPT-2 117M step updates
+    (the trainable parameters of `gpt2_117m_config`, 148), the port's one
+    `adam_update` launch a tensor against one `torch._fused_adam_` call
+    over the whole list (a yardstick only: the port never calls it).
+    Device time (torch.profiler) and CUDA events per step, the L2
+    flushed before each; the port's weights bf16 as in the step, then
+    all float32 as `_fused_adam_` needs (its moments take the
+    parameter's dtype)."""
+    import torch
+    from mxnet_tpu_torch.cuda_ops import fused_update as fu
+    from mxnet_tpu_torch.models import gpt
+    model = build_model(gpt.gpt2_117m_config(dtype="bfloat16"), 0, dev)
+    sizes = [p.numel() for _, p in model.named_parameters()
+             if getattr(p, "grad_req", "write") != "null"]
+    del model
+    check(len(sizes) == 148, f"GPT-2 trainable tensors {len(sizes)}")
+    n = sum(sizes)
+    out = {"tensors": len(sizes), "elements": n}
+    for dtype, per_elem in ((torch.bfloat16, 22), (torch.float32, 28)):
+        case = [adam_case(dev, k, dtype, seed=i) for i, k in enumerate(sizes)]
+
+        def port():
+            for w, g, m, v in case:
+                fu.adam_update(w, g, m, v, lr_t, **kw)
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        out[f"port_{tag}_ms"] = device_ms(port, iters=5, match="adam")
+        out[f"port_{tag}_event_ms"] = time_ms(port, iters=10)
+        out[f"bound_{tag}_ms"] = bound(per_elem * n, 15 * n, F32_FLOPS)[0]
+        if dtype == torch.float32:
+            ws, gs, ms, vs = (list(x) for x in zip(*case))
+            steps = [torch.tensor(3.0, device=dev) for _ in sizes]
+
+            def library():
+                torch._fused_adam_(
+                    ws, gs, ms, vs, [], steps, lr=1e-3, beta1=0.9,
+                    beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+                    maximize=False)
+            out["library_f32_ms"] = device_ms(library, iters=5)
+            out["library_f32_event_ms"] = time_ms(library, iters=10)
+        del case
+        torch.cuda.empty_cache()
+    print("chip_smoke: Adam over a GPT-2 step's tensors " + json.dumps(out))
+    return out
 
 
 GPT2_GEMMS = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
@@ -1694,17 +1747,50 @@ def device_profile(prof, per, n_top):
     return sum(by_name.values()), dict(top[:n_top]), by_class, launched / per
 
 
+def profile_once(fn, attempts=4):
+    """fn() (ending in a host fetch) under torch.profiler: (the profile,
+    host ms of the call, windows taken). The profiler can lose kernel
+    records, now and then all of a window's. fn launches the same
+    kernels each call, so windows are taken, after a pause that grows
+    with each, until two in a row hold the same number of kernel records
+    and the later one at least as many records of the repo's kernels as
+    the launch counters saw launches (a launch runs one repo kernel or
+    more); after `attempts` windows, the one with the most records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    best, prev = None, None
+    for attempt in range(attempts):
+        time.sleep(0.5 * attempt)
+        torch.cuda.synchronize()
+        reset_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            ms = (time.perf_counter() - t0) * 1e3
+        launched = sum(read_counts().values())
+        rows = list(kernel_rows(prof))
+        total = sum(count for _, _, count in rows)
+        seen = sum(count for name, _, count in rows if "mxt::" in name)
+        if rows and total == prev and seen >= launched:
+            return prof, ms, attempt + 1
+        if best is None or total > best[2]:
+            best = (prof, ms, total)
+        prev = total
+    return best[0], best[1], attempts
+
+
 def timed_steps(trainer, data, labels, warmup, steps, profiled=True,
                 n_top=10):
     """`warmup` trainer steps, `steps` timed ones ended by one host fetch
-    and, when `profiled`, one more under torch.profiler. Returns (the
+    and, when `profiled`, more under torch.profiler (`profile_once`;
+    each window runs one more step). Returns (the
     losses of the warm-up and timed steps, the launch counts of the
     timed steps, {timing and profile fields}). The peak memory is that
     of the timed steps: it is reset after the warm-up, which allocates
     the optimizer's state (and on a deferred model runs the probe
     pass)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     losses = [trainer.step(data, labels) for _ in range(warmup)]
     float(losses[-1])
     torch.cuda.reset_peak_memory_stats()
@@ -1720,15 +1806,12 @@ def timed_steps(trainer, data, labels, warmup, steps, profiled=True,
            "ms_per_step": step_ms,
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     if profiled:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            float(trainer.step(data, labels))
-            prof_ms = (time.perf_counter() - t1) * 1e3
+        prof, prof_ms, windows = profile_once(
+            lambda: float(trainer.step(data, labels)))
         busy_ms, top, by_class, kernels = device_profile(prof, 1, n_top)
         host_top, waits = host_profile(prof, 1, 12)
         res.update({"profiled_step_ms": prof_ms,
+                    "profile_windows": windows,
                     "device_busy_ms_per_step": busy_ms,
                     "device_idle_share": None if busy_ms is None
                     else 1 - busy_ms / step_ms,
@@ -2934,6 +3017,20 @@ def yolo_train_phase(dev, batch=64, size=416, warmup=2, steps=16):
     return res, counts, model
 
 
+def events_once(fn):
+    """(fn(), CUDA-event ms of the one call), the L2 flushed first."""
+    import torch
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    flush.zero_()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
 def nms_pair(run):
     """Run `run()` (a decode whose NMS calls `box_nms_keep` once) through
     the kernel, then again with the plain version patched in. Returns
@@ -2949,15 +3046,8 @@ def nms_pair(run):
         return seen["kernel"]
 
     def plain(*a, **kw):
-        flush = torch.empty(64 << 20, dtype=torch.uint8, device=a[0].device)
-        flush.zero_()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        seen["plain"] = bn.box_nms_keep_reference(*a, **kw)
-        t1.record()
-        t1.synchronize()
-        seen["plain_ms"] = t0.elapsed_time(t1)
+        seen["plain"], seen["plain_ms"] = events_once(
+            lambda: bn.box_nms_keep_reference(*a, **kw))
         return seen["plain"]
 
     real = detection_ops.box_nms_keep
@@ -2973,11 +3063,45 @@ def nms_pair(run):
             seen["plain_ms"])
 
 
+NMS_PAIR_FLOPS = 15       # float32 operations of one IoU test (corner_iou)
+
+
+def nms_work(valid, ids, keep, max_keep):
+    """(bytes, pairs) that greedy NMS (n_suppressors = N) needs on these
+    inputs, given its keep mask. Bytes: each image's boxes, valid flags
+    and class ids up to its cut (its max_keep-th survivor, else its last
+    valid row) read once, and the keep mask written for every row.
+    Pairs: each kept row tested against every earlier kept row of its
+    class, and each suppressed valid row before the cut against one
+    suppressor (its first)."""
+    import torch
+    B, N = keep.shape
+    row = torch.arange(1, N + 1, device=keep.device)
+    cut = (valid * row).amax(1)
+    if max_keep is not None:
+        kth = (((keep.cumsum(1) == max_keep) & keep) * row).amax(1)
+        cut = torch.where(kth > 0, kth, cut)
+    nbytes = int(cut.sum()) * (16 + 1 + (4 if ids is not None else 0)) \
+        + B * N
+    cls = torch.zeros_like(row).expand(B, N) if ids is None \
+        else torch.unique(ids, return_inverse=True)[1]
+    per_class = torch.zeros((B, int(cls.max()) + 1), dtype=torch.long,
+                            device=keep.device).scatter_add_(
+        1, cls, keep.long())
+    pairs = int((per_class * (per_class - 1) // 2).sum()) \
+        + int((valid & ~keep & (row <= cut[:, None])).sum())
+    return nbytes, pairs
+
+
 def nms_check(name, run):
     """Hold the kernel against the plain version in one decode, bit for
-    bit in the keep mask and in the output rows; then time the kernel on
-    that call's inputs (device time of the kernel alone and CUDA events
-    around the wrapper, L2 flushed). Returns the case's fields."""
+    bit in the keep mask and in the output rows: the decode's own call
+    (the top-k path: `max_keep` is its topk) and, on the same inputs,
+    the call without `max_keep` (the general path). Then time the kernel
+    on both (device time of the kernel alone and CUDA events around the
+    wrapper, L2 flushed) beside the bound of what these inputs need
+    (`nms_work`: bytes at HBM_BYTES_PER_S, pairs at F32_FLOPS), with
+    both shares. Returns the case's fields."""
     import torch
     from mxnet_tpu_torch.cuda_ops import box_nms as bn
     out_k, out_p, keep_k, keep_p, (a, kw), plain_ms = nms_pair(run)
@@ -2985,20 +3109,189 @@ def nms_check(name, run):
     check(torch.equal(keep_k, keep_p), f"box_nms {name}: keep masks differ "
           f"in {int((keep_k != keep_p).sum())} rows")
     check(torch.equal(out_k, out_p), f"box_nms {name}: output rows differ")
+    check(kw.get("max_keep") is not None, f"box_nms {name}: {kw}")
+    general = {**kw, "max_keep": None}
+    keep_g = bn.box_nms_keep(*a, **general)
+    plain_g, plain_g_ms = events_once(
+        lambda: bn.box_nms_keep_reference(*a, **general))
+    check(torch.equal(keep_g, plain_g), f"box_nms {name} without max_keep: "
+          f"keep masks differ in {int((keep_g != plain_g).sum())} rows")
     boxes, valid, ids = a[0], a[1], a[2]
     B, N, _ = boxes.shape
-    fn = lambda: bn.box_nms_keep(*a, **kw)                     # noqa: E731
-    nbytes = B * N * (16 + 1 + 1 + (4 if ids is not None else 0))
-    b_ms, b_by = bound(nbytes, 0)
     per = "per class" if ids is not None else "any class"
-    return {"shape": f"({B}, {N}) rows, {per}",
-            "valid_rows": int(valid.sum()), "kept_rows": int(keep_k.sum()),
-            "max_abs_err": max_err(out_k, out_p),
-            "keep_mismatches": int((keep_k != keep_p).sum()),
-            "ms": device_ms(fn, match="box_nms", skip=FLUSH_ONLY,
-                            per_kernel=True),
-            "event_ms": time_ms(fn), "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+    res = {"shape": f"({B}, {N}) rows, {per}",
+           "valid_rows": int(valid.sum()),
+           "max_abs_err": max_err(out_k, out_p),
+           "keep_mismatches": int((keep_k != keep_p).sum())
+           + int((keep_g != plain_g).sum())}
+    for path, args, keep, p_ms in (("topk", kw, keep_k, plain_ms),
+                                   ("general", general, keep_g, plain_g_ms)):
+        fn = lambda: bn.box_nms_keep(*a, **args)               # noqa: E731
+        ms = device_ms(fn, match="box_nms", skip=FLUSH_ONLY, per_kernel=True)
+        nbytes, pairs = nms_work(valid, ids, keep, args["max_keep"])
+        b_ms, b_by = bound(nbytes, NMS_PAIR_FLOPS * pairs, F32_FLOPS)
+        res[path] = {
+            "max_keep": args["max_keep"], "kept_rows": int(keep.sum()),
+            "ms": ms, "event_ms": time_ms(fn), "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "pairs": pairs,
+            "bytes_share": nbytes / HBM_BYTES_PER_S * 1e3 / ms,
+            "operations_share": NMS_PAIR_FLOPS * pairs / F32_FLOPS * 1e3
+            / ms}
+    return res
+
+
+# the barriers of box_nms_keep_kernel in source order, named by the phase
+# each ends, then the tail after the chunk loop
+NMS_PHASES = ("set-up", "last valid row", "stage chunk 0", "class rank",
+              "cross test", "bitmask", "scan", "kept list, keep bytes, "
+              "next stage", "tail (zero fill)")
+
+
+def nms_phase_library():
+    """An instrumented copy of csrc/box_nms.cu, built beside the kernel
+    library: after each block barrier (and after the chunk loop), thread
+    0 of every block adds the clock64() cycles since the previous one to
+    that block's counter of the phase the barrier ends. Returns its
+    ctypes library: `mx_box_nms_keep` as the kernel library's, and
+    `nms_phase_read(out)` / `nms_phase_clear()` for the (512, 16) uint64
+    counters."""
+    import ctypes
+    import re
+    from mxnet_tpu_torch.cuda_ops import _build
+    with open(os.path.join(_build.CSRC, "box_nms.cu")) as fh:
+        src = fh.read()
+    n = [0]
+
+    def tick(m):
+        n[0] += 1
+        return f"{m.group(0)} NMS_TICK({n[0] - 1});"
+    src = re.sub(r"__syncthreads\(\);", tick, src)
+    check(n[0] == len(NMS_PHASES) - 1, f"box_nms.cu has {n[0]} barriers, "
+          f"NMS_PHASES names {len(NMS_PHASES) - 1}")
+    tail = ("  for (int j = end + t; j < N; j += NMS_THREADS) "
+            "keep_out[base + j] = 0;")
+    check(tail in src, "box_nms.cu: the tail loop moved")
+    src = src.replace(tail, f"{tail}\n  __syncthreads(); NMS_TICK({n[0]});")
+    src = src.replace(
+        "  extern __shared__ __align__(16) unsigned char smem_raw[];",
+        "  extern __shared__ __align__(16) unsigned char smem_raw[];\n"
+        "  long long tick_ = clock64();")
+    src = src.replace('#include "common.cuh"', '#include "common.cuh"\n'
+                      "__device__ unsigned long long g_phase[512][16];\n"
+                      "#define NMS_TICK(p) if (threadIdx.x == 0) { long long "
+                      "now_ = clock64(); g_phase[blockIdx.x][p] += now_ - "
+                      "tick_; tick_ = now_; }")
+    src += ('\nextern "C" int nms_phase_read(void* out) { return '
+            "cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase)); }\n"
+            'extern "C" int nms_phase_clear() { static unsigned long long '
+            "z[512][16];\n  return cudaMemcpyToSymbol(g_phase, z, sizeof(z)); "
+            "}\n")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    cu = os.path.join(_build.BUILD_DIR, "box_nms_phases.cu")
+    lib = os.path.join(_build.BUILD_DIR, "libbox_nms_phases.so")
+    with open(cu, "w") as fh:
+        fh.write(src)
+    r = subprocess.run([_build._nvcc(), *_build.FLAGS, "-shared", "-I",
+                        _build.CSRC, "-o", lib, cu], capture_output=True,
+                       text=True, timeout=600)
+    check(r.returncode == 0, f"instrumented box_nms build: {r.stdout[-3000:]}")
+    return ctypes.CDLL(lib)
+
+
+def nms_phase_cycles(dev):
+    """`--nms-phases`: where box_nms_keep_kernel's time goes, by phase, on
+    the NMS inputs of phases 20 and 21 (YOLOv3-tiny trained as phase 19,
+    its decode's (64, 2,535) rows; SSD trained as phase 21, its
+    `multibox_detection`'s (32, 30,120) rows), each with the decode's
+    max_keep and without. The wrapper runs the instrumented copy
+    (`nms_phase_library`) in place of the kernel; its keep mask must
+    equal the kernel's. Per case: CUDA-event ms of the instrumented
+    call, the slowest block's cycles, and each phase's cycles in that
+    block and on average over the blocks."""
+    import ctypes
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.cuda_ops import box_nms as bn
+    from mxnet_tpu_torch.models import yolo
+    from mxnet_tpu_torch.ops import detection_ops
+    lib = nms_phase_library()
+    calls, real = {}, detection_ops.box_nms_keep
+
+    def capture(name, run):
+        def keep(*a, **kw):
+            calls[name] = (a, kw)
+            return real(*a, **kw)
+        detection_ops.box_nms_keep = keep
+        try:
+            run()
+        finally:
+            detection_ops.box_nms_keep = real
+        return {}
+
+    _, _, model = yolo_train_phase(dev)
+    imgs, _, _ = detection_batch(dev, 64, 416, seed=1)
+    with autograd.pause():
+        preds = model(nd.array(imgs, ctx=dev))
+    capture("yolo_decode", lambda: yolo.decode_predictions(model, preds))
+    del model, preds
+    torch.cuda.empty_cache()
+    plain_check = nms_check
+    globals()["nms_check"] = capture
+    try:
+        ssd_train_phase(dev)
+    finally:
+        globals()["nms_check"] = plain_check
+    calls["ssd_multibox_detection"] = calls.pop("SSD multibox_detection")
+    out = {}
+    for name, (a, kw) in calls.items():
+        check(a[0].shape[0] <= 512, f"{name}: more images than counters")
+        for path, args in (("topk", kw), ("general", {**kw,
+                                                      "max_keep": None})):
+            want = bn.box_nms_keep(*a, **args)
+            entry = bn._fns["mx_box_nms_keep"]
+            inst = lib.mx_box_nms_keep
+            inst.restype, inst.argtypes = entry.restype, entry.argtypes
+            bn._fns["mx_box_nms_keep"] = inst
+            try:
+                check(torch.equal(bn.box_nms_keep(*a, **args), want),
+                      f"instrumented box_nms {name} {path}: keep differs")
+                check(lib.nms_phase_clear() == 0, "nms_phase_clear")
+                _, ms = events_once(lambda: bn.box_nms_keep(*a, **args))
+            finally:
+                bn._fns["mx_box_nms_keep"] = entry
+            buf = (ctypes.c_ulonglong * (512 * 16))()
+            check(lib.nms_phase_read(buf) == 0, "nms_phase_read")
+            B = a[0].shape[0]
+            cyc = np.ctypeslib.as_array(buf).astype(np.float64) \
+                .reshape(512, 16)[:B, :len(NMS_PHASES)]
+            slow = int(cyc.sum(1).argmax())
+            total = float(cyc[slow].sum())
+            out[f"{name}/{path}"] = {
+                "max_keep": args["max_keep"], "event_ms": ms,
+                "slowest_block_cycles": total,
+                "phases": {ph: {"slowest_block_cycles": float(cyc[slow, i]),
+                                "share": float(cyc[slow, i]) / total,
+                                "mean_cycles": float(cyc[:, i].mean())}
+                           for i, ph in enumerate(NMS_PHASES)}}
+            print(f"chip_smoke: box_nms phases {name}/{path} "
+                  + json.dumps(out[f"{name}/{path}"]), flush=True)
+    return out
+
+
+def decode_profile(fn, n_top=8):
+    """One decode call (ending in a host fetch) under torch.profiler
+    (`profile_once`): device busy, idle share, kernels, device ms by
+    class, the top kernels and the top host ops."""
+    prof, ms, windows = profile_once(fn)
+    busy, top, by_class, kernels = device_profile(prof, 1, n_top)
+    host_top, _ = host_profile(prof, 1, n_top)
+    return {"call_ms": ms, "profile_windows": windows,
+            "device_busy_ms": busy,
+            "device_idle_share": None if busy is None else 1 - busy / ms,
+            "kernels": kernels, "device_ms_by_class": by_class,
+            "top_device_ms": top, "top_host_self_ms": host_top}
 
 
 def yolo_decode_phase(model, dev, batch=64, size=416):
@@ -3006,8 +3299,9 @@ def yolo_decode_phase(model, dev, batch=64, size=416):
     (`decode_predictions`: id_index 0, conf_thresh 0.1, topk 100, NMS
     0.45, on the (64, 2,535, 6) rows of its two heads) under
     `autograd.pause()`: exactly one box_nms launch a decode; VOC07 mAP of
-    the detections; then the kernel against its plain version on that
-    call and with force_suppress."""
+    the detections; one decode call under torch.profiler; then the
+    kernel against its plain version on that call and with
+    force_suppress, on the top-k path and the general one (`nms_check`)."""
     import numpy as np
     import torch
     from mxnet_tpu_torch import autograd, metric, nd
@@ -3032,6 +3326,8 @@ def yolo_decode_phase(model, dev, batch=64, size=416):
     m.update(np.concatenate([labels[:, :, None], boxes], 2), d)
     voc = m.get()[1]
     check(0.0 <= voc <= 1.0 or np.isnan(voc), f"VOC07 mAP {voc}")
+    prof = decode_profile(
+        lambda: yolo.decode_predictions(model, preds).asnumpy())
     rows = yolo.decode_rows(model, preds)
     cases = {
         "yolo_decode": nms_check("YOLO decode", lambda: (
@@ -3041,6 +3337,7 @@ def yolo_decode_phase(model, dev, batch=64, size=416):
                                   valid_thresh=0.1, topk=100, id_index=0,
                                   force_suppress=True)))}
     return {"rows": list(d.shape), "decode_s": secs,
+            "decode_profile": prof,
             "launches": {k: v for k, v in counts.items() if v},
             "detections_per_image": float((d[..., 1] > 0).sum(1).mean()),
             "voc07_map_held_out": voc, "gt_boxes": int((labels >= 0).sum())}, \
@@ -3056,8 +3353,10 @@ def ssd_train_phase(dev, batch=32, size=300, warmup=2, steps=16):
     batch of 32 on one fixed synthetic batch: 2 warm-up + 16 timed steps,
     one profiled. Then `multibox_detection` (threshold 0.01, NMS 0.45,
     nms_topk 400, GluonCV's SSD settings) of a held-out batch: exactly one
-    box_nms launch, and the kernel against its plain version on that
-    call's (32, 30,120, 6) rows. Returns (result, counts, nms case)."""
+    box_nms launch; one detection call (and its copy to the host) under
+    torch.profiler; the kernel against its plain version on that call's
+    (32, 30,120, 6) rows, top-k path and general (`nms_check`). Returns
+    (result, counts, nms case)."""
     import numpy as np
     import torch
     from mxnet_tpu_torch import autograd, gluon, nd
@@ -3097,6 +3396,7 @@ def ssd_train_phase(dev, batch=32, size=300, warmup=2, steps=16):
     check(dcounts == expect(box_nms=1), f"SSD detection launches {dcounts}")
     check(det.shape == (batch, 30120, 6) and bool(torch.isfinite(det).all()),
           f"SSD detections {tuple(det.shape)}")
+    prof = decode_profile(lambda: detect().cpu())
     case = nms_check("SSD multibox_detection", detect)
     res = {"model": f"SSD({VOC_CLASSES}), channels (64, 128, 256, 512), "
                     "cast('bfloat16')",
@@ -3111,7 +3411,7 @@ def ssd_train_phase(dev, batch=32, size=300, warmup=2, steps=16):
            "loss_ratio_last_first": losses[-1] / losses[0],
            "detections_per_image": float((det[..., 1] > 0).sum(1).float()
                                          .mean()),
-           "losses": losses, **timing}
+           "detection_profile": prof, "losses": losses, **timing}
     return res, counts, case
 
 
@@ -3245,6 +3545,15 @@ def main():
         times = flash_times if sys.argv[1] == "--flash-times" \
             else host_path_times
         print(json.dumps(times(sys.argv[2])))
+        return 0
+    if sys.argv[1:] == ["--nms-phases"]:
+        sys.path.insert(0, ROOT)
+        nms_phase_cycles(torch.device("cuda"))
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        print(smi or "nvidia-smi: no output")
         return 0
     if len(sys.argv) == 3 and sys.argv[1] in ("--flash-ab", "--host-ab"):
         (flash_ab if sys.argv[1] == "--flash-ab" else host_ab)(sys.argv[2])
@@ -3527,7 +3836,7 @@ def main():
     print(f"chip_smoke: SSD training launches {counts}")
     kernels["adam_update"]["ssd_launches"] = counts["adam_update"]
     torch.cuda.empty_cache()
-    main_case = nms_cases["yolo_decode"]
+    main_case = nms_cases["yolo_decode"]["topk"]
     kernels["box_nms"] = dict(
         name="box_nms", route="cuda",
         source="mxnet_tpu_torch/csrc/box_nms.cu",
@@ -3538,15 +3847,23 @@ def main():
         ms=main_case["ms"], event_ms=main_case["event_ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
         bound_by=main_case["bound_by"], library_ms=None,
+        general_path=nms_cases["yolo_decode"]["general"],
         library="none: no PyTorch call computes greedy NMS (torchvision "
                 "is a library kernel, and not installed)",
         times_are="ms: device time of the kernel (torch.profiler, L2 "
                   "flushed); event_ms: CUDA events around the wrapper; "
                   "plain_ms: CUDA events around one plain call",
+        bound_is="the larger of the bytes these inputs need (each image's "
+                 "boxes, valid flags and ids up to its cut read once, keep "
+                 "written once) at 3.35 TB/s and 15 float32 operations a "
+                 "pair the loop must test (kept rows against earlier kept "
+                 "rows of their class, suppressed rows once) at 67 TFLOP/s",
         error_is="gate: keep masks and output rows equal (torch.equal) "
-                 "in every case; max_abs_err over the cases' rows",
-        shapes="YOLOv3-tiny decode (64, 2535) rows per class (phase 20); "
-               "cases: " + ", ".join(nms_cases), cases=nms_cases)
+                 "in every case, top-k path and general; max_abs_err over "
+                 "the cases' rows",
+        shapes="YOLOv3-tiny decode (64, 2535) rows per class, max_keep "
+               "100 (phase 20; general_path: no max_keep); cases: "
+               + ", ".join(nms_cases), cases=nms_cases)
     for c, v in nms_cases.items():
         print(f"chip_smoke: box_nms {c}: " + json.dumps(v))
 

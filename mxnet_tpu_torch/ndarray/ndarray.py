@@ -9,7 +9,8 @@ so inside `autograd.record()` they record as any torch op does.
 
 Only what the eager training loop uses is ported: the constructors
 `array`, `zeros`, `ones`, `full`, `arange`, `concatenate` and `waitall`;
-`shape`, `dtype` (a numpy dtype, the torch dtype for bfloat16), `size`,
+`shape`, `dtype` (a numpy dtype; bfloat16 is ml_dtypes', or a name that
+equals "bfloat16" where ml_dtypes is missing), `size`,
 `ndim`, `context`; `asnumpy` (bfloat16 comes back as float32),
 `asscalar`, `item`, `astype`, `as_in_context`, `copy`, `detach`,
 `attach_grad`, `grad`, `backward`; `reshape(shape=...)` with MXNet's 0
@@ -32,6 +33,7 @@ package.
 """
 from __future__ import annotations
 
+import functools
 import weakref
 
 import numpy as np
@@ -52,6 +54,23 @@ _NP = {torch.float32: np.dtype("float32"), torch.float16: np.dtype("float16"),
 _TORCH = {v.name: k for k, v in _NP.items()}
 _TORCH["bfloat16"] = torch.bfloat16
 _DEFAULT = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
+class _Bfloat16Name(str):
+    """bfloat16 where numpy has no bfloat16 type (no ml_dtypes): equals
+    and prints as "bfloat16", and is 2 bytes wide."""
+    itemsize = 2
+
+
+@functools.cache
+def _bfloat16():
+    """The numpy dtype of bfloat16 (ml_dtypes', as the JAX package's
+    `NDArray.dtype` gives it), or a `_Bfloat16Name` without ml_dtypes."""
+    try:
+        import ml_dtypes
+    except ImportError:
+        return _Bfloat16Name("bfloat16")
+    return np.dtype(ml_dtypes.bfloat16)
 
 
 def _torch_dtype(dtype):
@@ -107,6 +126,8 @@ class NDArray:
 
     @property
     def dtype(self):
+        if self._t.dtype == torch.bfloat16:
+            return _bfloat16()
         return _NP.get(self._t.dtype, self._t.dtype)
 
     @property

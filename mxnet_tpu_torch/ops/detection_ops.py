@@ -6,8 +6,9 @@ functions on tensors with the JAX package's static shapes and numerics.
 
 NMS marks suppressed rows with score -1 in place of compaction, so no
 output shape depends on the data. Its greedy loop is the one kernel here
-(`cuda_ops.box_nms.box_nms_keep`, one thread block an image); the stable
-sort, the valid mask, top-k and the score rewrite are torch.
+(`cuda_ops.box_nms.box_nms_keep`, one thread block an image, which stops
+at an image's topk-th survivor); the stable sort, the valid mask, top-k
+and the score rewrite are torch.
 
 Where the JAX code's numerics are a choice, the port keeps them: sorts
 are stable (`jnp.argsort`, `lax.top_k`: the lower index first among
@@ -72,10 +73,11 @@ def box_nms(data, overlap_thresh=0.5, valid_thresh=0.0, topk=-1,
     ids = None
     if id_index >= 0 and not force_suppress:
         ids = rows[..., id_index].contiguous()
-    keep = box_nms_keep(boxes.contiguous(), valid, ids, overlap_thresh)
-    if topk is not None and topk > 0:
-        rank = torch.cumsum(keep.to(torch.int32), -1) - 1
-        keep = keep & (rank < topk)
+    # topk: the first topk survivors keep their score (the kernel stops at
+    # an image's topk-th)
+    keep = box_nms_keep(boxes.contiguous(), valid, ids, overlap_thresh,
+                        max_keep=topk if topk is not None and topk > 0
+                        else None)
     out = rows.clone()
     out[..., score_index] = torch.where(keep, scores, -1.0)
     return out.reshape(batch_shape + (N, K)).to(data.dtype)

@@ -1050,42 +1050,110 @@ def _nms_case(dev, B, N, n_cls=3, seed=0, invalid_share=0.2):
             torch.tensor(ids, dtype=torch.float32, device=dev))
 
 
-# N = 1, not a multiple of 32 or of the block, the YOLOv3-tiny decode's
-# 2,535 (boxes staged in shared memory) and past the shared-memory limit
-# (read from global memory)
-@pytest.mark.parametrize("B,N", [(1, 1), (3, 31), (2, 545), (4, 2535),
-                                 (2, 12000), (1, 30120)])
-@pytest.mark.parametrize("with_ids", [True, False])
+def _rank_cut(keep, max_keep):
+    """keep & (rank < max_keep), rank = cumsum(keep) - 1."""
+    return keep if max_keep is None else keep & (keep.cumsum(-1) <= max_keep)
+
+
+def _nms_matches(bn, boxes, valid, ids, thresh, n_sup=None, clamp=True,
+                 max_keeps=(None, 1, 100, 400, "N")):
+    """The kernel's keep mask at each max_keep ("N": the row count) equals
+    the plain version's, one launch a call. The plain loop runs once;
+    its max_keep cut is the rank cut that
+    `test_torch_detection_ops.py::test_box_nms_keep_reference_cuts_at_max_keep`
+    holds the plain version to."""
+    want = bn.box_nms_keep_reference(boxes, valid, ids, thresh, n_sup, clamp)
+    N = boxes.shape[1]
+    for mk in max_keeps:
+        mk = N if mk == "N" else mk
+        n0 = bn.launches
+        got = bn.box_nms_keep(boxes, valid, ids, thresh, n_sup, clamp,
+                              max_keep=mk)
+        torch.cuda.synchronize()
+        assert bn.launches == n0 + 1
+        assert got.dtype == torch.bool
+        assert torch.equal(got, _rank_cut(want, mk)), (mk, int(
+            (got != _rank_cut(want, mk)).sum()))
+    return want
+
+
+# N = 1, not a multiple of 32 or of the kernel's 128-row chunk, the
+# YOLOv3-tiny decode's 2,535, and SSD300's 30,120 (one image, and the
+# (32, 30,120) of SSD's multibox_detection); max_keep None (the general
+# path), 1, 100 (YOLO's topk), 400 (SSD's nms_topk) and N
+@pytest.mark.parametrize("B,N,with_ids", [
+    (1, 1, True), (1, 1, False), (3, 31, True), (3, 31, False),
+    (2, 545, True), (2, 545, False), (4, 2535, True), (4, 2535, False),
+    (2, 12000, True), (2, 12000, False), (1, 30120, True),
+    (1, 30120, False), (32, 30120, True)])
 def test_box_nms_kernel_matches_plain(dev, B, N, with_ids):
     from mxnet_tpu_torch.cuda_ops import box_nms as bn
     boxes, valid, ids = _nms_case(dev, B, N)
     ids = ids if with_ids else None
     for n_sup, clamp in ((None, True), (min(N, 100), False)):
-        n0 = bn.launches
-        got = bn.box_nms_keep(boxes, valid, ids, 0.45, n_sup, clamp)
-        torch.cuda.synchronize()
-        assert bn.launches == n0 + 1
-        want = bn.box_nms_keep_reference(boxes, valid, ids, 0.45, n_sup,
-                                         clamp)
-        assert got.dtype == torch.bool and torch.equal(got, want)
+        _nms_matches(bn, boxes, valid, ids, 0.45, n_sup, clamp)
 
 
 def test_box_nms_kernel_edges(dev):
     """All rows invalid; a negative threshold (rows of other classes
-    compare as IoU 0 and are suppressed too); no row may suppress."""
+    compare as IoU 0 and are suppressed too), with max_keep; no row may
+    suppress; NaN boxes (an IoU of NaN is not above the threshold);
+    N at the kernel's 128-row chunk and one past it."""
     from mxnet_tpu_torch.cuda_ops import box_nms as bn
     boxes, valid, ids = _nms_case(dev, 2, 100)
     none = torch.zeros_like(valid)
     assert not bn.box_nms_keep(boxes, none, ids).any()
+    assert not bn.box_nms_keep(boxes, none, ids, max_keep=5).any()
     for thresh, n_sup in ((-0.5, None), (0.3, 0)):
-        got = bn.box_nms_keep(boxes, valid, ids, thresh, n_sup)
-        want = bn.box_nms_keep_reference(boxes, valid, ids, thresh, n_sup)
-        assert torch.equal(got, want)
+        _nms_matches(bn, boxes, valid, ids, thresh, n_sup,
+                     max_keeps=(None, 0, 1, 5, "N"))
     assert bn.box_nms_keep(boxes, valid, ids, -0.5)[:, 1:].sum() == 0
+    nan = boxes.clone()
+    nan[:, 5::7, 2] = float("nan")
+    nan[:, 0, 1] = float("nan")
+    for with_ids in (True, False):
+        for thresh in (0.3, -0.5):
+            _nms_matches(bn, nan, valid, ids if with_ids else None, thresh,
+                         max_keeps=(None, 1, 5, "N"))
+    for N in (128, 129):
+        b, v, i = _nms_case(dev, 3, N, seed=N)
+        for with_ids in (True, False):
+            _nms_matches(bn, b, v, i if with_ids else None, 0.45,
+                         max_keeps=(None, 1, 100, 128, "N"))
     with pytest.raises(ValueError):
         bn.box_nms_keep(boxes.half(), valid, ids)
     with pytest.raises(ValueError):
         bn.box_nms_keep(boxes, valid.float(), ids)
+    with pytest.raises(ValueError):
+        bn.box_nms_keep(boxes, valid, ids, max_keep=-1)
+
+
+def test_box_nms_kernel_kept_list_past_shared_memory(dev):
+    """More kept rows than the kernel's shared-memory kept list holds
+    (2,048): 3,000 disjoint unit squares kept, then 3,000 exact repeats
+    (IoU 1) that only rows past the shared-memory list suppress; with
+    ids, a quarter of the repeats are of another class and survive."""
+    from mxnet_tpu_torch.cuda_ops import box_nms as bn
+    rng = np.random.RandomState(7)
+    half = 3000
+    cell = np.arange(half)
+    sq = np.stack([cell % 60 * 2.0, cell // 60 * 2.0], -1)
+    sq = np.concatenate([sq, sq + 1.0], -1)
+    order = rng.permutation(half)
+    boxes = np.concatenate([sq, sq[order]])[None].repeat(2, 0)
+    ids = rng.randint(0, 3, half)
+    ids = np.concatenate([ids, ids[order]])[None].repeat(2, 0)
+    ids[:, half:][:, rng.rand(half) < 0.25] += 1
+    b = torch.tensor(boxes, dtype=torch.float32, device=dev)
+    i = torch.tensor(ids, dtype=torch.float32, device=dev)
+    v = torch.ones((2, 2 * half), dtype=torch.bool, device=dev)
+    v[1, -100:] = False
+    for with_ids in (True, False):
+        want = _nms_matches(bn, b, v, i if with_ids else None, 0.5,
+                            max_keeps=(None, 2047, 2048, 2500, "N"))
+        assert int(want[0, :half].sum()) == half
+        assert int(want[0, half:].sum()) == (
+            int((i[0, half:] != i[0, order]).sum()) if with_ids else 0)
 
 
 def test_detection_ops_on_card_match_cpu(dev):

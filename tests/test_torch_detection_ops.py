@@ -71,7 +71,7 @@ def test_box_iou(fmt):
 
 @pytest.mark.parametrize("valid_thresh", [0.0, 0.4])
 @pytest.mark.parametrize("id_index", [-1, 0])
-@pytest.mark.parametrize("topk", [-1, 3])
+@pytest.mark.parametrize("topk", [-1, 3, 100])
 @pytest.mark.parametrize("force", [False, True])
 def test_box_nms(force, topk, id_index, valid_thresh):
     rng = np.random.RandomState(1)
@@ -93,6 +93,21 @@ def test_box_nms_center_format_and_batch_dims():
                                   _j(dj.box_nms, data, **kw))
 
 
+def _greedy_loop(d, iou, valid, thresh, n_sup, with_ids):
+    """The keep mask of the JAX loop, row by row in numpy."""
+    want = valid.copy()
+    B, N = want.shape
+    for b in range(B):
+        for i in range(N if n_sup is None else n_sup):
+            if not want[b, i]:
+                continue
+            for j in range(i + 1, N):
+                same = not with_ids or d[b, i, 0] == d[b, j, 0]
+                if (iou[b, i, j] if same else 0.0) > thresh:
+                    want[b, j] = False
+    return want
+
+
 def test_box_nms_keep_reference_is_the_loop():
     """The plain keep mask equals a row-by-row loop in numpy, with
     n_suppressors cutting who may suppress (SSD's topk loop)."""
@@ -101,20 +116,41 @@ def test_box_nms_keep_reference_is_the_loop():
     boxes = torch.from_numpy(d[..., 2:6].copy())
     valid = torch.from_numpy(d[..., 1] > 0.2)
     ids = torch.from_numpy(d[..., 0].copy())
+    iou = bn.pair_iou(boxes, boxes).numpy()
     for n_sup, with_ids in ((None, True), (5, False), (0, True)):
         got = bn.box_nms_keep(boxes, valid, ids if with_ids else None, 0.25,
                               n_sup).numpy()
-        iou = bn.pair_iou(boxes, boxes).numpy()
-        want = d[..., 1] > 0.2
-        for b in range(2):
-            for i in range(30 if n_sup is None else n_sup):
-                if not want[b, i]:
-                    continue
-                for j in range(i + 1, 30):
-                    if iou[b, i, j] > 0.25 and (not with_ids or
-                                                d[b, i, 0] == d[b, j, 0]):
-                        want[b, j] = False
+        np.testing.assert_array_equal(
+            got, _greedy_loop(d, iou, d[..., 1] > 0.2, 0.25, n_sup,
+                              with_ids))
+
+
+@pytest.mark.parametrize("thresh", [0.25, -0.5])
+@pytest.mark.parametrize("with_ids", [True, False])
+@pytest.mark.parametrize("max_keep", [0, 1, 5, 30, 1000])
+def test_box_nms_keep_reference_cuts_at_max_keep(max_keep, with_ids,
+                                                 thresh):
+    """With max_keep, the plain keep mask is the numpy loop's cut to its
+    first max_keep survivors (rank = cumsum - 1 < max_keep), for a cut
+    below, at and past the survivors (N = 30), and with a negative
+    threshold (rows of other classes compare as IoU 0: suppressed)."""
+    rng = np.random.RandomState(4)
+    d = _rows(rng, 3, 30)
+    d[1, :, 1] = 0.0                             # an image with none valid
+    boxes = torch.from_numpy(d[..., 2:6].copy())
+    valid = d[..., 1] > 0.2
+    ids = torch.from_numpy(d[..., 0].copy()) if with_ids else None
+    loop = _greedy_loop(d, bn.pair_iou(boxes, boxes).numpy(), valid,
+                        thresh, None, with_ids)
+    want = loop & (np.cumsum(loop, -1) - 1 < max_keep)
+    for fn in (bn.box_nms_keep, bn.box_nms_keep_reference):
+        got = fn(boxes, torch.from_numpy(valid), ids, thresh,
+                 max_keep=max_keep).numpy()
         np.testing.assert_array_equal(got, want)
+    if thresh > 0 and max_keep == 5:
+        assert (want.sum(-1) == [5, 0, 5]).all() and loop.sum() > 10
+    with pytest.raises(ValueError, match="max_keep"):
+        bn.box_nms_keep(boxes, torch.from_numpy(valid), ids, max_keep=-1)
 
 
 def test_multibox_prior():
@@ -192,7 +228,7 @@ def test_argmax_ties_take_the_first_index():
     np.testing.assert_array_equal(got[2][0], [1.0, 0.0, 3.0, 2.0])
 
 
-@pytest.mark.parametrize("force,topk", [(False, -1), (True, 5)])
+@pytest.mark.parametrize("force,topk", [(False, -1), (True, 5), (False, 5)])
 def test_multibox_detection(force, topk):
     rng = np.random.RandomState(5)
     anchors, _, _ = _multibox_inputs(rng)

@@ -8,6 +8,8 @@ NDArray goes to the card: with none it raises, and with one (faked by
 patching `torch.cuda.is_available`) it heads there. Ops the port does
 not have raise NotImplementedError naming ROADMAP.md queue 1 item 4.
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,8 @@ import torch
 from mxnet_tpu import nd as ndj
 
 import mxnet_tpu_torch as mxt
-from mxnet_tpu_torch import nd
+from mxnet_tpu_torch import gluon, nd
+from mxnet_tpu_torch.ndarray import ndarray as nd_module
 
 CPU = mxt.cpu()
 
@@ -163,3 +166,45 @@ def test_ops_not_ported_raise_naming_the_roadmap():
             getattr(nd, name)
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         t.reshape((2, 1), reverse=True)
+
+
+def _accepts_back(dtype):
+    """astype, nd.array and Block.cast take what `NDArray.dtype` gave."""
+    assert nd.zeros((2,), ctx=CPU).astype(dtype)._t.dtype == torch.bfloat16
+    assert nd.array([3.0], ctx=CPU, dtype=dtype)._t.dtype == torch.bfloat16
+    dense = gluon.nn.Dense(2, in_units=3)
+    dense.initialize()
+    dense.cast(dtype)
+    assert {p.dtype for p in dense.parameters()} == {torch.bfloat16}
+
+
+def test_bfloat16_dtype_matches_jax():
+    """ROADMAP queue 3 fault 7: a bf16 array's dtype is the numpy dtype
+    the JAX package gives (ml_dtypes' bfloat16), not a torch dtype; its
+    host copy stays float32, which holds it exactly."""
+    j = ndj.array([1.5, 2.0], dtype="bfloat16")
+    t = nd.array([1.5, 2.0], ctx=CPU, dtype="bfloat16")
+    for row in (lambda x: x.dtype == "bfloat16", lambda x: str(x.dtype),
+                lambda x: np.dtype(x.dtype).itemsize):
+        assert row(t) == row(j)
+    assert (t.dtype == "bfloat16", str(t.dtype),
+            np.dtype(t.dtype).itemsize) == (True, "bfloat16", 2)
+    assert t.dtype == j.dtype
+    _accepts_back(t.dtype)
+    np.testing.assert_array_equal(t.asnumpy(), np.float32([1.5, 2.0]))
+
+
+def test_bfloat16_dtype_without_ml_dtypes(monkeypatch):
+    """Where ml_dtypes cannot be imported, a bf16 array's dtype is a name
+    that equals and prints as "bfloat16", 2 bytes wide, and the
+    constructors and `Block.cast` accept it."""
+    monkeypatch.setitem(sys.modules, "ml_dtypes", None)
+    nd_module._bfloat16.cache_clear()
+    try:
+        dtype = nd.array([1.0], ctx=CPU, dtype="bfloat16").dtype
+        assert not isinstance(dtype, np.dtype)
+        assert (dtype == "bfloat16", str(dtype), dtype.itemsize) == \
+            (True, "bfloat16", 2)
+        _accepts_back(dtype)
+    finally:
+        nd_module._bfloat16.cache_clear()

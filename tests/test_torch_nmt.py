@@ -276,4 +276,4 @@ def test_bf16_dtype_gives_float32_logits_as_in_jax():
     jm.cast("bfloat16")
     tm.cast("bfloat16")
     assert jm(*_j(src, tgt, valid)).dtype.name == "bfloat16"
-    assert tm(*_t(src, tgt, valid)).dtype == torch.bfloat16
+    assert tm(*_t(src, tgt, valid)).dtype.name == "bfloat16"
