@@ -1,24 +1,42 @@
 // Fused optimizer updates for Hopper (sm_90a), hand-written CUDA C++: the
-// per-parameter Adam/AdamW update and the two fused-LAMB passes.
+// multi-tensor Adam/AdamW update and the two fused-LAMB passes.
 //
 // --- Adam / AdamW ---------------------------------------------------------
 // Replaces the TPU kernel `_adam_kernel` of
-// mxnet_tpu/pallas_ops/fused_update.py (launched by `adam_update`, called
-// per parameter by `FunctionalOptimizer.apply`). One pass per element, in
-// place (the TPU kernel aliased w, m, v to its outputs):
+// mxnet_tpu/pallas_ops/fused_update.py:86 (launched at :144 by
+// `adam_update`, which `FunctionalOptimizer.apply` calls per parameter).
+// One pass per element, in place (the TPU kernel aliased w, m, v to its
+// outputs):
 //   g = clip(g * rescale) [+ wd w  (Adam: decay folded into the gradient)]
 //   m = b1 m + (1-b1) g;  v = b2 v + (1-b2) g^2
 //   step = lr_t m / (sqrt(v) + eps)   [AdamW: eta (step + wd w)]
 //   w = w - step   (rounded once to w's dtype)
-// lr_t carries the bias correction (computed on the host). Every product
-// and sum is an explicit round-to-nearest intrinsic, so nvcc contracts
-// nothing into an FMA and the arithmetic is the plain version's, operation
-// for operation. What bounds it: bytes. With a bf16 weight it reads w, g
-// (2 B each), m, v (4 B) and writes w, m, v: 22 B against ~15 operations an
-// element, far below the card's float32 rate. Each thread takes 4
-// neighbouring elements with one vector load per array (8 B for bf16,
-// 16 B for float32; the wrapper refuses a pointer that is not 16-byte
-// aligned); the last n % 4 elements go one at a time.
+// lr_t carries the bias correction (computed on the host, per tensor).
+// Every product and sum is an explicit round-to-nearest intrinsic, so nvcc
+// contracts nothing into an FMA and the arithmetic is the plain version's,
+// operation for operation.
+//
+// What bounds it: bytes. With a bf16 weight it reads w, g (2 B each), m, v
+// (4 B) and writes w, m, v: 22 B an element (28 B with a float32 weight)
+// against ~15 operations, far below the card's float32 rate.
+//
+// One launch updates a whole LIST of tensors of one weight dtype: a step
+// of a model is one launch (two where float32 and bf16 weights mix), not
+// one a parameter. A launch per tensor paid, for every tensor, the host's
+// wrapper and launch (tens of microseconds against a few for a LayerNorm
+// vector's bytes) and, on the card, a grid of its own whose last wave ran
+// part-empty. Here the table of tensors (pointers, element count, lr_t and
+// wd of each) travels in the kernel's parameter space (CUDA 12.1 allows
+// 32,764 bytes on sm_70 and later: ADAM_MAX_TENSORS entries; a longer list
+// is cut into as few launches as fit), so no copy precedes the launch. The
+// grid is persistent, about as many blocks as the SMs hold at once, and
+// walks ADAM_CHUNK-element chunks of the concatenated list: a block finds
+// the tensor of its chunk by a binary search of the per-tensor chunk
+// prefix counts, staged once into shared memory. Inside a chunk each
+// thread takes 4 neighbouring elements with one vector load per array
+// (8 B for bf16, 16 B for float32; every pointer starts on a 16-byte
+// boundary, which the C entry checks); a tensor's last n % 4 elements go
+// one at a time.
 //
 // --- LAMB -----------------------------------------------------------------
 // Replaces the TPU kernels `_lamb1_kernel` and `_lamb2_kernel` of
@@ -176,46 +194,110 @@ __device__ __forceinline__ typename Vec4<T>::type pack4(const float* f) {
   return u;
 }
 
+constexpr int ADAM_THREADS = 256;
+constexpr int ADAM_CHUNK = 4096;        // elements of one tensor a block takes
+constexpr int ADAM_MAX_TENSORS = 600;   // entries of one launch's table
+constexpr long long ADAM_MAX_CHUNKS = 1LL << 30;   // chunks of one launch
+
+// One tensor of the list: the layout of the wrapper's numpy table (48 B).
+struct AdamEntry {
+  void* w;
+  const void* g;
+  float* m;
+  float* v;
+  long long n;                          // elements
+  float lr, wd;                         // bias-corrected lr_t; weight decay
+};
+static_assert(sizeof(AdamEntry) == 48, "AdamEntry is the wrapper's table row");
+
+// The kernel's parameter: up to ADAM_MAX_TENSORS non-empty tensors of one
+// dtype, chunk_start[t] the first chunk of tensor t (chunk_start[count] the
+// total), and the scalars the list shares.
+struct AdamList {
+  AdamEntry e[ADAM_MAX_TENSORS];
+  int chunk_start[ADAM_MAX_TENSORS + 1];
+  int count;
+  float b1, omb1, b2, omb2, eps, rescale, clip, eta;   // clip <= 0: off
+  int decoupled;                                      // 1: AdamW
+};
+static_assert(sizeof(AdamList) <= 32764, "kernel parameter space");
+
 template <typename T>
-__global__ void __launch_bounds__(256)
-adam_kernel(T* __restrict__ W, const T* __restrict__ G, float* __restrict__ M,
-            float* __restrict__ V, long long n, AdamArgs a) {
-  const long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  if (i0 >= n) return;
-  if (i0 + 4 <= n) {
+__global__ void __launch_bounds__(ADAM_THREADS)
+adam_kernel(const __grid_constant__ AdamList L) {
+  __shared__ int start[ADAM_MAX_TENSORS + 1];
+  for (int i = threadIdx.x; i <= L.count; i += ADAM_THREADS)
+    start[i] = L.chunk_start[i];
+  __syncthreads();
+  const int total = start[L.count];
+  int t = 0;
+  for (int c = blockIdx.x; c < total; c += gridDim.x) {
+    // the tensor of chunk c: the last t with start[t] <= c (a block's
+    // chunks only grow, so the search starts at the previous tensor)
+    int lo = t, hi = L.count - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (start[mid] <= c) lo = mid; else hi = mid - 1;
+    }
+    t = lo;
+    const AdamEntry& e = L.e[t];
+    const AdamArgs a{e.lr, L.b1, L.omb1, L.b2, L.omb2, L.eps, e.wd,
+                     L.rescale, L.clip, L.eta, L.decoupled};
+    T* __restrict__ W = static_cast<T*>(e.w);
+    const T* __restrict__ G = static_cast<const T*>(e.g);
+    float* __restrict__ M = e.m;
+    float* __restrict__ V = e.v;
+    const long long c0 = (long long)(c - start[t]) * ADAM_CHUNK;
+    const long long c1 = c0 + ADAM_CHUNK < e.n ? c0 + ADAM_CHUNK : e.n;
+    const long long vec_end = c0 + ((c1 - c0) & ~3LL);
     using VT = typename Vec4<T>::type;
-    float w[4], g[4], wo[4];
-    unpack4<T>(*reinterpret_cast<const VT*>(W + i0), w);
-    unpack4<T>(*reinterpret_cast<const VT*>(G + i0), g);
-    float4 m4 = *reinterpret_cast<const float4*>(M + i0);
-    float4 v4 = *reinterpret_cast<const float4*>(V + i0);
-    float m[4] = {m4.x, m4.y, m4.z, m4.w};
-    float v[4] = {v4.x, v4.y, v4.z, v4.w};
+    for (long long i0 = c0 + threadIdx.x * 4; i0 < vec_end;
+         i0 += ADAM_THREADS * 4) {
+      float w[4], g[4], wo[4];
+      unpack4<T>(*reinterpret_cast<const VT*>(W + i0), w);
+      unpack4<T>(*reinterpret_cast<const VT*>(G + i0), g);
+      const float4 m4 = *reinterpret_cast<const float4*>(M + i0);
+      const float4 v4 = *reinterpret_cast<const float4*>(V + i0);
+      float m[4] = {m4.x, m4.y, m4.z, m4.w};
+      float v[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
-    for (int e = 0; e < 4; ++e) adam_elem(a, w[e], g[e], m[e], v[e], wo[e]);
-    *reinterpret_cast<VT*>(W + i0) = pack4<T>(wo);
-    *reinterpret_cast<float4*>(M + i0) = make_float4(m[0], m[1], m[2], m[3]);
-    *reinterpret_cast<float4*>(V + i0) = make_float4(v[0], v[1], v[2], v[3]);
-    return;
-  }
-  const long long end = i0 + 4 < n ? i0 + 4 : n;
-  for (long long i = i0; i < end; ++i) {
-    float m = M[i], v = V[i], wo;
-    adam_elem(a, to_f<T>(W[i]), to_f<T>(G[i]), m, v, wo);
-    W[i] = from_f<T>(wo);
-    M[i] = m;
-    V[i] = v;
+      for (int k = 0; k < 4; ++k) adam_elem(a, w[k], g[k], m[k], v[k], wo[k]);
+      *reinterpret_cast<VT*>(W + i0) = pack4<T>(wo);
+      *reinterpret_cast<float4*>(M + i0) = make_float4(m[0], m[1], m[2], m[3]);
+      *reinterpret_cast<float4*>(V + i0) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+    // the tensor's last n % 4 elements (only its last chunk has any)
+    const long long i = vec_end + threadIdx.x;
+    if (i < c1) {
+      float m = M[i], v = V[i], wo;
+      adam_elem(a, to_f<T>(W[i]), to_f<T>(G[i]), m, v, wo);
+      W[i] = from_f<T>(wo);
+      M[i] = m;
+      V[i] = v;
+    }
   }
 }
 
+// Launch the kernel over L (count >= 1) on a persistent grid: as many
+// blocks as the card holds at once, fewer when the list has fewer chunks.
 template <typename T>
-void launch_adam(void* W, const void* G, void* M, void* V, long long n,
-                 const AdamArgs& a, cudaStream_t stream) {
-  const long long threads = (n + 3) / 4;
-  const unsigned blocks = (unsigned)((threads + 255) / 256);
-  adam_kernel<T><<<blocks, 256, 0, stream>>>(
-      static_cast<T*>(W), static_cast<const T*>(G), static_cast<float*>(M),
-      static_cast<float*>(V), n, a);
+cudaError_t launch_adam(const AdamList& L, cudaStream_t stream) {
+  static int grid_cap = 0;
+  if (grid_cap == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, adam_kernel<T>, ADAM_THREADS, 0);
+    if (e != cudaSuccess) return e;
+    grid_cap = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int total = L.chunk_start[L.count];
+  adam_kernel<T><<<total < grid_cap ? total : grid_cap, ADAM_THREADS, 0,
+                   stream>>>(L);
+  return cudaGetLastError();
 }
 
 LambArgs make_args(float b1, float omb1, float b2, float omb2, float eps,
@@ -268,22 +350,71 @@ extern "C" int mx_lamb_pass2(void* W, const void* M, const void* V,
   return cudaGetLastError();
 }
 
-// W, G (n,) of dtype `dtype` (kF32 or kBF16), M, V (n,) float32, all
-// contiguous and 16-byte aligned; W, M, V are updated in place. Returns
-// the CUDA error of the launch.
-extern "C" int mx_adam_update(void* W, const void* G, void* M, void* V,
-                              long long n, int dtype, float lr,
-                              float b1, float omb1, float b2, float omb2,
-                              float eps, float wd, float rescale, float clip,
-                              float eta, int decoupled, void* stream) {
+// Adam/AdamW over a list of `count` tensors, in place. `table` holds one
+// AdamEntry per tensor (the wrapper's numpy rows), `dtypes` its weight's
+// dtype code (kF32 or kBF16; g in w's dtype, m and v float32). Every entry
+// is checked first: n >= 0, a known dtype, and w, g, m, v of a non-empty
+// tensor on a 16-byte boundary; on the first that fails, *bad is its index,
+// nothing launches and the return is cudaErrorInvalidValue. Then one launch
+// for each dtype present (more only past ADAM_MAX_TENSORS tensors, or
+// ADAM_MAX_CHUNKS chunks, of one dtype), empty tensors left out; *launched
+// counts them. Returns the CUDA
+// error of the first launch that failed, else 0.
+extern "C" int mx_adam_update_multi(const void* table, const int* dtypes,
+                                    int count, float b1, float omb1, float b2,
+                                    float omb2, float eps, float rescale,
+                                    float clip, float eta, int decoupled,
+                                    void* stream, int* launched, int* bad) {
   using namespace mxt;
-  if (n <= 0 || (dtype != kF32 && dtype != kBF16)) return cudaErrorInvalidValue;
-  const AdamArgs a{lr, b1, omb1, b2, omb2, eps, wd, rescale, clip, eta,
-                   decoupled};
+  *launched = 0;
+  *bad = -1;
+  if (count < 0) return cudaErrorInvalidValue;
+  const AdamEntry* e = static_cast<const AdamEntry*>(table);
+  for (int i = 0; i < count; ++i) {
+    const uintptr_t any = reinterpret_cast<uintptr_t>(e[i].w) |
+                          reinterpret_cast<uintptr_t>(e[i].g) |
+                          reinterpret_cast<uintptr_t>(e[i].m) |
+                          reinterpret_cast<uintptr_t>(e[i].v);
+    // n < 2^34 (no card holds such a tensor's m and v): 2^22 chunks at most
+    if (e[i].n < 0 || e[i].n >= (1LL << 34) ||
+        (dtypes[i] != kF32 && dtypes[i] != kBF16) ||
+        (e[i].n > 0 && any % 16 != 0)) {
+      *bad = i;
+      return cudaErrorInvalidValue;
+    }
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    launch_adam<float>(W, G, M, V, n, a, s);
-  else
-    launch_adam<__nv_bfloat16>(W, G, M, V, n, a, s);
-  return cudaGetLastError();
+  AdamList L;
+  L.b1 = b1; L.omb1 = omb1; L.b2 = b2; L.omb2 = omb2; L.eps = eps;
+  L.rescale = rescale; L.clip = clip; L.eta = eta; L.decoupled = decoupled;
+  L.count = 0;
+  long long chunks = 0;
+  auto flush = [&](int dt) {
+    L.chunk_start[L.count] = (int)chunks;
+    const cudaError_t err = dt == kF32 ? launch_adam<float>(L, s)
+                                       : launch_adam<__nv_bfloat16>(L, s);
+    if (err == cudaSuccess) ++*launched;
+    L.count = 0;
+    chunks = 0;
+    return err;
+  };
+  for (const int dt : {int(kF32), int(kBF16)}) {
+    for (int i = 0; i < count; ++i) {
+      if (dtypes[i] != dt || e[i].n == 0) continue;
+      const long long k = (e[i].n + ADAM_CHUNK - 1) / ADAM_CHUNK;
+      // a launch's chunk ids (and a block's next one) stay ints
+      if (L.count == ADAM_MAX_TENSORS || chunks + k > ADAM_MAX_CHUNKS) {
+        const cudaError_t err = flush(dt);
+        if (err != cudaSuccess) return err;
+      }
+      L.e[L.count] = e[i];
+      L.chunk_start[L.count++] = (int)chunks;
+      chunks += k;
+    }
+    if (L.count > 0) {
+      const cudaError_t err = flush(dt);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
 }

@@ -1,17 +1,21 @@
 """Fused optimizer updates (counterpart of
-`mxnet_tpu/pallas_ops/fused_update.py`): the per-parameter Adam/AdamW
+`mxnet_tpu/pallas_ops/fused_update.py`): the multi-tensor Adam/AdamW
 update and the two fused-LAMB passes over the flat float32 master.
 
-`adam_update(w, g, m, v, lr, ...)` updates one parameter w (float32 or
-bfloat16, g in w's dtype) and its float32 moments m, v in place, where
-the JAX package aliased them to the kernel's outputs. For CUDA tensors it
-launches the kernel of `csrc/fused_update.cu`; for CPU tensors it runs
-the plain version, `adam_update_reference`, which is
-`mxnet_tpu/ops/optimizer_ops.py`'s `adam_update` / `adamw_update`
-verbatim (MXNet's Adam, not `torch.optim`'s: weight decay folds into the
-gradient after rescale and clip, AdamW's step is eta·(lr_t·m/(√v+ε) +
-wd·w) with wd not scaled by lr, ε outside the root, bias correction
-folded into lr_t by the caller) and copies its result back.
+`adam_update_multi(ws, gs, ms, vs, lrs, wds, ...)` (after upstream
+MXNet's `multi_adamw_update`) updates a list of parameters w (float32 or
+bfloat16, g in w's dtype) and their float32 moments m, v in place, where
+the JAX package aliased them to its kernel's outputs; each tensor has its
+own bias-corrected lr_t and weight decay. For a CUDA list it makes one
+launch of the kernel of `csrc/fused_update.cu` for each weight dtype in
+the list; for a CPU list it runs the plain version per tensor,
+`adam_update_reference`, which is `mxnet_tpu/ops/optimizer_ops.py`'s
+`adam_update` / `adamw_update` verbatim (MXNet's Adam, not
+`torch.optim`'s: weight decay folds into the gradient after rescale and
+clip, AdamW's step is eta·(lr_t·m/(√v+ε) + wd·w) with wd not scaled by
+lr, ε outside the root, bias correction folded into lr_t by the caller)
+and copies its result back. `adam_update(w, g, m, v, lr, ...)` is the
+one-parameter form: a list of one.
 
 For LAMB, W, G, m, v are (R, 512) float32 row views of `FusedLamb`'s flat vectors;
 wd_rows and trust_rows are (R,) float32. For CUDA tensors `lamb_pass1`
@@ -28,13 +32,14 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
 
-__all__ = ["adam_update", "adam_update_reference", "lamb_pass1",
-           "lamb_pass2", "lamb_pass1_reference", "lamb_pass2_reference",
-           "LANES"]
+__all__ = ["adam_update", "adam_update_multi", "adam_update_reference",
+           "lamb_pass1", "lamb_pass2", "lamb_pass1_reference",
+           "lamb_pass2_reference", "LANES"]
 
 LANES = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -103,8 +108,7 @@ def _entry(name):
         fn.argtypes = {
             "mx_lamb_pass1": [p] * 7 + [i] + [f] * 9 + [i, p],
             "mx_lamb_pass2": [p] * 5 + [i] + [f] * 3 + [i, f, p],
-            "mx_adam_update": [p] * 4 + [ctypes.c_longlong, i] + [f] * 10
-            + [i, p],
+            "mx_adam_update_multi": [p, p, i] + [f] * 8 + [i, p, p, p],
         }[name]
         _fns[name] = fn
     return fn
@@ -135,52 +139,106 @@ def _device(W, what):
     return W.device.type
 
 
+# one row of the kernel's table (`AdamEntry` in csrc/fused_update.cu)
+_ADAM_ENTRY = np.dtype([("w", "<u8"), ("g", "<u8"), ("m", "<u8"),
+                        ("v", "<u8"), ("n", "<i8"), ("lr", "<f4"),
+                        ("wd", "<f4")])
+
+
+def _adam_refusal(w, g, m, v):
+    """Why an entry of a CUDA list is refused (the checks' slow path)."""
+    if w.dtype not in _DTYPE_CODE or g.dtype != w.dtype:
+        return (f"w {w.dtype}, g {g.dtype}; expected float32 or bfloat16 "
+                "and g in w's dtype")
+    if m.dtype != torch.float32 or v.dtype != torch.float32:
+        return f"moments {m.dtype}/{v.dtype}, expected float32"
+    for name, x in (("g", g), ("m", m), ("v", v)):
+        if x.shape != w.shape:
+            return f"{name} is {tuple(x.shape)}, w {tuple(w.shape)}"
+    if not all(x.is_contiguous() for x in (w, g, m, v)):
+        return "w, g, m and v must be contiguous"
+    return (f"w, g, m, v on {w.device}, {g.device}, {m.device}, {v.device}: "
+            "one list runs on one device")
+
+
+def adam_update_multi(ws, gs, ms, vs, lrs, wds, *, beta1=0.9, beta2=0.999,
+                      epsilon=1e-8, rescale_grad=1.0, clip_gradient=-1.0,
+                      decoupled_wd=False, eta=1.0):
+    """One Adam/AdamW step of every parameter of a list, in place: ws[i]
+    (float32 or bfloat16), gs[i] (its dtype and shape), ms[i], vs[i]
+    (float32, its shape), all contiguous and on one device; lrs[i] is
+    its bias-corrected host float lr_t and wds[i] its weight decay. A
+    CUDA list launches the kernel once for each weight dtype in it (the
+    C entry refuses, naming it, an entry whose arrays are not on a
+    16-byte boundary, as a fresh allocation is); a CPU list runs the
+    plain version tensor by tensor."""
+    n = len(ws)
+    if not len(gs) == len(ms) == len(vs) == len(lrs) == len(wds) == n:
+        raise ValueError(
+            f"adam_update_multi: {n} weights, {len(gs)} gradients, "
+            f"{len(ms)}/{len(vs)} moments, {len(lrs)} lrs, {len(wds)} wds")
+    if n == 0:
+        return
+    kw = dict(beta1=beta1, beta2=beta2, epsilon=epsilon,
+              rescale_grad=rescale_grad, clip_gradient=clip_gradient,
+              decoupled_wd=decoupled_wd, eta=eta)
+    if _device(ws[0], "adam_update_multi") == "cpu":
+        for i, (w, g, m, v) in enumerate(zip(ws, gs, ms, vs)):
+            if any(x.device.type != "cpu" for x in (w, g, m, v)):
+                raise ValueError(
+                    f"adam_update_multi: entry {i} has w, g, m, v on "
+                    f"{w.device}, {g.device}, {m.device}, {v.device}; the "
+                    "list's first weight is on the CPU")
+            for dst, src in zip((w, m, v), adam_update_reference(
+                    w, g, m, v, lrs[i], wd=wds[i], **kw)):
+                dst.copy_(src)
+        return
+    # every check in one pass; the message is built only for a refusal
+    f32, rows, dtypes = torch.float32, [], []
+    dev = ws[0].get_device()
+    for i, (w, g, m, v) in enumerate(zip(ws, gs, ms, vs)):
+        shape, code = w.shape, _DTYPE_CODE.get(w.dtype)
+        if (code is None or g.dtype != w.dtype or m.dtype != f32
+                or v.dtype != f32 or g.shape != shape or m.shape != shape
+                or v.shape != shape or w.get_device() != dev
+                or g.get_device() != dev or m.get_device() != dev
+                or v.get_device() != dev or not w.is_contiguous()
+                or not g.is_contiguous() or not m.is_contiguous()
+                or not v.is_contiguous()):
+            raise ValueError(f"adam_update_multi: entry {i}: "
+                             + _adam_refusal(w, g, m, v))
+        rows.append((w.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+                     w.numel(), lrs[i], wds[i]))
+        dtypes.append(code)
+    table = np.array(rows, dtype=_ADAM_ENTRY)
+    dtypes = np.array(dtypes, np.int32)
+    clip = float(clip_gradient) if clip_gradient and clip_gradient > 0 \
+        else 0.0
+    launched, bad = ctypes.c_int(0), ctypes.c_int(-1)
+    err = _entry("mx_adam_update_multi")(
+        table.ctypes.data, dtypes.ctypes.data, n, beta1, 1.0 - beta1, beta2,
+        1.0 - beta2, epsilon, rescale_grad, clip, eta,
+        int(bool(decoupled_wd)),
+        torch.cuda.current_stream(ws[0].device).cuda_stream,
+        ctypes.byref(launched), ctypes.byref(bad))
+    global launches_adam
+    launches_adam += launched.value
+    if bad.value >= 0:
+        raise ValueError(
+            f"adam_update_multi: entry {bad.value}: w, g, m and v must start "
+            "on a 16-byte boundary (a fresh allocation does)")
+    _build.check(err, "adam_update_multi")
+
+
 def adam_update(w, g, m, v, lr, beta1=0.9, beta2=0.999, epsilon=1e-8,
                 wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
                 decoupled_wd=False, eta=1.0):
-    """One Adam/AdamW step of one parameter, in place: w (float32 or
-    bfloat16), g (w's dtype and shape), m, v (float32, w's shape), all
-    contiguous, 16-byte aligned and on one device; lr is the
-    bias-corrected host float lr_t.
-    Returns (w, m, v)."""
-    kw = dict(beta1=beta1, beta2=beta2, epsilon=epsilon, wd=wd,
-              rescale_grad=rescale_grad, clip_gradient=clip_gradient,
-              decoupled_wd=decoupled_wd, eta=eta)
-    if _device(w, "adam_update") == "cpu":
-        for dst, src in zip((w, m, v),
-                            adam_update_reference(w, g, m, v, lr, **kw)):
-            dst.copy_(src)
-        return w, m, v
-    if w.dtype not in _DTYPE_CODE or g.dtype != w.dtype:
-        raise ValueError(f"adam_update: w {w.dtype}, g {g.dtype}; expected "
-                         "float32 or bfloat16 and g in w's dtype")
-    for name, x in (("g", g), ("m", m), ("v", v)):
-        if x.shape != w.shape or x.device != w.device:
-            raise ValueError(f"adam_update: {name} is {tuple(x.shape)} on "
-                             f"{x.device}, w {tuple(w.shape)} on {w.device}")
-    if m.dtype != torch.float32 or v.dtype != torch.float32:
-        raise ValueError(f"adam_update: moments {m.dtype}/{v.dtype}, "
-                         "expected float32")
-    if not all(x.is_contiguous() for x in (w, g, m, v)):
-        raise ValueError("adam_update: w, g, m and v must be contiguous")
-    n = w.numel()
-    if n == 0:
-        return w, m, v
-    # the kernel loads 4 elements of each array at once
-    if any(x.data_ptr() % 16 for x in (w, g, m, v)):
-        raise ValueError("adam_update: w, g, m and v must start on a "
-                         "16-byte boundary (a fresh allocation does)")
-    clip = float(clip_gradient) if clip_gradient and clip_gradient > 0 \
-        else 0.0
-    err = _entry("mx_adam_update")(
-        w.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), n,
-        _DTYPE_CODE[w.dtype], lr, beta1, 1.0 - beta1, beta2,
-        1.0 - beta2, epsilon, wd, rescale_grad, clip, eta,
-        int(bool(decoupled_wd)),
-        torch.cuda.current_stream(w.device).cuda_stream)
-    _build.check(err, "adam_update")
-    global launches_adam
-    launches_adam += 1
+    """One Adam/AdamW step of one parameter, in place: `adam_update_multi`
+    over a list of one. Returns (w, m, v)."""
+    adam_update_multi([w], [g], [m], [v], [lr], [wd], beta1=beta1,
+                      beta2=beta2, epsilon=epsilon, rescale_grad=rescale_grad,
+                      clip_gradient=clip_gradient, decoupled_wd=decoupled_wd,
+                      eta=eta)
     return w, m, v
 
 

@@ -7,9 +7,12 @@
     trainer.step(batch_size)
 
 `step(batch_size)` sets the optimizer's `rescale_grad` to 1/batch_size
-and runs `optimizer.update(i, param, param.grad, state)` for every
-trainable parameter (grad_req not 'null'), in place, under
-`torch.no_grad()`; the optimizer's state is created at the first step.
+and updates every trainable parameter (grad_req not 'null'), in place,
+under `torch.no_grad()`: with one `optimizer.update_multi(indices,
+params, grads, states)` call where the optimizer has it (Adam, AdamW:
+one kernel launch for each weight dtype), else
+`optimizer.update(i, param, param.grad, state)` per parameter; the
+optimizer's state is created at the first step.
 A parameter that no backward has reached updates with a zero gradient,
 as the JAX package's zero-initialised gradient buffers do. One device:
 there is no kvstore to reduce through, so `kvstore` and
@@ -84,8 +87,13 @@ class Trainer:
             self._create_states()
         opt = self._optimizer
         with torch.no_grad():
-            for i, p in enumerate(self._params):
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in self._params]
+            if hasattr(opt, "update_multi"):
+                opt.update_multi(range(len(self._params)), self._params,
+                                 grads, self._states)
+                return
+            for i, (p, g) in enumerate(zip(self._params, grads)):
                 opt.update(i, p, g, self._states[i])
 
     def zero_grad(self):

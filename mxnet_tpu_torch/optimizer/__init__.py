@@ -11,8 +11,11 @@ or by name).
 `create_state(index, weight)` and `update(index, weight, grad, state)`
 are the eager path (`gluon.Trainer`): the update runs in place on the
 parameter and its state, under `torch.no_grad()` (the Trainer's). Adam
-and AdamW launch `cuda_ops.fused_update.adam_update` on a CUDA tensor
-and run its plain version on a CPU tensor; SGD (with momentum and
+and AdamW also have `update_multi(indices, weights, grads, states)`,
+which `gluon.Trainer` calls once a step: one
+`cuda_ops.fused_update.adam_update_multi` call over the list (one kernel
+launch for each weight dtype on the card, its plain version per tensor
+on the CPU); `update` is `update_multi` of one index. SGD (with momentum and
 `multi_precision`) and NAG are `mxnet_tpu/ops/optimizer_ops.py`'s
 updates in plain torch: the gradient in float32, rescaled, clipped and
 with wd · w added; the state float32; the weight rounded back to its
@@ -226,18 +229,29 @@ class Adam(Optimizer):
         return (_zeros32(weight), _zeros32(weight))
 
     def update(self, index, weight, grad, state):
-        self._update_count(index)
-        t = self._index_update_count[index]
-        lr, wd = self._get_lr(index), self._get_wd(index)
-        lr *= math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
-        mean, var = state
-        if weight.is_cuda and (not grad.is_contiguous()
-                               or grad.data_ptr() % 16):
+        self.update_multi([index], [weight], [grad], [state])
+
+    def update_multi(self, indices, weights, grads, states):
+        """One step of the parameters `indices`, in place, in one
+        `adam_update_multi` call. Each index's update count, lr and wd
+        are read in order, as `update` per index would read them."""
+        lrs, wds = [], []
+        for index in indices:
+            self._update_count(index)
+            t = self._index_update_count[index]
+            lr, wd = self._get_lr(index), self._get_wd(index)
+            lrs.append(lr * math.sqrt(1.0 - self.beta2 ** t)
+                       / (1.0 - self.beta1 ** t))
+            wds.append(wd)
+        grads = [
             # the kernel reads 16-byte vectors of a contiguous gradient
-            grad = grad.clone(memory_format=torch.contiguous_format)
-        fused_update.adam_update(
-            weight, grad, mean, var, lr, beta1=self.beta1, beta2=self.beta2,
-            epsilon=self.epsilon, wd=wd, rescale_grad=self.rescale_grad,
+            g.clone(memory_format=torch.contiguous_format)
+            if w.is_cuda and (not g.is_contiguous() or g.data_ptr() % 16)
+            else g for w, g in zip(weights, grads)]
+        fused_update.adam_update_multi(
+            weights, grads, [s[0] for s in states], [s[1] for s in states],
+            lrs, wds, beta1=self.beta1, beta2=self.beta2,
+            epsilon=self.epsilon, rescale_grad=self.rescale_grad,
             clip_gradient=self._clip(), decoupled_wd=self._decoupled)
 
 

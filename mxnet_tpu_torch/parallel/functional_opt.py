@@ -4,8 +4,9 @@ state and update, the per-parameter weight decay of LAMB and the
 learning rate at a step (the optimizer's lr scheduler at the step
 count, when it has one).
 
-LAMB runs through `FusedLamb` in the trainer; Adam and AdamW update each
-parameter with `cuda_ops.fused_update.adam_update`, in place. SGD and
+LAMB runs through `FusedLamb` in the trainer; Adam and AdamW update every
+parameter with one `cuda_ops.fused_update.adam_update_multi` call (one
+kernel launch for each weight dtype), in place. SGD and
 NAG are `mxnet_tpu/ops/optimizer_ops.py`'s `sgd_update`,
 `sgd_mom_update` and `nag_mom_update` in plain torch (multi-tensor
 `torch._foreach_*` ops; no TPU kernel computes them), in place: the
@@ -68,11 +69,12 @@ class FunctionalOptimizer:
         clip = o.clip_gradient if o.clip_gradient else -1.0
         # bias-corrected lr (matches the stateful Adam.update)
         lr_t = lr * math.sqrt(1 - o.beta2 ** t) / (1 - o.beta1 ** t)
-        for p, g, (m, v) in zip(params, grads, states):
-            fused_update.adam_update(
-                p, g.contiguous(), m, v, lr_t, beta1=o.beta1, beta2=o.beta2,
-                epsilon=o.epsilon, wd=o.wd, rescale_grad=o.rescale_grad,
-                clip_gradient=clip, decoupled_wd=self.kind == "adamw")
+        n = len(params)
+        fused_update.adam_update_multi(
+            params, [g.contiguous() for g in grads], [s[0] for s in states],
+            [s[1] for s in states], [lr_t] * n, [o.wd] * n, beta1=o.beta1,
+            beta2=o.beta2, epsilon=o.epsilon, rescale_grad=o.rescale_grad,
+            clip_gradient=clip, decoupled_wd=self.kind == "adamw")
         return params, states
 
     def _apply_sgd(self, params, grads, states, lr):

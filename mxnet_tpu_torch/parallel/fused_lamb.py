@@ -9,10 +9,15 @@ cast to the model dtype whose backward scatters each gradient into one
 flat float32 vector, so the optimizer receives the gradient already flat.
 `apply_flat` is two passes over the (rows, 512) view
 (`cuda_ops.fused_update`: hand-written kernels on the card, plain torch
-on the CPU); between them, the per-segment norms are a segment
-scatter-add of the per-row sums of squares (never a cumsum difference:
-float32 cancellation on ~1e8-sized prefixes loses small segments) and
-the trust ratio.
+on the CPU); between them, the per-segment norms and the trust ratio.
+A segment's norm sums its per-row sums of squares in a fixed order: the
+rows gathered into chunks of `_SEG_ROWS` rows of one segment (zeros
+padding a chunk) and each chunk summed, then each segment's chunk sums
+gathered and summed the same way. Never a scatter-add (`index_add_` adds
+with float atomics on the card, in another order every run, so two runs
+of one step gave other trust ratios in their last bits) and never a
+cumsum difference (float32 cancellation on ~1e8-sized prefixes loses
+small segments, and a zero segment need not come out exactly 0).
 """
 from __future__ import annotations
 
@@ -24,6 +29,17 @@ from ..cuda_ops import fused_update as _fu
 __all__ = ["FusedLamb"]
 
 _CHUNK = _fu.LANES
+_SEG_ROWS = 256          # rows (then chunks) summed together in a segment
+
+
+def _gather_table(lengths, width, pad):
+    """(len(lengths), width) int64 indices: row i lists the consecutive
+    ids lengths[:i].sum() ... + lengths[i] - 1, then `pad`."""
+    starts = np.cumsum([0] + list(lengths[:-1]))
+    table = np.full((len(lengths), width), pad, np.int64)
+    for i, (a, n) in enumerate(zip(starts, lengths)):
+        table[i, :n] = np.arange(a, a + n)
+    return table
 
 
 class _Unflatten(torch.autograd.Function):
@@ -75,18 +91,44 @@ class FusedLamb:
         for i, (off, pad) in enumerate(zip(self.offsets[:-1], padded)):
             row_seg[off // _CHUNK: (off + pad) // _CHUNK] = i
         self.row_seg = torch.from_numpy(row_seg)
+        # the segment sum's two gathers: each segment's rows in chunks of
+        # _SEG_ROWS (row id n_rows is a zero), then each segment's chunks
+        # (chunk id n_chunks is a zero)
+        seg_rows = [p // _CHUNK for p in padded]
+        chunk_rows, seg_chunks = [], []
+        for r in seg_rows:
+            k = max(1, -(-r // _SEG_ROWS))
+            chunk_rows += [min(_SEG_ROWS, r - j * _SEG_ROWS)
+                           for j in range(k)]
+            seg_chunks.append(k)
+        self._seg_tables = (
+            torch.from_numpy(_gather_table(chunk_rows, _SEG_ROWS,
+                                           self.n_rows)),
+            torch.from_numpy(_gather_table(seg_chunks, max(seg_chunks,
+                                                           default=1),
+                                           len(chunk_rows))))
         self.wd_seg = torch.tensor(np.asarray(wds, np.float32))
         self._layout = [(off, n, s, dt) for off, n, s, dt in zip(
             self.offsets[:-1], sizes, self.shapes, self.dtypes)]
         self._on = {}
 
     def _rows(self, device):
-        """(row_seg, wd_rows) on `device`, cached."""
+        """(row_seg, wd_rows, the segment sum's gather tables) on
+        `device`, cached."""
         key = str(device)
         if key not in self._on:
             row_seg = self.row_seg.to(device)
-            self._on[key] = (row_seg, self.wd_seg.to(device)[row_seg])
+            self._on[key] = (row_seg, self.wd_seg.to(device)[row_seg],
+                             tuple(t.to(device) for t in self._seg_tables))
         return self._on[key]
+
+    @staticmethod
+    def _segment_sum(rows, tables):
+        """Per-segment sums of the (R,) per-row values, in a fixed order:
+        chunk sums of each segment's rows, then sums of its chunks."""
+        for table in tables:
+            rows = torch.cat([rows, rows.new_zeros(1)])[table].sum(1)
+        return rows
 
     # -- flat <-> per-param ---------------------------------------------
     def flatten(self, arrs):
@@ -125,19 +167,14 @@ class FusedLamb:
         M, V = m.view(R, C), v.view(R, C)
         c1 = (1 - self.b1 ** t) if self.bias_correction else 1.0
         c2 = (1 - self.b2 ** t) if self.bias_correction else 1.0
-        row_seg, wd_rows = self._rows(w.device)
+        row_seg, wd_rows, tables = self._rows(w.device)
         rw, ru = _fu.lamb_pass1(
             W, G, M, V, wd_rows, c1, c2, beta1=self.b1, beta2=self.b2,
             epsilon=self.eps, rescale_grad=self.rescale,
             clip_gradient=self.clip, bias_correction=self.bias_correction)
 
-        def seg_norm(rows_sq):
-            # segment scatter-add, NOT a cumsum difference (see module doc)
-            return torch.zeros(len(self.sizes), dtype=torch.float32,
-                               device=w.device).index_add_(
-                0, row_seg, rows_sq).sqrt()
-
-        r1, r2 = seg_norm(rw), seg_norm(ru)
+        r1 = self._segment_sum(rw, tables).sqrt()
+        r2 = self._segment_sum(ru, tables).sqrt()
         # zero norms become 1 BEFORE the ratio (lamb_update_phase2), so a
         # zero-init parameter gets trust = 1/||u||
         r1 = torch.where(r1 > 0, r1, 1.0)

@@ -54,6 +54,34 @@ def _mults(params):
 
 @pytest.mark.parametrize("kind", sorted(_OPTS))
 def test_trainer_steps_match_jax(kind):
+    _train_both(kind)
+
+
+@pytest.mark.parametrize("kind", ["adam", "adamw"])
+def test_adam_trainer_updates_the_list_once_a_step(kind, monkeypatch):
+    """`Trainer.step` with Adam/AdamW makes one `update_multi` call a step
+    over every trainable parameter (one kernel launch a weight dtype on
+    the card), never `update` per index, and still trains as the JAX
+    package's per-index updates do (the lr_mult/wd_mult case, 2e-6)."""
+    calls = []
+    multi = optt.Adam.update_multi
+
+    def counted(self, indices, weights, grads, states):
+        calls.append(list(indices))
+        return multi(self, indices, weights, grads, states)
+
+    def per_index(*args):
+        raise AssertionError("Adam.update called per index")
+
+    monkeypatch.setattr(optt.Adam, "update_multi", counted)
+    monkeypatch.setattr(optt.Adam, "update", per_index)
+    _train_both(kind)
+    assert calls == [[0, 1, 2, 3]] * 3
+
+
+def _train_both(kind):
+    """Three steps of the MXNet loop in both packages; losses and
+    parameters within 2e-6."""
     jnet = _net(gj)
     jnet.initialize()
     arrays = {k: np.asarray(p.data()._data)

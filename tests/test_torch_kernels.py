@@ -514,6 +514,156 @@ def test_adam_is_not_torch_adamw():
     torch.testing.assert_close(w, torch.full((4,), 0.9))
 
 
+# sizes a list kernel gets wrong first: one element, the n % 4 tails, an
+# empty tensor, a 2-D weight and one past a 4,096-element boundary
+_ADAM_LIST = [((1,), "float32"), ((3,), "bfloat16"), ((4,), "float32"),
+              ((5,), "bfloat16"), ((0,), "float32"), ((7, 13), "float32"),
+              ((4097,), "bfloat16"), ((0,), "bfloat16"),
+              ((2, 1024), "float32")]
+
+
+def _adam_list(seed=0):
+    """(jax tensors, torch tensors, lrs, wds) of `_ADAM_LIST`: every
+    tensor its own lr_t and weight decay."""
+    jl, tl = [], []
+    for i, (shape, dtype) in enumerate(_ADAM_LIST):
+        j, t = _adam_state(shape, dtype, seed + i)
+        jl.append(j)
+        tl.append(t)
+    lrs = [1e-2 * (1 + i / 5) for i in range(len(_ADAM_LIST))]
+    wds = [0.01 * i for i in range(len(_ADAM_LIST))]
+    return jl, tl, lrs, wds
+
+
+_ADAM_MULTI_KW = [dict(decoupled_wd=False, clip_gradient=-1.0),
+                  dict(decoupled_wd=False, clip_gradient=1.0),
+                  dict(decoupled_wd=True, clip_gradient=-1.0),
+                  dict(decoupled_wd=True, clip_gradient=1.0)]
+
+
+@pytest.mark.parametrize("kw", _ADAM_MULTI_KW,
+                         ids=["adam", "adam_clip", "adamw", "adamw_clip"])
+def test_adam_multi_is_the_plain_version_per_tensor(kw):
+    """`adam_update_multi` on a CPU list, in place, equals
+    `adam_update_reference` tensor by tensor, bit for bit: float32 and
+    bf16 weights in one list, sizes 0, 1, 3, 4, 5 and 4,097, per-tensor
+    lr and wd; no kernel launches."""
+    _, tl, lrs, wds = _adam_list()
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, rescale_grad=0.5, **kw)
+    ref = [fu_t.adam_update_reference(w, g, m, v, lr, wd=wd, **kw)
+           for (w, g, m, v), lr, wd in zip(tl, lrs, wds)]
+    n0 = fu_t.launches_adam
+    ws, gs, ms, vs = (list(x) for x in zip(*tl))
+    fu_t.adam_update_multi(ws, gs, ms, vs, lrs, wds, **kw)
+    assert fu_t.launches_adam == n0
+    for (w, _, m, v), (rw, rm, rv) in zip(tl, ref):
+        assert w.dtype == rw.dtype and m.dtype == torch.float32
+        for a, b in ((w, rw), (m, rm), (v, rv)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kw", _ADAM_MULTI_KW,
+                         ids=["adam", "adam_clip", "adamw", "adamw_clip"])
+def test_adam_multi_is_the_jax_reference(kw):
+    """The same list against the JAX package's `adam_update_reference`
+    (its registered optimizer ops) per tensor, as
+    `test_adam_plain_is_the_jax_reference` holds one tensor: float32
+    rtol 2e-6 / atol 2e-7, a bf16 weight within one bf16 ulp."""
+    jl, tl, lrs, wds = _adam_list(seed=11)
+    kw = dict(beta1=0.8, beta2=0.99, epsilon=1e-6, rescale_grad=0.5, eta=0.5,
+              **kw)
+    # the JAX side first: its arrays may share the numpy buffers that the
+    # in-place update writes
+    ref = [[np.asarray(x) for x in fu_j.adam_update_reference(
+        jw, jg, jm, jv, lr, kw["beta1"], kw["beta2"], kw["epsilon"], wd,
+        kw["rescale_grad"], kw["clip_gradient"],
+        decoupled_wd=kw["decoupled_wd"], eta=kw["eta"])]
+        for (jw, jg, jm, jv), lr, wd in zip(jl, lrs, wds)]
+    ws, gs, ms, vs = (list(x) for x in zip(*tl))
+    fu_t.adam_update_multi(ws, gs, ms, vs, lrs, wds, **kw)
+    for (shape, dtype), (rw, rm, rv), (tw, _, tm, tv) in zip(
+            _ADAM_LIST, ref, tl):
+        _ulp_close(tw.float().numpy(), rw, dtype, f"w {shape} {dtype}")
+        for name, a, b in (("m", tm, rm), ("v", tv, rv)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-6,
+                                       atol=2e-7, err_msg=f"{name} {shape}")
+
+
+def test_adam_multi_refuses_mixed_lists():
+    """A list runs on one device, and its six lists have one length."""
+    w = [torch.zeros(4), torch.zeros(4, device="meta")]
+    with pytest.raises(ValueError, match="entry 1"):
+        fu_t.adam_update_multi(w, w, w, w, [1e-3] * 2, [0.0] * 2)
+    with pytest.raises(ValueError, match="2 weights, 2 gradients"):
+        fu_t.adam_update_multi(w, w, w, w, [1e-3], [0.0] * 2)
+    fu_t.adam_update_multi([], [], [], [], [], [])
+
+
+# -- LAMB's conditioning on the tiny BERT (why no device holds one element) --
+
+def _tiny_bert_lamb_step(monkeypatch, perturb):
+    """One CPU LAMB step (lr 1e-3, wd 0.01, ε 1e-6) of the tiny BERT and
+    batch of `tests/test_torch_cuda.py::
+    test_tiny_bert_training_on_card_matches_cpu`, with `perturb` added to
+    the gradient of `bert.embed_ln.gamma[11]` where `lamb_pass1` receives
+    it. Returns (master after the step, its flat gradient, the element's
+    flat index, the slice of the gamma's segment)."""
+    from mxnet_tpu_torch import parallel, random as mxrandom
+    from mxnet_tpu_torch.models import bert
+    cfg = bert.bert_tiny_config()
+    b = bert.make_synthetic_batch(cfg, 4, 64, 6)
+    b["valid_length"][1] = 40
+    m = bert.BERTForPretraining(cfg, device="cpu")
+    m.initialize(generator=mxrandom.seed(0, "cpu"))
+    tr = parallel.ShardedTrainer(m, bert.bert_pretrain_loss, "lamb",
+                                 {"learning_rate": 1e-3, "wd": 0.01},
+                                 device="cpu")
+    k = tr._names.index("bert.embed_ln.gamma")
+    seg = slice(tr._fl.offsets[k], tr._fl.offsets[k] + tr._fl.sizes[k])
+    idx = seg.start + 11
+    grads, pass1 = [], fu_t.lamb_pass1
+
+    def perturbed(W, G, *a, **kw):
+        G.view(-1)[idx] += perturb
+        grads.append(G.reshape(-1).clone())
+        return pass1(W, G, *a, **kw)
+
+    monkeypatch.setattr(fu_t, "lamb_pass1", perturbed)
+    tr.step([b[k] for k in ("input_ids", "token_types", "valid_length",
+                            "masked_positions")],
+            [b[k] for k in ("mlm_labels", "mlm_weights", "nsp_labels")])
+    return tr.params.detach().clone(), grads[0], idx, seg
+
+
+def test_lamb_step_is_ill_conditioned_at_a_near_zero_gradient(monkeypatch):
+    """Fault 8's mechanism, on the CPU alone: at step 1 LAMB's update of an
+    element is u = m̂/(√v̂ + ε) = g/(|g| + ε), so du/dg = ε/(|g| + ε)², at
+    least 1/(4ε) where |g| <= ε. `embed_ln.gamma[11]` of the tiny BERT has
+    g = 2.27e-7 there (ε = 1e-6): du/dg ≈ 6.6e5, and with lr 1e-3 and a
+    trust ratio near 1 a gradient change of 1.5e-7, the size of a
+    card-vs-CPU difference in a near-cancelling float32 sum, moves the
+    weight by ~1e-4, the card test's whole tolerance. The other 63
+    elements of the segment (|g| ~ 3e-2) move by less than 1e-6, and no
+    other segment moves at all. So no implementation could hold that one
+    element to 1e-4 against another's."""
+    w0, g0, idx, seg = _tiny_bert_lamb_step(monkeypatch, 0.0)
+    w1, g1, _, _ = _tiny_bert_lamb_step(monkeypatch, -1.5e-7)
+    eps = 1e-6
+    assert 0 < abs(float(g0[idx])) < eps
+    assert eps / (abs(float(g0[idx])) + eps) ** 2 >= 1 / (4 * eps)
+    assert float((g1 - g0).abs().max()) == pytest.approx(1.5e-7, rel=1e-3)
+    d = (w1 - w0).abs()
+    assert float(d[idx]) > 1e-4
+    others = torch.cat([d[seg.start:idx], d[idx + 1:seg.stop]])
+    assert float(others.max()) < 1e-6
+    assert float(others.max()) > 0            # through the trust ratio
+    assert float(d[:seg.start].max()) == float(d[seg.stop:].max()) == 0.0
+    # a well-conditioned element given the same nudge barely moves
+    far = seg.start + int(torch.argmax(g0[seg].abs()))
+    assert abs(float(g0[far])) > 1e4 * eps
+    assert eps / (abs(float(g0[far])) + eps) ** 2 * 1.5e-7 * 1e-3 < 1e-6
+
+
 # -- int8 matmul -------------------------------------------------------------
 
 def _int8_case(M=5, K=96, O=200, lead=(), seed=0):
