@@ -131,6 +131,30 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      (channels (8, 16)) 3 eager Adam steps on the card and on the CPU:
      losses within 1e-5 relative, parameters and running statistics
      within TOL_TRAIN, detections' class ids and suppressed rows equal.
+ 23. trains DeepAR at the JAX model's defaults (GluonTS DeepAREstimator's:
+     40 cells, 2 layers, dropout 0.1, Gaussian output, context 24,
+     horizon 12; float32, seed 0) through the example's eager loop
+     (`autograd.record()`, `model.loss`, `backward()`,
+     `gluon.Trainer("adam", {lr 5e-3}).step(1)`) on the example's
+     synthetic seasonal series at batch 32: 2 warm-up + 40 timed steps,
+     one profiled; exactly one Adam launch per weight dtype a step; the
+     NLL falls; then `sample_paths` draws 100 paths over the 32 series
+     (timed, profiled; no repo kernel) and the CRPS against the held-out
+     12 points is finite; then a NegativeBinomialOutput model takes one
+     step and one sampling: non-negative integer samples;
+ 24. trains CRNN at the JAX model's defaults (`CRNN(num_classes=6,
+     img_height=8)`, float32) as examples/ocr/train_crnn.py does,
+     through `parallel.ShardedTrainer(model, loss_fn, "adam", {lr
+     3e-3})` with the example's `loss_fn` (`nd.ctc_loss(...).mean()`):
+     400 steps at batch 32 on `make_glyph_batch(32, seed=step)`, exactly
+     one Adam launch per weight dtype a step, held-out exact-match of
+     128 greedy CTC decodes >= 0.90 (the JAX package's gate), one step
+     profiled;
+ 25. trains a float32 DeepAR (16 cells, 2 layers, dropout 0) and a
+     float32 CRNN (channels (8, 16), hidden 16) 3 Adam steps on the card
+     and on the CPU: losses and parameters within TOL_TRAIN, CRNN
+     decodes equal; the same card runs with TF32 allowed, and a second
+     card run, are reported beside them.
 
 Phase 1 also holds the training kernels against their plain versions at
 the training shapes: the flash forward with dropout 0.1 (its keep mask
@@ -2866,8 +2890,11 @@ def build_switch_lm(V, D, F, E, dtype="float32", seed=0, device=None,
 
 
 def switch_lm_loss(logits, aux, labels):
-    """Mean token cross entropy (float32 log-softmax) + 0.01 x aux."""
+    """Mean token cross entropy (float32 log-softmax) + 0.01 x aux, on
+    tensors or the ones that `ShardedTrainer`'s NDArrays hold."""
     import torch
+    logits, aux, labels = (getattr(x, "_t", x) for x in (logits, aux,
+                                                         labels))
     logp = torch.log_softmax(logits.float(), -1)
     ce = -logp.gather(-1, labels.long()[..., None]).mean()
     return ce + 0.01 * aux
@@ -3889,6 +3916,405 @@ def detection_parity_phase(dev, steps=3, lr=1e-3):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 23-25: DeepAR and CRNN (gluon.rnn, the RNN op, CTC loss)
+# ---------------------------------------------------------------------------
+
+# GluonTS DeepAREstimator's defaults, the JAX model's: 40 cells, 2 layers,
+# dropout 0.1, Gaussian output; context 24, horizon 12
+DEEPAR = dict(num_cells=40, num_layers=2, context_length=24,
+              prediction_length=12, dropout=0.1)
+CRNN_GLYPHS = 5
+
+
+def deepar_series(series, length, seed=0):
+    """examples/timeseries/train_deepar.py's synthetic seasonal series:
+    2 + sin(2πt/12) + 0.1 noise, (series, length) float32."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    t = np.arange(length)
+    return (2.0 + np.sin(2 * np.pi * t / 12)[None, :]
+            + 0.1 * rng.randn(series, length)).astype(np.float32)
+
+
+class DeepARLoop:
+    """examples/timeseries/train_deepar.py's step, as `timed_steps`
+    drives a trainer:
+
+        with autograd.record():
+            loss = model.loss(target)
+        loss.backward()
+        trainer.step(1)
+
+    `step((target,), ())` takes an NDArray and returns the loss NDArray
+    (not synchronised)."""
+
+    def __init__(self, model, trainer):
+        self.model, self.trainer = model, trainer
+
+    def step(self, data, labels):
+        from mxnet_tpu_torch import autograd
+        with autograd.record():
+            loss = self.model.loss(data[0])
+        loss.backward()
+        self.trainer.step(1)
+        return loss
+
+
+def build_deepar(dev, seed=0, **kw):
+    """`DeepAR(**kw)` on `dev`, initialised from `random.seed(seed)`, and
+    its `gluon.Trainer(..., "adam", {lr 5e-3})` (the example's)."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.models import deepar
+    model = deepar.DeepAR(device=dev, **kw)
+    mxrandom.seed(seed, dev)
+    model.initialize()
+    return model, gluon.Trainer(model.collect_params(), "adam",
+                                {"learning_rate": 5e-3})
+
+
+def dtod_copies(prof, per):
+    """(ms, count) per `per` repetitions of the device-to-device copies in
+    a torch.profiler window: where ATen's fused RNN copies the separately
+    held weights into its own flat buffer."""
+    ms = n = 0
+    for key, us, count in kernel_rows(prof):
+        if "DtoD" in key:
+            ms += us / 1e3 / per
+            n += count / per
+    return ms, n
+
+
+def sampling_phase(model, ctx, samples, calls=5):
+    """`calls` timed `sample_paths(ctx, samples)` calls, each ended by
+    its host copy, then one under torch.profiler. Returns (the last
+    call's samples as numpy, {timing and profile fields})."""
+    import torch
+    out = model.sample_paths(ctx, num_samples=samples).asnumpy()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.sample_paths(ctx, num_samples=samples).asnumpy()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    ms = times[len(times) // 2]
+    prof, prof_ms, windows = profile_once(
+        lambda: model.sample_paths(ctx, num_samples=samples).asnumpy())
+    busy, top, by_class, kernels = device_profile(prof, 1, 8)
+    host_top, waits = host_profile(prof, 1, 10)
+    return out, {"ms_per_sampling_call": ms, "calls_ms": times,
+                 "profiled_call_ms": prof_ms, "profile_windows": windows,
+                 "device_busy_ms": busy,
+                 "device_idle_share": None if busy is None
+                 else 1 - busy / ms,
+                 "kernels_per_call": kernels,
+                 "device_ms_by_class": by_class,
+                 "top_device_ms": top, "top_host_self_ms": host_top,
+                 "waiting_runtime_calls": waits}
+
+
+def deepar_phase(dev, batch=32, warmup=2, steps=40, samples=100):
+    """Phase 23: DeepAR at the JAX model's defaults (`DEEPAR`, float32,
+    random weights from seed 0) trained by the example's eager loop
+    (`autograd.record()`, `model.loss`, `backward()`, `gluon.Trainer(
+    "adam", {lr 5e-3}).step(1)`) on the example's synthetic seasonal
+    series at GluonTS's batch of 32 (the first 24 points of each): 2
+    warm-up + 40 timed steps (the example's epochs) and one profiled;
+    exactly one Adam launch per weight dtype a step; the NLL falls.
+    Then `sample_paths` draws 100 paths (GluonTS's
+    `num_parallel_samples`) over the 32 series, timed and profiled, and
+    the CRPS against the held-out 12 points is finite (printed beside
+    the untrained model's and a climatology forecast's). Last, a
+    `NegativeBinomialOutput` model takes one step and one sampling on
+    the card: its samples are non-negative integers.
+    Returns (result, launch counts of the timed steps)."""
+    import numpy as np
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.models import deepar
+    ctx_len, horizon = DEEPAR["context_length"], DEEPAR["prediction_length"]
+    series = deepar_series(batch, ctx_len + horizon)
+    target = nd.array(series[:, :ctx_len], ctx=dev)
+    future = series[:, ctx_len:]
+    model, trainer = build_deepar(dev, **DEEPAR)
+    n_params = len(trainer._params)
+    check(n_params == 10, f"DeepAR trainable parameters {n_params}")
+    untrained = deepar.crps_eval(
+        model.sample_paths(target, num_samples=samples).asnumpy(), future)
+    losses, counts, timing = timed_steps(DeepARLoop(model, trainer),
+                                         [target], [], warmup, steps)
+    check(np.isfinite(losses).all(), f"DeepAR losses {losses}")
+    check(losses[-1] < losses[0], f"DeepAR NLL did not fall: {losses}")
+    want = expect(adam_update=adam_launches(trainer._params) * steps)
+    check(counts == want, f"DeepAR training launches {counts} != {want}")
+    reset_counts()
+    paths, sampling = sampling_phase(model, target, samples)
+    check(read_counts() == expect(),
+          f"DeepAR sampling launched repo kernels {read_counts()}")
+    check(paths.shape == (samples, batch, horizon)
+          and np.isfinite(paths).all(), f"DeepAR paths {paths.shape}")
+    crps = deepar.crps_eval(paths, future)
+    check(np.isfinite(crps), f"DeepAR CRPS {crps}")
+    rng = np.random.RandomState(2)
+    hist = series[:, :ctx_len]
+    clim = np.take_along_axis(
+        hist[None].repeat(samples, 0),
+        rng.randint(0, ctx_len, (samples, batch, horizon)), axis=2)
+    # one more profiled step for the share of ATen's weight copies
+    from torch.profiler import ProfilerActivity, profile
+    loop = DeepARLoop(model, trainer)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        float(loop.step([target], []))
+    copy_ms, copy_n = dtod_copies(prof, 1)
+    # the negative binomial head: one step and one sampling on the card
+    nb, nb_trainer = build_deepar(dev, distr=deepar.NegativeBinomialOutput,
+                                  **DEEPAR)
+    reset_counts()
+    nb_loss = float(DeepARLoop(nb, nb_trainer).step([target], []))
+    nb_counts = read_counts()
+    nb_paths = nb.sample_paths(target, num_samples=samples).asnumpy()
+    check(np.isfinite(nb_loss) and nb_counts == expect(
+        adam_update=adam_launches(nb_trainer._params)),
+        f"NegativeBinomial step: loss {nb_loss}, launches {nb_counts}")
+    check(nb_paths.shape == (samples, batch, horizon)
+          and (nb_paths >= 0).all()
+          and np.array_equal(nb_paths, np.round(nb_paths)),
+          "NegativeBinomial samples are not non-negative integers")
+    res = {"model": "DeepAR(num_cells=40, num_layers=2, dropout=0.1, "
+                    "GaussianOutput), float32",
+           "batch": batch, "context_length": ctx_len,
+           "prediction_length": horizon, "num_samples": samples,
+           "optimizer": "gluon.Trainer adam lr 5e-3",
+           "trainable_parameters": n_params,
+           "param_count": sum(p.numel() for p in trainer._params),
+           "launches_per_step": {k: v // steps for k, v in counts.items()
+                                 if v},
+           "loss_first_last": [losses[0], losses[-1]], "losses": losses,
+           "crps": crps, "crps_untrained": untrained,
+           "crps_climatology": deepar.crps_eval(clim, future),
+           "weight_copies_dtod_ms_per_step": copy_ms,
+           "weight_copies_dtod_per_step": copy_n,
+           "sampling": sampling,
+           "negative_binomial": {"loss": nb_loss,
+                                 "sample_mean": float(nb_paths.mean()),
+                                 "sample_max": float(nb_paths.max())},
+           **timing}
+    return res, counts
+
+
+def crnn_loss_fn():
+    """examples/ocr/train_crnn.py's loss_fn, unchanged."""
+    from mxnet_tpu_torch import nd
+
+    def loss_fn(logits, label, label_len):
+        return nd.ctc_loss(logits, label, use_label_lengths=True,
+                           label_lengths=label_len).mean()
+    return loss_fn
+
+
+def glyph_arrays(b, dev):
+    from mxnet_tpu_torch import nd
+    return ([nd.array(b["image"], ctx=dev)],
+            [nd.array(b["label"], ctx=dev), nd.array(b["label_len"], ctx=dev)])
+
+
+def crnn_exact_match(model, dev, n=128):
+    """Held-out exact-match of greedy CTC decodes on `make_glyph_batch(n,
+    seed=10_000_000)`, as the example and the JAX gate score it."""
+    import numpy as np
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.models import crnn
+    hb = crnn.make_glyph_batch(n, num_glyphs=CRNN_GLYPHS, seed=10_000_000)
+    pred = crnn.ctc_greedy_decode(
+        model(nd.array(hb["image"], ctx=dev)).asnumpy())
+    want = [list(hb["label"][i, :hb["label_len"][i]]) for i in range(n)]
+    return float(np.mean([p == w for p, w in zip(pred, want)])), pred
+
+
+def crnn_phase(dev, batch=32, steps=400, warmup=2, lr=3e-3):
+    """Phase 24: CRNN at the JAX model's defaults (`CRNN(num_classes=6,
+    img_height=8)`: channels (16, 32), hidden 64, float32, seed 0)
+    trained as examples/ocr/train_crnn.py does: `parallel.ShardedTrainer(
+    model, loss_fn, "adam", {lr 3e-3})` with the example's `loss_fn`
+    (`nd.ctc_loss(...).mean()`) for 400 steps at batch 32 on
+    `make_glyph_batch(32, seed=step)` (made before the run: set-up);
+    the first 2 steps are the warm-up, the other 398 timed. Exactly one
+    Adam launch per weight dtype a step; held-out exact-match of 128
+    strings >= 0.90 (the JAX package's gate,
+    tests/train/test_quality_gates.py); then one more step profiled.
+    Returns (result, launch counts of the timed steps)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.models import crnn
+    model = crnn.CRNN(num_classes=CRNN_GLYPHS + 1, img_height=8, device=dev)
+    mxrandom.seed(0, dev)
+    model.initialize()
+    trainer = parallel.ShardedTrainer(model, crnn_loss_fn(), "adam",
+                                      {"learning_rate": lr}, device=dev)
+    batches = [glyph_arrays(crnn.make_glyph_batch(
+        batch, num_glyphs=CRNN_GLYPHS, seed=s), dev) for s in range(steps)]
+    losses = [trainer.step(*b) for b in batches[:warmup]]
+    float(losses[-1].asscalar())
+    reset_counts()
+    t0 = time.perf_counter()
+    for b in batches[warmup:]:
+        losses.append(trainer.step(*b))
+    float(losses[-1].asscalar())
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    losses = [float(x.asscalar()) for x in losses]
+    timed = steps - warmup
+    check(np.isfinite(losses).all(), "CRNN losses not finite")
+    check(np.mean(losses[-20:]) < 0.5 * np.mean(losses[:20]),
+          f"CRNN CTC loss did not fall: {losses[:3]} ... {losses[-3:]}")
+    want = expect(adam_update=adam_launches(trainer.params) * timed)
+    check(counts == want, f"CRNN training launches {counts} != {want}")
+    trainer.sync_to_block()
+    exact, pred = crnn_exact_match(model, dev)
+    check(exact >= 0.90, f"CRNN held-out exact-match {exact} < 0.90")
+    prof, prof_ms, windows = profile_once(
+        lambda: float(trainer.step(*batches[0]).asscalar()))
+    busy, top, by_class, kernels = device_profile(prof, 1, 10)
+    host_top, waits = host_profile(prof, 1, 12)
+    copy_ms, copy_n = dtod_copies(prof, 1)
+    step_ms = secs * 1e3 / timed
+    del batches
+    torch.cuda.empty_cache()
+    res = {"model": "CRNN(num_classes=6, img_height=8, channels=(16, 32), "
+                    "hidden=64), float32",
+           "batch": batch, "steps": steps, "warmup": warmup,
+           "optimizer": "ShardedTrainer adam lr 3e-3, the example's "
+                        "loss_fn (nd.ctc_loss(...).mean())",
+           "trainable_parameters": len(trainer.params),
+           "param_count": trainer.param_count,
+           "launches_per_step": {k: v // timed for k, v in counts.items()
+                                 if v},
+           "loss_first_last": [losses[0], losses[-1]],
+           "held_out_exact_match": exact, "held_out_strings": len(pred),
+           "seconds": secs, "ms_per_step": step_ms,
+           "images_per_s": batch * timed / secs,
+           "profiled_step_ms": prof_ms, "profile_windows": windows,
+           "device_busy_ms_per_step": busy,
+           "device_idle_share": None if busy is None else 1 - busy / step_ms,
+           "device_ms_per_step_by_class": by_class,
+           "kernels_per_step": kernels, "top_device_ms_per_step": top,
+           "top_host_self_ms_per_step": host_top,
+           "waiting_runtime_calls_per_step": waits,
+           "weight_copies_dtod_ms_per_step": copy_ms,
+           "weight_copies_dtod_per_step": copy_n}
+    return res, counts
+
+
+def rnn_parity_phase(dev, steps=3, lr=1e-3):
+    """Phase 25: a float32 DeepAR (16 cells, 2 layers, dropout 0, the
+    eager loop) and a float32 CRNN (channels (8, 16), hidden 16,
+    `ShardedTrainer` with the example's loss_fn) take `steps` Adam steps
+    (epsilon 1e-4, as phases 18 and 22) on the card and on the CPU from
+    the same weights: losses and every parameter within TOL_TRAIN (TF32
+    off for this phase, as for the whole script), one Adam launch per
+    weight dtype a step on the card and none on the CPU, and the trained
+    CRNNs' greedy CTC decodes of 32 held-out strings equal. Reported,
+    not gated: the same card runs with TF32 allowed in cuDNN and cuBLAS
+    (cuDNN's RNN may then use it for float32), and the gap between two
+    card runs of the CRNN (ATen's CUDA CTC backward sums with atomics)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import gluon, nd, parallel, weights
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.models import crnn, deepar
+    small_ar = dict(num_cells=16, num_layers=2, context_length=24,
+                    prediction_length=12, dropout=0.0)
+    small_ocr = dict(num_classes=CRNN_GLYPHS + 1, img_height=8,
+                     channels=(8, 16), hidden=16)
+    series = deepar_series(8, 24, seed=3)
+    ar_w = {k: p.detach().numpy().copy() for k, p in
+            build_deepar("cpu", 5, **small_ar)[0].collect_params().items()}
+    mxrandom.seed(5, "cpu")
+    ocr_w = {k: p.detach().numpy().copy() for k, p in crnn.CRNN(
+        **small_ocr, device="cpu").initialize().collect_params().items()}
+    glyphs = [crnn.make_glyph_batch(8, num_glyphs=CRNN_GLYPHS, seed=100 + s)
+              for s in range(steps)]
+
+    def run(where):
+        reset_counts()
+        ar = weights.load_named_arrays(
+            deepar.DeepAR(device=where, **small_ar), ar_w)
+        tr = gluon.Trainer(ar.collect_params(), "adam",
+                           {"learning_rate": lr, "epsilon": 1e-4})
+        loop = DeepARLoop(ar, tr)
+        target = nd.array(series, ctx=where)
+        ar_losses = [float(loop.step([target], [])) for _ in range(steps)]
+        ar_counts = read_counts()
+        reset_counts()
+        ocr = weights.load_named_arrays(crnn.CRNN(**small_ocr, device=where),
+                                        ocr_w)
+        st = parallel.ShardedTrainer(ocr, crnn_loss_fn(), "adam",
+                                     {"learning_rate": lr, "epsilon": 1e-4},
+                                     device=where)
+        ocr_losses = [float(st.step(*glyph_arrays(b, where)).asscalar())
+                      for b in glyphs]
+        ocr_counts = read_counts()
+        st.sync_to_block()
+        _, pred = crnn_exact_match(ocr, where, n=32)
+        params = {f"deepar.{k}": p.detach().cpu()
+                  for k, p in ar.collect_params().items()}
+        params.update({f"crnn.{k}": p.detach().cpu()
+                       for k, p in ocr.collect_params().items()})
+        return {"deepar_losses": ar_losses, "crnn_losses": ocr_losses,
+                "params": params, "decodes": pred,
+                "launches": (ar_counts, ocr_counts),
+                "adam": (adam_launches(tr._params),
+                         adam_launches(st.params))}
+
+    def gaps(a, b):
+        rel = lambda x, y: float(np.max(np.abs(np.subtract(x, y))  # noqa
+                                        / np.abs(y)))
+        return {"deepar_loss_rel": rel(a["deepar_losses"],
+                                       b["deepar_losses"]),
+                "crnn_loss_rel": rel(a["crnn_losses"], b["crnn_losses"]),
+                "param_max_abs": max(max_err(a["params"][k], b["params"][k])
+                                     for k in b["params"])}
+
+    cpu = run("cpu")
+    card = run(dev)
+    check(all(v == 0 for c in cpu["launches"] for v in c.values()),
+          f"CPU run launched {cpu['launches']}")
+    for counts, n, what in zip(card["launches"], card["adam"],
+                               ("DeepAR", "CRNN")):
+        check(counts == expect(adam_update=n * steps),
+              f"{what} parity launches {counts}")
+    g = gaps(card, cpu)
+    check(g["deepar_loss_rel"] <= TOL_TRAIN and g["crnn_loss_rel"]
+          <= TOL_TRAIN and g["param_max_abs"] <= TOL_TRAIN,
+          f"DeepAR/CRNN card vs CPU {g}: losses {card['deepar_losses']} vs "
+          f"{cpu['deepar_losses']}, {card['crnn_losses']} vs "
+          f"{cpu['crnn_losses']}")
+    check(card["decodes"] == cpu["decodes"],
+          "CRNN greedy decodes differ between card and CPU")
+    again = run(dev)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with_tf32 = run(dev)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return {"card_vs_cpu": g, "card_vs_card": gaps(again, card),
+            "tf32_card_vs_cpu": gaps(with_tf32, cpu),
+            "tf32_decodes_equal": with_tf32["decodes"] == cpu["decodes"],
+            "deepar_losses_card": card["deepar_losses"],
+            "deepar_losses_cpu": cpu["deepar_losses"],
+            "crnn_losses_card": card["crnn_losses"],
+            "crnn_losses_cpu": cpu["crnn_losses"],
+            "parameters": len(cpu["params"])}
+
+
 def main():
     try:
         import torch
@@ -4248,6 +4674,23 @@ def main():
     dparity = detection_parity_phase(dev)
     print("chip_smoke: card-vs-CPU detection (eager Adam, decode) "
           + json.dumps(dparity))
+    torch.cuda.empty_cache()
+
+    # 23. DeepAR through the eager Gluon loop, float32, Adam; sampling
+    ar, counts = deepar_phase(dev)
+    print("chip_smoke: DeepAR " + json.dumps(ar))
+    print(f"chip_smoke: DeepAR training launches {counts}")
+    kernels["adam_update"]["deepar_launches"] = counts["adam_update"]
+
+    # 24. CRNN through ShardedTrainer and the CTC loss, float32, Adam
+    ocr, counts = crnn_phase(dev)
+    print("chip_smoke: CRNN " + json.dumps(ocr))
+    print(f"chip_smoke: CRNN training launches {counts}")
+    kernels["adam_update"]["crnn_launches"] = counts["adam_update"]
+
+    # 25. small float32 DeepAR and CRNN, card == CPU
+    rparity = rnn_parity_phase(dev)
+    print("chip_smoke: card-vs-CPU DeepAR and CRNN " + json.dumps(rparity))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

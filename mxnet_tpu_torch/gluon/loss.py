@@ -1,5 +1,6 @@
 """Loss blocks (counterpart of `mxnet_tpu/gluon/loss.py`): `Loss`,
-`L2Loss`, `L1Loss` and `SoftmaxCrossEntropyLoss` (alias `SoftmaxCELoss`).
+`L2Loss`, `L1Loss`, `SoftmaxCrossEntropyLoss` (alias `SoftmaxCELoss`)
+and `CTCLoss`.
 
 Each returns one loss per sample: the elementwise loss, weighted
 (`_apply_weighting`: times `sample_weight` when given, times the block's
@@ -9,10 +10,11 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import misc_ops
 from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SoftmaxCrossEntropyLoss",
-           "SoftmaxCELoss"]
+           "SoftmaxCELoss", "CTCLoss"]
 
 
 def _apply_weighting(loss, weight=None, sample_weight=None):
@@ -88,3 +90,28 @@ class SoftmaxCrossEntropyLoss(Loss):
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss
+
+
+class CTCLoss(Loss):
+    """Connectionist Temporal Classification loss (`ops.misc_ops.ctc_loss`,
+    blank 0): pred unnormalised activations in `layout` 'NTC' or 'TNC',
+    label (classes 1..C-1, 0-padded) in `label_layout` 'NT' or 'TN';
+    `pred_lengths` and `label_lengths` are used when given."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None):
+        if layout not in ("NTC", "TNC") or label_layout not in ("NT", "TN"):
+            raise ValueError(f"CTCLoss layouts {layout!r}, {label_layout!r}")
+        self._layout = layout
+        super().__init__(weight, label_layout.find("N"))
+
+    def forward(self, pred, label, pred_lengths=None, label_lengths=None,
+                sample_weight=None):
+        if self._layout == "NTC":
+            pred = pred.transpose(0, 1)
+        if self._batch_axis == 1:
+            label = label.transpose(0, 1)
+        loss = misc_ops.ctc_loss(
+            pred, label, pred_lengths, label_lengths,
+            use_data_lengths=pred_lengths is not None,
+            use_label_lengths=label_lengths is not None, blank_label="first")
+        return _apply_weighting(loss, self._weight, sample_weight)

@@ -26,7 +26,8 @@ def remat_policy(remat):
     if policy in ("dots_saveable", "full"):
         raise NotImplementedError(
             f"remat policy {policy!r} is not in the port yet (ROADMAP "
-            "queue 1, item 6: memsafe); it has 'layers'")
+            "queue 1, \"What bench.py's BERT-large row leaves\"); it has "
+            "'layers'")
     if policy not in ("none", "layers"):
         raise ValueError(f"unknown remat policy {remat!r}")
     return policy

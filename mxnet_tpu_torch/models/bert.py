@@ -35,6 +35,7 @@ from .. import context
 from ..gluon import HybridBlock, nn
 from ..gluon.block import training
 from ..gluon.parameter import Parameter
+from ..ndarray.ndarray import _unwrap
 from ..ops import nn_ops
 from ._remat import remat_policy, stack_call
 
@@ -222,7 +223,11 @@ def bert_pretrain_loss(mlm_scores, nsp_scores, mlm_labels, mlm_weights,
     """Pretraining loss: the weighted mean MLM cross-entropy over the
     masked positions (weights 1 for real positions) plus the mean NSP
     cross-entropy, in float32. mlm_scores (B,P,V), mlm_labels (B,P),
-    mlm_weights (B,P), nsp_labels (B,)."""
+    mlm_weights (B,P), nsp_labels (B,): tensors, or NDArrays as
+    `ShardedTrainer` gives them."""
+    mlm_scores, nsp_scores, mlm_labels, mlm_weights, nsp_labels = map(
+        _unwrap, (mlm_scores, nsp_scores, mlm_labels, mlm_weights,
+                  nsp_labels))
     logp = tF.log_softmax(mlm_scores.float(), -1)
     nll = -torch.gather(logp, -1, mlm_labels.long()[..., None])[..., 0]
     w = mlm_weights.float()

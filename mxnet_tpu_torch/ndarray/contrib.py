@@ -1,11 +1,11 @@
 """`nd.contrib` (counterpart of the registry passthrough of
 `mxnet_tpu/ndarray/contrib.py`): every ported `_contrib_X` op is also
 `nd.contrib.X`."""
-from .ndarray import CONTRIB_OPS, contrib_op
+from .ndarray import OPS, registry_op
 
 
 def __getattr__(name):
     full = "_contrib_" + name
-    if full in CONTRIB_OPS:
-        return contrib_op(full)
+    if full in OPS:
+        return registry_op(full)
     raise AttributeError(f"module 'nd.contrib' has no attribute '{name}'")

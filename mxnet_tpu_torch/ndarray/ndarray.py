@@ -23,8 +23,10 @@ registry's names (`_contrib_box_iou`, `_contrib_box_nms`,
 `_contrib_MultiBoxDetection`, `_contrib_ROIAlign`, `ROIPooling`,
 `_contrib_AdaptiveAvgPooling2D`, `_contrib_Proposal`; also as
 `nd.contrib.<name without _contrib_>`), which run `ops.detection_ops`
-on the held tensors. Any other op raises NotImplementedError naming
-ROADMAP.md queue 1 item 4.
+on the held tensors; `nd.RNN` (`ops.rnn_ops.rnn`) and `nd.ctc_loss`
+with its aliases `CTCLoss`, `_contrib_ctc_loss` and `_contrib_CTCLoss`
+(`ops.misc_ops.ctc_loss`). Any other op raises NotImplementedError naming
+ROADMAP.md queue 1's "The eager MXNet surface".
 
 `nd.array(x)` without `ctx` puts x on the card (`context.resolve`);
 `ctx=mx.cpu()` is the way onto the CPU. A float64 or int64 source
@@ -40,13 +42,12 @@ import numpy as np
 import torch
 
 from .. import context
-from ..ops import detection_ops
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "arange",
            "concatenate", "concat", "waitall"]
 
-_NOT_PORTED = ("is not in the port yet (ROADMAP.md queue 1 item 4: the "
-               "eager MXNet surface)")
+_NOT_PORTED = ("is not in the port yet (ROADMAP.md queue 1, \"The eager "
+               "MXNet surface\")")
 _NP = {torch.float32: np.dtype("float32"), torch.float16: np.dtype("float16"),
        torch.float64: np.dtype("float64"), torch.int32: np.dtype("int32"),
        torch.int64: np.dtype("int64"), torch.int8: np.dtype("int8"),
@@ -416,14 +417,22 @@ def waitall():
         torch.cuda.synchronize()
 
 
-# the JAX registry's names of the detection ops -> ops.detection_ops
-CONTRIB_OPS = {"_contrib_box_iou": "box_iou", "_contrib_box_nms": "box_nms",
-               "_contrib_MultiBoxPrior": "multibox_prior",
-               "_contrib_MultiBoxTarget": "multibox_target",
-               "_contrib_MultiBoxDetection": "multibox_detection",
-               "_contrib_ROIAlign": "roi_align", "ROIPooling": "roi_pooling",
-               "_contrib_AdaptiveAvgPooling2D": "adaptive_avg_pooling",
-               "_contrib_Proposal": "proposal"}
+# the JAX registry's names of the ported ops -> (module of ops/, function)
+OPS = {"_contrib_box_iou": ("detection_ops", "box_iou"),
+       "_contrib_box_nms": ("detection_ops", "box_nms"),
+       "_contrib_MultiBoxPrior": ("detection_ops", "multibox_prior"),
+       "_contrib_MultiBoxTarget": ("detection_ops", "multibox_target"),
+       "_contrib_MultiBoxDetection": ("detection_ops", "multibox_detection"),
+       "_contrib_ROIAlign": ("detection_ops", "roi_align"),
+       "ROIPooling": ("detection_ops", "roi_pooling"),
+       "_contrib_AdaptiveAvgPooling2D": ("detection_ops",
+                                         "adaptive_avg_pooling"),
+       "_contrib_Proposal": ("detection_ops", "proposal"),
+       "RNN": ("rnn_ops", "rnn"),
+       "ctc_loss": ("misc_ops", "ctc_loss"),
+       "CTCLoss": ("misc_ops", "ctc_loss"),
+       "_contrib_ctc_loss": ("misc_ops", "ctc_loss"),
+       "_contrib_CTCLoss": ("misc_ops", "ctc_loss")}
 
 
 def _wrap(out):
@@ -432,10 +441,13 @@ def _wrap(out):
     return NDArray(out)
 
 
-def contrib_op(name):
-    """The registry op `name` on NDArrays: the detection op on the held
-    tensors, NDArray (or a tuple of them) out."""
-    fn = getattr(detection_ops, CONTRIB_OPS[name])
+def registry_op(name):
+    """The registry op `name` on NDArrays: the port's op on the held
+    tensors (positional and keyword arguments alike), NDArray (or a
+    tuple of them) out."""
+    import importlib
+    mod, attr = OPS[name]
+    fn = getattr(importlib.import_module(f"mxnet_tpu_torch.ops.{mod}"), attr)
 
     def op(*args, **kwargs):
         return _wrap(fn(*[_unwrap(a) for a in args],
@@ -446,8 +458,8 @@ def contrib_op(name):
 
 
 def __getattr__(name):
-    if name in CONTRIB_OPS:
-        return contrib_op(name)
+    if name in OPS:
+        return registry_op(name)
     if name.startswith("_") and not name.startswith("_contrib_"):
         raise AttributeError(name)
     raise NotImplementedError(f"nd.{name} {_NOT_PORTED}")

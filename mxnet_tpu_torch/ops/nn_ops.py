@@ -65,12 +65,20 @@ def gelu(data):
     return tF.gelu(data, approximate="tanh")
 
 
-_ACTIVATIONS = {"tanh": torch.tanh, "gelu": gelu, "relu": torch.relu}
+def softrelu(data):
+    """log(1 + e^x) as `jax.nn.softplus` computes it (`logaddexp(x, 0)`),
+    not torch's softplus, which turns linear above a threshold."""
+    return torch.logaddexp(data, data.new_zeros(()))
+
+
+_ACTIVATIONS = {"relu": torch.relu, "relu6": tF.relu6,
+                "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+                "softrelu": softrelu, "softsign": tF.softsign, "gelu": gelu,
+                "silu": tF.silu}
 
 
 def activation(data, act_type):
-    """`Activation(data, act_type)` for the act types the port's models
-    and quantized layers use (tanh, gelu, relu)."""
+    """`Activation(data, act_type)`: every act type of the JAX op."""
     if act_type not in _ACTIVATIONS:
         raise NotImplementedError(
             f"activation {act_type!r} is not in the port (have "
@@ -87,7 +95,7 @@ def leaky_relu(data, act_type="leaky", slope=0.25):
     if act_type != "leaky":
         raise NotImplementedError(
             f"LeakyReLU act_type {act_type!r} is not in the port (ROADMAP.md "
-            "queue 1 item 3)")
+            "queue 1, \"The rest of gluon.nn and gluon.loss\")")
     return torch.where(data >= 0, data, data * weak_scalar(slope, data.dtype))
 
 

@@ -19,11 +19,12 @@ on the CPU); `update` is `update_multi` of one index. SGD (with momentum and
 `multi_precision`) and NAG are `mxnet_tpu/ops/optimizer_ops.py`'s
 updates in plain torch: the gradient in float32, rescaled, clipped and
 with wd · w added; the state float32; the weight rounded back to its
-own dtype. LAMB's eager update is not ported (ROADMAP.md queue 1 item
-4): LAMB trains through `parallel.ShardedTrainer`'s `FusedLamb`.
+own dtype. LAMB's eager update is not ported (ROADMAP.md queue 1, "The
+eager MXNet surface"): LAMB trains through `parallel.ShardedTrainer`'s `FusedLamb`.
 `parallel.ShardedTrainer` reads the same hyperparameters for its own
 update (`parallel.functional_opt`). Row-sparse gradients, and with them
-`lazy_update`, are not in the port (ROADMAP.md queue 1 item 7).
+`lazy_update`, are not in the port (ROADMAP.md queue 1, "What the GPT-2
+lifecycle left out").
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ def create(name, **kwargs):
     if cls is None:
         raise NotImplementedError(
             f"optimizer {name!r} is not in the port yet (have "
-            f"{sorted(_REGISTRY)}; ROADMAP.md queue 1 item 4)")
+            f"{sorted(_REGISTRY)}; ROADMAP.md queue 1, \"The eager MXNet "
+            "surface\")")
     return cls(**kwargs)
 
 
@@ -206,8 +208,9 @@ class LAMB(Optimizer):
 
     def update(self, index, weight, grad, state):
         raise NotImplementedError(
-            "LAMB's eager update is not in the port yet (ROADMAP.md queue 1 "
-            "item 4); train with parallel.ShardedTrainer(..., 'lamb')")
+            "LAMB's eager update is not in the port yet (ROADMAP.md queue "
+            "1, \"The eager MXNet surface\"); train with "
+            "parallel.ShardedTrainer(..., 'lamb')")
 
 
 class Adam(Optimizer):

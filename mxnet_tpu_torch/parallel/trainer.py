@@ -19,8 +19,15 @@ device, on one of two paths, as the JAX package chooses them:
     dtype, and `FunctionalOptimizer.apply` updates copies and state in
     place.
 The step counter goes up first; the bias-correction constants and the
-learning rate are host floats; `step` returns the loss tensor without
-waiting for the card.
+learning rate are host floats.
+
+The user's boundary is the JAX package's: `loss_fn` gets the model's
+outputs and the labels as NDArrays and may return an NDArray (or a
+tensor), and `step` takes NDArrays, tensors or numpy arrays and returns
+the loss as an NDArray holding the 0-d float32 tensor, without waiting
+for the card. So a `loss_fn` written for the JAX package, as
+`nd.ctc_loss(...).mean()` in `examples/ocr/train_crnn.py`, runs
+unchanged, and `step(...).asscalar()` reads the loss.
 
 Parameters with grad_req 'null' (BatchNorm's running statistics) stay
 out of training: `functional_call` leaves them the block's own tensors,
@@ -45,6 +52,7 @@ from torch.func import functional_call
 
 from .. import context
 from .. import optimizer as opt_mod
+from ..ndarray.ndarray import NDArray
 from .functional_opt import FunctionalOptimizer
 from .fused_lamb import FusedLamb
 
@@ -52,13 +60,20 @@ __all__ = ["ShardedTrainer", "call_loss"]
 
 
 def call_loss(loss_fn, outs, labels):
-    """The user loss over the model outputs and labels, reduced to its
-    float32 mean (a scalar loss stays itself)."""
-    return loss_fn(*outs, *labels).float().mean()
+    """The user loss over the model outputs and labels, given as
+    NDArrays as the JAX package gives them, reduced to its float32 mean
+    (a scalar loss stays itself) as a tensor."""
+    loss = loss_fn(*[NDArray(o) for o in outs],
+                   *[NDArray(y) for y in labels])
+    if isinstance(loss, NDArray):
+        loss = loss._t
+    return loss.float().mean()
 
 
 def _as_tensor(x, device):
-    if isinstance(x, np.ndarray):
+    if isinstance(x, NDArray):
+        x = x._t
+    elif isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
     return x.to(device)
 
@@ -135,9 +150,10 @@ class ShardedTrainer:
         return self
 
     def step(self, data, labels):
-        """One train step on a batch: `data` and `labels` are tensors or
-        numpy arrays (or lists of them), moved to the trainer's device.
-        Returns the float32 loss (a 0-d tensor, not synchronised)."""
+        """One train step on a batch: `data` and `labels` are NDArrays,
+        tensors or numpy arrays (or lists of them), moved to the
+        trainer's device. Returns the float32 loss: an NDArray of a 0-d
+        tensor, not synchronised."""
         data = data if isinstance(data, (list, tuple)) else [data]
         labels = labels if isinstance(labels, (list, tuple)) else [labels]
         data = [_as_tensor(x, self.device) for x in data]
@@ -152,13 +168,13 @@ class ShardedTrainer:
             leaves = [p.detach().requires_grad_(True) for p in self.params]
             loss, grads = self._accumulate(leaves, lambda: leaves, micro)
             self.fopt.apply(self.params, grads, self.opt_state, t, lr)
-            return loss.detach()
+            return NDArray(loss.detach())
         master = self.params.detach().requires_grad_(True)
         loss, (grad,) = self._accumulate(
             [master], lambda: self._fl.unflatten(master), micro)
         m, v = self.opt_state
         self._fl.apply_flat(self.params, grad, m, v, t, lr)
-        return loss.detach()
+        return NDArray(loss.detach())
 
     def _microbatches(self, data, labels):
         """[(data, labels)] of the step's `accum` equal microbatches."""

@@ -1317,3 +1317,68 @@ def test_detection_ops_on_card_match_cpu(dev):
     got = ssd.non_max_suppression(boxes.to(dev), scores.to(dev), 0.3, 50)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh"])
+@pytest.mark.parametrize("varlen", [False, True])
+def test_rnn_op_on_card_matches_cpu(dev, mode, varlen):
+    """The fused RNN op (ATen's cuDNN RNN, one layer a call; packed
+    sequences for variable lengths, a length 0 among them) at 2
+    bidirectional layers: outputs, final states and the gradients of x,
+    the packed parameters and h0 within 1e-5 of the CPU run (TF32 off)."""
+    from mxnet_tpu_torch.ops import rnn_ops
+    T, N, I, H = 7, 4, 5, 8
+    rng = np.random.RandomState(0)
+    n = rnn_ops.rnn_param_size(mode, 2, I, H, True)
+    arrs = [rng.randn(T, N, I), rng.uniform(-0.3, 0.3, n),
+            rng.randn(4, N, H), rng.randn(4, N, H)]
+    lens = torch.tensor([1, T, 0, 3]) if varlen else None
+    runs = []
+    for where in ("cpu", dev):
+        x, p, h0, c0 = (torch.tensor(a, dtype=torch.float32, device=where,
+                                     requires_grad=True) for a in arrs)
+        out = rnn_ops.rnn(x, p, h0, c0 if mode == "lstm" else None, lens,
+                          state_size=H, num_layers=2, mode=mode,
+                          bidirectional=True, state_outputs=True,
+                          use_sequence_length=varlen, _training=False)
+        torch.autograd.backward(list(out), [torch.ones_like(o) for o in out])
+        runs.append([o.detach().cpu() for o in out]
+                    + [t.grad.cpu() for t in (x, p, h0)])
+    for got, want in zip(runs[1], runs[0]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_ctc_loss_on_card_matches_cpu(dev):
+    """ATen's CUDA CTC against the CPU run: losses (the infeasible label's
+    1e30 included) within 1e-5 relative, gradients within 1e-5 (the CUDA
+    backward sums with atomics in any order)."""
+    from mxnet_tpu_torch.ops import misc_ops
+    rng = np.random.RandomState(0)
+    x = rng.randn(12, 6, 7).astype(np.float32)
+    lab = rng.randint(1, 7, (6, 5)).astype(np.int32)
+    lab[0] = [3, 3, 3, 3, 3]                   # 9 frames needed, 4 given
+    dlen = np.array([4, 12, 10, 12, 8, 12], np.int32)
+    llen = np.array([5, 5, 2, 0, 3, 4], np.int32)
+    runs = []
+    for where in ("cpu", dev):
+        xt = torch.tensor(x, device=where, requires_grad=True)
+        loss = misc_ops.ctc_loss(xt, torch.tensor(lab, device=where),
+                                 torch.tensor(dlen, device=where),
+                                 torch.tensor(llen, device=where),
+                                 use_data_lengths=True,
+                                 use_label_lengths=True)
+        loss.sum().backward()
+        runs.append((loss.detach().cpu(), xt.grad.cpu()))
+    (lc, gc), (lg, gg) = runs
+    assert lc[0].item() == lg[0].item() == np.float32(1e30)
+    torch.testing.assert_close(lg, lc, rtol=1e-5, atol=0)
+    torch.testing.assert_close(gg, gc, rtol=1e-5, atol=1e-5)
+
+
+def test_deepar_and_crnn_training_on_card_match_cpu(dev):
+    """chip_smoke's phase 25: a small float32 DeepAR (eager loop) and CRNN
+    (ShardedTrainer, the example's loss_fn) take 3 Adam steps on the card
+    and on the CPU: losses and parameters within TOL_TRAIN, one Adam
+    launch per weight dtype a step, CRNN decodes equal."""
+    import chip_smoke
+    chip_smoke.rnn_parity_phase(dev)

@@ -6,7 +6,8 @@ Values are compared exactly (the same float32 elementwise ops and
 reductions of a few elements), dtypes as numpy dtypes. Without `ctx` an
 NDArray goes to the card: with none it raises, and with one (faked by
 patching `torch.cuda.is_available`) it heads there. Ops the port does
-not have raise NotImplementedError naming ROADMAP.md queue 1 item 4.
+not have raise NotImplementedError naming ROADMAP.md queue 1's "The
+eager MXNet surface".
 """
 import sys
 
@@ -160,11 +161,11 @@ def test_default_device_is_the_card(monkeypatch):
 def test_ops_not_ported_raise_naming_the_roadmap():
     t = nd.array([1.0, 2.0], ctx=CPU)
     for name in ("softmax", "exp", "tile", "slice_axis"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        with pytest.raises(NotImplementedError, match="The eager MXNet surface"):
             getattr(t, name)
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        with pytest.raises(NotImplementedError, match="The eager MXNet surface"):
             getattr(nd, name)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="The eager MXNet surface"):
         t.reshape((2, 1), reverse=True)
 
 

@@ -273,7 +273,8 @@ def test_probe_pass_is_one_eval_forward():
         runs.append((losses, tt.params,
                      tm.features[1].running_mean.detach().clone()))
     (l0, w0, m0), (l1, w1, m1) = runs
-    assert all(torch.equal(a, b) for a, b in zip(l0, l1))
+    assert all(np.array_equal(a.asnumpy(), b.asnumpy())
+               for a, b in zip(l0, l1))
     assert all(torch.equal(a, b) for a, b in zip(w0, w1))
     assert torch.equal(m0, m1) and float(m0.abs().max()) > 0
 
