@@ -1942,6 +1942,12 @@ def _kernel_class(name):
                 return f"{part} kernels"
         return "attention kernels"
     low = name.lower()
+    if "lstm" in low or "gru" in low or low.startswith(("rnn_", "void rnn_")):
+        return "RNN (cuDNN)"
+    if "ctc_loss" in low:
+        return "CTC"
+    if "memcpy dtod" in low:
+        return "copies on the card"
     if "batch_norm" in low or "bn_" in low:
         return "BatchNorm"
     if "pool" in low:
@@ -3974,18 +3980,6 @@ def build_deepar(dev, seed=0, **kw):
                                 {"learning_rate": 5e-3})
 
 
-def dtod_copies(prof, per):
-    """(ms, count) per `per` repetitions of the device-to-device copies in
-    a torch.profiler window: where ATen's fused RNN copies the separately
-    held weights into its own flat buffer."""
-    ms = n = 0
-    for key, us, count in kernel_rows(prof):
-        if "DtoD" in key:
-            ms += us / 1e3 / per
-            n += count / per
-    return ms, n
-
-
 def sampling_phase(model, ctx, samples, calls=5):
     """`calls` timed `sample_paths(ctx, samples)` calls, each ended by
     its host copy, then one under torch.profiler. Returns (the last
@@ -4061,13 +4055,6 @@ def deepar_phase(dev, batch=32, warmup=2, steps=40, samples=100):
     clim = np.take_along_axis(
         hist[None].repeat(samples, 0),
         rng.randint(0, ctx_len, (samples, batch, horizon)), axis=2)
-    # one more profiled step for the share of ATen's weight copies
-    from torch.profiler import ProfilerActivity, profile
-    loop = DeepARLoop(model, trainer)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        float(loop.step([target], []))
-    copy_ms, copy_n = dtod_copies(prof, 1)
     # the negative binomial head: one step and one sampling on the card
     nb, nb_trainer = build_deepar(dev, distr=deepar.NegativeBinomialOutput,
                                   **DEEPAR)
@@ -4094,8 +4081,6 @@ def deepar_phase(dev, batch=32, warmup=2, steps=40, samples=100):
            "loss_first_last": [losses[0], losses[-1]], "losses": losses,
            "crps": crps, "crps_untrained": untrained,
            "crps_climatology": deepar.crps_eval(clim, future),
-           "weight_copies_dtod_ms_per_step": copy_ms,
-           "weight_copies_dtod_per_step": copy_n,
            "sampling": sampling,
            "negative_binomial": {"loss": nb_loss,
                                  "sample_mean": float(nb_paths.mean()),
@@ -4133,6 +4118,27 @@ def crnn_exact_match(model, dev, n=128):
     return float(np.mean([p == w for p, w in zip(pred, want)])), pred
 
 
+def varlen_cost(dev, T=18, batch=32, C=64, hidden=64):
+    """CUDA-event ms (host included) of a CRNN-sized BiLSTM forward on
+    (T, batch, C) features without lengths, and with lengths (all T),
+    whose copy to the host for the packed sequence waits for the card."""
+    import torch
+    from mxnet_tpu_torch.gluon import rnn
+    with torch.device(dev):
+        plain = rnn.LSTM(hidden, bidirectional=True, input_size=C)
+        varlen = rnn.LSTM(hidden, bidirectional=True, input_size=C,
+                          use_sequence_length=True)
+    plain.initialize()
+    varlen.initialize()
+    x = torch.randn(T, batch, C, device=dev)
+    s = [torch.zeros(2, batch, hidden, device=dev)] * 2
+    lens = torch.full((batch,), T, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        return {"shape": [T, batch, C], "hidden": hidden,
+                "no_lengths_ms": time_ms(lambda: plain(x, s)),
+                "lengths_ms": time_ms(lambda: varlen(x, s, lens))}
+
+
 def crnn_phase(dev, batch=32, steps=400, warmup=2, lr=3e-3):
     """Phase 24: CRNN at the JAX model's defaults (`CRNN(num_classes=6,
     img_height=8)`: channels (16, 32), hidden 64, float32, seed 0)
@@ -4143,7 +4149,8 @@ def crnn_phase(dev, batch=32, steps=400, warmup=2, lr=3e-3):
     the first 2 steps are the warm-up, the other 398 timed. Exactly one
     Adam launch per weight dtype a step; held-out exact-match of 128
     strings >= 0.90 (the JAX package's gate,
-    tests/train/test_quality_gates.py); then one more step profiled.
+    tests/train/test_quality_gates.py); then one more step profiled, and
+    a BiLSTM of its size timed without and with lengths (`varlen_cost`).
     Returns (result, launch counts of the timed steps)."""
     import numpy as np
     import torch
@@ -4180,7 +4187,6 @@ def crnn_phase(dev, batch=32, steps=400, warmup=2, lr=3e-3):
         lambda: float(trainer.step(*batches[0]).asscalar()))
     busy, top, by_class, kernels = device_profile(prof, 1, 10)
     host_top, waits = host_profile(prof, 1, 12)
-    copy_ms, copy_n = dtod_copies(prof, 1)
     step_ms = secs * 1e3 / timed
     del batches
     torch.cuda.empty_cache()
@@ -4204,8 +4210,7 @@ def crnn_phase(dev, batch=32, steps=400, warmup=2, lr=3e-3):
            "kernels_per_step": kernels, "top_device_ms_per_step": top,
            "top_host_self_ms_per_step": host_top,
            "waiting_runtime_calls_per_step": waits,
-           "weight_copies_dtod_ms_per_step": copy_ms,
-           "weight_copies_dtod_per_step": copy_n}
+           "bilstm_forward": varlen_cost(dev)}
     return res, counts
 
 

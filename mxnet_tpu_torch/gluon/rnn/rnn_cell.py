@@ -41,22 +41,28 @@ class RecurrentCell(HybridBlock):
         return [func(shape=info["shape"], **kwargs)
                 for info in self.state_info(batch_size)]
 
+    def _unroll_inputs(self, inputs, begin_state, layout, valid_length):
+        """(inputs as a tensor, its time axis, the begin states as
+        tensors: `begin_state` or zeros)."""
+        if valid_length is not None:
+            raise NotImplementedError(
+                "unroll(valid_length=...) is not in the port; use a fused "
+                "layer with use_sequence_length=True")
+        x = _unwrap(inputs)
+        batch = x.shape[layout.find("N")]
+        states = _tensors(begin_state) if begin_state is not None else [
+            x.new_zeros(info["shape"]) for info in self.state_info(batch)]
+        return x, layout.find("T"), states
+
     def unroll(self, length, inputs, begin_state=None, layout="NTC",
                merge_outputs=None, valid_length=None):
         """Run the cell over `length` steps of `inputs` (layout 'NTC' or
         'TNC'), from `begin_state` or zeros. Returns (outputs stacked on
         the time axis, or their list when `merge_outputs` is False,
         final states)."""
-        if valid_length is not None:
-            raise NotImplementedError(
-                "unroll(valid_length=...) is not in the port; use a fused "
-                "layer with use_sequence_length=True")
         boundary = isinstance(inputs, NDArray)
-        x = _unwrap(inputs)
-        axis = layout.find("T")
-        batch = x.shape[layout.find("N")]
-        states = _tensors(begin_state) if begin_state is not None else [
-            x.new_zeros(info["shape"]) for info in self.state_info(batch)]
+        x, axis, states = self._unroll_inputs(inputs, begin_state, layout,
+                                              valid_length)
         outputs = []
         for t in range(length):
             out, states = self(x.select(axis, t), states)
@@ -262,16 +268,9 @@ class BidirectionalCell(RecurrentCell):
 
     def unroll(self, length, inputs, begin_state=None, layout="NTC",
                merge_outputs=None, valid_length=None):
-        if valid_length is not None:
-            raise NotImplementedError(
-                "unroll(valid_length=...) is not in the port; use a fused "
-                "layer with use_sequence_length=True")
         boundary = isinstance(inputs, NDArray)
-        x = _unwrap(inputs)
-        axis = layout.find("T")
-        batch = x.shape[layout.find("N")]
-        states = _tensors(begin_state) if begin_state is not None else [
-            x.new_zeros(info["shape"]) for info in self.state_info(batch)]
+        x, axis, states = self._unroll_inputs(inputs, begin_state, layout,
+                                              valid_length)
         nl = len(self.l_cell.state_info())
         l_out, l_states = self.l_cell.unroll(length, x, states[:nl], layout,
                                              True)

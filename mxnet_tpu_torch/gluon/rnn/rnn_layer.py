@@ -22,8 +22,6 @@ from ..parameter import Parameter
 
 __all__ = ["RNN", "LSTM", "GRU"]
 
-_GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
-
 
 class _RNNLayer(HybridBlock):
     def __init__(self, mode, hidden_size, num_layers, layout, dropout,
@@ -40,7 +38,7 @@ class _RNNLayer(HybridBlock):
         self._layout = layout
         self._dropout = dropout
         self._dir = 2 if bidirectional else 1
-        ng = _GATES[mode]
+        ng = rnn_ops.GATES[mode]
         for layer in range(num_layers):
             for d in range(self._dir):
                 pfx = f"{'lr'[d]}{layer}_"
@@ -58,7 +56,7 @@ class _RNNLayer(HybridBlock):
                             Parameter(pfx + name, shape, init=init))
 
     def infer_param_shapes(self, x_shape):
-        ng = _GATES[self._mode]
+        ng = rnn_ops.GATES[self._mode]
         return {f"{'lr'[d]}0_i2h_weight": (ng * self._hidden_size,
                                             x_shape[-1])
                 for d in range(self._dir)}

@@ -25,14 +25,10 @@ from .. import context
 from .. import random as _random
 from ..gluon import HybridBlock, nn, rnn
 from ..ndarray.ndarray import NDArray, _unwrap
+from ..ops.nn_ops import softrelu
 
 __all__ = ["GaussianOutput", "NegativeBinomialOutput", "DeepAR",
            "crps_eval"]
-
-
-def _softplus(x):
-    """log(1 + e^x) as the JAX package computes it (`logaddexp(x, 0)`)."""
-    return torch.logaddexp(x, x.new_zeros(()))
 
 
 class GaussianOutput:
@@ -42,7 +38,7 @@ class GaussianOutput:
 
     @staticmethod
     def params(raw):
-        return raw[..., 0], _softplus(raw[..., 1]) + 1e-6
+        return raw[..., 0], softrelu(raw[..., 1]) + 1e-6
 
     @staticmethod
     def nll(raw, target):
@@ -65,7 +61,7 @@ class NegativeBinomialOutput:
 
     @staticmethod
     def params(raw):
-        return _softplus(raw[..., 0]) + 1e-6, _softplus(raw[..., 1]) + 1e-6
+        return softrelu(raw[..., 0]) + 1e-6, softrelu(raw[..., 1]) + 1e-6
 
     @staticmethod
     def nll(raw, target):

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as tF
 
-__all__ = ["ctc_loss", "CTCLoss"]
+__all__ = ["ctc_loss"]
 
 # the JAX op's stand-in for -inf is -1e30, so a label that no alignment
 # can emit within the frames costs 1e30 there, not inf
@@ -52,7 +52,3 @@ def ctc_loss(data, label, data_lengths=None, label_lengths=None,
     inner = torch.arange(1, label.shape[1], device=data.device) < llen[:, None]
     repeats = ((label[:, 1:] == label[:, :-1]) & inner).sum(1)
     return torch.where(llen + repeats > dlen, INFEASIBLE, loss)
-
-
-# the JAX registry's other names of the op
-CTCLoss = ctc_loss

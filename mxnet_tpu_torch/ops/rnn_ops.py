@@ -34,7 +34,7 @@ from . import nn_ops
 
 __all__ = ["rnn", "rnn_layers", "unpack_rnn_params", "rnn_param_size"]
 
-_GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
+GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
 _ATEN = {"lstm": torch.lstm, "gru": torch.gru, "rnn_tanh": torch.rnn_tanh,
          "rnn_relu": torch.rnn_relu}
 
@@ -46,7 +46,7 @@ def unpack_rnn_params(params, mode, num_layers, input_size, state_size,
     and direction, layer-major). cuDNN order: for each layer and
     direction the input weights, then the recurrent weights; all biases
     follow all weights in the same order (b_i, then b_h)."""
-    ngates = _GATES[mode]
+    ngates = GATES[mode]
     dirs = 2 if bidirectional else 1
     layers = []
     off = 0
@@ -68,7 +68,7 @@ def unpack_rnn_params(params, mode, num_layers, input_size, state_size,
 
 def rnn_param_size(mode, num_layers, input_size, state_size,
                    bidirectional=False):
-    ngates = _GATES[mode]
+    ngates = GATES[mode]
     dirs = 2 if bidirectional else 1
     size = 0
     for layer in range(num_layers):

@@ -1325,7 +1325,9 @@ def test_rnn_op_on_card_matches_cpu(dev, mode, varlen):
     """The fused RNN op (ATen's cuDNN RNN, one layer a call; packed
     sequences for variable lengths, a length 0 among them) at 2
     bidirectional layers: outputs, final states and the gradients of x,
-    the packed parameters and h0 within 1e-5 of the CPU run (TF32 off)."""
+    the packed parameters and h0 within 1e-5 of each tensor's largest
+    |value| on the CPU run (TF32 off; the weight gradients sum T·N
+    products in cuDNN's order: 1.4e-5 apart at magnitudes near 10)."""
     from mxnet_tpu_torch.ops import rnn_ops
     T, N, I, H = 7, 4, 5, 8
     rng = np.random.RandomState(0)
@@ -1345,7 +1347,8 @@ def test_rnn_op_on_card_matches_cpu(dev, mode, varlen):
         runs.append([o.detach().cpu() for o in out]
                     + [t.grad.cpu() for t in (x, p, h0)])
     for got, want in zip(runs[1], runs[0]):
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        scale = max(float(want.abs().max()), 1.0)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
 
 
 def test_ctc_loss_on_card_matches_cpu(dev):

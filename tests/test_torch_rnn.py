@@ -516,7 +516,7 @@ def test_dropout_residual_and_zoneout_cells():
     assert float(np.abs(out.asnumpy()).max()) > 0
 
 
-# -- activations ----------------------------------------------------------------
+# -- activations -------------------------------------------------------------
 
 @pytest.mark.parametrize("act", ["relu", "relu6", "sigmoid", "tanh",
                                  "softrelu", "softsign", "gelu", "silu"])
