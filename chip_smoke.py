@@ -155,6 +155,33 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      and on the CPU: losses and parameters within TOL_TRAIN, CRNN
      decodes equal; the same card runs with TF32 allowed, and a second
      card run, are reported beside them.
+ 26. serves phase 2's traffic on phase 2's model (rebuilt from seed 0)
+     as the reference, then again with deadlines (every fourth request
+     at half the reference's median request wall: 504 with a prefix of
+     its reference tokens), a `cancel@req:1` fault and a
+     `Server.cancel` mid-generation (499, a prefix), one injected
+     OSError on a dispatch (retried once, tokens unchanged), every other
+     request's tokens equal to the reference; the pool's pages return;
+     then a `burst:8@step:3` into a 4-deep queue (4 shed);
+ 27. walks each rung of the degradation ladder once, dense and paged, at
+     a capacity or pool set from the server's own accounting: shrink,
+     evict-and-requeue (the replay equals the unloaded tokens), 429 at
+     submit; none fired in phase 26's reference run at the card's real
+     capacity; prints each bucket's measured execution peak beside a
+     real dispatch's;
+ 28. serves phase 2's requests, all greedy, plus two sampled ones,
+     through the plain paged server and speculatively (spec_k 4) with
+     the target as its own drafter and with a drafter of distilgpt2's
+     published shape (6 layers, random weights): tokens equal the
+     plain server's bit for bit, the self drafter accepts above 0.9,
+     the paged kernel launches once a layer a token step;
+ 29. beam search (`generate(num_beams=4, eos=50256, alpha=0.6,
+     return_scores=True)`) on 4 prompts of 32 tokens, 32 new: one flash
+     prefill, finite scores, beams end at eos;
+ 30. on float32 gpt_tiny and a 1-layer drafter, card against CPU:
+     speculative tokens and draft counts, beam tokens (scores within
+     1e-5), and the ladder's verdicts at capacities from each side's
+     own accounting.
 
 Phase 1 also holds the training kernels against their plain versions at
 the training shapes: the flash forward with dropout 0.1 (its keep mask
@@ -1814,13 +1841,14 @@ def sync(model):
         torch.cuda.synchronize()
 
 
-def serving_phase(model, n_req=16, lo=16, hi=384, prefix=128, new=64,
-                  slots=8, page_size=16, chunk=8, seed=0):
-    """Staggered traffic: one request behind the shared prefix prefills
-    first, then the rest arrive together (half of them behind the same
-    prefix). Returns (requests, server stats, seconds)."""
+def serving_specs(model, n_req=16, lo=16, hi=384, prefix=128, new=64,
+                  seed=0, sampled=True):
+    """Phase 2's traffic: `n_req` (prompt, submit kwargs) pairs, prompts
+    of lo..hi tokens, the even ones behind one shared `prefix`-token
+    prefix, `new` new tokens each; every request i with i % 4 >= 2 is
+    sampled (temperature 0.8, top_k 40, seed i) unless `sampled` is
+    False."""
     import numpy as np
-    from mxnet_tpu_torch import serve
     rng = np.random.RandomState(seed)
     V = model.cfg["vocab_size"]
     shared = rng.randint(0, V, (prefix,)).astype(np.int32)
@@ -1832,19 +1860,48 @@ def serving_phase(model, n_req=16, lo=16, hi=384, prefix=128, new=64,
             prompt = np.concatenate([shared, tail])
         else:
             prompt = rng.randint(0, V, (n,)).astype(np.int32)
-        sample = i % 4 >= 2
+        sample = sampled and i % 4 >= 2
         specs.append((prompt, dict(max_new_tokens=new,
                                    temperature=0.8 if sample else 0.0,
                                    top_k=40 if sample else 0, seed=i)))
+    return specs
+
+
+def drive(srv, specs, submit_kw=None, on_step=None):
+    """Phase 2's arrival pattern: the first request alone until its
+    prompt is in the prefix tree, then the rest together; then drain.
+    `submit_kw(i)` adds keyword arguments to request i's submit, and
+    `on_step(requests)` runs after every scheduler step. Returns the
+    requests (request i is spec i: ids follow submission order)."""
+    def submit(i):
+        p, kw = specs[i]
+        return srv.submit(p, **kw, **(submit_kw(i) if submit_kw else {}))
+
+    reqs = [submit(0)]
+    while srv.busy() and srv.stats()["tree_nodes"] == 0:
+        srv.step()
+        if on_step:
+            on_step(reqs)
+    reqs += [submit(i) for i in range(1, len(specs))]
+    while srv.busy():
+        srv.step()
+        if on_step:
+            on_step(reqs)
+    return reqs
+
+
+def serving_phase(model, n_req=16, lo=16, hi=384, prefix=128, new=64,
+                  slots=8, page_size=16, chunk=8, seed=0):
+    """Staggered traffic: one request behind the shared prefix prefills
+    first, then the rest arrive together (half of them behind the same
+    prefix). Returns (requests, server stats, seconds)."""
+    from mxnet_tpu_torch import serve
+    specs = serving_specs(model, n_req, lo, hi, prefix, new, seed)
     srv = serve.Server(model, slots=slots, pages="on", page_size=page_size,
                        prefill_chunk=chunk)
     sync(model)
     t0 = time.perf_counter()
-    reqs = [srv.submit(specs[0][0], **specs[0][1])]
-    while srv.busy() and srv.stats()["tree_nodes"] == 0:
-        srv.step()
-    reqs += [srv.submit(p, **kw) for p, kw in specs[1:]]
-    srv.drain()
+    reqs = drive(srv, specs)
     sync(model)
     seconds = time.perf_counter() - t0
     stats = srv.stats()
@@ -4320,6 +4377,608 @@ def rnn_parity_phase(dev, steps=3, lr=1e-3):
             "parameters": len(cpu["params"])}
 
 
+# ---------------------------------------------------------------------------
+# phases 26-30: the serving request lifecycle, the admission ladder,
+# speculative decoding, beam search, and their card-vs-CPU parity
+# ---------------------------------------------------------------------------
+
+# HuggingFace `distilgpt2`'s published config.json: n_layer 6, n_embd 768,
+# n_head 12, vocab_size 50257, n_positions 1024 (GPT-2's tokenizer)
+DISTILGPT2 = dict(num_layers=6, units=768, hidden_size=3072, num_heads=12,
+                  vocab_size=50257, max_length=1024)
+PAGED_KW = dict(slots=8, pages="on", page_size=16, prefill_chunk=8)
+
+
+def serve_summary(reqs, seconds):
+    """Tokens/s, TTFT p50/p99 and the verdicts by code of a served run."""
+    import numpy as np
+    n_tok = sum(len(r.tokens) for r in reqs)
+    ttft = [r.ttft_s * 1e3 for r in reqs if r.ttft_s is not None]
+    codes = {}
+    for r in reqs:
+        codes[r.verdict[:3]] = codes.get(r.verdict[:3], 0) + 1
+    return {"requests": len(reqs), "tokens": n_tok, "seconds": seconds,
+            "tokens_per_s": n_tok / seconds,
+            "ttft_ms_p50": float(np.percentile(ttft, 50)) if ttft else None,
+            "ttft_ms_p99": float(np.percentile(ttft, 99)) if ttft else None,
+            "verdicts": codes}
+
+
+def timed_drive(srv, specs, **kw):
+    sync(srv.model)
+    t0 = time.perf_counter()
+    reqs = drive(srv, specs, **kw)
+    sync(srv.model)
+    return reqs, time.perf_counter() - t0
+
+
+def is_prefix(a, b):
+    return list(a) == list(b)[:len(a)]
+
+
+def lifecycle_phase(model, traffic=None, kw=PAGED_KW):
+    """Phase 26: phase 2's traffic (or `traffic`, serving_specs' keyword
+    arguments) on `Server(model, **kw)`, first as the reference run at
+    the card's real capacity (no ladder rung may fire: phase 27 reads
+    that), then again with
+      * deadlines: every fourth request gets `deadline_ms` of half the
+        reference run's median request wall; one that expires ends 504
+        with a prefix of its reference tokens;
+      * cancellation: a `cancel@req:1` fault armed once request 1 holds 8
+        tokens, and `Server.cancel` of request 2 once it holds 16: 499,
+        a prefix of the reference tokens;
+      * retry: the 20th `decode_paged_chunk` call with live rows raises
+        one OSError (RetryPolicy backoff 10 ms): `retries` == 1;
+    every other request's tokens equal its reference tokens; after the
+    drain the pool's free pages are its data pages less the prefix
+    tree's. Then a burst: `burst:8@step:3` through `on_burst` on a
+    server with a 4-deep queue (serve_shed=reject) holding 2 running
+    requests of 16-token prompts: 4 shed with 503, 6 served 200.
+    Returns (the phase's numbers, the reference run's stats)."""
+    import numpy as np
+    from mxnet_tpu_torch import config, resilience, serve
+    specs = serving_specs(model, **(traffic or {}))
+    n = len(specs)
+    ref_srv = serve.Server(model, **kw)
+    ref, ref_s = timed_drive(ref_srv, specs)
+    ref_stats = ref_srv.stats()
+    ref_srv.stop()
+    check(all(r.verdict == "200 ok" for r in ref),
+          f"reference verdicts {[r.verdict for r in ref]}")
+    walls = [(r._finish_perf - r._submit_perf) * 1e3 for r in ref]
+    deadline_ms = float(np.median(walls)) / 2
+    ref_tok = [list(r.tokens) for r in ref]
+
+    calls = {"n": 0}
+    chunk = model.decode_paged_chunk
+
+    def flaky(*args, **kwargs):
+        if int(args[2].max()) > 0:      # a dispatch with live rows
+            calls["n"] += 1
+            if calls["n"] == 20:
+                raise OSError("injected transient dispatch fault")
+        return chunk(*args, **kwargs)
+
+    srv = serve.Server(model, retry=resilience.RetryPolicy(backoff_s=0.01),
+                       **kw)
+    marks = {}
+
+    def on_step(reqs):
+        if len(reqs) < 3:
+            return
+        if "fault" not in marks and len(reqs[1].tokens) >= 8:
+            config.set("fault_inject", "cancel@req:1")
+            resilience.enable()
+            marks["fault"] = len(reqs[1].tokens)
+        if "call" not in marks and len(reqs[2].tokens) >= 16:
+            srv.cancel(reqs[2])
+            marks["call"] = len(reqs[2].tokens)
+
+    model.decode_paged_chunk = flaky
+    reset_counts()
+    try:
+        reqs, secs = timed_drive(
+            srv, specs, on_step=on_step, submit_kw=lambda i: dict(
+                deadline_ms=deadline_ms) if i % 4 == 3 else {})
+    finally:
+        del model.decode_paged_chunk
+        resilience.disable()
+        config.reset("fault_inject")
+    counts = read_counts()
+    st = srv.stats()
+    srv.stop()
+    check(counts["paged_attention"] > 0,
+          "paged kernel never launched in the lifecycle run")
+    expired = 0
+    for i, r in enumerate(reqs):
+        if i in (1, 2):
+            check(r.state == serve.CANCELLED and r.verdict.startswith("499")
+                  and 0 < len(r.tokens) < len(ref_tok[i])
+                  and is_prefix(r.tokens, ref_tok[i]),
+                  f"request {i} cancelled: {r!r}")
+        elif i % 4 == 3 and r.state == serve.EXPIRED:
+            expired += 1
+            check(r.verdict.startswith("504")
+                  and is_prefix(r.tokens, ref_tok[i]),
+                  f"request {i} expired: {r!r}")
+        else:
+            check(r.verdict == "200 ok" and r.tokens == ref_tok[i],
+                  f"request {i} {r!r}: tokens differ from the reference")
+    check(expired >= 1, "no request reached its deadline")
+    check(st["retries"] == 1, f"retries {st['retries']}")
+    check(st["pool_pages_free"] == st["pool_pages_total"] - st["tree_nodes"],
+          f"pages not returned: {st}")
+
+    config.set("fault_inject", "burst:8@step:3")
+    resilience.enable()
+    try:
+        bsrv = serve.Server(model, queue_depth=4, shed="reject", **kw)
+        small = [(p[:16], dict(max_new_tokens=16)) for p, _ in specs]
+        extra = []
+        bsrv.on_burst = lambda k: extra.extend(
+            bsrv.submit(small[2 + j % (n - 2)][0], max_new_tokens=16)
+            for j in range(k))
+        first = [bsrv.submit(p, **k) for p, k in small[:2]]
+        bsrv.drain()
+        bst = bsrv.stats()
+        bsrv.stop()
+    finally:
+        resilience.disable()
+        config.reset("fault_inject")
+    shed = [r for r in extra if r.state == serve.SHED]
+    check(len(extra) == 8 and len(shed) == 4 and all(
+        r.verdict.startswith("503 shed: queue full") for r in shed)
+        and all(r.verdict == "200 ok" for r in first + extra
+                if r not in shed), f"burst verdicts {[r.verdict for r in extra]}")
+    res = {"reference": serve_summary(ref, ref_s),
+           "median_request_wall_ms": float(np.median(walls)),
+           "deadline_ms": deadline_ms,
+           "loaded": serve_summary(reqs, secs),
+           "expired": st["expired"], "cancelled": st["cancelled"],
+           "cancel_at_tokens": marks, "retries": st["retries"],
+           "pool_pages_free": st["pool_pages_free"],
+           "pool_pages_total": st["pool_pages_total"],
+           "tree_nodes": st["tree_nodes"], "launches": counts,
+           "burst": {"served": bst["completed"], "shed": bst["shed"]}}
+    return res, ref_stats
+
+
+def exec_peak_rows(model, buckets=(128, 256, 512), spec_k=4):
+    """The execution peaks `Server._measure_peak` measured (one fully
+    masked dispatch) against `torch.cuda.max_memory_allocated` over a
+    real dispatch of the same shape (every row live, its own pages or
+    positions), for each paged (bucket, C) the server runs and each
+    dense bucket."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import serve
+    dev = model.device
+    V = model.cfg["vocab_size"]
+    rng = np.random.RandomState(9)
+    rows = []
+    for paged in (True, False):
+        kw = PAGED_KW if paged else dict(slots=8)
+        srv = serve.Server(model, **kw)
+        B = srv._slots
+        shapes = ((8, False), (1, False), (spec_k + 1, True)) if paged \
+            else ((1, False),)
+        for bucket in buckets:
+            for C, full in shapes:
+                probe = srv._measure_peak(bucket, C, full)
+                toks = torch.from_numpy(rng.randint(0, V, (B, C)).astype(
+                    np.int32)).to(dev)
+                if paged:
+                    pages = srv._pool.alloc(B)
+                    tables = torch.zeros((B, bucket // 16), dtype=torch.int32)
+                    tables[:, 0] = torch.tensor(pages)
+                    lead = (toks, torch.zeros(B, dtype=torch.int32, device=dev),
+                            torch.full((B,), C, dtype=torch.int32, device=dev),
+                            tables.to(dev))
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    with torch.no_grad():
+                        out, _ = model.decode_paged_chunk(
+                            *lead, srv._pool.state["target"], 16, full=full)
+                    for p in pages:
+                        srv._pool.decref(p)
+                else:
+                    caches = model._alloc_caches(B, bucket)
+                    t = torch.from_numpy(rng.randint(0, bucket, (B,)).astype(
+                        np.int32)).to(dev)
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    with torch.no_grad():
+                        out, _, _ = model.decode_step_slots(
+                            toks[:, 0], t, caches[:srv._n_l],
+                            caches[srv._n_l:])
+                    del caches
+                torch.cuda.synchronize()
+                real = torch.cuda.max_memory_allocated() - base
+                del out
+                check(probe is not None and probe > 0 and real > 0,
+                      f"exec peak {probe} / real {real}")
+                rows.append({"pages": "on" if paged else "off",
+                             "bucket": bucket, "C": C, "full": full,
+                             "exec_peak_bytes": probe,
+                             "real_dispatch_peak_bytes": int(real)})
+        srv.stop()
+    return rows
+
+
+def ladder_phase(model, ref_stats, peaks=True):
+    """Phase 27: each rung of the degradation ladder once, dense and
+    paged, at a `device_bytes_limit` (dense) or pool size (paged) set
+    from the server's own accounting (params + caches or pool + the
+    measured `_exec_peak`), 100- and 200-token prompts:
+      * dense shrink: 100 + 300 wants bucket 512; at the capacity halfway
+        between 256's and 512's predicted peaks it runs in 256 with
+        max_new_tokens 300 -> 156;
+      * dense evict: one slot, a capacity of one 256 bucket; a (100 +
+        150) runs, b (100 + 20, bucket 128, no smaller bucket) evicts
+        it; a replays to its unloaded tokens;
+      * dense 429 at submit: a capacity one byte short of params + the
+        128 bucket's caches;
+      * paged shrink (buckets 256 and 512, a 36-page pool): a (200 + 50,
+        16 pages) runs, b (100 + 300, 25 pages) runs in 256 with 300 ->
+        156;
+      * paged evict (a 30-page pool): a (100 + 300, 25 pages) runs, b
+        (200 + 40, 15 pages, no smaller bucket) evicts it; a replays to
+        its unloaded tokens;
+      * paged 429 at submit: a capacity one byte short of params + pool.
+    At the card's real capacity phase 26's reference run (phase 2's
+    traffic) fired no rung: `ref_stats`. With `peaks`, the measured
+    execution peaks against real dispatches (`exec_peak_rows`)."""
+    import numpy as np
+    from mxnet_tpu_torch import config, serve
+    V = model.cfg["vocab_size"]
+    rng = np.random.RandomState(27)
+    p100 = rng.randint(0, V, (100,)).astype(np.int32)
+    p200 = rng.randint(0, V, (200,)).astype(np.int32)
+    check(ref_stats["degraded"] == ref_stats["requeues"]
+          == ref_stats["rejected"] == 0,
+          f"a rung fired at the card's capacity: {ref_stats}")
+
+    def pred(srv, b):
+        return srv._params_bytes + srv._cache_bytes(b) \
+            + (srv._exec_peak(b) or 0)
+
+    def solo(prompt, new, **kw):
+        srv = serve.Server(model, **kw)
+        r = srv.submit(prompt, max_new_tokens=new)
+        srv.drain()
+        srv.stop()
+        check(r.verdict == "200 ok", f"solo {r!r}")
+        return list(r.tokens)
+
+    def evict(srv, a_new, b_prompt, b_new, ref):
+        a = srv.submit(p100, max_new_tokens=a_new)
+        while len(a.tokens) < 8:
+            srv.step()
+        b = srv.submit(b_prompt, max_new_tokens=b_new)
+        srv.step()
+        mid = (a.state, b.state)
+        srv.drain()
+        st = srv.stats()
+        srv.stop()
+        check(mid == (serve.QUEUED, serve.RUNNING) and a.requeues == 1
+              and st["requeues"] == 1 and a.verdict == b.verdict == "200 ok"
+              and a.tokens == ref and a.degraded is None,
+              f"evict-and-requeue: {mid} {a!r} {b!r} {st}")
+        return {"requeues": st["requeues"], "degraded": st["degraded"],
+                "replay_equal": True, "a_streamed": a._streamed}
+
+    out = {"real_capacity": {k: ref_stats[k] for k in
+                             ("degraded", "requeues", "rejected")}}
+    try:
+        srv = serve.Server(model, slots=2)
+        config.set("device_bytes_limit",
+                   (pred(srv, 256) + pred(srv, 512)) // 2)
+        r = srv.submit(p100, max_new_tokens=300)
+        srv.drain()
+        srv.stop()
+        check(r.verdict == "200 ok" and r.degraded == "shrink_max_new:300->156"
+              and len(r.tokens) == 156, f"dense shrink {r!r} {r.degraded}")
+        out["dense_shrink"] = r.degraded
+        config.reset("device_bytes_limit")
+
+        ref = solo(p100, 150, slots=1)
+        srv = serve.Server(model, slots=1)
+        config.set("device_bytes_limit", pred(srv, 256) + 1000)
+        out["dense_evict"] = evict(srv, 150, p100, 20, ref)
+        config.reset("device_bytes_limit")
+
+        srv = serve.Server(model, slots=2)
+        config.set("device_bytes_limit",
+                   srv._params_bytes + srv._cache_bytes(128) - 1)
+        r = srv.submit(p100, max_new_tokens=20)
+        check(r.state == serve.REJECTED and r.verdict.startswith(
+            "429 over capacity: smallest viable KV bucket 128"),
+            f"dense 429 {r!r}")
+        out["dense_429"] = r.verdict[:60]
+        config.reset("device_bytes_limit")
+
+        srv = serve.Server(model, slots=2, pages="on", page_size=16,
+                           prefill_chunk=8, pool_pages=36, buckets=[256, 512])
+        a = srv.submit(p200, max_new_tokens=50)
+        srv.step()
+        b = srv.submit(p100, max_new_tokens=300)
+        srv.drain()
+        st = srv.stats()
+        srv.stop()
+        check(a.verdict == b.verdict == "200 ok"
+              and b.degraded == "shrink_max_new:300->156"
+              and len(b.tokens) == 156 and st["requeues"] == 0,
+              f"paged shrink {a!r} {b!r} {b.degraded}")
+        out["paged_shrink"] = b.degraded
+
+        paged = dict(slots=2, pages="on", page_size=16, prefill_chunk=8)
+        ref = solo(p100, 300, **paged)
+        srv = serve.Server(model, pool_pages=30, **paged)
+        out["paged_evict"] = evict(srv, 300, p200, 40, ref)
+
+        srv = serve.Server(model, **paged)
+        config.set("device_bytes_limit",
+                   srv._params_bytes + srv._pool.pool_bytes() - 1)
+        r = srv.submit(p100, max_new_tokens=20)
+        srv.stop()
+        check(r.state == serve.REJECTED and r.verdict.startswith(
+            "429 over capacity: smallest viable KV bucket"),
+            f"paged 429 {r!r}")
+        out["paged_429"] = r.verdict[:60]
+    finally:
+        config.reset("device_bytes_limit")
+    if peaks:
+        out["exec_peaks"] = exec_peak_rows(model)
+    return out
+
+
+def count_token_steps(models):
+    """Wrap each model's decode_paged_chunk and decode_paged_draft to add
+    layers x token steps to a tally: the paged kernel launches a path
+    must make (one a layer a token step). Returns (tally, undo)."""
+    tally = {"launches": 0}
+
+    def wrap(m, name, steps):
+        real = getattr(m, name)
+        n_l = len(m.gpt.layers)
+
+        def counted(*args, **kw):
+            tally["launches"] += n_l * steps(args, kw)
+            return real(*args, **kw)
+
+        setattr(m, name, counted)
+
+    uniq = list({id(m): m for m in models}.values())
+    for m in uniq:
+        wrap(m, "decode_paged_chunk", lambda a, kw: a[0].shape[1])
+        wrap(m, "decode_paged_draft",
+             lambda a, kw: kw["n_draft"] if "n_draft" in kw else a[6])
+
+    def undo():
+        for m in uniq:
+            del m.decode_paged_chunk
+            del m.decode_paged_draft
+
+    return tally, undo
+
+
+def spec_phase(model, drafter, spec_k=4, traffic=None, kw=PAGED_KW):
+    """Phase 28: phase 2's 16 requests all greedy, plus two sampled at
+    temperature 0.8 (top_k 40) that ride along, through the plain paged
+    server, then with the target as its own drafter, then with
+    `drafter` (distilgpt2's published shape, random weights), spec_k 4:
+    every request's tokens equal the plain server's, bit for bit; the
+    self drafter's acceptance above 0.9; the paged kernel launched
+    exactly once a layer a token step of every target and drafter
+    dispatch. Per server: rounds, spec rounds, tokens/s, TTFT,
+    paged-kernel launches per round, accepted_draft_rate."""
+    from mxnet_tpu_torch import serve
+    specs = serving_specs(model, sampled=False, **(traffic or {}))
+    specs += [(p, dict(max_new_tokens=kw_["max_new_tokens"],
+                       temperature=0.8, top_k=40, seed=100 + i))
+              for i, (p, kw_) in enumerate(specs[:2])]
+    out, plain = {}, None
+    for name, dr in (("plain", None), ("self", model), ("distil", drafter)):
+        srv = serve.Server(model, drafter=dr, spec_k=spec_k, **kw)
+        tally, undo = count_token_steps([model] + ([dr] if dr else []))
+        reset_counts()
+        try:
+            reqs, secs = timed_drive(srv, specs)
+        finally:
+            undo()
+        counts = read_counts()
+        st = srv.stats()
+        srv.stop()
+        toks = [list(r.tokens) for r in reqs]
+        check(all(r.verdict == "200 ok" for r in reqs),
+              f"{name} verdicts {[r.verdict for r in reqs]}")
+        if plain is None:
+            plain = toks
+        check(toks == plain, f"{name} drafter: tokens differ from the plain "
+              "paged server's")
+        check(counts["paged_attention"] == tally["launches"] > 0,
+              f"{name}: {counts['paged_attention']} paged launches, "
+              f"{tally['launches']} layer token steps")
+        n_d = len(dr.gpt.layers) if dr is not None else 0
+        res = serve_summary(reqs, secs)
+        res.update({"rounds": st["steps"], "spec_rounds": st["spec_rounds"],
+                    "chunk_rounds": st["chunk_dispatches"],
+                    "paged_launches": counts["paged_attention"],
+                    "paged_launches_per_round":
+                        counts["paged_attention"] / st["steps"],
+                    "paged_launches_per_spec_round": (spec_k + 1) * (
+                        len(model.gpt.layers) + n_d) if dr else None,
+                    "drafts_proposed": st["drafts_proposed"],
+                    "drafts_accepted": st["drafts_accepted"],
+                    "accepted_draft_rate": st["accepted_draft_rate"]})
+        out[name] = res
+    check(out["self"]["accepted_draft_rate"] > 0.9,
+          f"self-drafter acceptance {out['self']['accepted_draft_rate']}")
+    check(out["self"]["spec_rounds"] > 0 and out["distil"]["spec_rounds"] > 0,
+          "no speculative round ran")
+    return out
+
+
+def beam_phase(model, n=4, lp=32, new=32, eos=50256):
+    """Phase 29: `generate(num_beams=4, eos=50256, alpha=0.6,
+    return_scores=True)` on n prompts of lp tokens, `new` new ones: one
+    flash prefill (a flash forward a layer), shapes, finite scores, and
+    no token but eos after a beam's eos; then the same with the first
+    greedy token as eos, so beams end on it."""
+    import numpy as np
+    V = model.cfg["vocab_size"]
+    prompts = np.random.RandomState(29).randint(0, V, (n, lp)).astype(
+        np.int32)
+    out = {}
+    for name, e in (("eos_50256", eos), ("eos_greedy", None)):
+        if e is None:
+            e = int(model.generate(prompts[:1], max_new_tokens=1)[0, 0])
+        sync(model)
+        reset_counts()
+        t0 = time.perf_counter()
+        toks, scores = model.generate(prompts, max_new_tokens=new, eos=e,
+                                      alpha=0.6, num_beams=4,
+                                      return_scores=True)
+        sync(model)
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        check(toks.shape[0] == n and 1 <= toks.shape[1] <= new
+              and toks.dtype == np.int32 and scores.shape == (n,)
+              and np.isfinite(scores).all(), f"beam {toks.shape} {scores}")
+        for row in toks:
+            hit = np.flatnonzero(row == e)
+            check(hit.size == 0 or (row[hit[0]:] == e).all(),
+                  f"beam row continues past eos {e}: {row}")
+        check(counts["flash_attention_fwd"] == len(model.gpt.layers),
+              f"beam launches {counts}")
+        out[name] = {"eos": e, "steps": int(toks.shape[1]),
+                     "ms_per_step": secs * 1e3 / toks.shape[1],
+                     "seconds": secs, "scores": scores.tolist(),
+                     "rows_ending_on_eos": int((toks == e).any(1).sum()),
+                     "flash_fwd_launches": counts["flash_attention_fwd"],
+                     "paged_launches": counts["paged_attention"]}
+    return out
+
+
+def serve_parity_phase(dev):
+    """Phase 30: float32 gpt_tiny and its 1-layer drafter, the same
+    weights on `dev` and on the CPU: speculative serving (spec_k 3)
+    gives equal tokens and draft counts on both, equal to plain greedy;
+    beam search (4 beams) equal tokens, scores within 1e-5; and the
+    ladder's verdict sequence (dense shrink, dense evict, dense 429,
+    paged evict) equal at capacities set from each side's own
+    accounting."""
+    import numpy as np
+    from mxnet_tpu_torch import config, serve, weights
+    from mxnet_tpu_torch.models import gpt
+    base = build_model(gpt.gpt_tiny_config(), 0, "cpu")
+    dbase = build_model(gpt.gpt_tiny_config(num_layers=1), 7, "cpu")
+    arrays = {k: p.detach().numpy() for k, p in base.collect_params().items()}
+    darrays = {k: p.detach().numpy()
+               for k, p in dbase.collect_params().items()}
+
+    def twin(where):
+        m = gpt.GPTForCausalLM(gpt.gpt_tiny_config(), device=where)
+        d = gpt.GPTForCausalLM(gpt.gpt_tiny_config(num_layers=1),
+                               device=where)
+        return weights.load_named_arrays(m, arrays), \
+            weights.load_named_arrays(d, darrays)
+
+    rng = np.random.RandomState(30)
+    prompts = [rng.randint(0, 128, (k,)).astype(np.int32) for k in (5, 9, 17)]
+    p4, p9, p10 = (rng.randint(0, 128, (k,)).astype(np.int32)
+                   for k in (4, 9, 10))
+    bprompt = rng.randint(0, 128, (2, 7)).astype(np.int32)
+
+    def ladder(m):
+        """The ladder cases of tests/test_torch_serve_admission.py."""
+        out = []
+
+        def pred(srv, b):
+            return srv._params_bytes + srv._cache_bytes(b) \
+                + (srv._exec_peak(b) or 0)
+
+        try:
+            srv = serve.Server(m, slots=2)
+            config.set("device_bytes_limit",
+                       (pred(srv, 32) + pred(srv, 64)) // 2)
+            r = srv.submit(p10, max_new_tokens=40)
+            srv.drain()
+            out.append((r.verdict, r.degraded, r.tokens))
+            srv = serve.Server(m, slots=1)
+            config.set("device_bytes_limit", pred(srv, 64) + 1000)
+            a = srv.submit(p4, max_new_tokens=50)
+            while len(a.tokens) < 3:
+                srv.step()
+            b = srv.submit(p4, max_new_tokens=4)
+            srv.drain()
+            out.append((a.verdict, a.requeues, a.tokens, b.verdict))
+            srv = serve.Server(m, slots=2)
+            config.set("device_bytes_limit",
+                       srv._params_bytes + srv._cache_bytes(32) // 2)
+            out.append(srv.submit(p9, max_new_tokens=8).verdict[:40])
+            config.reset("device_bytes_limit")
+            srv = serve.Server(m, slots=2, pages="on", page_size=4,
+                               prefill_chunk=4, pool_pages=5)
+            a = srv.submit(p10, max_new_tokens=6)
+            srv.step()
+            b = srv.submit(p9, max_new_tokens=3)
+            srv.drain()
+            srv.stop()
+            out.append((a.verdict, a.requeues, a.tokens, b.verdict))
+        finally:
+            config.reset("device_bytes_limit")
+        return out
+
+    res = {}
+    for where in (dev, "cpu"):
+        m, d = twin(where)
+        reset_counts()
+        srv = serve.Server(m, slots=4, pages="on", page_size=4,
+                           prefill_chunk=4, drafter=d, spec_k=3)
+        reqs = [srv.submit(p, max_new_tokens=16) for p in prompts]
+        srv.drain()
+        st = srv.stats()
+        srv.stop()
+        spec_launches = read_counts()["paged_attention"]
+        plain = serve.Server(m, slots=4)
+        preqs = [plain.submit(p, max_new_tokens=16) for p in prompts]
+        plain.drain()
+        eos = int(m.generate(bprompt[:1], max_new_tokens=3)[0, -1])
+        reset_counts()
+        btok, bsc = m.generate(bprompt, max_new_tokens=12, eos=eos,
+                               num_beams=4, return_scores=True)
+        res[str(where)] = {
+            "spec": [list(r.tokens) for r in reqs],
+            "plain": [list(r.tokens) for r in preqs],
+            "draft_counts": (st["spec_rounds"], st["drafts_proposed"],
+                             st["drafts_accepted"]),
+            "spec_launches": spec_launches,
+            "beam": btok.tolist(), "scores": bsc,
+            "beam_flash": read_counts()["flash_attention_fwd"],
+            "ladder": ladder(m)}
+    card, cpu = res[str(dev)], res["cpu"]
+    check(card["spec"] == card["plain"] == cpu["spec"] == cpu["plain"],
+          "speculative tokens differ between card, CPU and plain greedy")
+    check(card["draft_counts"] == cpu["draft_counts"],
+          f"draft counts {card['draft_counts']} != {cpu['draft_counts']}")
+    check(str(dev) == "cpu" or card["spec_launches"] > 0,
+          "paged kernel never launched in speculative serving")
+    check(card["beam"] == cpu["beam"], "beam tokens differ")
+    score_err = float(np.abs(card["scores"] - cpu["scores"]).max())
+    check(score_err <= 1e-5, f"beam scores {score_err}")
+    check(str(dev) == "cpu" or card["beam_flash"] == 2,
+          f"beam flash launches {card['beam_flash']}")
+    check(card["ladder"] == cpu["ladder"],
+          f"ladder {card['ladder']} != {cpu['ladder']}")
+    return {"spec_tokens_equal": True, "draft_counts": card["draft_counts"],
+            "beam_tokens_equal": True, "beam_score_max_abs_err": score_err,
+            "ladder_verdicts": [x if isinstance(x, str) else x[:2]
+                                for x in card["ladder"]]}
+
+
 def main():
     try:
         import torch
@@ -4696,6 +5355,39 @@ def main():
     # 25. small float32 DeepAR and CRNN, card == CPU
     rparity = rnn_parity_phase(dev)
     print("chip_smoke: card-vs-CPU DeepAR and CRNN " + json.dumps(rparity))
+    torch.cuda.empty_cache()
+
+    # 26-29. the serving request lifecycle, the admission ladder,
+    # speculative decoding and beam search on phase 2's model
+    model = build_model(gpt.gpt2_117m_config(dtype="bfloat16"), seed=0)
+    life, ref_stats = lifecycle_phase(model)
+    print("chip_smoke: serving lifecycle " + json.dumps(life))
+    ladder = ladder_phase(model, ref_stats)
+    for row in ladder.pop("exec_peaks"):
+        print("chip_smoke: exec peak " + json.dumps(row))
+    print("chip_smoke: admission ladder " + json.dumps(ladder))
+    distil = build_model(gpt.gpt2_117m_config(dtype="bfloat16",
+                                              **DISTILGPT2), seed=2)
+    spec = spec_phase(model, distil)
+    del distil
+    print("chip_smoke: speculative decoding " + json.dumps(spec))
+    kernels["paged_attention"]["speculative_launches"] = {
+        name: {k: spec[name][k] for k in (
+            "paged_launches", "rounds", "spec_rounds",
+            "paged_launches_per_round", "paged_launches_per_spec_round")}
+        for name in ("plain", "self", "distil")}
+    beam = beam_phase(model)
+    print("chip_smoke: beam search " + json.dumps(beam))
+    kernels["flash_attention_fwd"]["beam_launches"] = \
+        beam["eos_50256"]["flash_fwd_launches"]
+    del model
+    torch.cuda.empty_cache()
+
+    # 30. float32 speculative serving, beam search and the ladder, card
+    # == CPU
+    sparity = serve_parity_phase(dev)
+    print("chip_smoke: card-vs-CPU speculative, beam, ladder "
+          + json.dumps(sparity))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,8 +7,10 @@ with `causal=True`; the LM head ties the token embedding. Training runs
 attention and the MLP; the causal flash kernels forward and backward)
 under `parallel.ShardedTrainer` with `gpt_lm_loss`. The decode surface
 the server drives is the JAX package's: `decode_step_slots` (dense
-per-slot caches) and `decode_paged_chunk` (block-table pages), plus
-`generate`, whose prompt prefill is one causal flash pass. A model whose
+per-slot caches), `decode_paged_chunk` (block-table pages) and
+`decode_paged_draft` (a drafter's greedy chain for speculative serving),
+plus `generate`, whose prompt prefill is one causal flash pass, greedy,
+sampled or by beam search (`num_beams`). A model whose
 Dense layers `contrib.quantization.quantize_block` swapped for int8 runs
 the same decode surface.
 
@@ -20,7 +22,7 @@ Differences from the JAX package, all of them idiom: PyTorch runs
 eagerly, so there is no jit cache, `lax.scan` is a Python loop and
 caches are updated in place (see `_decode`); the configs' `scan_layers`
 flag is a compile-time choice that the port accepts as a no-op;
-sequence parallelism and beam search are not in the port.
+sequence parallelism is not in the port.
 """
 import numpy as np
 import torch
@@ -31,7 +33,7 @@ from ..gluon import HybridBlock, nn
 from ..gluon.parameter import Parameter
 from ..ndarray.ndarray import _unwrap
 from ..ops import nn_ops
-from ._decode import (batched_cached_attention_step,
+from ._decode import (batched_cached_attention_step, beam_search_loop,
                       cached_self_attention_step, paged_attention_step)
 from ._remat import remat_policy, stack_call
 from .bert import BERTAttention, _positions
@@ -266,31 +268,60 @@ class GPTForCausalLM(HybridBlock):
         wo = torch.where(ok, pos % page_size, 0).to(torch.int32)
         return wp, wo
 
-    def decode_paged_chunk(self, toks, t0, n, tables, flat, page_size):
+    def decode_paged_chunk(self, toks, t0, n, tables, flat, page_size,
+                           full=False):
         """Chunked paged decode: row b feeds its n[b] tokens toks[b, :n[b]]
         at positions t0[b].. — many prompt tokens per dispatch (batched
-        prefill) or one (steady decode). C one-token steps, each exactly
-        the `decode_step_slots` computation, so a chunk's logits equal
-        feeding the same tokens one dispatch at a time. Rows past their
-        count run masked into their scratch page; their logits are
-        discarded.
+        prefill), one (steady decode), or a speculative round's k+1
+        (`full`). C one-token steps, each exactly the `decode_step_slots`
+        computation, so a chunk's logits equal feeding the same tokens one
+        dispatch at a time. Rows past their count run masked into their
+        scratch page; their logits are discarded.
 
         toks (B,C) int32; t0/n (B,) int32; tables (B,n_pg) int32; flat =
         2*n_l pooled page arrays (K per layer, then V), written in place.
-        Returns (float32 logits (B,V) of each row's last active token,
-        flat)."""
+        Returns (float32 logits (B,V) of each row's last active token —
+        or, with `full`, every step's float32 logits stacked (B,C,V), the
+        speculative verify surface — and flat)."""
         n_l = len(self.gpt.layers)
         ks, vs = flat[:n_l], flat[n_l:]
         B, C = toks.shape
-        last = None
+        last, stack = None, []
         for j in range(C):
             pos = t0 + j
             wp, wo = self._paged_write_targets(pos, j < n, tables, page_size)
             lg = self._paged_token_step(toks[:, j], pos, tables, wp, wo,
                                         ks, vs)
-            last = lg if last is None else torch.where(
-                (n - 1 == j)[:, None], lg, last)
-        return last, flat
+            if full:
+                stack.append(lg)
+            else:
+                last = lg if last is None else torch.where(
+                    (n - 1 == j)[:, None], lg, last)
+        return (torch.stack(stack, dim=1) if full else last), flat
+
+    def decode_paged_draft(self, tok0, t0, active, tables, flat, page_size,
+                           n_draft):
+        """Greedy draft chain (on the DRAFTER model): feed tok0[b] at
+        position t0[b], take the argmax as the next token, repeat —
+        n_draft proposals in one call, the argmax on the device. The
+        drafter writes its own pooled page arrays (`flat`, the pool's
+        'draft' stream) through the SAME page tables as the target, so a
+        prefix-tree hit skips drafter prefill too. Inactive rows (active[b]
+        False — not in a speculative round) run fully masked into scratch.
+
+        tok0/t0 (B,) int32; active (B,) bool; tables (B,n_pg) int32.
+        Returns (drafts (B, n_draft) int32, flat)."""
+        n_l = len(self.gpt.layers)
+        ks, vs = flat[:n_l], flat[n_l:]
+        tok, drafts = tok0.to(torch.int32), []
+        for i in range(n_draft):
+            pos = t0 + i
+            wp, wo = self._paged_write_targets(pos, active, tables,
+                                               page_size)
+            lg = self._paged_token_step(tok, pos, tables, wp, wo, ks, vs)
+            tok = lg.argmax(-1).to(torch.int32)
+            drafts.append(tok)
+        return torch.stack(drafts, dim=1), flat
 
     def _alloc_caches(self, B, max_len):
         """Zeroed per-layer K+V caches (B, H, max_len, D), 2*n_l of them."""
@@ -314,9 +345,56 @@ class GPTForCausalLM(HybridBlock):
         h_last = g.ln_f(x)[:, lp - 1]
         return self._logits(h_last).float(), ks, vs
 
+    @staticmethod
+    def _prompt_bucket(Lp, max_len):
+        """The 16*2^k length a prompt right-pads to for its prefill."""
+        Lp_b = 16
+        while Lp_b < Lp:
+            Lp_b *= 2
+        return min(Lp_b, max_len - 1)
+
+    def _generate_beam(self, prompt, max_new, eos, num_beams, alpha,
+                       max_len, return_scores):
+        """Beam search over the dense cache: ONE batched flash prefill at
+        batch B (beams are identical copies until the first expansion),
+        the caches tiled beam-wise (row b*beam+j is beam j of batch b, the
+        layout the reorder's gather indices expect), then one-token
+        `decode_step`s with the host's top-k bookkeeping
+        (`beam_search_loop`) and an `index_select` reorder of every
+        cache. The JAX package's `_generate_beam`."""
+        B, Lp = prompt.shape
+        Lp_b = self._prompt_bucket(Lp, max_len)
+        prompt_pad = np.concatenate(
+            [prompt, np.zeros((B, Lp_b - Lp), np.int32)], axis=1)
+        dev = self.device
+        logits0, ks, vs = self._prefill_body(
+            torch.from_numpy(prompt_pad).to(dev), Lp,
+            self._alloc_caches(B, max_len))
+        state = {"k": [c.repeat_interleave(num_beams, 0) for c in ks],
+                 "v": [c.repeat_interleave(num_beams, 0) for c in vs]}
+        del ks, vs
+        logits0 = logits0.repeat_interleave(num_beams, 0).cpu().numpy()
+
+        def dev_step(tok, t):
+            logits, _, _ = self.decode_step(
+                torch.from_numpy(np.asarray(tok, np.int32)).to(dev), t,
+                state["k"], state["v"])
+            return logits.float().cpu().numpy()
+
+        def reorder(gather):
+            g = torch.from_numpy(gather).to(dev)
+            state["k"] = [c.index_select(0, g) for c in state["k"]]
+            state["v"] = [c.index_select(0, g) for c in state["v"]]
+
+        out, scores = beam_search_loop(
+            logits0, lambda tok, i: dev_step(tok, Lp + i), reorder,
+            B, num_beams, eos, max_new, alpha=alpha)
+        return (out, scores) if return_scores else out
+
     @torch.no_grad()
     def generate(self, prompt, max_new_tokens=32, eos=None, temperature=0.0,
-                 top_k=0, seed=0, num_beams=1):
+                 top_k=0, seed=0, num_beams=1, alpha=0.6,
+                 return_scores=False):
         """Autoregressive generation from int prompt tokens (B, Lp):
         greedy at temperature 0, else softmax sampling at `temperature`
         (optionally truncated to the top_k logits) from a torch.Generator
@@ -324,10 +402,11 @@ class GPTForCausalLM(HybridBlock):
         The prompt right-pads to a 16*2^k bucket and prefills in one
         causal flash pass; generation then steps the dense cache. Returns
         (B, <= max_new_tokens) numpy int32 tokens (rows stop growing at
-        `eos`)."""
-        if num_beams > 1:
-            raise NotImplementedError("beam search is not in the port's "
-                                      "serving slice")
+        `eos`).
+
+        num_beams > 1 switches to beam search (requires `eos`; Sockeye
+        length norm with `alpha`; `return_scores` adds per-batch
+        scores)."""
         prompt = np.asarray(prompt, np.int32)
         B, Lp = prompt.shape
         need = Lp + max_new_tokens
@@ -342,10 +421,17 @@ class GPTForCausalLM(HybridBlock):
         while max_len < need:
             max_len *= 2
         max_len = min(max_len, limit)
-        Lp_b = 16
-        while Lp_b < Lp:
-            Lp_b *= 2
-        Lp_b = min(Lp_b, max_len - 1)
+        if num_beams > 1:
+            if eos is None:
+                raise ValueError("beam search needs an `eos` id (scoring "
+                                 "terminates beams on it)")
+            if (temperature and temperature > 0.0) or top_k:
+                raise ValueError("num_beams > 1 is deterministic beam "
+                                 "search — temperature/top_k do not apply")
+            return self._generate_beam(prompt, max_new_tokens, eos,
+                                       num_beams, alpha, max_len,
+                                       return_scores)
+        Lp_b = self._prompt_bucket(Lp, max_len)
         prompt_pad = np.concatenate(
             [prompt, np.zeros((B, Lp_b - Lp), np.int32)], axis=1)
         dev = self.device

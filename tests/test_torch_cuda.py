@@ -1385,3 +1385,95 @@ def test_deepar_and_crnn_training_on_card_match_cpu(dev):
     launch per weight dtype a step, CRNN decodes equal."""
     import chip_smoke
     chip_smoke.rnn_parity_phase(dev)
+
+
+def test_speculative_beam_and_ladder_on_card_match_cpu(dev):
+    """chip_smoke's phase 30: float32 gpt_tiny and its 1-layer drafter on
+    the card and on the CPU: speculative tokens and draft counts equal
+    (and equal to plain greedy), beam tokens equal with scores within
+    1e-5, the ladder's verdicts equal at capacities from each side's own
+    accounting."""
+    import chip_smoke
+    chip_smoke.serve_parity_phase(dev)
+
+
+def test_tiny_lifecycle_on_card(dev):
+    """Deadline expiry and cancellation on the card's paged server return
+    every page; one transient OSError on a dispatch is retried and the
+    tokens equal an undisturbed run's."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch import resilience, serve
+    from mxnet_tpu_torch.models import gpt
+
+    model = gpt.GPTForCausalLM(gpt.gpt_tiny_config())
+    model.initialize(generator=mxrandom.seed(0))
+    prompts = [np.random.RandomState(k).randint(0, 128, (k,)).astype(np.int32)
+               for k in (9, 6, 7)]
+    kw = dict(slots=4, pages="on", page_size=4, prefill_chunk=4)
+
+    def run(**extra):
+        clk = {"t": 0.0}
+        srv = serve.Server(model, clock=lambda: clk["t"], **kw, **extra)
+        reqs = [srv.submit(p, max_new_tokens=20) for p in prompts]
+        return srv, reqs, clk
+
+    srv, ref, _ = run()
+    srv.drain()
+    srv.stop()
+    calls = {"n": 0}
+    real = model.decode_paged_chunk
+
+    def flaky(*args, **kwargs):
+        calls["n"] += 1
+        if calls["n"] == 5:
+            raise OSError("transient")
+        return real(*args, **kwargs)
+
+    model.decode_paged_chunk = flaky
+    try:
+        srv, reqs, _ = run(retry=resilience.RetryPolicy(backoff_s=0.001))
+        srv.drain()
+    finally:
+        del model.decode_paged_chunk
+    assert srv.stats()["retries"] == 1
+    assert [r.tokens for r in reqs] == [r.tokens for r in ref]
+    srv.stop()
+    srv, reqs, clk = run()
+    total = srv._pool.data_pages
+    late = srv.submit(prompts[0], max_new_tokens=20, deadline_ms=50)
+    for _ in range(6):
+        srv.step()
+    clk["t"] = 1.0
+    srv.cancel(reqs[1])
+    srv.drain()
+    st = srv.stats()
+    assert late.state == serve.EXPIRED and reqs[1].state == serve.CANCELLED
+    assert reqs[1].tokens == ref[1].tokens[:len(reqs[1].tokens)]
+    assert st["pool_pages_free"] == total - st["tree_nodes"]
+    srv.stop()
+    assert srv._pool.free_pages() == total
+
+
+def test_exec_peak_and_capacity_on_card(dev):
+    """On the card the budget's capacity is the device's memory and each
+    bucket's execution peak is measured (> 0; the heaviest paged chunk
+    with a drafter is the full-logits verify); a CPU model has neither."""
+    from mxnet_tpu_torch import memsafe, serve
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.models import gpt
+
+    model = gpt.GPTForCausalLM(gpt.gpt_tiny_config())
+    model.initialize(generator=mxrandom.seed(0))
+    assert memsafe.capacity_bytes(dev) == torch.cuda.mem_get_info(dev)[1]
+    assert memsafe.capacity_bytes("cpu") is None
+    dense = serve.Server(model, slots=2)
+    paged = serve.Server(model, slots=2, pages="on", page_size=4)
+    spec = serve.Server(model, slots=2, pages="on", page_size=4,
+                        drafter=model, spec_k=3)
+    for srv in (dense, paged, spec):
+        assert srv._exec_peak(32) > 0 and srv._exec_peak(64) > 0
+    assert (32, 4, True) in spec._peaks and (32, 8, False) in paged._peaks
+    hints = paged.admission_hints()
+    assert 0 < hints["headroom_bytes"] < memsafe.capacity_bytes(dev)
+    cpu = gpt.GPTForCausalLM(gpt.gpt_tiny_config(), device="cpu")
+    assert serve.Server(cpu, slots=2)._exec_peak(32) is None

@@ -43,6 +43,25 @@ def test_no_jax_import_in_port_sources():
     assert {f: b for f, b in bad.items() if b} == {}
 
 
+@pytest.mark.parametrize("module", ["config", "memsafe", "resilience",
+                                    "serve"])
+def test_serving_lifecycle_modules_stand_alone(module):
+    """The serving lifecycle's modules (the knobs, the budget check, retry
+    and fault injection, the server) are among the checked sources,
+    import no JAX, and loaded alone pull in none."""
+    path = os.path.join(PKG, module + ".py")
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
+    code = (f"import sys; import mxnet_tpu_torch.{module}\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            f"{_FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, importlib, pkgutil\n"
             "import mxnet_tpu_torch as m\n"

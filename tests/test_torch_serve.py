@@ -182,15 +182,27 @@ def test_background_scheduler_streams(pair):
 
 
 def test_pool_waits_when_short_then_admits(pair):
-    _, tm = pair
-    srv = serve.Server(tm, slots=2, pages="on", page_size=4, pool_pages=5)
-    a = srv.submit(_prompt(10), max_new_tokens=6)          # 4 pages
-    b = srv.submit(_prompt(9, seed=2), max_new_tokens=3)   # 3 pages: waits
-    srv.step()
-    assert a.state == serve.RUNNING and b.state == serve.QUEUED
-    srv.drain()
-    srv.stop()
-    assert a.verdict == b.verdict == "200 ok"
+    """A pool short of pages walks the paged ladder as the JAX server
+    does: no smaller bucket to shrink into, so the youngest running
+    request (a) is evicted and requeued; b runs, then a waits for it and
+    replays to its unloaded tokens."""
+    jm, tm = pair
+    ref, _, _ = _serve(serve, tm, [_prompt(10)], max_new=6, **_PAGED)
+    got = {}
+    for mod, m in ((serve_j, jm), (serve, tm)):
+        srv = mod.Server(m, slots=2, pages="on", page_size=4, pool_pages=5)
+        a = srv.submit(_prompt(10), max_new_tokens=6)          # 4 pages
+        b = srv.submit(_prompt(9, seed=2), max_new_tokens=3)   # 3: short
+        srv.step()
+        first = (a.state, b.state)
+        srv.drain()
+        srv.stop()
+        got[mod] = (first, a.verdict, b.verdict, a.requeues, a.tokens,
+                    b.tokens, srv.stats()["requeues"])
+    assert got[serve] == got[serve_j]
+    assert got[serve][0] == (serve.QUEUED, serve.RUNNING)
+    assert got[serve][1:4] == ("200 ok", "200 ok", 1)
+    assert got[serve][4] == ref[0]
 
 
 # -- PagePool / PrefixTree invariants (tests/unittest/test_pages.py) ---------
