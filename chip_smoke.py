@@ -2668,9 +2668,9 @@ def int8_serving_phase(model, bf16_serving):
     token_steps = [0]
     chunk = model.decode_paged_chunk
 
-    def counted(toks, *args):
+    def counted(toks, *args, **kw):
         token_steps[0] += toks.shape[1]
-        return chunk(toks, *args)
+        return chunk(toks, *args, **kw)
 
     model.decode_paged_chunk = counted
     reset_counts()
@@ -4529,7 +4529,8 @@ def lifecycle_phase(model, traffic=None, kw=PAGED_KW):
     check(len(extra) == 8 and len(shed) == 4 and all(
         r.verdict.startswith("503 shed: queue full") for r in shed)
         and all(r.verdict == "200 ok" for r in first + extra
-                if r not in shed), f"burst verdicts {[r.verdict for r in extra]}")
+                if r not in shed),
+        f"burst verdicts {[r.verdict for r in extra]}")
     res = {"reference": serve_summary(ref, ref_s),
            "median_request_wall_ms": float(np.median(walls)),
            "deadline_ms": deadline_ms,
@@ -4571,9 +4572,9 @@ def exec_peak_rows(model, buckets=(128, 256, 512), spec_k=4):
                     pages = srv._pool.alloc(B)
                     tables = torch.zeros((B, bucket // 16), dtype=torch.int32)
                     tables[:, 0] = torch.tensor(pages)
-                    lead = (toks, torch.zeros(B, dtype=torch.int32, device=dev),
-                            torch.full((B,), C, dtype=torch.int32, device=dev),
-                            tables.to(dev))
+                    i32 = dict(dtype=torch.int32, device=dev)
+                    lead = (toks, torch.zeros(B, **i32),
+                            torch.full((B,), C, **i32), tables.to(dev))
                     torch.cuda.synchronize()
                     base = torch.cuda.memory_allocated()
                     torch.cuda.reset_peak_memory_stats()

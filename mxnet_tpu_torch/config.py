@@ -13,7 +13,7 @@ from __future__ import annotations
 import os
 import threading
 
-__all__ = ["get", "set", "reset", "describe", "option"]
+__all__ = ["get", "set", "reset"]
 
 _lock = threading.Lock()
 _options = {}
@@ -73,23 +73,6 @@ def reset(name=None):
             _overrides.clear()
         else:
             _overrides.pop(name, None)
-
-
-def describe():
-    """All options with their current value and provenance."""
-    out = {}
-    for name, opt in sorted(_options.items()):
-        source = ("set" if name in _overrides
-                  else "env" if os.environ.get(opt.env) is not None
-                  else "default")
-        out[name] = {"value": get(name), "default": opt.default,
-                     "env": opt.env, "doc": opt.doc, "source": source}
-    return out
-
-
-def option(name):
-    """The declaration record (for tooling and tests)."""
-    return _options[name]
 
 
 _register(

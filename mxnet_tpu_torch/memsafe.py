@@ -34,6 +34,7 @@ __all__ = ["MemoryBudgetError", "is_oom", "capacity_bytes",
 _lock = threading.RLock()
 _last_check = None            # dict of the most recent budget check
 _warned = set()               # executables already headroom-warned
+_totals = {}                  # CUDA device index -> its total memory
 
 
 def _fmt(n):
@@ -106,14 +107,16 @@ def capacity_bytes(device=None):
     knob = int(_config.get("device_bytes_limit"))
     if knob > 0:
         return knob
-    if device is not None and torch.device(device).type != "cuda":
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_initialized():
         return None
-    if not torch.cuda.is_initialized():
-        return None
-    try:
-        return int(torch.cuda.mem_get_info(device)[1])
-    except Exception:
-        return None
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    if idx not in _totals:       # read once: the scheduler asks every step
+        try:
+            _totals[idx] = int(torch.cuda.mem_get_info(idx)[1])
+        except Exception:
+            return None
+    return _totals[idx]
 
 
 def resident_bytes(tensors):

@@ -29,8 +29,8 @@ import time
 
 from . import config as _config
 
-__all__ = ["enable", "disable", "enabled", "RetryPolicy", "retry_call",
-           "FaultInjector", "restart_count"]
+__all__ = ["enable", "disable", "enabled", "RetryPolicy", "FaultInjector",
+           "restart_count"]
 
 _lock = threading.RLock()
 _enabled = False          # the fast-path bool: hook sites check ONLY this
@@ -160,11 +160,6 @@ class RetryPolicy:
                           f"backoff {delay:.2f}s)", file=sys.stderr)
                 self._sleep(delay)
                 attempt += 1
-
-
-def retry_call(fn, *args, **kwargs):
-    """Module-level convenience: RetryPolicy() from the config knobs."""
-    return RetryPolicy().call(fn, *args, **kwargs)
 
 
 # ---------------------------------------------------------------------------

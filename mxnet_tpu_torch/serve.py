@@ -129,7 +129,6 @@ class Request:
         self.id = seq
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
-        self.requested_new_tokens = int(max_new_tokens)
         self.eos = eos
         self.temperature = float(temperature or 0.0)
         self.top_k = int(top_k or 0)
@@ -327,7 +326,6 @@ class Server:
         self._lock = threading.RLock()
         self._queue = collections.deque()
         self._groups = {}          # bucket -> _Group / _PagedGroup
-        self._exec_peaks = {}      # bucket -> measured exec-peak bytes
         self._peaks = {}           # (bucket, C, full) -> measured bytes
         self._by_id = {}
         self._pending_cancels = []
@@ -778,17 +776,13 @@ class Server:
         run, beyond its resident arguments: the speculative verify chunk
         (spec_k + 1 steps, every step's logits) when a drafter is
         attached, else the prefill chunk (paged), or the one-token step
-        (dense). Cached per bucket; None off the card (the budget then
-        checks resident bytes alone)."""
-        if bucket not in self._exec_peaks:
-            if not self._paged:
-                C, full = 1, False
-            elif self._drafter is not None:
-                C, full = self._spec_k + 1, True
-            else:
-                C, full = self._prefill_chunk, False
-            self._exec_peaks[bucket] = self._measure_peak(bucket, C, full)
-        return self._exec_peaks[bucket]
+        (dense). None off the card (the budget then checks resident bytes
+        alone)."""
+        if not self._paged:
+            return self._measure_peak(bucket)
+        if self._drafter is not None:
+            return self._measure_peak(bucket, self._spec_k + 1, True)
+        return self._measure_peak(bucket, self._prefill_chunk)
 
     def _measure_peak(self, bucket, C=1, full=False):
         """Bytes a dispatch of bucket `bucket` (chunk of C steps, all

@@ -4,6 +4,8 @@ the port's pages="on" against its own pages="off", prefix reuse and
 copy-on-write, and the PagePool / PrefixTree invariants of
 `tests/unittest/test_pages.py` on the port's pool.
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,10 @@ _VOCAB = 128
 @pytest.fixture(autouse=True)
 def _clean():
     yield
+    # drop this test's JAX servers now: a live one stays in
+    # mxnet_tpu.serve's registry and shows in tests of other files
+    # that share the worker (test_scope.py's /statusz)
+    gc.collect()
     serve_j.disable()
     pages_j.disable()
     config.reset()

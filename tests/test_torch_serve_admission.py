@@ -9,6 +9,8 @@ The port measures no execution peak on the CPU (`Server._exec_peak` is
 None there; on the card it is measured), where the JAX package's XLA
 gives one, so capacities are set from each side's own accounting.
 """
+import gc
+
 import numpy as np
 import pytest
 
@@ -32,6 +34,10 @@ _VOCAB = 128
 @pytest.fixture(autouse=True)
 def _clean():
     yield
+    # drop this test's JAX servers now: a live one stays in
+    # mxnet_tpu.serve's registry and shows in tests of other files
+    # that share the worker (test_scope.py's /statusz)
+    gc.collect()
     serve_j.disable()
     pages_j.disable()
     memsafe_j.reset()

@@ -9,6 +9,7 @@ server's expiry and cancellation returning their pages, and the port's
 `RetryPolicy`, `FaultInjector.parse` and `config.set` against the JAX
 package's.
 """
+import gc
 import random
 import threading
 import time
@@ -38,6 +39,10 @@ _VOCAB = 128
 @pytest.fixture(autouse=True)
 def _clean():
     yield
+    # drop this test's JAX servers now: a live one stays in
+    # mxnet_tpu.serve's registry and shows in tests of other files
+    # that share the worker (test_scope.py's /statusz)
+    gc.collect()
     serve_j.disable()
     pages_j.disable()
     res_j.uninstall()
@@ -355,25 +360,27 @@ def test_fault_burst_spec_matches_jax(sides):
 
 
 def test_fault_slow_client_does_not_wedge_scheduler(sides):
+    """A consumer stalling 150 ms a token (1.5 s for its 10) never slows
+    the scheduler: the drain ends while the consumer is still reading,
+    and the consumer still gets every token."""
     def run(s):
-        s["config"].set("fault_inject", "slow_client:20")
+        s["config"].set("fault_inject", "slow_client:150")
         s["res"].enable()
         srv = s["serve"].Server(s["model"], slots=2)
         r = srv.submit(_prompt(3), max_new_tokens=10)
         got = []
         th = threading.Thread(target=lambda: got.extend(r.stream()))
         th.start()
-        t0 = time.perf_counter()
+        time.sleep(0.05)            # the consumer takes the spec first
         srv.drain()
-        drained = time.perf_counter() - t0
+        reading = th.is_alive()
         th.join(timeout=30)
-        return _outcome(r), got, drained
+        return _outcome(r), got, reading
 
     ref, port = (run(s) for s in sides)
     assert port[:2] == ref[:2]
     assert port[0][0] == serve_t.DONE and port[1] == port[0][2]
-    # the consumer stalled ~20 ms a token; the scheduler did not
-    assert port[2] < 0.2 * len(port[1])
+    assert port[2]          # the scheduler finished before the client
 
 
 # -- the paged server: expiry and cancellation return their pages ------------

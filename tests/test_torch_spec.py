@@ -9,6 +9,8 @@ draft counts; sampled rows riding a speculative round
 return_scores=True)`: the same tokens, scores within 1e-5, the same
 validation errors.
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +37,10 @@ _ATOL = 2e-5
 @pytest.fixture(autouse=True)
 def _clean():
     yield
+    # drop this test's JAX servers now: a live one stays in
+    # mxnet_tpu.serve's registry and shows in tests of other files
+    # that share the worker (test_scope.py's /statusz)
+    gc.collect()
     serve_j.disable()
     pages_j.disable()
     config_j.reset()
@@ -116,7 +122,7 @@ def test_verify_chunk_and_draft_chain_match_jax(models):
                                    atol=_ATOL, rtol=_ATOL)
 
 
-# -- speculative serving -------------------------------------------------------
+# -- speculative serving ------------------------------------------------------
 
 _PAGED = dict(pages="on", page_size=4, prefill_chunk=4, spec_k=3)
 _DRAFT_STATS = ("spec_rounds", "drafts_proposed", "drafts_accepted",
@@ -209,7 +215,7 @@ def test_copy_page_copies_every_stream():
     assert pool.stats["cow_copies"] == 1
 
 
-# -- beam search in generate ---------------------------------------------------
+# -- beam search in generate --------------------------------------------------
 
 @pytest.mark.parametrize("B,Lp,new,alpha", [(2, 7, 12, 0.6), (1, 20, 9, 1.0),
                                             (3, 5, 16, 0.0)])
