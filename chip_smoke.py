@@ -1205,6 +1205,87 @@ def adam_ab(other):
     return rounds
 
 
+def lamb_times(root):
+    """Both float32-moment LAMB passes at BERT-large's flat master
+    through the LAMB wrapper of the checkout at `root` (its
+    `mxnet_tpu_torch`, built there), on inputs from a fixed seed: CUDA
+    events and device time (L2 flushed), and a SHA-256 of the outputs of
+    one call of each pass (m, v and the row sums of pass 1, W of pass
+    2), so two checkouts' results compare bit for bit."""
+    import hashlib
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.cuda_ops import _build
+    from mxnet_tpu_torch.cuda_ops import fused_update as fu
+    check(fu.__file__.startswith(os.path.abspath(root)),
+          f"fused_update imported from {fu.__file__}, not {root}")
+    _build.library()
+    dev = torch.device("cuda")
+    R = bert_rows("bert_large_config")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+
+    def rows(scale):
+        return torch.randn((R, 512), generator=gen, device=dev) * scale
+
+    W, G, m = rows(0.05), rows(1e-3), rows(1e-4)
+    v = rows(1e-4).square()
+    wd = torch.tensor(np.where(np.arange(R) % 3, 0.01, 0.0),
+                      dtype=torch.float32, device=dev)
+    trust = torch.rand(R, generator=gen, device=dev) + 0.5
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-6, rescale_grad=1.0,
+              clip_gradient=None, bias_correction=True)
+    c1, c2 = 1 - 0.9 ** 3, 1 - 0.999 ** 3
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    m1, v1, W1 = m.clone(), v.clone(), W.clone()
+    rw, ru = fu.lamb_pass1(W, G, m1, v1, wd, c1, c2, **kw)
+    d1 = digest(m1, v1, rw, ru)
+    fu.lamb_pass2(W1, m1, v1, wd, trust, c1, c2, 1e-3, epsilon=1e-6,
+                  bias_correction=True)
+    d2 = digest(W1)
+
+    def p1():
+        fu.lamb_pass1(W, G, m1, v1, wd, c1, c2, **kw)
+
+    def p2():
+        fu.lamb_pass2(W1, m1, v1, wd, trust, c1, c2, 1e-3, epsilon=1e-6,
+                      bias_correction=True)
+    return {"rows": R, "pass1_digest": d1, "pass2_digest": d2,
+            "pass1_event_ms": time_ms(p1), "pass1_device_ms":
+            device_ms(p1, match="mxt::"), "pass2_event_ms": time_ms(p2),
+            "pass2_device_ms": device_ms(p2, match="mxt::")}
+
+
+def lamb_ab(other):
+    """`lamb_times` of the checkout at `other` against this one's on one
+    card, in the order other, this, this, other, each in its own process
+    (`--lamb-times`); the float32 route's outputs must be equal bit for
+    bit across the checkouts."""
+    rounds = []
+    for root in (other, ROOT, ROOT, other):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--lamb-times", root], capture_output=True,
+                           text=True, timeout=900)
+        check(r.returncode == 0, f"--lamb-times {root}: {r.stderr[-3000:]}")
+        rounds.append({"root": "other" if root == other else "this",
+                       "times": json.loads(r.stdout.strip().splitlines()[-1])})
+        print("chip_smoke: LAMB A/B " + json.dumps(rounds[-1]), flush=True)
+    digests = {(r["times"]["pass1_digest"], r["times"]["pass2_digest"])
+               for r in rounds}
+    check(len(digests) == 1, f"LAMB float32 route outputs differ between "
+          f"the checkouts: {digests}")
+    print("chip_smoke: LAMB A/B: the float32 route's outputs are equal bit "
+          "for bit in all four runs")
+    return rounds
+
+
 def bert_rows(config="bert_base_config"):
     """Rows of a BERT config's flat float32 master (FusedLamb layout),
     from the parameter shapes alone (the model built on the meta
@@ -1218,13 +1299,31 @@ def bert_rows(config="bert_base_config"):
                      -1.0, -1.0).n_rows
 
 
-def lamb_phase(dev, config="bert_base_config", seed=0):
+def bf16_ulp_err(a, b):
+    """The largest distance between two bf16 tensors in units in the last
+    place (ordered integer view of the bits, signs folded)."""
+    import torch
+
+    def ordered(x):
+        i = x.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def lamb_phase(dev, config="bert_base_config", seed=0,
+               moments="float32"):
     """Both LAMB passes against their plain versions at a BERT config's
-    flat size (R rows of 512 float32), timed on copies so each run sees
-    the same state: CUDA events and profiler device time."""
+    flat size (R rows of 512; W and G float32, m and v in `moments`:
+    float32 or bfloat16, the route `lamb_moments_dtype` selects), timed
+    on copies so each run sees the same state: CUDA events and profiler
+    device time. float32: every output within TOL_LAMB of the largest
+    |reference|; bf16: the stored moments within 1 bf16 ulp (the kernel
+    rounds the EMA operation by operation, as the plain version does, so
+    they come out equal), the row sums and W within TOL_LAMB."""
     import numpy as np
     import torch
     from mxnet_tpu_torch.cuda_ops import fused_update as fu
+    mdt = getattr(torch, moments)
     R = bert_rows(config)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -1232,19 +1331,28 @@ def lamb_phase(dev, config="bert_base_config", seed=0):
     def rows(scale):
         return torch.randn((R, 512), generator=gen, device=dev) * scale
 
-    W, G, m = rows(0.05), rows(1e-3), rows(1e-4)
-    v = rows(1e-4).square()
+    W, G, m = rows(0.05), rows(1e-3), rows(1e-4).to(mdt)
+    v = rows(1e-4).square().to(mdt)
     wd = torch.tensor(np.where(np.arange(R) % 3, 0.01, 0.0),
                       dtype=torch.float32, device=dev)
     kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-6, rescale_grad=1.0,
               clip_gradient=None, bias_correction=True)
     c1, c2 = 1 - 0.9 ** 3, 1 - 0.999 ** 3
     m1, v1, m2, v2 = m.clone(), v.clone(), m.clone(), v.clone()
+    n0 = (fu.launches_pass1, fu.launches_pass2)
     rw, ru = fu.lamb_pass1(W, G, m1, v1, wd, c1, c2, **kw)
     rrw, rru = fu.lamb_pass1_reference(W, G, m2, v2, wd, c1, c2, **kw)
+    pairs = ((rw, rrw), (ru, rru))
+    ulp = None
+    if mdt == torch.float32:
+        pairs += ((m1, m2), (v1, v2))
+    else:
+        ulp = max(bf16_ulp_err(m1, m2), bf16_ulp_err(v1, v2))
+        check(ulp <= 1, f"lamb_pass1 bf16 moments {ulp} ulp apart")
     e1 = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
-             for a, b in ((m1, m2), (v1, v2), (rw, rrw), (ru, rru)))
-    check(e1 <= TOL_LAMB, f"lamb_pass1 max relative err {e1}")
+             for a, b in pairs)
+    check(e1 <= TOL_LAMB, f"lamb_pass1 ({moments} moments) max relative "
+          f"err {e1}")
     trust = torch.rand(R, generator=gen, device=dev) + 0.5
     W1, W2 = W.clone(), W.clone()
     fu.lamb_pass2(W1, m1, v1, wd, trust, c1, c2, 1e-3, epsilon=1e-6,
@@ -1252,33 +1360,45 @@ def lamb_phase(dev, config="bert_base_config", seed=0):
     fu.lamb_pass2_reference(W2, m1, v1, wd, trust, c1, c2, 1e-3,
                             epsilon=1e-6, bias_correction=True)
     e2 = max_err(W1, W2) / float(W2.abs().max())
-    check(e2 <= TOL_LAMB, f"lamb_pass2 max relative err {e2}")
+    check(e2 <= TOL_LAMB, f"lamb_pass2 ({moments} moments) max relative "
+          f"err {e2}")
+    check((fu.launches_pass1 - n0[0], fu.launches_pass2 - n0[1]) == (1, 1),
+          f"LAMB launches ({moments}) {fu.launches_pass1 - n0[0]}, "
+          f"{fu.launches_pass2 - n0[1]}")
     n = R * 512 * 4
-    shapes = f"W/G/m/v ({R}, 512) float32 ({R * 512} elements)"
+    nm = R * 512 * m.element_size()
+    shapes = (f"W/G ({R}, 512) float32, m/v ({R}, 512) {moments} "
+              f"({R * 512} elements)")
     out = {}
     for name, line, err, nbytes, flops, k_fn, p_fn in (
-            ("lamb_pass1", 174, e1, 6 * n + 12 * R, 20 * R * 512,
+            # pass 1 reads W, G, m, v, writes m, v and two row sums
+            ("lamb_pass1", 174, e1, 2 * n + 4 * nm + 12 * R, 20 * R * 512,
              lambda: fu.lamb_pass1(W, G, m1, v1, wd, c1, c2, **kw),
              lambda: fu.lamb_pass1_reference(W, G, m2, v2, wd, c1, c2, **kw)),
-            ("lamb_pass2", 205, e2, 4 * n + 8 * R, 10 * R * 512,
+            # pass 2 reads W, m, v and the two row vectors, writes W
+            ("lamb_pass2", 205, e2, 2 * n + 2 * nm + 8 * R, 10 * R * 512,
              lambda: fu.lamb_pass2(W1, m1, v1, wd, trust, c1, c2, 1e-3,
                                    epsilon=1e-6, bias_correction=True),
              lambda: fu.lamb_pass2_reference(W2, m1, v1, wd, trust, c1, c2,
                                              1e-3, epsilon=1e-6,
                                              bias_correction=True))):
         b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        ms, dms = time_ms(k_fn), device_ms(k_fn, match="mxt::")
         out[name] = dict(
             name=name, route="cuda",
             source="mxnet_tpu_torch/csrc/fused_update.cu",
             replaces=f"mxnet_tpu/pallas_ops/fused_update.py:{line}",
             max_abs_err=err, error_is="relative to the largest |reference|",
             bound_ms=b_ms, bound_by=b_by, flops_per_call=flops,
-            ms=time_ms(k_fn), device_ms=device_ms(k_fn, match="mxt::"),
+            bytes_per_call=nbytes, ms=ms, device_ms=dms,
+            bound_share_device=b_ms / dms,
             plain_ms=time_ms(p_fn, iters=5), library_ms=None,
             library="none: no single PyTorch call computes a LAMB pass",
             times_are="ms: CUDA events around the call; device_ms: "
                       "torch.profiler device time; both L2 flushed",
-            rows=R, shapes=shapes)
+            rows=R, moments=moments, shapes=shapes)
+        if ulp is not None:
+            out[name]["moments_max_ulp"] = ulp
     return out
 
 
@@ -2133,45 +2253,71 @@ def build_bert(cfg, seed, device):
     return model
 
 
+def fwd_per_step(policy, L):
+    """Flash forwards a training step of an L-layer stack launches under a
+    remat policy: the forward, and again in the backward where the
+    policy recomputes a layer ("full": its outer recomputation of the
+    stack stops after layer L-1, whose output nothing saved needs, then
+    each layer's own)."""
+    return {"none": L, "dots_saveable": 2 * L, "layers": 2 * L,
+            "full": 3 * L - 1}[policy]
+
+
 def training_phase(dev, config="bert_base_config", remat=None, batch=32,
                    seq_len=512, masked=76, warmup=2, steps=16,
-                   **cfg_overrides):
+                   moments="float32", policy=None, **cfg_overrides):
     """BERT pretraining steps on one repeated synthetic batch (bench.py's
     configurations: bf16, dropout 0.1, LAMB lr 1e-3, wd 0.01, 32 x 512
     with 76 masked positions), `config` with its own remat unless
-    `remat` names one (`cfg_overrides` cut it for a rehearsal on the
-    CPU). Returns the result dict and the launch counts of
-    the timed steps. The NSP term of a fresh model swings by tenths over
-    the first steps while the MLM term falls steadily, so the run is
-    long enough for the last loss to sit clearly below the first."""
+    `remat` names one, `policy` a remat policy set by `Block.remat`, the
+    LAMB moments stored in `moments` (the `lamb_moments_dtype` knob);
+    `cfg_overrides` cut it for a rehearsal on the CPU. Returns the
+    result dict and the launch counts of the timed steps. The NSP term
+    of a fresh model swings by tenths over the first steps while the MLM
+    term falls steadily, so the run is long enough for the last loss to
+    sit clearly below the first."""
     import numpy as np
     import torch
-    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch import config as mxconfig
+    from mxnet_tpu_torch import memsafe, parallel
     from mxnet_tpu_torch.models import bert
     if remat is not None:
         cfg_overrides["remat"] = remat
     cfg = getattr(bert, config)(dtype="bfloat16", **cfg_overrides)
     model = build_bert(cfg, 0, dev)
-    trainer = parallel.ShardedTrainer(
-        model, bert.bert_pretrain_loss, "lamb",
-        {"learning_rate": 1e-3, "wd": 0.01}, device=dev)
+    if policy is not None:
+        model.remat(policy)
+    mxconfig.set("lamb_moments_dtype", moments)
+    try:
+        trainer = parallel.ShardedTrainer(
+            model, bert.bert_pretrain_loss, "lamb",
+            {"learning_rate": 1e-3, "wd": 0.01}, device=dev)
+    finally:
+        mxconfig.reset("lamb_moments_dtype")
+    check(trainer.opt_state[0].dtype == getattr(torch, moments),
+          f"LAMB moments {trainer.opt_state[0].dtype}, asked {moments}")
     b = bert.make_synthetic_batch(cfg, batch, seq_len, masked, seed=0)
     data = [torch.from_numpy(b[k]).to(dev) for k in _DATA]
     labels = [torch.from_numpy(b[k]).to(dev) for k in _LABELS]
     losses, counts, timing = timed_steps(trainer, data, labels, warmup,
                                          steps)
-    name = f"{config}(dtype='bfloat16', remat={cfg['remat']})"
+    pol = memsafe.policy_marker(model)
+    name = (f"{config}(dtype='bfloat16', remat={cfg['remat']})"
+            + (f", remat policy {pol!r}" if policy is not None else "")
+            + (f", {moments} LAMB moments" if moments != "float32" else ""))
     check(np.isfinite(losses).all(), f"{name} losses {losses}")
     check(losses[-1] < losses[0], f"{name} loss did not fall: {losses}")
     L = cfg["num_layers"]
     # a rematerialised layer launches its forward again in the backward
-    want = expect(flash_attention_fwd=(2 if cfg["remat"] else 1) * L * steps,
+    want = expect(flash_attention_fwd=fwd_per_step(pol, L) * steps,
                   flash_attention_dq=L * steps,
                   flash_attention_dkv=L * steps, lamb_pass1=steps,
                   lamb_pass2=steps)
     check(counts == want, f"{name} launches {counts} != {want}")
     res = {"model": name, "batch": batch, "seq_len": seq_len,
-           "masked": masked,
+           "masked": masked, "remat_policy": pol, "moments": moments,
+           "moment_bytes": sum(x.numel() * x.element_size()
+                               for x in trainer.opt_state),
            "tokens_per_s": batch * seq_len * steps / timing["seconds"],
            "param_count": trainer.param_count,
            "master_rows": trainer._fl.n_rows, "losses": losses, **timing}
@@ -2397,6 +2543,565 @@ def bert_large_phase(dev, steps=8, **kw):
         - r["max_memory_allocated_bytes"]
     out["remat_costs_ms_per_step"] = r["ms_per_step"] - n["ms_per_step"]
     return out, counts
+
+
+# ---------------------------------------------------------------------------
+# phases 31-35: the flagship job made durable (bf16 LAMB moments, remat
+# policies, the OOM ladder, checkpoints and preemption)
+# ---------------------------------------------------------------------------
+
+def bf16_moments_phase(dev, f32_run, steps=8, **kw):
+    """BERT-large (phase 13's remat run, `lamb_moments_dtype="bfloat16"`):
+    ms per step, peak memory and the LAMB kernels' device ms a step
+    against the float32-moment run `f32_run` (phase 13's); the first
+    five losses within 5e-3 relative of the float32 run's (the JAX
+    package's `test_bf16_moments_tracks_f32` gate). Returns (result,
+    launch counts)."""
+    import numpy as np
+    res, counts = training_phase(dev, "bert_large_config", steps=steps,
+                                 moments="bfloat16", **kw)
+    a, b = np.array(res["losses"]), np.array(f32_run["losses"])
+    rel = np.abs(a - b) / np.abs(b)
+    check(rel[:5].max() <= 5e-3, f"bf16-moment losses {a[:5]} against "
+          f"float32's {b[:5]}")
+    lamb = {k: r.get("device_ms_per_step_by_class", {}).get("lamb kernels")
+            for k, r in (("bfloat16", res), ("float32", f32_run))}
+    out = {"ms_per_step": res["ms_per_step"],
+           "float32_ms_per_step": f32_run["ms_per_step"],
+           "max_memory_allocated_bytes": res["max_memory_allocated_bytes"],
+           "float32_max_memory_allocated_bytes":
+               f32_run["max_memory_allocated_bytes"],
+           "moment_bytes": res["moment_bytes"],
+           "float32_moment_bytes": f32_run["moment_bytes"],
+           "lamb_device_ms_per_step": lamb["bfloat16"],
+           "float32_lamb_device_ms_per_step": lamb["float32"],
+           "max_loss_rel_diff_first5": float(rel[:5].max()),
+           "max_loss_rel_diff": float(rel.max()),
+           "losses": res["losses"], "float32_losses": f32_run["losses"],
+           "run": res}
+    return out, counts
+
+
+def policy_bit_equal_phase(dev, steps=2):
+    """A small float32 BERT and GPT (3 layers, dropout 0.1 on hidden
+    states and attention) on `dev`: two training-mode forwards and
+    backwards under each remat policy from the same weights and seed
+    give losses and gradients equal to "none"'s bit for bit, and the
+    flash forward launches `fwd_per_step` says."""
+    import torch
+    from torch.func import functional_call
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.models import bert, gpt
+    tiny = dict(vocab_size=128, units=64, hidden_size=128, num_layers=3,
+                num_heads=4, max_length=64, dropout=0.1, attn_dropout=0.1)
+    out = {}
+    for fam, mod, cfgf, cls, lossf, data, labels in (
+            ("bert", bert, "bert_large_config", "BERTForPretraining",
+             "bert_pretrain_loss", _DATA, _LABELS),
+            ("gpt", gpt, "gpt2_345m_config", "GPTForCausalLM",
+             "gpt_lm_loss", _GPT_DATA, _GPT_LABELS)):
+        cfg = getattr(mod, cfgf)(**tiny)
+        m = getattr(mod, cls)(cfg, device=dev)
+        m.initialize(generator=mxrandom.seed(0, dev))
+        b = (mod.make_synthetic_batch(cfg, 4, 32, 5, seed=3)
+             if fam == "bert" else mod.make_synthetic_batch(cfg, 4, 32,
+                                                            seed=3))
+        runs = {}
+        for pol in ("none", "dots_saveable", "layers", "full"):
+            m.remat(pol)
+            mxrandom.seed(11, dev)
+            reset_counts()
+            got = []
+            for _ in range(steps):
+                leaves = {n: p.detach().clone().requires_grad_(True)
+                          for n, p in m.collect_params().items()}
+                m.train()
+                try:
+                    o = functional_call(m, leaves, tuple(
+                        torch.from_numpy(b[k]).to(dev) for k in data))
+                finally:
+                    m.eval()
+                o = o if isinstance(o, tuple) else (o,)
+                loss = getattr(mod, lossf)(*o, *[
+                    torch.from_numpy(b[k]).to(dev) for k in labels])
+                names = sorted(leaves)
+                got.append((loss.detach(), torch.autograd.grad(
+                    loss, [leaves[n] for n in names])))
+            fwd = read_counts()["flash_attention_fwd"]
+            if dev.type == "cuda":
+                check(fwd == fwd_per_step(pol, 3) * steps,
+                      f"{fam} {pol}: {fwd} flash forwards")
+            runs[pol] = (got, fwd)
+        ref = runs["none"][0]
+        for pol, (got, fwd) in runs.items():
+            same = all(torch.equal(a[0], c[0]) and all(
+                torch.equal(x, y) for x, y in zip(a[1], c[1]))
+                for a, c in zip(ref, got))
+            check(same, f"{fam}: remat {pol!r} is not bit equal to 'none'")
+            out[f"{fam}_{pol}"] = {"losses": [float(g[0]) for g in got],
+                                   "flash_fwd_launches": fwd,
+                                   "bit_equal_to_none": same}
+    return out
+
+
+def remat_policies_phase(dev, large, steps=8, **kw):
+    """BERT-large (bf16, 32 x 512, LAMB) under "dots_saveable" and
+    "full" (`Block.remat`), 2 + `steps` steps each, beside phase 13's
+    "layers" (its remat run) and "none" (its run without): ms per step,
+    peak memory, flash forwards a step. Each policy's peak is below
+    "none"'s, and its losses equal "none"'s bit for bit. Returns
+    {policy: summary}, with the two new runs' whole results under
+    "runs"."""
+    runs = {"layers": large["remat"], "none": large["no_remat"]}
+    for pol in ("dots_saveable", "full"):
+        runs[pol], _ = training_phase(dev, "bert_large_config", steps=steps,
+                                      policy=pol, **kw)
+    out = {pol: {"ms_per_step": r["ms_per_step"],
+                 "max_memory_allocated_bytes": r["max_memory_allocated_bytes"],
+                 "device_busy_ms_per_step": r.get("device_busy_ms_per_step"),
+                 "device_idle_share": r.get("device_idle_share"),
+                 "losses": r["losses"]}
+           for pol, r in runs.items()}
+    for pol in ("dots_saveable", "layers", "full"):
+        check(out[pol]["max_memory_allocated_bytes"]
+              < out["none"]["max_memory_allocated_bytes"],
+              f"remat {pol!r} peak not below 'none': {out}")
+        # same seed, batch and dropout streams: the losses are "none"'s
+        check(out[pol]["losses"] == out["none"]["losses"],
+              f"remat {pol!r} losses differ from 'none''s: {out}")
+    out["order_by_peak"] = sorted(
+        ("none", "dots_saveable", "layers", "full"),
+        key=lambda p: -out[p]["max_memory_allocated_bytes"])
+    out["runs"] = {p: runs[p] for p in ("dots_saveable", "full")}
+    return out
+
+
+def oom_ladder_phase(dev, ref_losses=None, cap_bytes=12e9, steps=9,
+                     batch=32, seq_len=512, masked=76, **cfg_overrides):
+    """The degradation ladder on a REAL out-of-memory: the process capped
+    at `cap_bytes` of the card (`torch.cuda.set_per_process_memory_
+    fraction`), where BERT-large at 32 x 512 cannot train under remat
+    "none" (phase 13: 22.93 GB) but can under "layers" (7.60 GB). Under
+    `oom_recover="auto"` the first step walks the ladder to a rung that
+    fits (`memsafe.transitions()`) and training goes on: the losses
+    finite and falling, and, as the failed attempts' random draws are
+    rewound and every policy is bit equal to "none", equal to
+    `ref_losses` (phase 13's run of the same job) bit for bit; ms per
+    step after it. Under "off" the first step raises
+    `torch.cuda.OutOfMemoryError`."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import config as mxconfig
+    from mxnet_tpu_torch import memsafe, parallel
+    from mxnet_tpu_torch.models import bert
+    cfg = bert.bert_large_config(dtype="bfloat16", **cfg_overrides)
+    b = bert.make_synthetic_batch(cfg, batch, seq_len, masked, seed=0)
+    data = [torch.from_numpy(b[k]).to(dev) for k in _DATA]
+    labels = [torch.from_numpy(b[k]).to(dev) for k in _LABELS]
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    total = torch.cuda.get_device_properties(idx).total_memory
+    out = {"cap_bytes": int(cap_bytes), "card_bytes": int(total)}
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(cap_bytes / total, idx)
+    try:
+        for mode in ("off", "auto"):
+            mxconfig.set("oom_recover", mode)
+            memsafe.reset()
+            model = build_bert(cfg, 0, dev).remat("none")
+            tr = parallel.ShardedTrainer(
+                model, bert.bert_pretrain_loss, "lamb",
+                {"learning_rate": 1e-3, "wd": 0.01}, device=dev)
+            if mode == "off":
+                raised = None
+                try:
+                    tr.step(data, labels)
+                except torch.cuda.OutOfMemoryError as e:
+                    raised = type(e).__name__
+                check(raised == "OutOfMemoryError" and tr.num_update == 0,
+                      f"oom_recover=off: the first step raised {raised}")
+                out["off"] = {"raised": raised,
+                              "transitions": memsafe.transitions()}
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses = [float(tr.step(data, labels))]
+                first_s = time.perf_counter() - t0
+                torch.cuda.reset_peak_memory_stats(idx)
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    losses.append(tr.step(data, labels))
+                losses[1:] = [float(x) for x in losses[1:]]
+                secs = time.perf_counter() - t0
+                walked = [(t["kind"], t["value"])
+                          for t in memsafe.transitions()]
+                check(walked and walked[-1][0] == "remat",
+                      f"ladder under a {cap_bytes / 1e9:.0f} GB cap: "
+                      f"{walked}")
+                check(np.isfinite(losses).all() and losses[-1] < losses[0],
+                      f"losses after the ladder {losses}")
+                if ref_losses is not None:
+                    check(losses == list(ref_losses[:len(losses)]),
+                          f"losses after the ladder {losses} != the "
+                          f"uninterrupted run's {ref_losses}")
+                out["auto"] = {
+                    "transitions": memsafe.transitions(),
+                    "held": memsafe.policy_marker(model),
+                    "grad_accum": tr._accum,
+                    "oom_events": memsafe.oom_events(),
+                    "first_step_seconds": first_s,
+                    "ms_per_step_after": secs * 1e3 / steps,
+                    "max_memory_allocated_bytes_after":
+                        torch.cuda.max_memory_allocated(idx),
+                    "losses": losses}
+            del tr, model
+            torch.cuda.empty_cache()
+    finally:
+        mxconfig.reset("oom_recover")
+        memsafe.disable()
+        torch.cuda.set_per_process_memory_fraction(1.0, idx)
+    return out
+
+
+def ckpt_trainer(dev, cfg_overrides=None):
+    """Phase 34's job: BERT-large bf16 from seed 0, LAMB lr 1e-3, wd
+    0.01, float32 moments, and its 32 x 512 batch (76 masked)."""
+    import torch
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.models import bert
+    cfg = bert.bert_large_config(dtype="bfloat16", **(cfg_overrides or {}))
+    model = build_bert(cfg, 0, dev)
+    tr = parallel.ShardedTrainer(model, bert.bert_pretrain_loss, "lamb",
+                                 {"learning_rate": 1e-3, "wd": 0.01},
+                                 device=dev)
+    b = bert.make_synthetic_batch(cfg, *CKPT_BATCH, seed=0)
+    data = [torch.from_numpy(b[k]).to(dev) for k in _DATA]
+    labels = [torch.from_numpy(b[k]).to(dev) for k in _LABELS]
+    return tr, model, data, labels
+
+
+CKPT_BATCH = (32, 512, 76)     # batch, sequence, masked positions
+CKPT_STEPS = 8
+
+
+def ckpt_child(mode, directory, cfg_overrides=None):
+    """One process of phase 34, the flagship's `--auto-checkpoint-dir`
+    flow (examples/bert/pretrain.py) through the port's names:
+      ref      — CKPT_STEPS steps, no checkpoint (the uninterrupted run);
+      preempt  — `AutoCheckpoint(every_steps=2)`; the `sigterm@step:3`
+                 fault sends SIGTERM inside step 3; the step finishes,
+                 is saved, and the process exits EXIT_PREEMPTED (83);
+      resume   — `restore_latest()`, then on to step CKPT_STEPS, the
+                 step-8 checkpoint corrupted after its manifest by the
+                 `corrupt_ckpt@step:8` fault.
+    Resilience is enabled (verified atomic writes); the AutoCheckpoint's
+    own handler takes SIGTERM. Prints one JSON line: losses by step,
+    save and restore seconds, checkpoint bytes."""
+    import torch
+    from mxnet_tpu_torch import config as mxconfig
+    from mxnet_tpu_torch import parallel, resilience
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg_overrides = dict(cfg_overrides or {})
+    dev = torch.device(cfg_overrides.pop("device", "cuda"))
+    fault = {"preempt": "sigterm@step:3",
+             "resume": f"corrupt_ckpt@step:{CKPT_STEPS}"}.get(mode)
+    if fault:
+        mxconfig.set("fault_inject", fault)
+    resilience.enable()
+    tr, _model, data, labels = ckpt_trainer(dev, cfg_overrides)
+    out = {"mode": mode, "losses": {}, "saves": {}}
+    ac = None
+    start = 0
+    if mode != "ref":
+        ac = parallel.AutoCheckpoint(tr, directory, every_steps=2)
+    if mode == "resume":
+        start = ac.restore_latest() or 0
+        out["restored_step"] = start
+        out["restore_seconds"] = ac.last_restore_seconds
+    stepper = ac or tr
+    for step in range(start + 1, CKPT_STEPS + 1):
+        out["losses"][step] = float(stepper.step(data, labels))
+        if ac is not None and step in ac._complete_steps() \
+                and step not in out["saves"]:
+            path = os.path.join(ac._step_dir(step), "state.pt")
+            out["saves"][step] = {"seconds": ac.last_save_seconds,
+                                  "bytes": os.path.getsize(path)}
+        if ac is not None and ac.preempted:
+            if tr.num_update not in ac._complete_steps():
+                ac.save()
+            out["preempted_at"] = tr.num_update
+            print(json.dumps(out), flush=True)
+            raise resilience.PreemptedExit("preempted")
+    print(json.dumps(out), flush=True)
+
+
+def save_breakdown(tr, directory):
+    """Where a BERT-large checkpoint write's time goes (the pieces of
+    `ShardedTrainer.save_states` under resilience, timed one by one):
+    the copy to the host (`_state`, twice: the first call allocates the
+    pinned buffers), `torch.save` with and without its zip CRC32,
+    the fsync, and the manifest's CRC32 read-back (`resilience.
+    _file_crc`)."""
+    import torch
+    from mxnet_tpu_torch import resilience
+    out = {}
+    for name in ("host_copy_first_s", "host_copy_s"):
+        t0 = time.perf_counter()
+        state = tr._state()
+        out[name] = time.perf_counter() - t0
+    path = os.path.join(directory, "breakdown.pt")
+    try:
+        from torch.utils.serialization import config as ser_config
+        cfg = ser_config.save
+    except ImportError:
+        cfg = None
+    for crc in (True, False):
+        if not crc and cfg is None:
+            continue
+        if cfg is not None:
+            cfg.compute_crc32 = crc
+        try:
+            t0 = time.perf_counter()
+            with open(path, "wb") as f:
+                torch.save(state, f)
+                t1 = time.perf_counter()
+                f.flush()
+                os.fsync(f.fileno())
+            t2 = time.perf_counter()
+        finally:
+            if cfg is not None:
+                cfg.compute_crc32 = True
+        key = "torch_save" if crc else "torch_save_no_zip_crc"
+        out[key + "_s"], out[key + "_fsync_s"] = t1 - t0, t2 - t1
+    t0 = time.perf_counter()
+    resilience._file_crc(path)
+    out["manifest_crc32_s"] = time.perf_counter() - t0
+    out["bytes"] = os.path.getsize(path)
+    os.remove(path)
+    return out
+
+
+def ckpt_phase(dev, cfg_overrides=None):
+    """Phase 34: the flagship job made durable on the card. Children (one
+    process each, `--ckpt-child`): the uninterrupted reference beside the
+    run SIGTERM preempts in step 3 (it must exit 83 with step 3 saved),
+    then the run that resumes it to step 8: its losses of steps 4-8
+    equal the reference's bit for bit (same process layout, every
+    random stream in the checkpoint). Then this process restores the
+    newest checkpoint of that directory: the corrupted step 8 is
+    skipped for step 6. Last, `save_checkpoint(prefix)` writes the
+    restored model's `.params` and a fresh model's `load_parameters`
+    reproduces its forward bit for bit. The checkpoints live in a
+    temporary directory the phase deletes."""
+    import shutil
+    import tempfile
+    import torch
+    from mxnet_tpu_torch import parallel, resilience
+    from mxnet_tpu_torch.models import bert
+    tmp = tempfile.mkdtemp(prefix="mxt_ckpt_")
+    extra = [json.dumps(dict(cfg_overrides or {}, device=str(dev)))]
+    ckdir = os.path.join(tmp, "auto")
+
+    def child(mode):
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ckpt-child", mode,
+             ckdir] + extra, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+
+    def result(p, want_rc):
+        so, se = p.communicate(timeout=900)
+        check(p.returncode == want_rc, f"checkpoint child rc "
+              f"{p.returncode}, expected {want_rc}: {se[-3000:]}")
+        return json.loads(so.strip().splitlines()[-1])
+    try:
+        t0 = time.perf_counter()
+        ref_p, pre_p = child("ref"), child("preempt")
+        pre = result(pre_p, resilience.EXIT_PREEMPTED)
+        res = result(child("resume"), 0)
+        ref = result(ref_p, 0)
+        children_s = time.perf_counter() - t0
+        ref_l = {int(k): v for k, v in ref["losses"].items()}
+        pre_l = {int(k): v for k, v in pre["losses"].items()}
+        res_l = {int(k): v for k, v in res["losses"].items()}
+        check(pre.get("preempted_at") == 3 and sorted(pre_l) == [1, 2, 3],
+              f"preempted run {pre}")
+        check(res["restored_step"] == 3 and sorted(res_l) == list(
+            range(4, CKPT_STEPS + 1)), f"resumed run {res}")
+        check(all(pre_l[k] == ref_l[k] for k in pre_l),
+              f"steps 1-3 {pre_l} vs uninterrupted {ref_l}")
+        check(all(res_l[k] == ref_l[k] for k in res_l),
+              f"resumed steps 4-8 {res_l} vs uninterrupted {ref_l}")
+        # this process: the newest checkpoint (step 8) is corrupt
+        resilience.enable()
+        try:
+            tr, model, data, labels = ckpt_trainer(dev, cfg_overrides)
+            ac = parallel.AutoCheckpoint(tr, ckdir, on_preemption=False)
+            check(ac._complete_steps() == [6, 8],
+                  f"kept checkpoints {ac._complete_steps()}")
+            got = ac.restore_latest()
+            check(got == 6 and tr.num_update == 6,
+                  f"restore_latest past the corrupt step 8 gave {got}")
+            restore_s = ac.last_restore_seconds
+        finally:
+            resilience.disable()
+        breakdown = save_breakdown(tr, tmp)
+        prefix = os.path.join(tmp, "bert_large")
+        t1 = time.perf_counter()
+        tr.save_checkpoint(prefix)
+        params_save_s = time.perf_counter() - t1
+        cfg = model.cfg
+        fresh = build_bert(cfg, 1, dev)
+        t1 = time.perf_counter()
+        fresh.load_parameters(prefix + ".params")
+        params_load_s = time.perf_counter() - t1
+        with torch.no_grad():
+            a, b = model(*data), fresh(*data)
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        check(same, "load_parameters: the fresh model's forward differs")
+        saves = [v for r in (pre, res) for v in r["saves"].values()]
+        out = {
+            "losses_uninterrupted": ref_l, "losses_preempted": pre_l,
+            "losses_resumed": res_l, "preempted_exit": 83,
+            "resumed_bit_equal": True, "children_seconds": children_s,
+            "save_seconds": [v["seconds"] for v in saves],
+            "checkpoint_bytes": saves[0]["bytes"],
+            "save_gb_per_s": [v["bytes"] / v["seconds"] / 1e9
+                              for v in saves],
+            "save_breakdown": breakdown,
+            "restore_seconds_child": res["restore_seconds"],
+            "restore_seconds_past_corrupt": restore_s,
+            "corrupt_newest_skipped_for": got,
+            "params_file_bytes": os.path.getsize(prefix + ".params"),
+            "params_save_seconds": params_save_s,
+            "params_load_seconds": params_load_s,
+            "params_forward_bit_equal": same}
+        del tr, model, fresh
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def durable_parity_phase(dev, steps=3, devices=("cpu", "cuda")):
+    """Phase 35, small float32 models, the card against the CPU:
+    (a) `FusedLamb.apply_flat` with bf16 moments, 3 steps on the same
+    gradients: moments within 1 bf16 ulp, master within TOL_LAMB;
+    (b) a tiny BERT trained 3 LAMB steps with bf16 moments: losses and
+    master within TOL_TRAIN; its `save_parameters` file written on the
+    card loads on the CPU bit for bit, and so do its `save_states`
+    (master, moments, num_update); (c) the ladder's transitions under
+    five `oom@step:1` faults equal on both devices."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import config as mxconfig
+    from mxnet_tpu_torch import memsafe, parallel, resilience
+    from mxnet_tpu_torch.models import bert
+    from mxnet_tpu_torch.parallel import FusedLamb
+    out = {}
+    # (a) the bf16 route on identical gradients
+    rng = np.random.RandomState(0)
+    shapes = [(300, 7), (33,), (128, 64), (1024, 96), (5,)]
+    ws = [rng.randn(*s).astype(np.float32) * 0.05 for s in shapes]
+    gss = [[rng.randn(*s).astype(np.float32) * 1e-3 for s in shapes]
+           for _ in range(steps)]
+    states = {}
+    for where in devices:
+        fl = FusedLamb(shapes, [torch.float32] * len(shapes),
+                       [0.01, 0.0, 0.01, 0.01, 0.0], 0.9, 0.999, 1e-6,
+                       True, 1.0, -1.0, -1.0, -1.0,
+                       moments_dtype=torch.bfloat16)
+        w = fl.flatten([torch.from_numpy(x).to(where) for x in ws])
+        m, v = fl.zeros_moments(where)
+        for t, gs in enumerate(gss, 1):
+            g = fl.flatten([torch.from_numpy(x).to(where) for x in gs])
+            fl.apply_flat(w, g, m, v, t, 1e-3)
+        states[where] = (w.cpu(), m.cpu(), v.cpu())
+    (wc, mc, vc), (wg, mg, vg) = states[devices[0]], states[devices[1]]
+    ulp = max(bf16_ulp_err(mg, mc), bf16_ulp_err(vg, vc))
+    w_err = max_err(wg, wc) / float(wc.abs().max())
+    check(ulp <= 1 and w_err <= TOL_LAMB,
+          f"bf16-moment LAMB card vs CPU: moments {ulp} ulp, master {w_err}")
+    out["lamb_bf16_apply_flat"] = {"moments_max_ulp": ulp,
+                                   "master_max_rel_err": w_err}
+    # (b) a tiny BERT with bf16 moments; its files across devices
+    cfg = bert.bert_large_config(num_layers=2, units=128, hidden_size=256,
+                                 num_heads=4, max_length=64, vocab_size=512,
+                                 dropout=0.0)
+    b = bert.make_synthetic_batch(cfg, 4, 64, 8, seed=2)
+    x, y = [b[k] for k in _DATA], [b[k] for k in _LABELS]
+    runs = {}
+    mxconfig.set("lamb_moments_dtype", "bfloat16")
+    try:
+        for where in devices:
+            model = build_bert(cfg, 5, "cpu")
+            model.to(where)
+            tr = parallel.ShardedTrainer(model, bert.bert_pretrain_loss,
+                                         "lamb", {"learning_rate": 1e-3,
+                                                  "wd": 0.01}, device=where)
+            losses = [float(tr.step(x, y)) for _ in range(steps)]
+            runs[where] = (losses, tr, model)
+        (lc, trc, mc_), (lg, trg, mg_) = runs[devices[0]], runs[devices[1]]
+        e_loss = float(np.abs(np.subtract(lg, lc)).max())
+        e_w = max_err(trg.params.cpu(), trc.params)
+        check(e_loss <= TOL_TRAIN and e_w <= TOL_TRAIN,
+              f"bf16-moment BERT card vs CPU: losses {lg} vs {lc}, master "
+              f"{e_w}")
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            trg.save_checkpoint(os.path.join(tmp, "card"))
+            cpu_model = build_bert(cfg, 9, "cpu")
+            cpu_model.load_parameters(os.path.join(tmp, "card.params"))
+            params_equal = all(
+                torch.equal(p.cpu(), q) for p, q in zip(
+                    mg_.collect_params().values(),
+                    cpu_model.collect_params().values()))
+            trg.save_states(os.path.join(tmp, "states"))
+            trc.load_states(os.path.join(tmp, "states"))
+            states_equal = (torch.equal(trg.params.cpu(), trc.params)
+                            and all(torch.equal(a.cpu(), c) for a, c in
+                                    zip(trg.opt_state, trc.opt_state))
+                            and trc.num_update == trg.num_update)
+        check(params_equal and states_equal,
+              f"card files on the CPU: params {params_equal}, states "
+              f"{states_equal}")
+        out["bert_bf16_moments"] = {
+            "losses_card": lg, "losses_cpu": lc, "max_loss_err": e_loss,
+            "max_master_err": e_w, "params_card_to_cpu_bit_equal":
+                params_equal, "states_card_to_cpu_bit_equal": states_equal}
+    finally:
+        mxconfig.reset("lamb_moments_dtype")
+    del runs, trc, trg
+    # (c) the ladder under simulated out-of-memory faults
+    walks = {}
+    mxconfig.set("oom_recover", "auto")
+    mxconfig.set("fault_inject", ",".join(["oom@step:1"] * 5))
+    try:
+        for where in devices:
+            memsafe.reset()
+            resilience.enable()
+            model = build_bert(cfg, 5, "cpu").remat("none")
+            model.to(where)
+            tr = parallel.ShardedTrainer(model, bert.bert_pretrain_loss,
+                                         "lamb", {"learning_rate": 1e-3,
+                                                  "wd": 0.01}, device=where)
+            losses = [float(tr.step(x, y)) for _ in range(2)]
+            walks[where] = ([(t["kind"], t["value"])
+                             for t in memsafe.transitions()], losses)
+            del tr, model
+            resilience.disable()
+    finally:
+        mxconfig.reset("oom_recover")
+        mxconfig.reset("fault_inject")
+        memsafe.disable()
+        memsafe.reset()
+    (wc_, lc_), (wg_, lg_) = walks[devices[0]], walks[devices[1]]
+    check(wc_ == wg_ and len(wc_) == 5,
+          f"ladder transitions card {wg_} vs CPU {wc_}")
+    check(float(np.abs(np.subtract(lc_, lg_)).max()) <= TOL_TRAIN,
+          f"losses after the ladder {walks}")
+    out["ladder"] = {"transitions": wg_, "losses_card": lg_,
+                     "losses_cpu": lc_}
+    return out
 
 
 def resnet50_trainer(dev, dtype):
@@ -4986,6 +5691,13 @@ def main():
     except ImportError:
         print("chip_smoke: PyTorch is not installed", file=sys.stderr)
         return 2
+    if len(sys.argv) in (4, 5) and sys.argv[1] == "--ckpt-child" \
+            and os.path.isdir(os.path.join(ROOT, "mxnet_tpu_torch")):
+        # one process of phase 34 (its device named by the phase)
+        sys.path.insert(0, ROOT)
+        ckpt_child(sys.argv[2], sys.argv[3],
+                   json.loads(sys.argv[4]) if len(sys.argv) == 5 else None)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script measures the port "
               "on an NVIDIA GPU", file=sys.stderr)
@@ -4996,9 +5708,11 @@ def main():
         return 2
     if len(sys.argv) == 3 and sys.argv[1] in ("--flash-times",
                                               "--host-times",
-                                              "--adam-times"):
+                                              "--adam-times",
+                                              "--lamb-times"):
         times = {"--flash-times": flash_times, "--host-times":
-                 host_path_times, "--adam-times": adam_times}[sys.argv[1]]
+                 host_path_times, "--adam-times": adam_times,
+                 "--lamb-times": lamb_times}[sys.argv[1]]
         print(json.dumps(times(sys.argv[2])))
         return 0
     if sys.argv[1:] == ["--nms-phases"]:
@@ -5022,15 +5736,16 @@ def main():
             bert_repeat(int(sys.argv[2]))))
         return 0
     if len(sys.argv) == 3 and sys.argv[1] in ("--flash-ab", "--host-ab",
-                                              "--adam-ab"):
+                                              "--adam-ab", "--lamb-ab"):
         {"--flash-ab": flash_ab, "--host-ab": host_ab,
-         "--adam-ab": adam_ab}[sys.argv[1]](sys.argv[2])
+         "--adam-ab": adam_ab, "--lamb-ab": lamb_ab}[sys.argv[1]](sys.argv[2])
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip()
         print(smi or "nvidia-smi: no output")
         return 0
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     import numpy as np
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5100,6 +5815,21 @@ def main():
         print(f"chip_smoke: {row} at BERT-large's flat master "
               + json.dumps(kernels[row]["bert_large_shape"]))
     torch.cuda.empty_cache()
+    # the bf16-moment route of both passes (lamb_moments_dtype="bfloat16")
+    for config, key in (("bert_base_config", "bert_base_shape"),
+                        ("bert_large_config", "bert_large_shape")):
+        for row, extra in lamb_phase(dev, config,
+                                     moments="bfloat16").items():
+            kernels[row].setdefault("bf16_moments", {})[key] = {
+                k: extra[k] for k in ("rows", "shapes", "max_abs_err",
+                                      "moments_max_ulp", "ms", "device_ms",
+                                      "bound_share_device", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "bytes_per_call")}
+            print(f"chip_smoke: {row}, bf16 moments, at the {config} "
+                  "master " + json.dumps(
+                      kernels[row]["bf16_moments"][key]))
+        torch.cuda.empty_cache()
     kernels.update(adam_phase(dev))
     kernels.update(int8_phase(dev))
     for row, want in (("paged_attention", "paged_attention_kernel"),
@@ -5389,6 +6119,45 @@ def main():
     sparity = serve_parity_phase(dev)
     print("chip_smoke: card-vs-CPU speculative, beam, ladder "
           + json.dumps(sparity))
+
+    torch.cuda.empty_cache()
+
+    # 31. BERT-large with bf16 LAMB moments against phase 13's float32 run
+    bfm, counts = bf16_moments_phase(dev, large["remat"])
+    print("chip_smoke: BERT-large, bf16 LAMB moments " + json.dumps(bfm))
+    print(f"chip_smoke: BERT-large, bf16 LAMB moments, launches {counts}")
+    for name in ("lamb_pass1", "lamb_pass2"):
+        kernels[name]["bf16_moments"]["launches"] = counts[name]
+        kernels[name]["bf16_moments"]["lamb_device_ms_per_step"] = \
+            bfm["lamb_device_ms_per_step"]
+
+    # 32. the remat policies at BERT-large, and bit equality on the card
+    pol = remat_policies_phase(dev, large)
+    print("chip_smoke: BERT-large remat policies " + json.dumps(
+        {k: v for k, v in pol.items() if k != "runs"}))
+    for name, run in pol["runs"].items():
+        print(f"chip_smoke: BERT-large remat {name!r} " + json.dumps(run))
+    pbit = policy_bit_equal_phase(dev)
+    print("chip_smoke: remat policies bit equal to 'none' (float32, "
+          "dropout 0.1) " + json.dumps(pbit))
+    torch.cuda.empty_cache()
+
+    # 33. the OOM ladder on a real out-of-memory (12 GB cap)
+    ladder = oom_ladder_phase(dev, large["remat"]["losses"])
+    print("chip_smoke: OOM ladder " + json.dumps(ladder))
+    torch.cuda.empty_cache()
+
+    # 34. checkpoints, preemption and resume (the --auto-checkpoint-dir
+    # flow), .params save and load
+    ckpt = ckpt_phase(dev)
+    print("chip_smoke: checkpoint and preemption " + json.dumps(ckpt))
+    torch.cuda.empty_cache()
+
+    # 35. float32 card vs CPU: bf16-moment LAMB, files, the ladder
+    dpar = durable_parity_phase(dev)
+    print("chip_smoke: card-vs-CPU bf16 LAMB, checkpoint files, ladder "
+          + json.dumps(dpar))
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -87,8 +87,14 @@ _register(
     "token — scheduler throughput must not care), 'burst:8@step:3' (the "
     "server fires its on_burst hook with 8 at scheduler step 3 — a "
     "deterministic load spike) and 'cancel@req:2' (cancel request 2 at "
-    "the next scheduler step; @step:N picks the step). The other kinds "
-    "parse but nothing in the port fires them yet.")
+    "the next scheduler step; @step:N picks the step); the trainer kinds "
+    "'sigterm@step:5' (SIGTERM after step 5: the preemption path), "
+    "'kill@step:3' (SIGKILL after step 3: rank death), "
+    "'corrupt_ckpt@step:4' (flip bytes in that step's checkpoint after "
+    "its manifest is written: restore must detect it) and 'oom@step:3' "
+    "(a synthetic out-of-memory at the dispatch of step 3, before the "
+    "step touches any state: drives the oom_recover ladder). The other "
+    "kinds parse but nothing in the port fires them yet.")
 _register(
     "retry_max_attempts", 3,
     "Total tries resilience.RetryPolicy makes on a retryable transient "
@@ -183,3 +189,68 @@ _register(
     "and exact acceptance keeps the longest agreeing prefix — the "
     "emitted stream stays equal to plain greedy decode, so k only "
     "trades dispatch count against wasted draft work.")
+_register(
+    "lamb_moments_dtype", "float32", choices=("float32", "bfloat16"),
+    doc="Storage dtype for fused-LAMB moment buffers. 'bfloat16' halves "
+        "the moments' memory and cuts the LAMB passes' bytes by a third "
+        "(they are bandwidth-bound); the math stays float32 and the "
+        "stored moments round through bf16 before the trust-ratio norms. "
+        "Off by default.")
+_register(
+    "resilience", False,
+    "Arm resilience at import: the SIGTERM/SIGINT preemption handler "
+    "(finish the in-flight step, write a final checkpoint, exit the "
+    "distinct EXIT_PREEMPTED code 83), periodic verified checkpoints "
+    "(checkpoint_dir / checkpoint_every_n_steps), auto-resume (resume "
+    "knob) and the fault_inject harness. Off by default: the trainer "
+    "hook is one module-bool check, no signal handler is installed, and "
+    "save_states/load_states write and read no manifest. "
+    "resilience.install() arms at run time.")
+_register(
+    "checkpoint_dir", "",
+    "Base directory for resilience's managed checkpoints (<dir>/step_<n>/ "
+    "with an atomically renamed manifest.json carrying per-file size and "
+    "CRC32, the step and the trainer fingerprint). Used by the "
+    "ShardedTrainer periodic-checkpoint hook, the preemption final save "
+    "and auto-resume. Empty disables managed checkpoints.")
+_register(
+    "checkpoint_every_n_steps", 0,
+    "Save a managed checkpoint every N completed ShardedTrainer steps "
+    "(needs checkpoint_dir and resilience enabled). 0 disables periodic "
+    "saves; the preemption final save still fires.")
+_register(
+    "checkpoint_keep", 3,
+    "Managed checkpoints kept under checkpoint_dir (keep-last-N; older "
+    "ones and stale *.tmp-* leftovers of killed saves are removed after "
+    "each save). <=0 keeps everything.")
+_register(
+    "resume", "",
+    "Auto-resume policy for a fresh ShardedTrainer while resilience is "
+    "enabled: 'auto' restores the newest checkpoint under checkpoint_dir "
+    "that passes checksum and fingerprint verification (falling back "
+    "past torn or corrupt ones), an explicit path restores that "
+    "checkpoint, '' (default) starts fresh.")
+_register(
+    "remat_policy", "", choices=("", "none", "dots_saveable", "layers",
+                                 "full"),
+    doc="Default rematerialization policy of every block "
+        "(Block.remat(policy=...) overrides per block). In increasing "
+        "memory savings and recompute cost: 'none' saves every "
+        "intermediate; 'dots_saveable' keeps the GEMMs' outputs and "
+        "recomputes the rest (torch.utils.checkpoint with a selective "
+        "policy); 'layers' checkpoints each layer (activation memory O(1) "
+        "in depth; what the per-model remat=True flag means); 'full' "
+        "also checkpoints the whole stack, so only its inputs survive "
+        "the forward. Empty (default) defers to per-block and per-model "
+        "settings.")
+_register(
+    "oom_recover", "off", choices=("off", "auto"),
+    doc="Out-of-memory recovery at the ShardedTrainer step boundary. "
+        "'off' (default) fails fast. 'auto' catches a device "
+        "out-of-memory (torch.cuda.OutOfMemoryError, the budget check's "
+        "MemoryBudgetError, the oom fault's SimulatedResourceExhausted) "
+        "raised before the optimizer touched any state, and walks the "
+        "degradation ladder: the remat policy one rung up, then (where "
+        "there are data replicas; never on one card) optimizer-state "
+        "sharding, then gradient accumulation x2 while the batch "
+        "divides; it retries the step after each rung.")

@@ -54,11 +54,28 @@
 // of storing it is the TPU design too: arithmetic is free here, a full-size
 // temporary is not.
 //
-// What bounds it: bytes. Pass 1 reads 4 and writes 2 floats per element,
-// pass 2 reads 3 and writes 1, against 7 and 4 operations: far below the
-// ~20 operations per byte where the card's float32 rate would bind. One
-// warp owns one 512-lane row (16 elements a lane, float4 loads), so a row's
-// sums are a warp shuffle reduction with no cross-block pass.
+// The moments are stored as float32 or as bf16 (the `lamb_moments_dtype`
+// knob; the TPU kernels' `moments_f32=False`). The kernels are templated on
+// the moment type MT; the arithmetic is float32 either way and the float32
+// instantiation is the code the port had before bf16 storage. With bf16,
+// pass 1 widens m and v, runs the EMAs in float32, each operation rounded
+// as the plain version rounds it, rounds each new moment to bf16 (nearest
+// even) and widens it back BEFORE the update u and the row sums of u^2, so
+// the trust ratio sees what is stored; then it stores the bf16 moments in
+// place: bit for bit the plain version's. Pass 2 reads the bf16 moments.
+// The TPU kernel pads the rows to 16 for bf16's (16, 128) tiles; the flat
+// layout here needs no padding: a lane reads its 4 moments as one 8-byte
+// vector.
+//
+// What bounds it: bytes. Pass 1 reads W, G, m, v and writes m, v: 24 B an
+// element with float32 moments, 16 B with bf16; pass 2 reads W, m, v and
+// writes W: 16 B, or 12 B. Against 7 and 4 operations that is far below
+// the ~20 operations per byte where the card's float32 rate would bind.
+// One warp owns one 512-lane row (16 elements a lane, float4 loads of W
+// and G, float4 or 8-byte bf16 loads of m and v), so a row's sums are a
+// warp shuffle reduction with no cross-block pass.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace mxt {
@@ -81,15 +98,49 @@ __device__ __forceinline__ float lamb_update(const LambArgs& a, float m,
   return mh / (sqrtf(vh) + a.eps) + wd * w;
 }
 
+// the 4 moments of a lane as float4: one 16-byte load (float32 storage)
+// or one 8-byte load of 4 bf16, widened (bf16 storage); and the store
+template <typename MT> __device__ __forceinline__ float4 load4(const MT* p);
+template <>
+__device__ __forceinline__ float4 load4<float>(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+template <>
+__device__ __forceinline__ float4 load4<__nv_bfloat16>(
+    const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+template <typename MT>
+__device__ __forceinline__ void store4(MT* p, float4 f);
+template <>
+__device__ __forceinline__ void store4<float>(float* p, float4 f) {
+  *reinterpret_cast<float4*>(p) = f;
+}
+template <>
+__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float4 f) {
+  uint2 u;
+  u.x = pack_bf16(f.x, f.y);
+  u.y = pack_bf16(f.z, f.w);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
+template <typename MT>
 __global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
 lamb1_kernel(const float* __restrict__ W, const float* __restrict__ G,
-             float* __restrict__ M, float* __restrict__ V,
+             MT* __restrict__ M, MT* __restrict__ V,
              const float* __restrict__ wd_rows, float* __restrict__ rw,
              float* __restrict__ ru, int R, LambArgs a) {
   const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
@@ -103,8 +154,8 @@ lamb1_kernel(const float* __restrict__ W, const float* __restrict__ G,
     const size_t idx = base + (size_t)(i * 32 + lane) * 4;
     const float4 w4 = *reinterpret_cast<const float4*>(W + idx);
     const float4 g4 = *reinterpret_cast<const float4*>(G + idx);
-    float4 m4 = *reinterpret_cast<const float4*>(M + idx);
-    float4 v4 = *reinterpret_cast<const float4*>(V + idx);
+    float4 m4 = load4<MT>(M + idx);
+    float4 v4 = load4<MT>(V + idx);
     const float w[4] = {w4.x, w4.y, w4.z, w4.w};
     const float gi[4] = {g4.x, g4.y, g4.z, g4.w};
     float m[4] = {m4.x, m4.y, m4.z, m4.w};
@@ -113,14 +164,26 @@ lamb1_kernel(const float* __restrict__ W, const float* __restrict__ G,
     for (int e = 0; e < 4; ++e) {
       float g = gi[e] * a.rescale;
       if (a.clip > 0.f) g = fminf(fmaxf(g, -a.clip), a.clip);
-      m[e] = a.b1 * m[e] + a.omb1 * g;
-      v[e] = a.b2 * v[e] + a.omb2 * (g * g);
+      if (std::is_same<MT, float>::value) {
+        m[e] = a.b1 * m[e] + a.omb1 * g;
+        v[e] = a.b2 * v[e] + a.omb2 * (g * g);
+      } else {
+        // reduced-precision storage: the EMA rounded operation by
+        // operation (no FMA: where its two terms nearly cancel, a
+        // contraction moves the float32 value by many bf16 ulps of the
+        // result), then rounded to the storage type; the update and the
+        // norms see the stored moments
+        m[e] = to_f<MT>(from_f<MT>(__fadd_rn(__fmul_rn(a.b1, m[e]),
+                                             __fmul_rn(a.omb1, g))));
+        v[e] = to_f<MT>(from_f<MT>(__fadd_rn(
+            __fmul_rn(a.b2, v[e]), __fmul_rn(a.omb2, __fmul_rn(g, g)))));
+      }
       const float u = lamb_update(a, m[e], v[e], w[e], wd);
       sw += w[e] * w[e];
       su += u * u;
     }
-    *reinterpret_cast<float4*>(M + idx) = make_float4(m[0], m[1], m[2], m[3]);
-    *reinterpret_cast<float4*>(V + idx) = make_float4(v[0], v[1], v[2], v[3]);
+    store4<MT>(M + idx, make_float4(m[0], m[1], m[2], m[3]));
+    store4<MT>(V + idx, make_float4(v[0], v[1], v[2], v[3]));
   }
   sw = warp_sum(sw);
   su = warp_sum(su);
@@ -130,9 +193,10 @@ lamb1_kernel(const float* __restrict__ W, const float* __restrict__ G,
   }
 }
 
+template <typename MT>
 __global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
-lamb2_kernel(float* __restrict__ W, const float* __restrict__ M,
-             const float* __restrict__ V, const float* __restrict__ wd_rows,
+lamb2_kernel(float* __restrict__ W, const MT* __restrict__ M,
+             const MT* __restrict__ V, const float* __restrict__ wd_rows,
              const float* __restrict__ trust_rows, int R, LambArgs a,
              float lr) {
   const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
@@ -145,8 +209,8 @@ lamb2_kernel(float* __restrict__ W, const float* __restrict__ M,
   for (int i = 0; i < LANES / 128; ++i) {
     const size_t idx = base + (size_t)(i * 32 + lane) * 4;
     float4 w4 = *reinterpret_cast<const float4*>(W + idx);
-    const float4 m4 = *reinterpret_cast<const float4*>(M + idx);
-    const float4 v4 = *reinterpret_cast<const float4*>(V + idx);
+    const float4 m4 = load4<MT>(M + idx);
+    const float4 v4 = load4<MT>(V + idx);
     w4.x -= step * lamb_update(a, m4.x, v4.x, w4.x, wd);
     w4.y -= step * lamb_update(a, m4.y, v4.y, w4.y, wd);
     w4.z -= step * lamb_update(a, m4.z, v4.z, w4.z, wd);
@@ -310,43 +374,62 @@ LambArgs make_args(float b1, float omb1, float b2, float omb2, float eps,
 }  // namespace
 }  // namespace mxt
 
-// W, G, M, V (R, 512) float32 contiguous; wd_rows, rw, ru (R,) float32.
-// M and V are updated in place. Returns the CUDA error of the launch.
+// W, G (R, 512) float32 contiguous; M, V (R, 512) contiguous, float32 when
+// mdt is kF32, bf16 when kBF16; wd_rows, rw, ru (R,) float32. M and V are
+// updated in place. Returns the CUDA error of the launch.
 extern "C" int mx_lamb_pass1(const void* W, const void* G, void* M, void* V,
                              const void* wd_rows, void* rw, void* ru, int R,
                              float b1, float omb1, float b2, float omb2,
                              float eps, float rescale, float clip, float c1,
-                             float c2, int bias_correction, void* stream) {
+                             float c2, int bias_correction, int mdt,
+                             void* stream) {
   using namespace mxt;
-  if (R <= 0) return cudaErrorInvalidValue;
+  if (R <= 0 || (mdt != kF32 && mdt != kBF16)) return cudaErrorInvalidValue;
   const LambArgs a =
       make_args(b1, omb1, b2, omb2, eps, rescale, clip, c1, c2, bias_correction);
   const int blocks = (R + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  lamb1_kernel<<<blocks, ROWS_PER_BLOCK * 32, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(W), static_cast<const float*>(G),
-      static_cast<float*>(M), static_cast<float*>(V),
-      static_cast<const float*>(wd_rows), static_cast<float*>(rw),
-      static_cast<float*>(ru), R, a);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* w = static_cast<const float*>(W);
+  const float* g = static_cast<const float*>(G);
+  const float* wd = static_cast<const float*>(wd_rows);
+  float* sw = static_cast<float*>(rw);
+  float* su = static_cast<float*>(ru);
+  if (mdt == kF32)
+    lamb1_kernel<float><<<blocks, ROWS_PER_BLOCK * 32, 0, s>>>(
+        w, g, static_cast<float*>(M), static_cast<float*>(V), wd, sw, su, R,
+        a);
+  else
+    lamb1_kernel<__nv_bfloat16><<<blocks, ROWS_PER_BLOCK * 32, 0, s>>>(
+        w, g, static_cast<__nv_bfloat16*>(M), static_cast<__nv_bfloat16*>(V),
+        wd, sw, su, R, a);
   return cudaGetLastError();
 }
 
-// W (R, 512) float32, updated in place; M, V (R, 512); wd_rows, trust_rows
-// (R,) float32. Returns the CUDA error of the launch.
+// W (R, 512) float32, updated in place; M, V (R, 512) in the moment dtype
+// mdt (kF32 or kBF16); wd_rows, trust_rows (R,) float32. Returns the CUDA
+// error of the launch.
 extern "C" int mx_lamb_pass2(void* W, const void* M, const void* V,
                              const void* wd_rows, const void* trust_rows,
                              int R, float eps, float c1, float c2,
-                             int bias_correction, float lr, void* stream) {
+                             int bias_correction, float lr, int mdt,
+                             void* stream) {
   using namespace mxt;
-  if (R <= 0) return cudaErrorInvalidValue;
+  if (R <= 0 || (mdt != kF32 && mdt != kBF16)) return cudaErrorInvalidValue;
   const LambArgs a =
       make_args(0.f, 0.f, 0.f, 0.f, eps, 1.f, 0.f, c1, c2, bias_correction);
   const int blocks = (R + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  lamb2_kernel<<<blocks, ROWS_PER_BLOCK * 32, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(W), static_cast<const float*>(M),
-      static_cast<const float*>(V), static_cast<const float*>(wd_rows),
-      static_cast<const float*>(trust_rows), R, a, lr);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(W);
+  const float* wd = static_cast<const float*>(wd_rows);
+  const float* tr = static_cast<const float*>(trust_rows);
+  if (mdt == kF32)
+    lamb2_kernel<float><<<blocks, ROWS_PER_BLOCK * 32, 0, s>>>(
+        w, static_cast<const float*>(M), static_cast<const float*>(V), wd, tr,
+        R, a, lr);
+  else
+    lamb2_kernel<__nv_bfloat16><<<blocks, ROWS_PER_BLOCK * 32, 0, s>>>(
+        w, static_cast<const __nv_bfloat16*>(M),
+        static_cast<const __nv_bfloat16*>(V), wd, tr, R, a, lr);
   return cudaGetLastError();
 }
 

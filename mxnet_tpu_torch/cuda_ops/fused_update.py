@@ -17,16 +17,22 @@ lr, ε outside the root, bias correction folded into lr_t by the caller)
 and copies its result back. `adam_update(w, g, m, v, lr, ...)` is the
 one-parameter form: a list of one.
 
-For LAMB, W, G, m, v are (R, 512) float32 row views of `FusedLamb`'s flat vectors;
-wd_rows and trust_rows are (R,) float32. For CUDA tensors `lamb_pass1`
-and `lamb_pass2` launch the kernels of `csrc/fused_update.cu`; for CPU
+For LAMB, W and G are (R, 512) float32 row views of `FusedLamb`'s flat
+vectors, m and v (R, 512) in the moments' storage dtype: float32, or
+bfloat16 under `lamb_moments_dtype="bfloat16"` (both the same; mixed
+raises); wd_rows and trust_rows are (R,) float32. With bf16 moments the
+EMAs run in float32 and each new moment is rounded to bf16 (nearest
+even, as `jnp.astype` rounds) and widened back before the update and its
+row sums, so the trust ratio sees what is stored. For CUDA tensors
+`lamb_pass1` and `lamb_pass2` launch the kernels of
+`csrc/fused_update.cu` (one template instance per moment dtype); for CPU
 tensors they run the plain versions, `lamb_pass1_reference` and
 `lamb_pass2_reference`. Both routes update in place where the JAX package
 donated its buffers: pass 1 writes m and v, pass 2 writes W. Any other
 device raises.
 
 `launches_adam`, `launches_pass1` and `launches_pass2` count kernel
-launches (never plain-version calls).
+launches of either moment dtype (never plain-version calls).
 """
 from __future__ import annotations
 
@@ -73,26 +79,45 @@ def _update(m, v, W, wd_rows, c1, c2, epsilon, bias_correction):
     return m_hat / (torch.sqrt(v_hat) + epsilon) + wd_rows[:, None] * W
 
 
+def _moments_dtype(what, m, v):
+    """The storage dtype of the moments m and v: float32 or bfloat16, the
+    same for both."""
+    if m.dtype != v.dtype or m.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{what}: moments {m.dtype}/{v.dtype}; expected "
+                         "both float32 or both bfloat16")
+    return m.dtype
+
+
 def lamb_pass1_reference(W, G, m, v, wd_rows, c1, c2, *, beta1, beta2,
                          epsilon, rescale_grad, clip_gradient,
                          bias_correction):
     """Plain pass 1: g = clip(G * rescale), the moment EMAs written into
-    m and v in place, u = m_hat / (sqrt(v_hat) + eps) + wd * W. Returns
-    the per-row sums of squares (rowsq_w, rowsq_u), each (R,)."""
+    m and v in place (bf16 moments: computed in float32 and rounded to
+    bf16), u = m_hat / (sqrt(v_hat) + eps) + wd * W from the stored
+    moments. Returns the per-row sums of squares (rowsq_w, rowsq_u), each
+    (R,)."""
+    mdt = _moments_dtype("lamb_pass1", m, v)
     g = G * rescale_grad
     if clip_gradient and clip_gradient > 0:
         g = g.clamp(-clip_gradient, clip_gradient)
-    m.mul_(beta1).add_((1 - beta1) * g)
-    v.mul_(beta2).add_((1 - beta2) * (g * g))
-    u = _update(m, v, W, wd_rows, c1, c2, epsilon, bias_correction)
+    if mdt == torch.float32:
+        m.mul_(beta1).add_((1 - beta1) * g)
+        v.mul_(beta2).add_((1 - beta2) * (g * g))
+    else:
+        m.copy_(m.float().mul_(beta1).add_((1 - beta1) * g))
+        v.copy_(v.float().mul_(beta2).add_((1 - beta2) * (g * g)))
+    u = _update(m.float(), v.float(), W, wd_rows, c1, c2, epsilon,
+                bias_correction)
     return (W * W).sum(1), (u * u).sum(1)
 
 
 def lamb_pass2_reference(W, m, v, wd_rows, trust_rows, c1, c2, lr, *,
                          epsilon, bias_correction):
-    """Plain pass 2: recompute u from the stored moments and apply
-    W -= lr * trust_row * u in place. Returns W."""
-    u = _update(m, v, W, wd_rows, c1, c2, epsilon, bias_correction)
+    """Plain pass 2: recompute u from the stored moments (widened to
+    float32) and apply W -= lr * trust_row * u in place. Returns W."""
+    _moments_dtype("lamb_pass2", m, v)
+    u = _update(m.float(), v.float(), W, wd_rows, c1, c2, epsilon,
+                bias_correction)
     return W.sub_((lr * trust_rows)[:, None] * u)
 
 
@@ -106,31 +131,40 @@ def _entry(name):
         fn.restype = ctypes.c_int
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = {
-            "mx_lamb_pass1": [p] * 7 + [i] + [f] * 9 + [i, p],
-            "mx_lamb_pass2": [p] * 5 + [i] + [f] * 3 + [i, f, p],
+            "mx_lamb_pass1": [p] * 7 + [i] + [f] * 9 + [i, i, p],
+            "mx_lamb_pass2": [p] * 5 + [i] + [f] * 3 + [i, f, i, p],
             "mx_adam_update_multi": [p, p, i] + [f] * 8 + [i, p, p, p],
         }[name]
         _fns[name] = fn
     return fn
 
 
-def _check(what, rows, vecs):
-    """rows: (name, tensor) of (R, 512) float32; vecs: of (R,) float32."""
+def _check(what, rows, vecs, moments):
+    """rows: (name, tensor) of (R, 512) float32; vecs: of (R,) float32;
+    moments: (name, tensor) of (R, 512) float32, or bfloat16, one dtype
+    for both. Every tensor contiguous, on W's device, its base on the
+    16-byte grid (the kernels' vector loads). Returns (R, the moments'
+    dtype code)."""
     R = rows[0][1].shape[0]
     if R >= 1 << 31:
         raise ValueError(f"{what}: {R} rows exceed the kernels' int row "
                          "count")
     dev = rows[0][1].device
-    for name, x, shape in [r + ((R, LANES),) for r in rows] \
-            + [r + ((R,),) for r in vecs]:
-        if tuple(x.shape) != shape or x.dtype != torch.float32:
+    mdt = _moments_dtype(what, moments[0][1], moments[1][1])
+    for name, x, shape, dt in [r + ((R, LANES), torch.float32) for r in rows] \
+            + [r + ((R, LANES), mdt) for r in moments] \
+            + [r + ((R,), torch.float32) for r in vecs]:
+        if tuple(x.shape) != shape or x.dtype != dt:
             raise ValueError(f"{what}: {name} is {tuple(x.shape)} {x.dtype}, "
-                             f"expected {shape} float32")
+                             f"expected {shape} {dt}")
         if x.device != dev:
             raise ValueError(f"{what}: {name} on {x.device}, W on {dev}")
         if not x.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
-    return R
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} does not start on a 16-byte "
+                             "boundary")
+    return R, _DTYPE_CODE[mdt]
 
 
 def _device(W, what):
@@ -244,15 +278,16 @@ def adam_update(w, g, m, v, lr, beta1=0.9, beta2=0.999, epsilon=1e-8,
 
 def lamb_pass1(W, G, m, v, wd_rows, c1, c2, *, beta1, beta2, epsilon,
                rescale_grad, clip_gradient, bias_correction):
-    """Pass 1 over the flat (R, 512) layout; m and v are updated in
-    place. Returns (rowsq_w, rowsq_u), each (R,) float32."""
+    """Pass 1 over the flat (R, 512) layout; m and v (float32 or
+    bfloat16) are updated in place. Returns (rowsq_w, rowsq_u), each (R,)
+    float32."""
     kw = dict(beta1=beta1, beta2=beta2, epsilon=epsilon,
               rescale_grad=rescale_grad, clip_gradient=clip_gradient,
               bias_correction=bias_correction)
     if _device(W, "lamb_pass1") == "cpu":
         return lamb_pass1_reference(W, G, m, v, wd_rows, c1, c2, **kw)
-    R = _check("lamb_pass1", [("W", W), ("G", G), ("m", m), ("v", v)],
-               [("wd_rows", wd_rows)])
+    R, mdt = _check("lamb_pass1", [("W", W), ("G", G)],
+                    [("wd_rows", wd_rows)], [("m", m), ("v", v)])
     rw = torch.empty(R, dtype=torch.float32, device=W.device)
     ru = torch.empty_like(rw)
     err = _entry("mx_lamb_pass1")(
@@ -260,7 +295,7 @@ def lamb_pass1(W, G, m, v, wd_rows, c1, c2, *, beta1, beta2, epsilon,
         wd_rows.data_ptr(), rw.data_ptr(), ru.data_ptr(), R,
         beta1, 1.0 - beta1, beta2, 1.0 - beta2, epsilon, rescale_grad,
         float(clip_gradient) if clip_gradient and clip_gradient > 0 else 0.0,
-        c1, c2, int(bool(bias_correction)),
+        c1, c2, int(bool(bias_correction)), mdt,
         torch.cuda.current_stream(W.device).cuda_stream)
     _build.check(err, "lamb_pass1")
     global launches_pass1
@@ -275,12 +310,13 @@ def lamb_pass2(W, m, v, wd_rows, trust_rows, c1, c2, lr, *, epsilon,
         return lamb_pass2_reference(W, m, v, wd_rows, trust_rows, c1, c2, lr,
                                     epsilon=epsilon,
                                     bias_correction=bias_correction)
-    R = _check("lamb_pass2", [("W", W), ("m", m), ("v", v)],
-               [("wd_rows", wd_rows), ("trust_rows", trust_rows)])
+    R, mdt = _check("lamb_pass2", [("W", W)],
+                    [("wd_rows", wd_rows), ("trust_rows", trust_rows)],
+                    [("m", m), ("v", v)])
     err = _entry("mx_lamb_pass2")(
         W.data_ptr(), m.data_ptr(), v.data_ptr(), wd_rows.data_ptr(),
         trust_rows.data_ptr(), R, epsilon, c1, c2,
-        int(bool(bias_correction)), lr,
+        int(bool(bias_correction)), lr, mdt,
         torch.cuda.current_stream(W.device).cuda_stream)
     _build.check(err, "lamb_pass2")
     global launches_pass2

@@ -62,10 +62,16 @@ def _unwrap(x):
 
 
 class Block(torch.nn.Module):
+    # True on a block that consumes remat policies per layer (BERTModel,
+    # GPTModel); any other block's policy wraps its whole forward in the
+    # trainer (`memsafe.block_wrap_policy`)
+    _remat_handles_policy = False
+
     def __init__(self):
         super().__init__()
         self.training = False
         self._mx_recorded = False
+        self._remat_policy = None
 
     def __call__(self, *args, **kwargs):
         if _autograd._recording and not self._mx_recorded:
@@ -123,6 +129,35 @@ class Block(torch.nn.Module):
             initializer.init_array(p.mx_name, p.data, generator)
             p.mx_initialized = True
         return self
+
+    def remat(self, policy="layers"):
+        """Set this block tree's rematerialisation policy
+        (`memsafe.POLICIES`: "none" | "dots_saveable" | "layers" |
+        "full", in increasing memory savings and recompute cost). Blocks
+        that handle policies per layer (BERTModel, GPTModel) take it for
+        their layer stacks; any other block gets it around its whole
+        forward in the trainer. Overrides the `remat_policy` knob and the
+        model config's `remat` flag. Returns self."""
+        from .. import memsafe as _memsafe
+        _memsafe.validate_policy(policy)
+        for m in self.modules():
+            if getattr(type(m), "_remat_handles_policy", False):
+                m._remat_policy = policy
+        self._remat_policy = policy
+        return self
+
+    def save_parameters(self, filename, deduplicate=False):
+        """`collect_params().save(filename)`: the JAX package's file."""
+        self.collect_params().save(filename)
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Load a `save_parameters` file of either package into this
+        block's parameters in place (`ParameterDict.load`)."""
+        self.collect_params().load(filename, ctx=ctx,
+                                   allow_missing=allow_missing,
+                                   ignore_extra=ignore_extra)
 
     def cast(self, dtype):
         """Cast every floating-point parameter, and its gradient, to

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 __all__ = ["Parameter", "ParameterDict", "Constant", "dtype_of",
-           "finish_deferred", "zero_grad"]
+           "finish_deferred", "set_data", "zero_grad"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -72,7 +72,46 @@ def zero_grad(p):
 
 class ParameterDict(dict):
     """{dotted path: parameter}, what `Block.collect_params` returns
-    (counterpart of the JAX package's ParameterDict)."""
+    (counterpart of the JAX package's ParameterDict).
+
+    `save` writes `nd.save`'s npz dict of every parameter that has its
+    shape, keyed by path (less `strip_prefix`): the JAX package's file
+    byte for byte. `load` copies a file of either package into the
+    parameters IN PLACE under `torch.no_grad()` (each keeps its tensor,
+    device and dtype; the value is cast to the dtype, as the JAX
+    package's `set_data` casts), a deferred parameter taking the array's
+    shape. Unlike the JAX package's `set_data`, a shape that disagrees
+    raises. `ctx` is accepted for MXNet's sake: a parameter stays on its
+    device."""
+
+    def save(self, filename, strip_prefix=""):
+        from ..ndarray import ndarray as _nd
+        data = {}
+        for name, p in self.items():
+            if getattr(p, "mx_deferred", False):
+                continue
+            key = name[len(strip_prefix):] if name.startswith(strip_prefix) \
+                else name
+            data[key] = p.detach()
+        _nd.save(filename, data)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        from ..ndarray import ndarray as _nd
+        kind, loaded = _nd.load_arrays(filename)
+        if kind != "dict":
+            raise ValueError(f"{filename} holds a {kind} of arrays, not "
+                             "named parameters")
+        loaded = {restore_prefix + k: v for k, v in loaded.items()}
+        for name, p in self.items():
+            if name in loaded:
+                set_data(p, loaded[name])
+            elif not allow_missing:
+                raise KeyError(f"parameter '{name}' missing from {filename}")
+        if not ignore_extra:
+            extra = set(loaded) - set(self)
+            if extra:
+                raise KeyError(f"extra parameters in file: {sorted(extra)}")
 
     def zero_grad(self):
         for p in self.values():
@@ -82,6 +121,28 @@ class ParameterDict(dict):
     def setattr(self, name, value):
         for p in self.values():
             setattr(p, name, value)
+
+
+def set_data(p, value):
+    """Copy the tensor `value` into the parameter `p` in place, cast to
+    its dtype and moved to its device; a deferred parameter takes the
+    value's shape first (its known dimensions must agree). The parameter
+    counts as initialised."""
+    shape = tuple(value.shape)
+    if getattr(p, "mx_deferred", False):
+        if len(shape) != p.dim() or any(
+                s not in (0, n) for s, n in zip(p.shape, shape)):
+            raise ValueError(f"Parameter {p.mx_name}: shape "
+                             f"{tuple(p.shape)} cannot become {shape}")
+        p.data = torch.empty(shape, dtype=p.dtype, device=p.device)
+        p.mx_deferred = False
+        p.mx_init_requested = None
+    if shape != tuple(p.shape):
+        raise ValueError(f"Parameter {p.mx_name}: the value has shape "
+                         f"{shape}, the parameter {tuple(p.shape)}")
+    with torch.no_grad():
+        p.copy_(value.to(device=p.device, dtype=p.dtype))
+    p.mx_initialized = True
 
 
 def finish_deferred(p, shape, device):

@@ -17,14 +17,27 @@ A parameter that no backward has reached updates with a zero gradient,
 as the JAX package's zero-initialised gradient buffers do. One device:
 there is no kvstore to reduce through, so `kvstore` and
 `update_on_kvstore` are accepted and `allreduce_grads` does nothing;
-`compression_params` raises as in the JAX package. The JAX package's
-AMP loss scaler, telemetry, diagnostics and memsafe hooks are not in the
-port.
+`compression_params` raises as in the JAX package.
+
+`save_states(fname)` writes the optimizer state as the JAX package does:
+one `nd.save` dict, key "i" for a single state tensor of parameter i and
+"i.j" for entry j of a tuple state (absent entries, as SGD without
+momentum's None, are left out); `load_states(fname)` copies such a file,
+of either package, into the state tensors in place (creating them first
+if no step has). Like the JAX package's, the file holds neither the
+update counts nor the learning rate.
+
+An out-of-memory error of a step under memsafe (`oom_recover` or
+`device_bytes_limit` set) is counted and annotated
+(`memsafe.note_eager_oom`) before it propagates: the eager loop cannot
+degrade a step whose tape already ran. The JAX package's AMP loss
+scaler, telemetry and diagnostics hooks are not in the port.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import memsafe as _memsafe
 from .. import optimizer as opt_mod
 from .parameter import ParameterDict, zero_grad
 
@@ -74,7 +87,12 @@ class Trainer:
         """Scale the gradients by 1/batch_size and apply the updates."""
         self._num_update += 1
         self._optimizer.rescale_grad = 1.0 / batch_size
-        self._update(ignore_stale_grad)
+        try:
+            self._update(ignore_stale_grad)
+        except Exception as e:  # noqa: BLE001 - classified below
+            if _memsafe._enabled and _memsafe.is_oom(e):
+                _memsafe.note_eager_oom(e, step=self._num_update)
+            raise
 
     def update(self, batch_size, ignore_stale_grad=False):
         self.step(batch_size, ignore_stale_grad)
@@ -99,3 +117,41 @@ class Trainer:
     def zero_grad(self):
         for p in self._params:
             zero_grad(p)
+
+    # -- optimizer state checkpointing (reference: trainer.save_states) --
+    def save_states(self, fname):
+        from ..ndarray import ndarray as _nd
+        if not self._states_created:
+            self._create_states()
+        flat = {}
+        for i, st in enumerate(self._states):
+            if st is None:
+                continue
+            if isinstance(st, tuple):
+                for j, t in enumerate(st):
+                    if t is not None:
+                        flat[f"{i}.{j}"] = t
+            else:
+                flat[f"{i}"] = st
+        _nd.save(fname, flat)
+
+    def load_states(self, fname):
+        from ..ndarray import ndarray as _nd
+        if not self._states_created:
+            self._create_states()
+        kind, flat = _nd.load_arrays(fname)
+        if kind != "dict":
+            raise ValueError(f"{fname} holds a {kind} of arrays, not "
+                             "optimizer states")
+        with torch.no_grad():
+            for key, arr in flat.items():
+                if "." in key:
+                    i, j = map(int, key.split("."))
+                    dst = self._states[i][j]
+                else:
+                    dst = self._states[int(key)]
+                if tuple(dst.shape) != tuple(arr.shape):
+                    raise ValueError(
+                        f"{fname}: state {key} has shape {tuple(arr.shape)}"
+                        f", the trainer's {tuple(dst.shape)}")
+                dst.copy_(arr.to(device=dst.device, dtype=dst.dtype))

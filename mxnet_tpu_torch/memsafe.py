@@ -1,40 +1,70 @@
-"""The memory budget check (the budget half of `mxnet_tpu/memsafe.py`).
+"""Never-OOM execution (counterpart of `mxnet_tpu/memsafe.py`): the
+budget check, the graduated remat policies and the trainer's
+degradation ladder.
 
-Serving admits a request only when its bucket's predicted peak fits the
-device: resident bytes (parameters, KV caches or the page pool) plus the
-step's execution peak, against the capacity. A predicted overrun raises
-`MemoryBudgetError` BEFORE any allocation or dispatch, and the server
-turns it into its degradation ladder or a 429 verdict — never a device
-out-of-memory.
+  * **budget check** — serving admits a request only when its bucket's
+    predicted peak fits the device: resident bytes (parameters, KV
+    caches or the page pool) plus the step's execution peak, against the
+    capacity. A predicted overrun raises `MemoryBudgetError` BEFORE any
+    allocation or dispatch, and the server turns it into its degradation
+    ladder or a 429 verdict. The JAX package predicts the execution peak
+    from XLA's AOT memory analysis; PyTorch runs eagerly and has none, so
+    the server measures the peak once per executable shape on the card
+    (`Server._exec_peak`) and passes it in here; on the CPU it passes
+    None, and the check compares resident bytes alone, as the JAX
+    package does when analysis is withheld.
+  * **graduated remat policies** — `Block.remat(policy)` with `POLICIES`
+    ("none" | "dots_saveable" | "layers" | "full", in increasing memory
+    savings and recompute cost; `models._remat` builds each on
+    `torch.utils.checkpoint`); the `remat_policy` knob is the default of
+    every block, and the per-model `remat=True` config flag stays the
+    "layers" alias (`effective_policy`). BERT and GPT consume the policy
+    per layer; any other block gets it around its whole forward in the
+    trainer (`block_wrap_policy`).
+  * **the trainer's ladder** — with `oom_recover="auto"`, an
+    out-of-memory at the `ShardedTrainer` step (`is_oom`: a real
+    `torch.cuda.OutOfMemoryError`, `MemoryBudgetError`, or the `oom`
+    fault's `SimulatedResourceExhausted`) raised before the optimizer
+    touched any state walks `LADDER` instead of crashing
+    (`recover_trainer`): the remat policy one rung up, then (where there
+    are data replicas to shard over; never on one card, and the port
+    trains on one) optimizer-state sharding, then gradient accumulation
+    x2 while the batch divides; after each rung the step runs again.
+    Each transition is recorded (`transitions()`, `snapshot()`) and
+    printed. `oom_recover="off"` (default) fails fast.
 
-The JAX package predicts the execution peak from XLA's AOT memory
-analysis. PyTorch runs eagerly and has no such analysis, so the server
-measures the peak once per executable shape on the card
-(`Server._exec_peak`) and passes it in here; on the CPU it passes None,
-and the check compares resident bytes alone, as the JAX package does
-when analysis is withheld.
-
-The trainer's OOM ladder, remat policies and auto-fit are not ported
-(ROADMAP).
+`maybe_enable()` (called at trainer construction) arms the trainer hook
+when `oom_recover="auto"` or `device_bytes_limit` is set; disabled (the
+default), the step's hook is one module-bool read on an already failing
+path. The JAX package's auto-fit and the pre-flight check at a jit-cache
+miss are not ported (XLA's memory analysis has no eager counterpart).
 """
 from __future__ import annotations
 
 import sys
 import threading
 import time
+import traceback
 
 import torch
 
 from . import config as _config
 
-__all__ = ["MemoryBudgetError", "is_oom", "capacity_bytes",
-           "resident_bytes", "check_budget", "last_check",
-           "last_headroom_bytes", "reset"]
+__all__ = ["enable", "disable", "enabled", "maybe_enable",
+           "MemoryBudgetError", "SimulatedResourceExhausted", "is_oom",
+           "capacity_bytes", "resident_bytes", "check_budget", "last_check",
+           "last_headroom_bytes", "reset", "POLICIES", "LADDER",
+           "validate_policy", "effective_policy", "policy_marker",
+           "block_wrap_policy", "recover_trainer", "note_eager_oom",
+           "transitions", "snapshot", "oom_events"]
 
 _lock = threading.RLock()
+_enabled = False              # the trainer hook's fast-path bool
 _last_check = None            # dict of the most recent budget check
 _warned = set()               # executables already headroom-warned
 _totals = {}                  # CUDA device index -> its total memory
+_transitions = []             # degradation-ladder transitions this process
+_oom_events = 0
 
 
 def _fmt(n):
@@ -83,17 +113,61 @@ class MemoryBudgetError(RuntimeError):
             "capacity is wrong.")
 
 
+class SimulatedResourceExhausted(RuntimeError):
+    """Synthetic device OOM raised by the `oom@step:N` fault
+    (`resilience.FaultInjector`) at the dispatch of step N, before the
+    step touches any state: every rung of the ladder is drivable on the
+    CPU. The message carries the JAX package's RESOURCE_EXHAUSTED
+    marker."""
+
+    def __init__(self, step=None):
+        super().__init__(
+            "RESOURCE_EXHAUSTED: synthetic out-of-memory injected by "
+            f"resilience fault_inject oom@step:{step} (no device "
+            "allocation actually failed)")
+
+
+def enabled():
+    """True when the trainer's OOM hook is armed."""
+    return _enabled
+
+
+def enable():
+    global _enabled
+    _enabled = True
+
+
+def disable():
+    global _enabled
+    _enabled = False
+
+
+def maybe_enable():
+    """Arm the trainer hook iff the knobs ask for it (`oom_recover=auto`
+    or a positive `device_bytes_limit`); called at trainer construction,
+    so a `config.set` after import takes effect."""
+    if not _enabled and (_config.get("oom_recover") == "auto"
+                         or int(_config.get("device_bytes_limit")) > 0):
+        enable()
+    return _enabled
+
+
 def is_oom(exc):
-    """True for a device out-of-memory (`torch.cuda.OutOfMemoryError`)
-    or the budget check's MemoryBudgetError."""
-    return isinstance(exc, (MemoryBudgetError, torch.cuda.OutOfMemoryError))
+    """True for anything the ladder can act on: a device out-of-memory
+    (`torch.cuda.OutOfMemoryError`), the budget check's
+    MemoryBudgetError, or the `oom` fault's SimulatedResourceExhausted."""
+    return isinstance(exc, (MemoryBudgetError, SimulatedResourceExhausted,
+                            torch.cuda.OutOfMemoryError))
 
 
 def reset():
-    """Drop the recorded check and warnings (tests and run boundaries)."""
-    global _last_check
+    """Drop the recorded check, warnings, transitions and OOM count
+    (tests and run boundaries)."""
+    global _last_check, _oom_events
     with _lock:
         _last_check = None
+        _oom_events = 0
+        del _transitions[:]
         _warned.clear()
 
 
@@ -175,3 +249,190 @@ def last_headroom_bytes():
     any check, or when capacity was unknown)."""
     with _lock:
         return _last_check.get("headroom_bytes") if _last_check else None
+
+
+# ---------------------------------------------------------------------------
+# graduated remat policies
+# ---------------------------------------------------------------------------
+
+#: valid policies, in INCREASING memory savings (and recompute cost)
+POLICIES = ("none", "dots_saveable", "layers", "full")
+
+#: the oom_recover=auto escalation order (same tuple; alias for intent)
+LADDER = POLICIES
+
+
+def validate_policy(policy):
+    if policy not in POLICIES:
+        raise ValueError(
+            f"remat policy {policy!r}: expected one of {POLICIES}")
+    return policy
+
+
+def effective_policy(explicit, legacy=False):
+    """The policy of one block: an explicit `.remat(policy=...)` wins,
+    else the `remat_policy` knob, else the model config's `remat` (a
+    policy name, or True as the "layers" alias), else "none"."""
+    if explicit:
+        return validate_policy(explicit)
+    knob = _config.get("remat_policy")
+    if knob:
+        return validate_policy(knob)
+    if isinstance(legacy, str):
+        return validate_policy(legacy)
+    return "layers" if legacy else "none"
+
+
+def _policy_block(block):
+    """The first block of the subtree that consumes remat policies per
+    layer (BERTModel, GPTModel), or None."""
+    for m in block.modules():
+        if getattr(type(m), "_remat_handles_policy", False):
+            return m
+    return None
+
+
+def policy_marker(block):
+    """The effective remat policy of a block tree."""
+    b = _policy_block(block) or block
+    return effective_policy(getattr(b, "_remat_policy", None),
+                            getattr(b, "_remat", False))
+
+
+def block_wrap_policy(block):
+    """The policy to apply around a block's WHOLE forward (the generic
+    wrap for blocks without per-layer handling), or None. A per-layer
+    handler anywhere in the subtree owns the policy instead: wrapping the
+    root too would checkpoint twice."""
+    if _policy_block(block) is not None:
+        return None
+    pol = effective_policy(getattr(block, "_remat_policy", None), False)
+    return None if pol == "none" else pol
+
+
+# ---------------------------------------------------------------------------
+# graceful OOM degradation (the ladder)
+# ---------------------------------------------------------------------------
+
+def _count_oom():
+    global _oom_events
+    with _lock:
+        _oom_events += 1
+
+
+def _release(exc):
+    """Drop the locals of the frames an exception's traceback holds: a
+    failed forward's activations must not stay alive through the retry."""
+    traceback.clear_frames(exc.__traceback__)
+    return exc
+
+
+def _next_rung(trainer, data, labels):
+    """The next degradation to try: the remat policy one rung up while
+    possible, then (never on one device: there are no data replicas to
+    shard optimizer state over) optimizer-state sharding, then gradient
+    accumulation x2 while every batch array's leading dimension
+    divides. None when the ladder is exhausted."""
+    cur = policy_marker(trainer.block)
+    if hasattr(trainer.block, "remat") and cur != LADDER[-1]:
+        return ("remat", LADDER[LADDER.index(cur) + 1])
+    new_accum = int(getattr(trainer, "_accum", 1)) * 2
+    shapes = [tuple(getattr(b, "shape", ())) for b in
+              list(data) + list(labels)]
+    if shapes and new_accum <= 256 and all(
+            s and s[0] % new_accum == 0 for s in shapes):
+        return ("accum", new_accum)
+    return None
+
+
+def _note_transition(trainer, kind, value, step):
+    entry = {"kind": kind, "value": value, "step": step, "ts": time.time(),
+             "policy": policy_marker(trainer.block),
+             "accum": int(getattr(trainer, "_accum", 1)), "zero": False}
+    with _lock:
+        _transitions.append(entry)
+    what = f"remat policy -> {value!r}" if kind == "remat" else \
+        f"gradient accumulation x{value} (microbatch = batch/{value})"
+    print(f"mx.memsafe: degradation ladder at step {step}: {what}",
+          file=sys.stderr)
+
+
+def recover_trainer(trainer, exc, data, labels):
+    """Walk the ladder after an OOM at the trainer step (called by
+    `ShardedTrainer.step` outside its except block, with `exc`'s frames
+    released; memsafe enabled and `is_oom(exc)` established). With
+    `oom_recover` not "auto" the error propagates (fail-fast). An OOM
+    after the optimizer began updating state in place
+    (`trainer._state_touched`) cannot be retried and raises, as the JAX
+    package raises when the failed dispatch consumed its donated state.
+    Otherwise: apply the next rung, run the step again, and repeat until
+    it completes or the ladder is exhausted (then `exc` propagates).
+    `trainer._step_once` restores the random streams a failed attempt
+    drew from, so a recovered step draws what an uninterrupted one would
+    have."""
+    step = int(trainer.num_update) + 1
+    if not isinstance(exc, MemoryBudgetError):
+        _count_oom()
+    if _config.get("oom_recover") != "auto":
+        raise exc
+    while True:
+        if getattr(trainer, "_state_touched", False):
+            raise RuntimeError(
+                "mx.memsafe: the out-of-memory came after the optimizer "
+                "began updating the train state in place, so the step "
+                "cannot be retried; restore from the last checkpoint") \
+                from exc
+        rung = _next_rung(trainer, data, labels)
+        if rung is None:
+            exc.add_note("mx.memsafe: degradation ladder exhausted (remat "
+                         "at 'full', batch no longer divisible)")
+            raise exc
+        kind, value = rung
+        if kind == "remat":
+            trainer.block.remat(value)
+        else:
+            trainer.set_grad_accum(value)
+        _note_transition(trainer, kind, value, step)
+        failed = None
+        try:
+            return trainer._step_once(data, labels)
+        except Exception as e:  # noqa: BLE001 - classified below
+            if not is_oom(e):
+                raise
+            failed = _release(e)
+        if not isinstance(failed, MemoryBudgetError):
+            _count_oom()
+        exc = failed
+
+
+def note_eager_oom(exc, step=None):
+    """Record an OOM of the eager `gluon.Trainer` (which cannot
+    microbatch a tape that already ran) and annotate the exception with
+    the remediation before it propagates."""
+    _count_oom()
+    exc.add_note(
+        "mx.memsafe: eager-path OOM — the gluon Trainer cannot degrade a "
+        "step whose tape already ran. Remat the model "
+        "(block.remat(policy=...)), reduce the batch, or move to "
+        "parallel.ShardedTrainer where oom_recover=auto walks the "
+        "degradation ladder automatically.")
+
+
+def transitions():
+    """Degradation-ladder transitions recorded this process (copies)."""
+    with _lock:
+        return [dict(t) for t in _transitions]
+
+
+def snapshot():
+    """Plain-data summary: the last budget check, every ladder transition
+    and the OOM event count."""
+    with _lock:
+        return {"oom_events": _oom_events,
+                "last_check": dict(_last_check) if _last_check else None,
+                "transitions": [dict(t) for t in _transitions]}
+
+
+def oom_events():
+    """Out-of-memory events seen at the trainer boundary this process."""
+    return _oom_events

@@ -10,20 +10,22 @@ logits, not (B, L, V), are computed, and decodes with the word embedding
 (tied, no weight of its own) plus a separate `mlm_bias`. Parameter paths
 are the JAX package's `collect_params()` paths.
 
-`remat=True` (or the policy name "layers") runs each encoder layer
-under `torch.utils.checkpoint`, the JAX package's "layers" policy
-(`_remat.remat_call`): only a layer's (x, mask) boundary outlives the forward,
-and the backward recomputes the rest. The recomputation replays the
-port's random streams (`random.get_state` / `set_state`), so it draws
-the hidden dropout masks and attention-dropout seeds of the first
-forward, and leaves the streams where they stood. Remat applies where
-autograd records (a training step), as the JAX package applies it only
-inside a trace.
+The encoder stack runs under the remat policy (`memsafe.POLICIES`):
+`Block.remat(policy)` on the model, else the `remat_policy` knob, else
+the config's `remat` (True is the "layers" alias, a policy name is
+itself). "layers" runs each encoder layer under `torch.utils.checkpoint`
+(`_remat.remat_call`): only a layer's (x, mask) boundary outlives the
+forward, and the backward recomputes the rest; "dots_saveable" also
+keeps the GEMMs' outputs; "full" adds one checkpoint around the whole
+stack. The recomputation replays the port's random streams
+(`random.get_state` / `set_state`), so it draws the hidden dropout masks
+and attention-dropout seeds of the first forward, and leaves the
+streams where they stood. Remat applies where autograd records (a
+training step), as the JAX package applies it only inside a trace.
 
 Differences from the JAX package: PyTorch runs eagerly, so the configs'
-`scan_layers` (a compile-time choice) has no effect; the memsafe remat
-policies "dots_saveable" and "full" and `seq_parallel` are not in the
-port and raise.
+`scan_layers` (a compile-time choice) has no effect; `seq_parallel` is
+not in the port and raises.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from ..gluon.block import training
 from ..gluon.parameter import Parameter
 from ..ndarray.ndarray import _unwrap
 from ..ops import nn_ops
+from .. import memsafe as _memsafe
 from ._remat import remat_policy, stack_call
 
 
@@ -134,6 +137,10 @@ class BERTModel(HybridBlock):
     """Embeddings + encoder stack + pooler. Returns (sequence output
     (B, L, E), pooled first-token output (B, E))."""
 
+    # remat policies route here (`Block.remat`, the `remat_policy` knob):
+    # the layer stack checkpoints per layer, not the whole block
+    _remat_handles_policy = True
+
     def __init__(self, vocab_size, units, hidden_size, num_layers, num_heads,
                  max_length=512, type_vocab_size=2, dropout=0.1,
                  attn_dropout=None, seq_parallel=False, dtype="float32",
@@ -173,7 +180,8 @@ class BERTModel(HybridBlock):
         if valid_length is not None:
             mask = torch.arange(L, device=x.device)[None, :] \
                 < valid_length.to(x.device).long()[:, None]
-        x = stack_call(self.layers, x, mask, self._remat)
+        x = stack_call(self.layers, x, mask, _memsafe.effective_policy(
+            self._remat_policy, self._remat))
         return x, self.pooler(x[:, 0])
 
 

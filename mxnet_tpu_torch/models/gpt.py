@@ -14,9 +14,10 @@ sampled or by beam search (`num_beams`). A model whose
 Dense layers `contrib.quantization.quantize_block` swapped for int8 runs
 the same decode surface.
 
-`remat=True` runs each block of a training forward under
-`torch.utils.checkpoint` with the random streams replayed, as BERT's
-encoder layers do (`_remat.stack_call`).
+The block stack of a training forward runs under the remat policy
+(`Block.remat`, the `remat_policy` knob, or the config's `remat`: True
+is "layers"), each policy on `torch.utils.checkpoint` with the random
+streams replayed, as BERT's encoder layers do (`_remat.stack_call`).
 
 Differences from the JAX package, all of them idiom: PyTorch runs
 eagerly, so there is no jit cache, `lax.scan` is a Python loop and
@@ -35,6 +36,7 @@ from ..ndarray.ndarray import _unwrap
 from ..ops import nn_ops
 from ._decode import (batched_cached_attention_step, beam_search_loop,
                       cached_self_attention_step, paged_attention_step)
+from .. import memsafe as _memsafe
 from ._remat import remat_policy, stack_call
 from .bert import BERTAttention, _positions
 
@@ -150,6 +152,10 @@ class GPTModel(HybridBlock):
     """Token + position embeddings -> pre-LN block stack -> final LN.
     Returns hidden states (B, L, E)."""
 
+    # remat policies route here (`Block.remat`, the `remat_policy` knob):
+    # the layer stack checkpoints per layer, not the whole block
+    _remat_handles_policy = True
+
     def __init__(self, vocab_size, units, hidden_size, num_layers, num_heads,
                  max_length=1024, dropout=0.1, attn_dropout=0.0,
                  seq_parallel=False, dtype="float32", remat=False,
@@ -180,7 +186,8 @@ class GPTModel(HybridBlock):
         if valid_length is not None:
             mask = torch.arange(L, device=x.device)[None, :] \
                 < valid_length.to(x.device).long()[:, None]
-        x = stack_call(self.layers, x, mask, self._remat)
+        x = stack_call(self.layers, x, mask, _memsafe.effective_policy(
+            self._remat_policy, self._remat))
         return self.ln_f(x)
 
 

@@ -9,6 +9,7 @@ so inside `autograd.record()` they record as any torch op does.
 
 Only what the eager training loop uses is ported: the constructors
 `array`, `zeros`, `ones`, `full`, `arange`, `concatenate` and `waitall`;
+`save` and `load` in the JAX package's two formats (below);
 `shape`, `dtype` (a numpy dtype; bfloat16 is ml_dtypes', or a name that
 equals "bfloat16" where ml_dtypes is missing), `size`,
 `ndim`, `context`; `asnumpy` (bfloat16 comes back as float32),
@@ -32,19 +33,33 @@ ROADMAP.md queue 1's "The eager MXNet surface".
 `ctx=mx.cpu()` is the way onto the CPU. A float64 or int64 source
 becomes float32 or int32 (MXNet's default dtypes), as in the JAX
 package.
+
+`save(fname, data, format="npz")` writes the JAX package's files byte
+for byte: a numpy archive with its `__mx_meta__` entry ("single",
+"list" or "dict"), or with `format="params"` the reference's dmlc::Stream
+container (`params_io`; bf16 up-cast to float32 there, as the container
+has no bf16 type). In the npz format a bf16 array is stored as the JAX
+package stores it (ml_dtypes' bfloat16, which numpy reads back as a
+2-byte void type); `load` reads that back as bf16 (the JAX package's own
+`load` refuses it).
+`load(fname, ctx=None)` sniffs the container magic and returns an
+NDArray, a list or a dict of them on `ctx` (the card by default, as
+`array`).
 """
 from __future__ import annotations
 
 import functools
+import os
 import weakref
 
 import numpy as np
 import torch
 
 from .. import context
+from .params_io import is_params_file, load_params, save_params
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "arange",
-           "concatenate", "concat", "waitall"]
+           "concatenate", "concat", "waitall", "save", "load"]
 
 _NOT_PORTED = ("is not in the port yet (ROADMAP.md queue 1, \"The eager "
                "MXNet surface\")")
@@ -415,6 +430,91 @@ def waitall():
     """Wait until the card has finished everything queued."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+def _saved_array(t):
+    """A tensor (or NDArray) as the numpy array the JAX package's `nd.save`
+    writes: a bf16 tensor as ml_dtypes' bfloat16 (where ml_dtypes is
+    missing, as raw 2-byte elements: the same data under numpy's `|V2`
+    in place of `<V2`), any other dtype as itself."""
+    t = _unwrap(t).detach()
+    if t.dtype == torch.bfloat16:
+        bf16 = _bfloat16()
+        return t.cpu().view(torch.int16).numpy().view(
+            bf16 if isinstance(bf16, np.dtype) else "V2")
+    return t.cpu().numpy()
+
+
+def _loaded_tensor(a):
+    """The tensor of a loaded array: a 2-byte void array (a bf16 array
+    saved by either package) becomes bf16."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
+                                .copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def save(fname, data, format="npz"):  # noqa: A002 - the JAX signature
+    """Save an NDArray, a list or a dict of NDArrays (or tensors):
+    format='npz' a numpy archive with an `__mx_meta__` entry,
+    format='params' the reference's binary container (`params_io`).
+    Either file equals the JAX package's for the same arrays, byte for
+    byte; `load` reads both."""
+    if isinstance(data, (NDArray, torch.Tensor)):
+        arrays, names, meta = [data], None, "single"
+    elif isinstance(data, (list, tuple)):
+        arrays, names, meta = list(data), None, "list"
+    elif isinstance(data, dict):
+        names = list(data.keys())
+        arrays, meta = [data[k] for k in names], "dict"
+    else:
+        raise TypeError(type(data))
+    if format == "params":
+        # the container has no bf16 type: up-cast, as the JAX package does
+        arrays = [_unwrap(a).float() if _unwrap(a).dtype == torch.bfloat16
+                  else a for a in arrays]
+        save_params(fname, [_saved_array(a) for a in arrays], names or [])
+        return
+    if format != "npz":
+        raise ValueError(f"unknown format '{format}' (npz|params)")
+    keys = names if names is not None else [f"arr_{i}"
+                                            for i in range(len(arrays))]
+    payload = {k: _saved_array(a) for k, a in zip(keys, arrays)}
+    # a file object keeps the EXACT filename (no ".npz" appended)
+    with open(fname, "wb") as f:
+        np.savez(f, __mx_meta__=meta, **payload)
+
+
+def load_arrays(fname):
+    """(kind, arrays) of a file `save` wrote: kind "single", "list" or
+    "dict"; arrays a list of tensors (CPU), or a dict for "dict"."""
+    if not os.path.exists(fname) and os.path.exists(fname + ".npz"):
+        fname = fname + ".npz"
+    if is_params_file(fname):
+        arrays, names = load_params(fname)
+        arrays = [_loaded_tensor(a) for a in arrays]
+        if names:
+            return "dict", dict(zip(names, arrays))
+        return "single" if len(arrays) == 1 else "list", arrays
+    with np.load(fname, allow_pickle=False) as z:
+        meta = str(z["__mx_meta__"])
+        items = {k: _loaded_tensor(z[k]) for k in z.files
+                 if k != "__mx_meta__"}
+    if meta == "dict":
+        return meta, items
+    return meta, [items[f"arr_{i}"] for i in range(len(items))]
+
+
+def load(fname, ctx=None):
+    """Load what `save` (of either package) wrote: an NDArray, a list or a
+    dict of NDArrays on `ctx` (the card unless the caller names another
+    device)."""
+    dev = context.resolve(ctx)
+    kind, arrays = load_arrays(fname)
+    if kind == "dict":
+        return {k: NDArray(t.to(dev)) for k, t in arrays.items()}
+    out = [NDArray(t.to(dev)) for t in arrays]
+    return out[0] if kind == "single" else out
 
 
 # the JAX registry's names of the ported ops -> (module of ops/, function)

@@ -1,9 +1,15 @@
 """Fused multi-tensor LAMB with float32 master weights (counterpart of
 `mxnet_tpu/parallel/fused_lamb.py`).
 
-The master weights and both moments live as ONE flat float32 vector
-each, every parameter a segment padded to a whole number of 512-lane
-rows (zeros in the padding, which every derived quantity keeps at zero).
+The master weights and both moments live as ONE flat vector each, every
+parameter a segment padded to a whole number of 512-lane rows (zeros in
+the padding, which every derived quantity keeps at zero). The master is
+float32; the moments are float32, or bfloat16 when `moments_dtype` says
+so (the `lamb_moments_dtype` knob, which the trainer reads): the math
+stays float32, and the stored moments round through bf16 before the
+trust-ratio norms (`cuda_ops.fused_update`). The JAX package's kernels
+pad the rows to 16 for bf16's sublane tiles; this layout needs no such
+padding, so both dtypes keep the same R.
 The train step runs the model on `unflatten(master)`, per-tensor views
 cast to the model dtype whose backward scatters each gradient into one
 flat float32 vector, so the optimizer receives the gradient already flat.
@@ -30,6 +36,7 @@ __all__ = ["FusedLamb"]
 
 _CHUNK = _fu.LANES
 _SEG_ROWS = 256          # rows (then chunks) summed together in a segment
+_MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _gather_table(lengths, width, pad):
@@ -71,9 +78,13 @@ class FusedLamb:
 
     def __init__(self, shapes, dtypes, wds, beta1, beta2, epsilon,
                  bias_correction, rescale_grad, clip_gradient,
-                 lower_bound, upper_bound):
+                 lower_bound, upper_bound, moments_dtype=torch.float32):
         self.shapes = [tuple(s) for s in shapes]
         self.dtypes = list(dtypes)
+        self.moments_dtype = _MOMENT_DTYPES.get(moments_dtype, moments_dtype)
+        if self.moments_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"FusedLamb: moments_dtype {moments_dtype!r} is "
+                             "not float32 or bfloat16")
         self.b1, self.b2, self.eps = beta1, beta2, epsilon
         self.bias_correction = bias_correction
         self.rescale = rescale_grad
@@ -132,16 +143,25 @@ class FusedLamb:
 
     # -- flat <-> per-param ---------------------------------------------
     def flatten(self, arrs):
-        """One flat float32 vector of the tensors `arrs`, each padded to
-        whole rows."""
-        parts = []
-        for a, n in zip(arrs, self.sizes):
-            flat = a.detach().reshape(-1).to(torch.float32)
-            pad = (n + _CHUNK - 1) // _CHUNK * _CHUNK - n
-            if pad:
-                flat = torch.cat([flat, flat.new_zeros(pad)])
-            parts.append(flat)
-        return torch.cat(parts) if parts else torch.zeros(0)
+        """One flat float32 vector (on the first tensor's device) of the
+        tensors `arrs`, each padded to whole rows."""
+        if not arrs:
+            return torch.zeros(0)
+        out = torch.zeros(self.total, device=arrs[0].device)
+        self.load_flat(out, [a.detach() for a in arrs])
+        return out
+
+    def load_flat(self, flat, arrs):
+        """Copy the per-tensor `arrs` (any device and dtype) into their
+        segments of the resident flat vector `flat`, in place (its
+        padding stays zero)."""
+        for a, off, n in zip(arrs, self.offsets[:-1], self.sizes):
+            flat[off:off + n].copy_(a.reshape(-1))
+
+    def zeros_moments(self, device):
+        """Two zero flat moment vectors in the moments' dtype."""
+        return tuple(torch.zeros(self.total, dtype=self.moments_dtype,
+                                 device=device) for _ in range(2))
 
     def unflatten(self, flat):
         """Per-tensor model-dtype tensors of the flat master,
@@ -150,8 +170,9 @@ class FusedLamb:
         return list(_Unflatten.apply(flat, self._layout))
 
     def unflatten_master(self, flat):
-        """Per-tensor float32 views WITHOUT the model-dtype cast (the
-        checkpoint layout of master weights and moments)."""
+        """Per-tensor views WITHOUT the model-dtype cast, in the flat
+        vector's dtype (the checkpoint layout of master weights and
+        moments)."""
         return [flat[off:off + n].view(shape)
                 for off, n, shape in zip(self.offsets[:-1], self.sizes,
                                          self.shapes)]
@@ -159,9 +180,9 @@ class FusedLamb:
     # -- the fused step --------------------------------------------------
     def apply_flat(self, w, g, m, v, t, lr):
         """One LAMB step at update count t (>= 1) and learning rate lr on
-        the flat float32 state. w, m and v update IN PLACE (the JAX
-        package donated them and wrote new buffers); g is the flat float32
-        gradient. Returns (w, m, v)."""
+        the flat state (w float32, m and v in the moments' dtype). w, m and
+        v update IN PLACE (the JAX package donated them and wrote new
+        buffers); g is the flat float32 gradient. Returns (w, m, v)."""
         R, C = self.n_rows, _CHUNK
         W, G = w.view(R, C), g.view(R, C)
         M, V = m.view(R, C), v.view(R, C)

@@ -11,11 +11,18 @@ The two frameworks give different numbers from the same seed, so nothing
 that compares the two packages depends on this module: parity tests
 carry weights across and run without dropout.
 
-`get_state` / `set_state` snapshot and restore both streams. The JAX
-package replays a rematerialised layer's draws from its key; the port's
-rematerialised layers (`models._remat.remat_call`) replay them from a
-snapshot taken before the first forward, because
-`torch.utils.checkpoint` restores only torch's default generators.
+`get_state` / `set_state` snapshot and restore both streams: the seed,
+the host generator's state (so also the counter of the flash kernels'
+Philox masks, whose 64-bit seeds it draws) and each device generator's
+state (seed and offset). The snapshot is a tuple of an int, byte tensors
+and a dict keyed by device name, so `torch.save` writes it and
+`torch.load(weights_only=True)` reads it: it is the random part of a
+`ShardedTrainer` checkpoint, and after `set_state` the next step draws
+the masks an uninterrupted run would have drawn. The JAX package
+replays a rematerialised layer's draws from its key; the port's
+rematerialised layers (`models._remat`) replay them from a snapshot
+taken before the first forward, because `torch.utils.checkpoint`
+restores only torch's default generators.
 """
 from __future__ import annotations
 

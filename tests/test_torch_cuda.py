@@ -1477,3 +1477,105 @@ def test_exec_peak_and_capacity_on_card(dev):
     assert 0 < hints["headroom_bytes"] < memsafe.capacity_bytes(dev)
     cpu = gpt.GPTForCausalLM(gpt.gpt_tiny_config(), device="cpu")
     assert serve.Server(cpu, slots=2)._exec_peak(32) is None
+
+
+@pytest.mark.parametrize("R", [1, 9, 4097])
+@pytest.mark.parametrize("bias_correction", [True, False])
+def test_lamb_bf16_moment_route_matches_plain(dev, R, bias_correction):
+    """Both LAMB passes with bf16 moments against their plain versions:
+    the stored moments within 1 bf16 ulp (the kernel rounds the EMA
+    operation by operation, as the plain version does), the row sums and
+    W at the LAMB tolerance; one launch of each pass."""
+    import chip_smoke
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(R)
+
+    def rows(scale):
+        return torch.randn((R, 512), generator=gen, device=dev) * scale
+
+    W, G = rows(0.05), rows(1e-3)
+    m = rows(1e-4).bfloat16()
+    v = rows(1e-4).square().bfloat16()
+    wd = torch.where(torch.arange(R, device=dev) % 3 > 0, 0.01, 0.0)
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-6, rescale_grad=1.0,
+              clip_gradient=None, bias_correction=bias_correction)
+    c1, c2 = 1 - 0.9 ** 3, 1 - 0.999 ** 3
+    m2, v2 = m.clone(), v.clone()
+    n = (fu.launches_pass1, fu.launches_pass2)
+    rw, ru = fu.lamb_pass1(W, G, m, v, wd, c1, c2, **kw)
+    rrw, rru = fu.lamb_pass1_reference(W, G, m2, v2, wd, c1, c2, **kw)
+    assert m.dtype == v.dtype == torch.bfloat16
+    assert chip_smoke.bf16_ulp_err(m, m2) <= 1
+    assert chip_smoke.bf16_ulp_err(v, v2) <= 1
+    for a, b in ((rw, rrw), (ru, rru)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+    trust = torch.rand(R, generator=gen, device=dev) + 0.5
+    W2 = W.clone()
+    fu.lamb_pass2(W, m, v, wd, trust, c1, c2, 1e-3, epsilon=1e-6,
+                  bias_correction=bias_correction)
+    fu.lamb_pass2_reference(W2, m, v, wd, trust, c1, c2, 1e-3, epsilon=1e-6,
+                            bias_correction=bias_correction)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(W, W2, rtol=1e-5, atol=1e-7)
+    assert (fu.launches_pass1, fu.launches_pass2) == (n[0] + 1, n[1] + 1)
+    with pytest.raises(ValueError, match="both float32 or both bfloat16"):
+        fu.lamb_pass1(W, G, m, v.float(), wd, c1, c2, **kw)
+
+
+def test_remat_policies_bit_equal_on_card(dev):
+    """chip_smoke's phase 32 check: a small float32 BERT and GPT, dropout
+    0.1, under "dots_saveable", "layers" and "full": losses and
+    gradients equal "none"'s bit for bit, the flash forward relaunched
+    as each policy recomputes."""
+    import chip_smoke
+    chip_smoke.policy_bit_equal_phase(dev)
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_resume_bit_for_bit_on_card(dev, tmp_path, moments):
+    """A tiny BERT (dropout 0.1) trained 3 LAMB steps on the card, saved
+    through `resilience.write_checkpoint`, restored into a trainer of
+    other weights: its next two steps equal the uninterrupted run's bit
+    for bit (the checkpoint carries the device and host streams)."""
+    from mxnet_tpu_torch import config, parallel, resilience
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.models import bert
+
+    def make(seed):
+        cfg = bert.bert_tiny_config(dropout=0.1)
+        m = bert.BERTForPretraining(cfg, device=dev)
+        m.initialize(generator=mxrandom.seed(seed, dev))
+        return parallel.ShardedTrainer(m, bert.bert_pretrain_loss, "lamb",
+                                       {"learning_rate": 1e-3, "wd": 0.01},
+                                       device=dev), cfg
+
+    config.set("lamb_moments_dtype", moments)
+    resilience.enable()
+    try:
+        tr, cfg = make(0)
+        b = bert.make_synthetic_batch(cfg, 4, 32, 5, seed=1)
+        x = [b[k] for k in ("input_ids", "token_types", "valid_length",
+                            "masked_positions")]
+        y = [b[k] for k in ("mlm_labels", "mlm_weights", "nsp_labels")]
+        for _ in range(3):
+            tr.step(x, y)
+        tr.save_states(str(tmp_path / "ck"))
+        cont = [float(tr.step(x, y)) for _ in range(2)]
+        tr2, _ = make(5)
+        tr2.load_states(str(tmp_path / "ck"))
+        assert [float(tr2.step(x, y)) for _ in range(2)] == cont
+        assert torch.equal(tr.params, tr2.params)
+        assert all(a.dtype == getattr(torch, moments) and torch.equal(a, c)
+                   for a, c in zip(tr.opt_state, tr2.opt_state))
+    finally:
+        resilience.disable()
+        config.reset()
+
+
+def test_durable_parity_on_card(dev):
+    """chip_smoke's phase 35: bf16-moment LAMB card vs CPU (moments
+    within 1 bf16 ulp on the same gradients; a tiny BERT within
+    TOL_TRAIN), card-written `.params` and `save_states` files loaded on
+    the CPU bit for bit, and the ladder's transitions equal on both."""
+    import chip_smoke
+    chip_smoke.durable_parity_phase(dev)

@@ -191,17 +191,6 @@ def test_remat_with_dropout_is_bit_equal_to_no_remat(family):
     assert not torch.equal(runs[True][0][0], runs[True][1][0])
 
 
-def test_memsafe_policies_raise():
-    for policy in ("dots_saveable", "full"):
-        with pytest.raises(NotImplementedError, match="What bench.py's BERT-large row leaves"):
-            bert_t.BERTForPretraining(
-                bert_t.bert_large_config(remat=policy, **_TINY),
-                device="cpu")
-    with pytest.raises(ValueError, match="unknown remat policy"):
-        gpt_t.GPTForCausalLM(gpt_t.gpt2_345m_config(remat="some", **_TINY),
-                             device="cpu")
-
-
 def test_remat_is_off_outside_autograd(pair, monkeypatch):
     """A forward that records no gradient (serving, the probe pass) runs
     the layers plainly, as the JAX package remats only inside a trace."""
