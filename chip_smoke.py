@@ -181,7 +181,23 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
  30. on float32 gpt_tiny and a 1-layer drafter, card against CPU:
      speculative tokens and draft counts, beam tokens (scores within
      1e-5), and the ladder's verdicts at capacities from each side's
-     own accounting.
+     own accounting;
+ 36. runs the repo's examples unchanged through `python -m
+     mxnet_tpu_torch.run_example`, each in a process of its own:
+     train_cifar10.py and gpt/generate.py at their defaults (exactly one
+     Adam launch per weight dtype a step, the flash forward launched),
+     BERT pretraining (also with --auto-checkpoint-dir), the NMT,
+     YOLO, DeepAR and CRNN at small step counts; then the CIFAR-10
+     DataLoader alone (num_workers 0 and 2); lists the examples the
+     card cannot run and why;
+ 37. trains one vision net of each family at its published widths
+     (alexnet, vgg16_bn, squeezenet1.1, mobilenet1.0, mobilenetv2_1.0,
+     densenet121, resnet50_v2 at 32 x 224^2, inceptionv3 at 32 x 299^2)
+     through the example's eager SGD loop, float32, TF32 in cuDNN's
+     convolutions: ms a step, images/s, device busy, idle, peak memory;
+ 38. float32, card against CPU: each zoo family's logits and one SGD
+     step, a DataLoader forked after CUDA is initialised (batches equal
+     num_workers=0's), every shape op bit for bit.
 
 Phase 1 also holds the training kernels against their plain versions at
 the training shapes: the flash forward with dropout 0.1 (its keep mask
@@ -3894,8 +3910,9 @@ def nmt_train_phase(dev, batch=64, src_len=64, warmup=2, steps=16,
 
 def decode_run(model, fn, **kw):
     """One decode call (`greedy_decode` or `beam_search`) timed, then the
-    same under torch.profiler: (tokens, {ms per step, idle share, launch
-    counts})."""
+    same under torch.profiler, recording the card's kernels alone (the
+    host's ~35,000 op events a call took a minute to summarise): (tokens,
+    {ms per step, idle share, launch counts})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3905,8 +3922,7 @@ def decode_run(model, fn, **kw):
     secs = time.perf_counter() - t0
     counts = read_counts()
     n_steps = toks.shape[1] - 1
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         fn(**kw)
         prof_ms = (time.perf_counter() - t1) * 1e3
@@ -5249,6 +5265,19 @@ def lifecycle_phase(model, traffic=None, kw=PAGED_KW):
     return res, ref_stats
 
 
+def settled_memory():
+    """The card's allocated bytes with no garbage pending, the peak
+    counter reset to them: a collection that frees an earlier phase's
+    tensors during a measured dispatch would leave its peak below the
+    base."""
+    import gc
+    import torch
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
 def exec_peak_rows(model, buckets=(128, 256, 512), spec_k=4):
     """The execution peaks `Server._measure_peak` measured (one fully
     masked dispatch) against `torch.cuda.max_memory_allocated` over a
@@ -5280,9 +5309,7 @@ def exec_peak_rows(model, buckets=(128, 256, 512), spec_k=4):
                     i32 = dict(dtype=torch.int32, device=dev)
                     lead = (toks, torch.zeros(B, **i32),
                             torch.full((B,), C, **i32), tables.to(dev))
-                    torch.cuda.synchronize()
-                    base = torch.cuda.memory_allocated()
-                    torch.cuda.reset_peak_memory_stats()
+                    base = settled_memory()
                     with torch.no_grad():
                         out, _ = model.decode_paged_chunk(
                             *lead, srv._pool.state["target"], 16, full=full)
@@ -5292,9 +5319,7 @@ def exec_peak_rows(model, buckets=(128, 256, 512), spec_k=4):
                     caches = model._alloc_caches(B, bucket)
                     t = torch.from_numpy(rng.randint(0, bucket, (B,)).astype(
                         np.int32)).to(dev)
-                    torch.cuda.synchronize()
-                    base = torch.cuda.memory_allocated()
-                    torch.cuda.reset_peak_memory_stats()
+                    base = settled_memory()
                     with torch.no_grad():
                         out, _, _ = model.decode_step_slots(
                             toks[:, 0], t, caches[:srv._n_l],
@@ -5683,6 +5708,449 @@ def serve_parity_phase(dev):
             "beam_tokens_equal": True, "beam_score_max_abs_err": score_err,
             "ladder_verdicts": [x if isinstance(x, str) else x[:2]
                                 for x in card["ladder"]]}
+
+
+# ---------------------------------------------------------------------------
+# phases 36-38: the repo's examples unchanged, the vision model zoo at
+# published widths, and card against CPU for the zoo, the DataLoader and
+# the shape ops
+# ---------------------------------------------------------------------------
+
+# examples/<path> and the arguments phase 36 runs it with: the first two
+# at their defaults, the rest at small step counts
+EXAMPLES = (
+    ("image_classification/train_cifar10.py", ()),
+    ("gpt/generate.py", ()),
+    ("bert/pretrain.py", ("--steps", "3")),
+    ("bert/pretrain.py", ("--steps", "4", "--auto-checkpoint-every", "2",
+                          "--auto-checkpoint-dir", "{tmp}")),
+    ("nmt/train_transformer.py", ("--steps", "20")),
+    ("detection/train_yolo.py", ("--steps", "10")),
+    ("timeseries/train_deepar.py", ("--epochs", "5")),
+    ("ocr/train_crnn.py", ("--steps", "50")),
+)
+# examples that phase 36 cannot run on the card, and why
+NOT_ON_CARD = {
+    "gpt/pretrain.py": "imports jax.sharding inside main "
+                       "(examples/gpt/pretrain.py:46); the card's machine "
+                       "has no JAX (it runs through the port in tier-1)",
+    "bert/long_context.py": "sequence parallelism (ROADMAP.md queue 1 item "
+                            "9); imports jax",
+    "module_api/train_mnist_module.py": "needs io and sym (ROADMAP.md "
+                                        "queue 1 item 10)",
+}
+# counters of `run_example`'s launch line that must be > 0 for each example
+EXAMPLE_KERNELS = {
+    "gpt/generate.py": ("fused_update.launches_adam",
+                        "flash_attention.launches"),
+    "bert/pretrain.py": ("fused_update.launches_pass1",
+                         "fused_update.launches_pass2",
+                         "flash_attention.launches"),
+    "nmt/train_transformer.py": ("fused_update.launches_adam",
+                                 "flash_attention.launches"),
+    "detection/train_yolo.py": ("fused_update.launches_adam",
+                                "box_nms.launches"),
+    "timeseries/train_deepar.py": ("fused_update.launches_adam",),
+    "ocr/train_crnn.py": ("fused_update.launches_adam",),
+}
+
+
+def _example_cmd(path, args):
+    return [sys.executable, "-m", "mxnet_tpu_torch.run_example",
+            os.path.join("examples", path), *args]
+
+
+def _example_result(path, args, rc, stdout, stderr):
+    check(rc == 0, f"examples/{path} {args}: rc {rc}\n{stdout[-2000:]}\n"
+          f"{stderr[-4000:]}")
+    lines = stdout.strip().splitlines()
+    return lines[:-1], json.loads(lines[-1])
+
+
+def run_examples(runs, width=1, timeout=300):
+    """Each (examples/<path>, args) through `python -m
+    mxnet_tpu_torch.run_example` in a process of its own, `width` at a
+    time: [(its output lines before the runner's JSON line, that line
+    parsed, wall seconds of the process)] in the order given."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out, pending = [None] * len(runs), list(enumerate(runs))
+    while pending:
+        batch, pending = pending[:width], pending[width:]
+        procs = []
+        for i, (path, args) in batch:
+            procs.append((i, path, args, time.perf_counter(), subprocess.Popen(
+                _example_cmd(path, args), cwd=ROOT, env=env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
+        for i, path, args, t0, proc in procs:
+            try:
+                stdout, stderr = proc.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+            secs = time.perf_counter() - t0
+            out[i] = (*_example_result(path, args, proc.returncode, stdout,
+                                       stderr), secs)
+    return out
+
+
+def loader_rate(num_workers, batch=128, epochs=3):
+    """CIFAR10(train=True) (synthetic, 1,024 images) through the example's
+    DataLoader(shuffle, last_batch="discard") onto the card alone: the
+    batches/s of the last `epochs - 1` epochs (the first forks the
+    workers and warms the path)."""
+    import torch
+    from mxnet_tpu_torch.gluon import data as gdata
+    loader = gdata.DataLoader(gdata.vision.CIFAR10(train=True),
+                              batch_size=batch, shuffle=True,
+                              last_batch="discard", num_workers=num_workers)
+    n, t0 = 0, None
+    for epoch in range(epochs):
+        if epoch == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        for x, y in loader:
+            check(x.shape == (batch, 32, 32, 3) and x.context.type == "cuda",
+                  f"loader batch {x.shape} on {x.context}")
+            n += epoch > 0
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def examples_phase(dev):
+    """Phase 36: the repo's examples, unchanged, on the card through
+    `python -m mxnet_tpu_torch.run_example`, each in a process of its
+    own (rc 0, no file of the JAX package loaded, the kernels of its path
+    launched): train_cifar10.py at its defaults (resnet18_v1, batch 128,
+    2 epochs of the 1,024 synthetic CIFAR-10 images, float32, SGD
+    momentum 0.9 wd 1e-4), gpt/generate.py at its defaults (200 Adam
+    steps, then `generate` of 16 tokens: exactly one Adam launch per
+    weight dtype a step, the flash forward at least once), the others at
+    small step counts, three processes at a time (the first two alone:
+    their rates are read). Then the CIFAR-10 DataLoader alone on the
+    card, num_workers 0 and 2. Examples that cannot run here are listed
+    with the reason."""
+    import tempfile
+    from mxnet_tpu_torch.models import gpt
+    out = {"not_on_card": NOT_ON_CARD, "runs": []}
+    with tempfile.TemporaryDirectory(prefix="mxt_examples_") as tmp:
+        runs = [(path, tuple(a.format(tmp=tmp) for a in args))
+                for path, args in EXAMPLES]
+        results = run_examples(runs[:2]) + run_examples(runs[2:], width=3)
+        for (path, args), (lines, res, secs) in zip(runs, results):
+            counts = {k: v for k, v in res["launches"].items() if v}
+            for key in EXAMPLE_KERNELS.get(path, ()):
+                check(counts.get(key, 0) > 0, f"examples/{path}: {key} "
+                      f"never launched {counts}")
+            row = {"example": path, "args": list(args),
+                   "process_seconds": secs, "script_seconds": res["seconds"],
+                   "max_memory_allocated_bytes":
+                       res.get("max_memory_allocated_bytes"),
+                   "launches": counts, "output": lines[-6:]}
+            if path == "image_classification/train_cifar10.py":
+                check(counts == {}, f"train_cifar10 launched {counts}")
+                rates = [float(l.split("(")[1].split()[0]) for l in lines
+                         if l.startswith("epoch ")]
+                check(len(rates) == 2, f"train_cifar10 output {lines}")
+                row["images_per_s_by_epoch"] = rates
+            if path == "gpt/generate.py":
+                vocab = int(lines[0].split("vocab ")[1].rstrip(")"))
+                steps = 200
+                model = gpt.GPTForCausalLM(gpt.gpt_tiny_config(
+                    vocab_size=vocab, max_length=64), device="cpu")
+                want = steps * adam_launches(
+                    [p for p in model.parameters()
+                     if getattr(p, "grad_req", "write") != "null"])
+                check(counts["fused_update.launches_adam"] == want,
+                      f"generate.py Adam launches {counts} != {want}")
+                row["adam_launches_expected"] = want
+                check(lines[-1].startswith("generated: "),
+                      f"generate.py output {lines}")
+            print(f"chip_smoke: examples/{path} " + json.dumps(row))
+            out["runs"].append(row)
+    out["dataloader_batches_per_s"] = {
+        f"num_workers={w}": loader_rate(w) for w in (0, 2)}
+    print(f"chip_smoke: examples not run on the card {NOT_ON_CARD}")
+    return out
+
+
+# one net of each family at published widths: (get_model name, input size)
+ZOO_NETS = (("alexnet", 224), ("vgg16_bn", 224), ("squeezenet1.1", 224),
+            ("mobilenet1.0", 224), ("mobilenetv2_1.0", 224),
+            ("densenet121", 224), ("resnet50_v2", 224),
+            ("inceptionv3", 299))
+
+
+class ZooLoop:
+    """examples/image_classification/train_cifar10.py's step, as
+    `timed_steps` drives a trainer:
+
+        x = nd.transpose(x.astype("float32") / 255.0, axes=(0, 3, 1, 2))
+        with autograd.record():
+            loss = lfn(net(x), y).mean()
+        loss.backward()
+        trainer.step(1)
+    """
+
+    def __init__(self, net, trainer):
+        from mxnet_tpu_torch.gluon import loss as gloss
+        self.net, self.trainer = net, trainer
+        self.lfn = gloss.SoftmaxCrossEntropyLoss()
+
+    def step(self, data, labels):
+        from mxnet_tpu_torch import autograd, nd
+        x = nd.transpose(data[0].astype("float32") / 255.0,
+                         axes=(0, 3, 1, 2))
+        with autograd.record():
+            loss = self.lfn(self.net(x), labels[0]).mean()
+        loss.backward()
+        self.trainer.step(1)
+        return loss
+
+
+def zoo_phase(dev, batch=32, warmup=2, steps=5, lr=0.01):
+    """Phase 37: one net of each vision family at its published widths
+    (`get_model(name, classes=1000)`, random weights: `random.seed(0)`,
+    `initialize(init="xavier")`), float32 as the example trains, TF32
+    allowed in cuDNN's convolutions (PyTorch's default, as the example's
+    process runs), trained by the example's eager loop (`ZooLoop`; SGD
+    lr 0.01, momentum 0.9, wd 1e-4) on one seeded uint8 NHWC batch of 32:
+    2 warm-up steps, 5 timed ones ended by one host fetch, one more under
+    torch.profiler. Per net: ms a step, images/s, device busy, idle share,
+    peak memory (the timed steps'; `peak_above_base_bytes` leaves out
+    what was allocated before the net was built, garbage collected)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    out = {}
+    try:
+        for name, size in ZOO_NETS:
+            base = settled_memory()
+            rng = np.random.RandomState(0)
+            x = nd.array(rng.randint(0, 256, (batch, size, size, 3))
+                         .astype(np.uint8), ctx=dev)
+            y = nd.array(rng.randint(0, 1000, batch).astype(np.int32),
+                         ctx=dev)
+            net = get_model(name, classes=1000, device=dev)
+            mxrandom.seed(0, dev)
+            net.initialize(init="xavier")
+            trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                    {"learning_rate": lr, "momentum": 0.9,
+                                     "wd": 1e-4})
+            losses, counts, timing = timed_steps(
+                ZooLoop(net, trainer), [x], [y], warmup, steps, n_top=6)
+            check(np.isfinite(losses).all(), f"{name} losses {losses}")
+            check(counts == expect(), f"{name} launched repo kernels "
+                  f"{counts}")
+            res = {"model": f"get_model({name!r}, classes=1000)",
+                   "batch": batch, "image": [3, size, size],
+                   "param_count": sum(p.numel() for p in net.parameters()
+                                      if p.grad_req != "null"),
+                   "images_per_s": batch * steps / timing["seconds"],
+                   "losses": losses, **timing,
+                   "peak_above_base_bytes":
+                       timing["max_memory_allocated_bytes"] - base}
+            for k in ("top_host_self_ms_per_step",
+                      "waiting_runtime_calls_per_step"):
+                res.pop(k, None)
+            print(f"chip_smoke: zoo {name} " + json.dumps(res))
+            out[name] = res
+            del net, trainer, x, y
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
+# the zoo families phase 38 holds card against CPU: the nets, input sizes
+# and BatchNorm freezing of tests/test_torch_model_zoo.py's parity cases
+# (label, factory over model_zoo.vision, input size, BatchNorms frozen,
+# batch). The batch is tests/unittest/test_model_zoo.py's 2, but 8 for
+# ResNet-18, whose BatchNorms keep batch statistics (over 2 values at its
+# 1 x 1 maps they make the float32 gradient meaningless). At batch 8 one
+# channel of vgg11_bn's last block routes its gradient through another
+# ReLU/max-pool branch on the card than on the CPU (a kink met at float32
+# rounding: 1 of 512 bias elements off by 1.4e-2 of the largest), which no
+# tolerance of a smooth function covers.
+ZOO_PARITY = (
+    ("alexnet", lambda v, **kw: v.alexnet(**kw), 64, False, 2),
+    ("squeezenet1.1", lambda v, **kw: v.squeezenet1_1(**kw), 64, False, 2),
+    ("mobilenet0.25", lambda v, **kw: v.mobilenet0_25(**kw), 64, True, 2),
+    ("resnet18_v1", lambda v, **kw: v.resnet18_v1(**kw), 32, False, 8),
+    ("densenet(16, 8, (2, 2))",
+     lambda v, **kw: v.DenseNet(16, 8, (2, 2), **kw), 32, True, 2),
+    ("vgg11_bn", lambda v, **kw: v.vgg11_bn(**kw), 32, True, 2),
+    ("mobilenetv2_0.5", lambda v, **kw: v.mobilenet_v2_0_5(**kw), 64, True,
+     2),
+    ("inceptionv3", lambda v, **kw: v.inception_v3(**kw), 75, True, 2))
+TOL_ZOO = 1e-4
+
+
+def zoo_family_run(make, size, frozen, device, arrays=None, batch=8):
+    """The zoo net make(model_zoo.vision, classes=10, device=device),
+    float32: seeded xavier weights (or `arrays` carried by name), Dropout at rate 0 and, with `frozen`, the
+    BatchNorms on their running statistics (a float32 gradient of these
+    nets with batch statistics at batch 8 is itself 1-5% from the
+    float64 one); the evaluation logits of a seeded batch, then one SGD
+    step (lr 0.01, momentum 0.9, wd 1e-4) through the example's loop.
+    Returns (arrays before, logits, loss, {name: tensor after} on the
+    CPU)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import autograd, gluon, nd, weights
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    net = make(vision, classes=10, device=device)
+    mxrandom.seed(0, device)
+    net.initialize(init="xavier")
+    with torch.no_grad():
+        net(torch.zeros((1, 3, size, size), device=device))
+    if arrays is not None:
+        weights.load_named_arrays(net, arrays)
+    for m in net.modules():
+        if type(m).__name__ == "Dropout":
+            m._rate = 0.0
+        if frozen and type(m).__name__ == "BatchNorm":
+            m._use_global_stats = True
+    start = {k: p.detach().cpu().numpy().copy()
+             for k, p in net.collect_params().items()}
+    rng = np.random.RandomState(0)
+    x = nd.array(rng.randn(batch, 3, size, size).astype(np.float32),
+                 ctx=device)
+    y = nd.array(rng.randint(0, 10, batch).astype(np.float32), ctx=device)
+    with torch.no_grad():
+        logits = net(x).asnumpy()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.01, "momentum": 0.9,
+                             "wd": 1e-4})
+    lfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    with autograd.record():
+        loss = lfn(net(x), y).mean()
+    loss.backward()
+    trainer.step(1)
+    after = {k: p.detach().cpu().numpy().copy()
+             for k, p in net.collect_params().items()}
+    return start, logits, float(loss.asscalar()), after
+
+
+def rel_err(got, ref):
+    import numpy as np
+    ref = np.asarray(ref, np.float32)
+    return float(np.abs(np.asarray(got, np.float32) - ref).max()) / max(
+        float(np.abs(ref).max()), 1e-30)
+
+
+def shape_op_cases(device):
+    """(name, fn, args) of every `ops.shape_ops` op over seeded inputs on
+    `device` (the same values on any device)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.ops import shape_ops as so
+    rng = np.random.RandomState(0)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    x = t(rng.randn(2, 3, 4, 5).astype(np.float32))
+    m = t(rng.randn(4, 6).astype(np.float32))
+    idx = t(np.array([[0, 3, -1], [5, 2, 9]], np.float32))
+    lens = t(np.array([2, 4, 1], np.int32))
+    seq = t(rng.randn(4, 3, 2).astype(np.float32))
+    return [
+        ("reshape", so.reshape, (x, (0, -1, 5))),
+        ("reshape_codes", so.reshape, (x, (-3, -2))),
+        ("reshape_split", so.reshape, (x, (-4, 1, 2, -2))),
+        ("transpose", so.transpose, (x, (3, 1, 0, 2))),
+        ("swapaxes", so.swapaxes, (x, 1, 3)),
+        ("expand_dims", so.expand_dims, (m, 1)),
+        ("squeeze", so.squeeze, (x[:, :1], 1)),
+        ("flatten", so.flatten, (x,)),
+        ("broadcast_to", so.broadcast_to, (m[:1], (4, 0))),
+        ("broadcast_axis", so.broadcast_axis, (m[:, :1], 1, 3)),
+        ("broadcast_like", so.broadcast_like, (m[:1], m)),
+        ("tile", so.tile, (m, (2, 1))),
+        ("repeat", so.repeat, (m, 2, 1)),
+        ("pad_constant", so.pad,
+         (x, "constant", (0, 0, 0, 0, 1, 2, 2, 1), 0.5)),
+        ("pad_edge", so.pad, (x, "edge", (0, 0, 0, 0, 1, 2, 2, 1))),
+        ("pad_reflect", so.pad, (x, "reflect", (0, 0, 0, 0, 2, 1, 1, 3))),
+        ("stack", so.stack, (m, m * 2)),
+        ("concat", so.concat, (m, m)),
+        ("split", so.split, (m, 3, 1)),
+        ("split_v2", so.split_v2, (m, (1, 4), 1)),
+        ("slice", so.slice_op, (x, (0, None, 1), (2, None, -1), (1, -1, 2))),
+        ("slice_axis", so.slice_axis, (x, 2, 1, -1)),
+        ("slice_like", so.slice_like, (m, m[:2, :3])),
+        ("reverse", so.reverse, (x, (1, 3))),
+        ("where", so.where, (m > 0, m, -m)),
+        ("take", so.take, (m, idx, 1)),
+        ("take_wrap", so.take, (m, idx, 0, "wrap")),
+        ("pick", so.pick, (m, idx[0, :1].expand(4), 1)),
+        ("gather_nd", so.gather_nd, (m, t(np.array([[0, 3], [5, 1]],
+                                                   np.int32)))),
+        ("scatter_nd", so.scatter_nd, (m[0, :2], t(np.array(
+            [[0, 3], [5, 1]], np.int32)), (4, 6))),
+        ("one_hot", so.one_hot, (lens, 5)),
+        ("diag", so.diag, (m,)),
+        ("sequence_mask", so.sequence_mask, (seq, lens, True, -1.0)),
+        ("sequence_last", so.sequence_last, (seq, lens, True)),
+        ("sequence_reverse", so.sequence_reverse, (seq, lens, True)),
+        ("boolean_mask", so.boolean_mask, (m, (m[:, 0] > 0))),
+        ("reshape_like", so.reshape_like, (m, m.reshape(2, 12))),
+    ]
+
+
+def parity_phase(dev):
+    """Phase 38, float32, card against CPU: each zoo family of
+    `ZOO_PARITY` (the CPU run's start carried by name to the card):
+    evaluation logits, the loss, every weight and running statistic
+    after one SGD step within TOL_ZOO of the largest |value| (the
+    tolerance tests/test_torch_model_zoo.py holds the port to the JAX
+    package with); a DataLoader with num_workers=2 forked after CUDA is
+    initialised gives exactly the batches of num_workers=0 (the example's
+    CIFAR-10 dataset, pinned; unshuffled, since the workers' seeds are
+    drawn from numpy's generator before the sampler's order); every
+    shape op on the card equals the CPU bit for bit."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.gluon import data as gdata
+    out = {"zoo": {}}
+    for name, make, size, frozen, batch in ZOO_PARITY:
+        start, lc, losc, ac = zoo_family_run(make, size, frozen, "cpu",
+                                             batch=batch)
+        _, lg, losg, ag = zoo_family_run(make, size, frozen, dev, start,
+                                         batch)
+        errs = {"logits": rel_err(lg, lc), "loss": rel_err(losg, losc),
+                "params": max(rel_err(ag[k], ac[k]) for k in ac)}
+        check(max(errs.values()) <= TOL_ZOO, f"zoo {name} card vs CPU "
+              f"{errs}")
+        out["zoo"][name] = {"size": size, "batch": batch,
+                            "frozen_batchnorm": frozen, **errs}
+    ds = gdata.vision.CIFAR10(train=True)
+    check(torch.cuda.is_initialized(), "CUDA not initialised before the "
+          "fork")
+    runs = {}
+    for w in (0, 2):
+        runs[w] = [(x.asnumpy(), y.asnumpy()) for x, y in gdata.DataLoader(
+            ds, batch_size=100, num_workers=w, pin_memory=True)]
+    same = len(runs[0]) == len(runs[2]) == 11 and all(
+        np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        for a, b in zip(runs[0], runs[2]))
+    check(same, "forked DataLoader batches differ from num_workers=0's")
+    out["dataloader_forked_after_cuda_equal"] = same
+    unequal = []
+    for (name, fn, args), (_, _, cargs) in zip(shape_op_cases(dev),
+                                               shape_op_cases("cpu")):
+        g, c = fn(*args), fn(*cargs)
+        g = g if isinstance(g, tuple) else (g,)
+        c = c if isinstance(c, tuple) else (c,)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(g, c)):
+            unequal.append(name)
+    check(not unequal, f"shape ops differ card vs CPU: {unequal}")
+    out["shape_ops_bit_equal"] = len(shape_op_cases("cpu"))
+    return out
 
 
 def main():
@@ -6157,6 +6625,34 @@ def main():
     dpar = durable_parity_phase(dev)
     print("chip_smoke: card-vs-CPU bf16 LAMB, checkpoint files, ladder "
           + json.dumps(dpar))
+    torch.cuda.empty_cache()
+
+    # 36. the repo's examples, unchanged, through run_example
+    t36 = time.perf_counter()
+    reset_counts()
+    ex = examples_phase(dev)
+    gen = next(r for r in ex["runs"] if r["example"] == "gpt/generate.py")
+    kernels["adam_update"]["generate_example_launches"] = \
+        gen["launches"]["fused_update.launches_adam"]
+    kernels["flash_attention_fwd"]["generate_example_launches"] = \
+        gen["launches"]["flash_attention.launches"]
+    print("chip_smoke: examples " + json.dumps(
+        {"dataloader_batches_per_s": ex["dataloader_batches_per_s"],
+         "seconds": time.perf_counter() - t36}))
+
+    # 37. the vision model zoo at published widths, the example's loop
+    t37 = time.perf_counter()
+    zoo = zoo_phase(dev)
+    print(f"chip_smoke: zoo {len(zoo)} nets in "
+          f"{time.perf_counter() - t37:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 38. card vs CPU: zoo families, a DataLoader forked after CUDA, the
+    # shape ops
+    t38 = time.perf_counter()
+    zpar = parity_phase(dev)
+    print("chip_smoke: card-vs-CPU zoo, DataLoader, shape ops "
+          + json.dumps(zpar) + f" in {time.perf_counter() - t38:.1f} s")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(

@@ -21,18 +21,22 @@ eager loop (`nd`, `autograd.record()` / `backward()`, `gluon.Trainer`),
 then decodes it greedily or by beam search; and it trains the detection
 models YOLOv3-tiny and SSD through the same loop, decodes them through
 greedy NMS (`ops.detection_ops`) and scores them by VOC07 mAP
-(`metric`).
+(`metric`); it trains the vision model zoo (`gluon.model_zoo`) on
+`gluon.data` pipelines, and tokenizes text (`contrib.text`). MXNet's
+contexts (`with mx.cpu():`) choose the device of code that names none,
+so the repo's examples run unchanged through `run_example`.
 """
 from . import (autograd, base, config, context, contrib, dataflow, gluon,
                initializer, lr_scheduler, memsafe, metric, models, ndarray,
                optimizer, pages, parallel, random, resilience, serve,
                weights)
 from . import ndarray as nd
-from .context import cpu, gpu
+from .context import Context, cpu, current_context, gpu, num_gpus
 from .parallel import current_mesh, make_mesh, moe_apply, moe_ffn
 
 __all__ = ["autograd", "base", "config", "context", "contrib", "dataflow",
            "gluon", "initializer", "lr_scheduler", "memsafe", "metric",
            "models", "nd", "ndarray", "optimizer", "pages", "parallel",
-           "random", "resilience", "serve", "weights", "cpu", "gpu",
+           "random", "resilience", "serve", "weights", "Context", "cpu",
+           "gpu", "current_context", "num_gpus",
            "make_mesh", "current_mesh", "moe_apply", "moe_ffn"]

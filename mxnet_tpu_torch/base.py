@@ -1,11 +1,26 @@
 """Base utilities of the port (counterpart of `mxnet_tpu/base.py`): the
-name -> object `Registry`, copied (the port never imports the JAX
-package)."""
+name -> object `Registry` and `part_range`, copied (the port never
+imports the JAX package)."""
 from __future__ import annotations
 
 import threading
 
-__all__ = ["Registry"]
+__all__ = ["Registry", "part_range"]
+
+
+def part_range(n, num_parts, part_index):
+    """Record range [lo, hi) owned by one input-sharding worker (reference:
+    `src/io/iter_image_recordio_2.cc` num_parts/part_index — each worker
+    reads a disjoint slice; slices union to exactly one epoch)."""
+    num_parts, part_index = int(num_parts), int(part_index)
+    if num_parts < 1 or not 0 <= part_index < num_parts:
+        raise ValueError(
+            f"invalid partition: part_index={part_index} num_parts={num_parts}")
+    lo = n * part_index // num_parts
+    hi = n * (part_index + 1) // num_parts
+    if num_parts > 1 and lo >= hi:
+        raise ValueError(f"empty partition: {num_parts} parts over {n} records")
+    return lo, hi
 
 
 class Registry:

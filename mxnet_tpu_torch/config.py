@@ -76,6 +76,11 @@ def reset(name=None):
 
 
 _register(
+    "dataloader_timeout", 300.0,
+    "Seconds the process-worker DataLoader waits with no batch arriving "
+    "before declaring the workers deadlocked (a CUDA call inside a "
+    "forked worker). 0 disables the watchdog.")
+_register(
     "bucket_pad_min", 32,
     "Smallest bucket a varlen axis rounds up to under the default "
     "power-of-two policy; explicit bucket lists override it.")

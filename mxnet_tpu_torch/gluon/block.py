@@ -104,17 +104,22 @@ class Block(torch.nn.Module):
             (path, p) for path, p in self.named_parameters()
             if select is None or re.search(select, path))
 
-    def initialize(self, init=None, device=None, generator=None,
-                   force_reinit=False):
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, *, device=None, generator=None):
         """Fill every parameter not yet initialised in place (every one
         with `force_reinit`): `init` when given, else the parameter's own
         initializer, else uniform (the JAX package's precedence), through
         the name rule of `Initializer.init_array` (biases and betas 0,
-        gammas 1); a `Constant` keeps its value. `device` moves the block
-        first; `generator` is the explicit random source (its device must
-        be the parameters'), else the device stream of `random.seed`. A
-        deferred parameter draws nothing now: the choice is recorded and
-        applied when its first forward gives it a shape."""
+        gammas 1); a `Constant` keeps its value. `ctx` (a Context or a
+        torch.device, MXNet's keyword) or `device` moves the block first;
+        `verbose` is accepted and prints nothing, as in the JAX package;
+        `generator` is the explicit random source (its device must be the
+        parameters'), else the device stream of `random.seed`. A deferred
+        parameter draws nothing now: the choice is recorded and applied
+        when its first forward gives it a shape."""
+        if ctx is not None and device is not None:
+            raise TypeError("initialize: pass ctx or device, not both")
+        device = ctx if device is None else device
         if device is not None:
             self.to(context.resolve(device))
         for _, p in self.named_parameters():

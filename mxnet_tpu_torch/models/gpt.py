@@ -400,7 +400,7 @@ class GPTForCausalLM(HybridBlock):
 
     @torch.no_grad()
     def generate(self, prompt, max_new_tokens=32, eos=None, temperature=0.0,
-                 top_k=0, seed=0, num_beams=1, alpha=0.6,
+                 top_k=0, seed=0, on_device=True, num_beams=1, alpha=0.6,
                  return_scores=False):
         """Autoregressive generation from int prompt tokens (B, Lp):
         greedy at temperature 0, else softmax sampling at `temperature`
@@ -410,6 +410,11 @@ class GPTForCausalLM(HybridBlock):
         causal flash pass; generation then steps the dense cache. Returns
         (B, <= max_new_tokens) numpy int32 tokens (rows stop growing at
         `eos`).
+
+        `on_device` is the JAX package's choice between one compiled
+        program for the whole loop and host single-stepping; both give
+        the same greedy tokens there. Eager PyTorch has one loop, so
+        both values take it.
 
         num_beams > 1 switches to beam search (requires `eos`; Sockeye
         length norm with `alpha`; `return_scores` adds per-batch

@@ -14,11 +14,13 @@ Only what the eager training loop uses is ported: the constructors
 equals "bfloat16" where ml_dtypes is missing), `size`,
 `ndim`, `context`; `asnumpy` (bfloat16 comes back as float32),
 `asscalar`, `item`, `astype`, `as_in_context`, `copy`, `detach`,
-`attach_grad`, `grad`, `backward`; `reshape(shape=...)` with MXNet's 0
-(copy the dimension) and -1, `transpose(axes=...)`; arithmetic,
+`attach_grad`, `grad`, `backward`; `reshape(shape=...)` with MXNet's
+codes (0, -1, -2, -3, -4), `transpose(axes=...)`; arithmetic,
 comparisons (0/1 in the left operand's dtype, as MXNet's), `argmax`
 (float32 indices), `mean` and `sum` (with `axis`, `keepdims`,
-`exclude`), `repeat`; `concat`; the detection ops under the JAX
+`exclude`), `repeat`; the shape and indexing ops of `ops.shape_ops`
+(`nd.transpose`, `nd.stack`, `nd.split`, `nd.take`, `nd.concat`, ...);
+the detection ops under the JAX
 registry's names (`_contrib_box_iou`, `_contrib_box_nms`,
 `_contrib_MultiBoxPrior`, `_contrib_MultiBoxTarget`,
 `_contrib_MultiBoxDetection`, `_contrib_ROIAlign`, `ROIPooling`,
@@ -26,8 +28,11 @@ registry's names (`_contrib_box_iou`, `_contrib_box_nms`,
 `nd.contrib.<name without _contrib_>`), which run `ops.detection_ops`
 on the held tensors; `nd.RNN` (`ops.rnn_ops.rnn`) and `nd.ctc_loss`
 with its aliases `CTCLoss`, `_contrib_ctc_loss` and `_contrib_CTCLoss`
-(`ops.misc_ops.ctc_loss`). Any other op raises NotImplementedError naming
-ROADMAP.md queue 1's "The eager MXNet surface".
+(`ops.misc_ops.ctc_loss`). Every registry op is also a method
+(`x.flip(axis=1)`), as in the JAX package. Any other op raises
+`NotPortedError`, a NotImplementedError naming ROADMAP.md queue 1's
+"The eager MXNet surface" that is also an AttributeError, so `hasattr`
+and `getattr(x, name, None)` treat it as a missing attribute.
 
 `nd.array(x)` without `ctx` puts x on the card (`context.resolve`);
 `ctx=mx.cpu()` is the way onto the CPU. A float64 or int64 source
@@ -56,10 +61,11 @@ import numpy as np
 import torch
 
 from .. import context
+from ..ops import shape_ops
 from .params_io import is_params_file, load_params, save_params
 
-__all__ = ["NDArray", "array", "zeros", "ones", "full", "arange",
-           "concatenate", "concat", "waitall", "save", "load"]
+__all__ = ["NDArray", "NotPortedError", "array", "zeros", "ones", "full",
+           "arange", "concatenate", "waitall", "save", "load"]
 
 _NOT_PORTED = ("is not in the port yet (ROADMAP.md queue 1, \"The eager "
                "MXNet surface\")")
@@ -70,6 +76,12 @@ _NP = {torch.float32: np.dtype("float32"), torch.float16: np.dtype("float16"),
 _TORCH = {v.name: k for k, v in _NP.items()}
 _TORCH["bfloat16"] = torch.bfloat16
 _DEFAULT = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
+class NotPortedError(NotImplementedError, AttributeError):
+    """A name of the JAX package's surface that the port lacks: a
+    NotImplementedError (it names the queue item that will port it) and
+    an AttributeError (so `hasattr` is False, as in the JAX package)."""
 
 
 class _Bfloat16Name(str):
@@ -133,7 +145,9 @@ class NDArray:
     def __getattr__(self, name):
         if name.startswith("_"):
             raise AttributeError(name)
-        raise NotImplementedError(f"NDArray.{name} {_NOT_PORTED}")
+        if name in OPS:
+            return functools.partial(registry_op(name), self)
+        raise NotPortedError(f"NDArray.{name} {_NOT_PORTED}")
 
     # -- properties --------------------------------------------------------
     @property
@@ -239,30 +253,23 @@ class NDArray:
     # -- shape -------------------------------------------------------------
     def reshape(self, *shape, **kwargs):
         """MXNet's reshape: `reshape(shape)`, `reshape(*shape)` or
-        `reshape(shape=...)`; 0 copies the input's dimension, -1 is
-        inferred."""
+        `reshape(shape=...)`, with MXNet's codes (`shape_ops.reshape`)."""
         shape = kwargs.pop("shape", None) if not shape else shape
         if kwargs:
-            raise NotImplementedError(f"reshape({sorted(kwargs)}) "
-                                      f"{_NOT_PORTED}")
+            raise NotPortedError(f"reshape({sorted(kwargs)}) {_NOT_PORTED}")
         if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
             shape = shape[0]
-        shape = [self._t.shape[i] if s == 0 else s
-                 for i, s in enumerate(shape)]
-        return NDArray(self._t.reshape(shape))
+        return NDArray(shape_ops.reshape(self._t, shape))
 
     def transpose(self, *axes, **kwargs):
         """MXNet's transpose: the axes in their new order (all reversed
         when none are given)."""
         axes = kwargs.pop("axes", None) if not axes else axes
         if kwargs:
-            raise NotImplementedError(f"transpose({sorted(kwargs)}) "
-                                      f"{_NOT_PORTED}")
+            raise NotPortedError(f"transpose({sorted(kwargs)}) {_NOT_PORTED}")
         if axes and len(axes) == 1 and isinstance(axes[0], (tuple, list)):
             axes = axes[0]
-        if not axes:
-            axes = tuple(reversed(range(self._t.dim())))
-        return NDArray(self._t.permute(*axes))
+        return NDArray(shape_ops.transpose(self._t, axes))
 
     # -- reductions --------------------------------------------------------
     def _axes(self, axis, exclude):
@@ -294,7 +301,7 @@ class NDArray:
     def repeat(self, repeats, axis=None):
         """Each element `repeats` times along `axis` (the flattened
         array when None), as `jnp.repeat`."""
-        return NDArray(torch.repeat_interleave(self._t, repeats, dim=axis))
+        return NDArray(shape_ops.repeat(self._t, repeats, axis))
 
     def argmax(self, axis=None, keepdims=False):
         """Indices of the maxima as float32, as MXNet returns them."""
@@ -422,10 +429,6 @@ def concatenate(arrays, axis=0):
     return NDArray(torch.cat([_unwrap(a) for a in arrays], dim=axis))
 
 
-def concat(*arrays, dim=1):
-    return NDArray(torch.cat([_unwrap(a) for a in arrays], dim=dim))
-
-
 def waitall():
     """Wait until the card has finished everything queued."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
@@ -533,6 +536,7 @@ OPS = {"_contrib_box_iou": ("detection_ops", "box_iou"),
        "CTCLoss": ("misc_ops", "ctc_loss"),
        "_contrib_ctc_loss": ("misc_ops", "ctc_loss"),
        "_contrib_CTCLoss": ("misc_ops", "ctc_loss")}
+OPS.update({name: ("shape_ops", fn) for name, fn in shape_ops.NAMES.items()})
 
 
 def _wrap(out):
@@ -557,9 +561,15 @@ def registry_op(name):
     return op
 
 
+# nd.<op> for the shape ops, as module attributes (the JAX package's
+# module namespace holds every registry op)
+globals().update({name: registry_op(name) for name in shape_ops.NAMES})
+__all__ += list(shape_ops.NAMES)
+
+
 def __getattr__(name):
     if name in OPS:
         return registry_op(name)
     if name.startswith("_") and not name.startswith("_contrib_"):
         raise AttributeError(name)
-    raise NotImplementedError(f"nd.{name} {_NOT_PORTED}")
+    raise NotPortedError(f"nd.{name} {_NOT_PORTED}")

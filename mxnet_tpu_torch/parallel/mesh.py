@@ -13,8 +13,11 @@ ordered pp outermost, tp innermost.
 
 Without a process group the world is one process (on the device of the
 tensors it is given) and every axis has extent 1: no group is needed or
-created. Sharding specs, manual axes and the sharded parameter modes
-are not in the port yet.
+created. `local_mesh_devices(n)` is this process' device (n = 1), and
+`make_mesh(devices=...)` takes one device per process of the world.
+Sharding specs, manual axes, the sharded parameter modes and more than
+one device in a process are not in the port yet (ROADMAP.md queue 1,
+"Multi-device").
 """
 from __future__ import annotations
 
@@ -22,8 +25,10 @@ import math
 
 import torch.distributed as dist
 
+from .. import context
+
 __all__ = ["MeshPlan", "Mesh", "make_mesh", "set_mesh", "current_mesh",
-           "mesh_axes"]
+           "mesh_axes", "local_mesh_devices"]
 
 AXES = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 
@@ -72,15 +77,33 @@ class Mesh:
         return f"Mesh({self.shape})"
 
 
-def make_mesh(plan=None, **axis_sizes):
+def _multi_device(what):
+    return NotImplementedError(
+        f"{what}: the port runs one device a process (ROADMAP.md queue 1, "
+        "\"Multi-device\")")
+
+
+def local_mesh_devices(n=None):
+    """This process' devices: its one device (the entered context's, or
+    the card), for n None or 1."""
+    if n is not None and int(n) != 1:
+        raise _multi_device(f"local_mesh_devices({n})")
+    return [context.resolve(None)]
+
+
+def make_mesh(plan=None, devices=None, **axis_sizes):
     """Build the mesh and make it current. `make_mesh(dp=-1)` (the
     default) spreads every process over data parallelism; `make_mesh(
     ep=2)` etc. The product of the sizes must equal the world size: the
-    process group's, or 1 when there is none."""
+    process group's, or 1 when there is none. `devices`, when given,
+    holds one device a process of that world."""
     if plan is None:
         plan = MeshPlan(**{k: axis_sizes.get(k, 1) for k in AXES}) \
             if axis_sizes else MeshPlan(dp=-1)
     world = dist.get_world_size() if dist.is_initialized() else 1
+    if devices is not None and len(devices) != world:
+        raise _multi_device(f"make_mesh over {len(devices)} devices in a "
+                            f"world of {world} processes")
     sizes = plan.resolve(world)
     dm = None
     split = [a for a in AXES if sizes[a] > 1]

@@ -76,8 +76,13 @@ exit), and construction auto-resumes under the `resume` knob
 consumes (`memsafe.block_wrap_policy`) runs its whole forward under that
 policy's checkpoint.
 
-Single device and `param_mode="replicate"` only: meshes, fsdp/tp
-modes, zero, guard, check and telemetry are not in the port yet.
+The constructor is the JAX package's: `optimizer` defaults to "sgd";
+`donate` is accepted and changes nothing (the step updates in place);
+`data_specs` and `label_specs` are accepted when they are None or hold
+only None (the default batch layout). Single device and
+`param_mode="replicate"` only: meshes, fsdp/tp modes, sharding specs,
+zero, guard, check and telemetry are not in the port yet, and ask for
+ROADMAP.md queue 1's "Multi-device".
 """
 from __future__ import annotations
 
@@ -143,12 +148,16 @@ def _as_tensor(x, device):
 
 
 class ShardedTrainer:
-    def __init__(self, block, loss_fn, optimizer="lamb", optimizer_params=None,
-                 mesh=None, param_mode="replicate", device=None):
-        if mesh is not None or param_mode != "replicate":
+    def __init__(self, block, loss_fn, optimizer="sgd", optimizer_params=None,
+                 mesh=None, param_mode="replicate", donate=True,
+                 data_specs=None, label_specs=None, device=None):
+        specs = list(data_specs or []) + list(label_specs or [])
+        if mesh is not None or param_mode != "replicate" or any(
+                s is not None for s in specs):
             raise NotImplementedError(
-                "the port trains on one device: meshes and sharded "
-                "param modes are not in it yet")
+                "the port trains on one device: meshes, sharded param "
+                "modes and sharding specs are not in it yet (ROADMAP.md "
+                "queue 1, \"Multi-device\")")
         self.device = context.resolve(device)
         self.block = block
         self.loss_fn = loss_fn

@@ -51,9 +51,7 @@ def seed(seed_state, device=None):
 def generator(device):
     """The device stream of `device`, created from the current seed on
     first use."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = context.resolve(device)
     key = str(dev)
     g = _devices.get(key)
     if g is None:

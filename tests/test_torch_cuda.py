@@ -1579,3 +1579,57 @@ def test_durable_parity_on_card(dev):
     the CPU bit for bit, and the ladder's transitions equal on both."""
     import chip_smoke
     chip_smoke.durable_parity_phase(dev)
+
+
+def test_zoo_families_on_card_match_cpu(dev):
+    """chip_smoke's phase 38 for the vision zoo: each family of
+    tests/test_torch_model_zoo.py (`ZOO_PARITY`: sizes, batches and
+    frozen BatchNorms), float32, its evaluation logits, loss and every
+    parameter after one SGD step of the example's loop within 1e-4 of the
+    largest |value| against the CPU run from the same weights."""
+    import chip_smoke
+    for name, make, size, frozen, batch in chip_smoke.ZOO_PARITY:
+        start, lc, losc, ac = chip_smoke.zoo_family_run(
+            make, size, frozen, "cpu", batch=batch)
+        _, lg, losg, ag = chip_smoke.zoo_family_run(make, size, frozen, dev,
+                                                    start, batch)
+        errs = [chip_smoke.rel_err(lg, lc), chip_smoke.rel_err(losg, losc)]
+        errs += [chip_smoke.rel_err(ag[k], ac[k]) for k in ac]
+        assert max(errs) <= chip_smoke.TOL_ZOO, (name, max(errs))
+
+
+def test_forked_dataloader_after_cuda_init_matches(dev):
+    """A DataLoader forked after CUDA is initialised gives exactly the
+    batches of num_workers=0, pinned and copied to the card; a worker
+    that resolves the card fails with the JAX package's message instead
+    of touching CUDA."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.gluon import data as gdata
+    torch.zeros(1, device=dev)
+    assert torch.cuda.is_initialized()
+    ds = gdata.vision.CIFAR10(train=True)
+    runs = [[(x.asnumpy(), y.asnumpy()) for x, y in gdata.DataLoader(
+        ds, batch_size=100, num_workers=w, pin_memory=True)]
+        for w in (0, 2)]
+    assert len(runs[0]) == len(runs[1]) == 11
+    for (a, b), (c, d) in zip(*runs):
+        assert np.array_equal(a, c) and np.array_equal(b, d)
+    bad = gdata.SimpleDataset(list(range(8))).transform(
+        lambda i: nd.array([i]))
+    with pytest.raises(RuntimeError, match="CUDA cannot run in a forked"):
+        list(gdata.DataLoader(bad, batch_size=4, num_workers=2))
+
+
+@pytest.mark.parametrize("name", ["reshape", "reshape_split", "transpose",
+                                  "pad_reflect", "slice", "take", "pick",
+                                  "gather_nd", "scatter_nd",
+                                  "sequence_reverse", "boolean_mask"])
+def test_shape_ops_on_card_equal_cpu(dev, name):
+    import chip_smoke
+    cases = {c[0]: c for c in chip_smoke.shape_op_cases(dev)}
+    cpu = {c[0]: c for c in chip_smoke.shape_op_cases("cpu")}
+    _, fn, args = cases[name]
+    g, c = fn(*args), fn(*cpu[name][2])
+    g = g if isinstance(g, tuple) else (g,)
+    c = c if isinstance(c, tuple) else (c,)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(g, c))

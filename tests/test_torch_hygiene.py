@@ -62,6 +62,37 @@ def test_serving_lifecycle_modules_stand_alone(module):
     assert out.returncode == 0, out.stderr
 
 
+_EXAMPLES_SLICE = ["context", "run_example", "ops.shape_ops",
+                   "parallel.distributed", "gluon.data.dataloader",
+                   "gluon.data.vision.datasets",
+                   "gluon.data.vision.transforms", "gluon.model_zoo.vision",
+                   "contrib.text.embedding", "contrib.text.bpe"]
+
+
+def test_examples_slice_modules_stand_alone():
+    """The modules that run the repo's examples (contexts, shape ops,
+    gluon.data, the model zoo, contrib.text, the runner) are among the
+    checked sources and import no JAX; loaded together, one after the
+    other, they pull in none (so none does alone), and importing the
+    runner installs no alias."""
+    for module in _EXAMPLES_SLICE:
+        path = os.path.join(PKG, *module.split(".")) + ".py"
+        assert path in _port_files()
+        assert _forbidden_imports(path) == [], module
+    code = ("import importlib, sys\n"
+            f"for m in {_EXAMPLES_SLICE!r}:\n"
+            "    importlib.import_module('mxnet_tpu_torch.' + m)\n"
+            "    bad = [k for k in sys.modules if k.split('.')[0] in "
+            f"{_FORBIDDEN!r}]\n"
+            "    assert not bad, (m, bad)\n"
+            "assert not [f for f in sys.meta_path\n"
+            "            if type(f).__name__ == '_PortAlias']\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, importlib, pkgutil\n"
             "import mxnet_tpu_torch as m\n"
