@@ -187,7 +187,9 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      train_cifar10.py and gpt/generate.py at their defaults (exactly one
      Adam launch per weight dtype a step, the flash forward launched),
      BERT pretraining (also with --auto-checkpoint-dir), the NMT,
-     YOLO, DeepAR and CRNN at small step counts; then the CIFAR-10
+     YOLO, DeepAR and CRNN at small step counts, and
+     module_api/train_mnist_module.py at its defaults (it binds with
+     context=mx.cpu(), so it launches nothing); then the CIFAR-10
      DataLoader alone (num_workers 0 and 2); lists the examples the
      card cannot run and why;
  37. trains one vision net of each family at its published widths
@@ -197,7 +199,29 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      convolutions: ms a step, images/s, device busy, idle, peak memory;
  38. float32, card against CPU: each zoo family's logits and one SGD
      step, a DataLoader forked after CUDA is initialised (batches equal
-     num_workers=0's), every shape op bit for bit.
+     num_workers=0's), every shape op bit for bit;
+ 39. trains the BERT-base encoder as a Symbol (`bert_symbol`: 12 layers
+     of 768, FFN 3,072, 12 heads, vocabulary 30,522, float32, dropout
+     0.1 and attention dropout 0.1, the masked-LM head into
+     SoftmaxOutput(use_ignore, "valid")) through `mod.Module.fit` with
+     Adam at 32 x 128, 20 masked positions a row: 2 warm-up + 16 timed
+     steps (each CUDA-synchronised: median, min, max), then one under
+     torch.profiler; exactly 12 flash forwards, 12 dq, 12 dkv and one
+     Adam launch a step;
+ 40. carries a `models.bert.BERTModel` of BERT-base width (float32,
+     seeded) into the symbol's argument names (`sym_name_map`): the
+     symbolic forward (is_train=False) equals the model's hidden states
+     within TOL_TRAIN;
+ 41. `BucketingModule` over lengths {64, 128} of the same encoder: one
+     Module per length over one parameter store, Adam, exact launches a
+     step;
+ 42. float32, card against CPU through Module.fit: a symbolic MLP with
+     BatchNorm (SGD, then Adam) and a 2-layer symbolic encoder (Adam),
+     3 steps: weights within TOL_TRAIN, the checkpoint's symbol file
+     equal;
+ 43. the registry's kernel ops through `sym`: `_contrib_quantized_dense`
+     (M = 8 and 512) and `_contrib_box_nms` bound and run, equal bit for
+     bit to the same ops through `nd`, each launching its kernel.
 
 Phase 1 also holds the training kernels against their plain versions at
 the training shapes: the flash forward with dropout 0.1 (its keep mask
@@ -224,7 +248,9 @@ the flash forward (dropout 0.1), dq and dkv at BERT-large's
 the flash forward, dq and dkv at the Transformer NMT's three attention
 shapes (bf16, B 64, H 8, D 64): the encoder's (64,8,64,64) with the
 padding bias, the decoder's (64,8,65,64) causal, and cross-attention
-(q 65 over k/v 64 positions) with the bias.
+(q 65 over k/v 64 positions) with the bias; and the flash forward,
+dq and dkv at phase 39's (32,12,128,64) float32 with its padding mask
+and dropout 0.1 (`symbolic_bert_shape` in the rows).
 
 The flash rows' library yardsticks are SDPA calls computing the same
 function: the causal forward, the forward with dropout_p 0.1 at BERT's
@@ -5728,6 +5754,7 @@ EXAMPLES = (
     ("detection/train_yolo.py", ("--steps", "10")),
     ("timeseries/train_deepar.py", ("--epochs", "5")),
     ("ocr/train_crnn.py", ("--steps", "50")),
+    ("module_api/train_mnist_module.py", ()),
 )
 # examples that phase 36 cannot run on the card, and why
 NOT_ON_CARD = {
@@ -5736,8 +5763,6 @@ NOT_ON_CARD = {
                        "has no JAX (it runs through the port in tier-1)",
     "bert/long_context.py": "sequence parallelism (ROADMAP.md queue 1 item "
                             "9); imports jax",
-    "module_api/train_mnist_module.py": "needs io and sym (ROADMAP.md "
-                                        "queue 1 item 10)",
 }
 # counters of `run_example`'s launch line that must be > 0 for each example
 EXAMPLE_KERNELS = {
@@ -5826,7 +5851,9 @@ def examples_phase(dev):
     steps, then `generate` of 16 tokens: exactly one Adam launch per
     weight dtype a step, the flash forward at least once), the others at
     small step counts, three processes at a time (the first two alone:
-    their rates are read). Then the CIFAR-10 DataLoader alone on the
+    their rates are read); train_mnist_module.py at its defaults binds
+    with context=mx.cpu(): it launches nothing and prints its final
+    validation accuracy. Then the CIFAR-10 DataLoader alone on the
     card, num_workers 0 and 2. Examples that cannot run here are listed
     with the reason."""
     import tempfile
@@ -5852,6 +5879,12 @@ def examples_phase(dev):
                          if l.startswith("epoch ")]
                 check(len(rates) == 2, f"train_cifar10 output {lines}")
                 row["images_per_s_by_epoch"] = rates
+            if path == "module_api/train_mnist_module.py":
+                # it binds with context=mx.cpu(): the CPU by its request
+                check(counts == {}, f"train_mnist_module launched {counts}")
+                check(lines[-1].startswith("final validation: "
+                                           "{'accuracy': "),
+                      f"train_mnist_module output {lines[-3:]}")
             if path == "gpt/generate.py":
                 vocab = int(lines[0].split("vocab ")[1].rstrip(")"))
                 steps = 200
@@ -6153,6 +6186,585 @@ def parity_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 39-43: MXNet's symbolic half (the op registry, sym with its
+# executor, Module / BucketingModule) on the card
+# ---------------------------------------------------------------------------
+
+# BERT-base's widths: the symbolic encoder of phases 39-41
+SYM_BERT = dict(V=30522, E=768, F=3072, H=12, layers=12, max_len=512)
+SYM_DATA = ("data", "token_types", "valid_mask", "masked_idx")
+SYM_LABELS = ("mlm_label",)
+
+
+def bert_symbol(V, E, F, H, layers, max_len, L, p=0.1, attn_p=0.1):
+    """The BERT encoder as a Symbol, built here from registry ops (a
+    use of `sym`, not a package feature): word, token-type and
+    position embeddings, LayerNorm, then `layers` post-LN layers of a
+    fused QKV FullyConnected(flatten=False), `fused_self_attention(
+    num_heads=H)` over the (B, L) valid mask (attention-probability
+    dropout attn_p), a projection, Dropout(p), residual and LayerNorm,
+    then a gelu FFN the same way. Returns (encoder output (B, L, E),
+    the masked-LM loss head: the rows at `masked_idx` (flat B * L
+    indices) through a transform, gelu, LayerNorm and the vocabulary
+    FullyConnected into SoftmaxOutput(use_ignore, ignore_label -1,
+    normalization "valid"))."""
+    from mxnet_tpu_torch import name, sym
+    with name.NameManager():        # the same graph, the same names
+        return _bert_symbol(sym, V, E, F, H, layers, max_len, L, p, attn_p)
+
+
+def _bert_symbol(sym, V, E, F, H, layers, max_len, L, p, attn_p):
+    data, types = sym.var("data"), sym.var("token_types")
+    mask = sym.var("valid_mask")
+    x = sym.Embedding(data, input_dim=V, output_dim=E, name="word_embed") \
+        + sym.Embedding(types, input_dim=2, output_dim=E,
+                        name="token_type_embed")
+    pos = sym.slice_axis(sym.var("position_weight", shape=(max_len, E)),
+                         axis=0, begin=0, end=L,
+                         name="pos")
+    x = sym.LayerNorm(sym.broadcast_add(x, sym.expand_dims(pos, axis=0,
+                                                           name="pos_b")),
+                      name="embed_ln")
+    x = sym.Dropout(x, p=p, name="embed_drop")
+    for i in range(layers):
+        qkv = sym.FullyConnected(x, num_hidden=3 * E, flatten=False,
+                                 name=f"l{i}_qkv")
+        att = sym.fused_self_attention(qkv, mask=mask, num_heads=H,
+                                       dropout=attn_p, name=f"l{i}_att")
+        h = sym.FullyConnected(att, num_hidden=E, flatten=False,
+                               name=f"l{i}_proj")
+        h = sym.Dropout(h, p=p, name=f"l{i}_drop1")
+        x = sym.LayerNorm(x + h, name=f"l{i}_attn_ln")
+        h = sym.FullyConnected(x, num_hidden=F, flatten=False,
+                               name=f"l{i}_ffn_in")
+        h = sym.Activation(h, act_type="gelu", name=f"l{i}_gelu")
+        h = sym.FullyConnected(h, num_hidden=E, flatten=False,
+                               name=f"l{i}_ffn_out")
+        h = sym.Dropout(h, p=p, name=f"l{i}_drop2")
+        x = sym.LayerNorm(x + h, name=f"l{i}_ffn_ln")
+    rows = sym.take(sym.reshape(x, shape=(-1, E), name="flat"),
+                    sym.reshape(sym.var("masked_idx"), shape=(-1,),
+                                name="idx_flat"), name="masked_rows")
+    h = sym.FullyConnected(rows, num_hidden=E, name="mlm_transform")
+    h = sym.LayerNorm(sym.Activation(h, act_type="gelu", name="mlm_gelu"),
+                      name="mlm_ln")
+    h = sym.FullyConnected(h, num_hidden=V, name="mlm_decoder")
+    label = sym.reshape(sym.var("mlm_label"), shape=(-1,), name="lab_flat")
+    loss = sym.SoftmaxOutput(h, label, use_ignore=True,
+                             ignore_label=-1, normalization="valid",
+                             name="mlm")
+    return x, loss
+
+
+def bert_symbol_params(V, E, F, H, layers, max_len, **_):
+    """{argument name: shape} of `bert_symbol`'s weights."""
+    shapes = {"word_embed_weight": (V, E), "token_type_embed_weight": (2, E),
+              "position_weight": (max_len, E), "embed_ln_gamma": (E,),
+              "embed_ln_beta": (E,)}
+    for i in range(layers):
+        for name, o, n_in in (("qkv", 3 * E, E), ("proj", E, E),
+                              ("ffn_in", F, E), ("ffn_out", E, F)):
+            shapes[f"l{i}_{name}_weight"] = (o, n_in)
+            shapes[f"l{i}_{name}_bias"] = (o,)
+        for ln in ("attn_ln", "ffn_ln"):
+            shapes[f"l{i}_{ln}_gamma"] = shapes[f"l{i}_{ln}_beta"] = (E,)
+    return shapes
+
+
+def sym_bert_batch(B, L, M, V, seed=0):
+    """One synthetic masked-LM batch: ids, token types, the valid mask
+    (lengths L/2..L), M masked positions a row among its valid ones
+    ((B, M) flat indices into the batch's B * L rows) and their (B, M)
+    labels, -1 (ignored) for a quarter of them."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(L // 2, L + 1, B)
+    lens[0] = L
+    ids = rs.randint(0, V, (B, L)).astype(np.float32)
+    types = (np.arange(L)[None] >= lens[:, None] // 2).astype(np.float32)
+    mask = (np.arange(L)[None] < lens[:, None]).astype(np.float32)
+    pos = np.stack([rs.choice(n, M, replace=False) for n in lens])
+    idx = (np.arange(B)[:, None] * L + pos).astype(np.float32)
+    label = ids.reshape(-1)[idx.astype(np.int64)]
+    label[rs.rand(B, M) < 0.25] = -1
+    return {"data": ids, "token_types": types, "valid_mask": mask,
+            "masked_idx": idx, "mlm_label": label}
+
+
+class DeviceCE:
+    """An eval metric that keeps the masked-LM cross-entropy of each batch
+    on the device (no host copy of the (B*M, V) probabilities); `losses()`
+    fetches them all at once."""
+
+    def __init__(self):
+        self.name = "mlm-ce"
+        self.reset()
+
+    def reset(self):
+        self._losses = []
+
+    def update(self, labels, preds):
+        import torch
+        lab = labels[0]._t.to(preds[0]._t.device).long().reshape(-1)
+        p = preds[0]._t
+        ok = lab >= 0
+        picked = p.gather(1, lab.clamp(min=0)[:, None])[:, 0]
+        self._losses.append(-(torch.log(picked) * ok).sum() / ok.sum())
+
+    def get_name_value(self):
+        return [(self.name, 0.0)]
+
+    def losses(self):
+        import torch
+        return [float(x) for x in torch.stack(self._losses).cpu()] \
+            if self._losses else []
+
+
+def sym_fit(mod, batches, warmup, on_step=None):
+    """`mod.fit` over `batches` (dicts of `sym_bert_batch`) as one epoch
+    of an NDArrayIter, Adam lr 1e-4, Normal(0.02) weights: (the losses,
+    each timed step's ms (CUDA-synchronised at each batch end), the
+    launch counts and peak memory of the steps after `warmup`)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import init, io
+    # each batch's flat indices point into its own B * L rows
+    cat = {k: np.concatenate([b[k] for b in batches])
+           for k in SYM_DATA + SYM_LABELS}
+    B = len(batches[0]["data"])
+    it = io.NDArrayIter({k: cat[k] for k in SYM_DATA},
+                        {k: cat[k] for k in SYM_LABELS}, batch_size=B)
+    metric, stamps, out = DeviceCE(), [], {}
+
+    def batch_end(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if param.nbatch == warmup - 1:
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+        if on_step:
+            on_step(param)
+
+    mod.fit(it, eval_metric=metric, num_epoch=1, optimizer="adam",
+            optimizer_params={"learning_rate": 1e-4},
+            initializer=init.Normal(0.02), batch_end_callback=batch_end)
+    out["counts"] = read_counts()
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    out["step_ms"] = [(b - a) * 1e3 for a, b in zip(stamps[warmup - 1:],
+                                                    stamps[warmup:])]
+    return metric.losses(), out
+
+
+def sym_bert_phase(dev, batch=32, seq_len=128, masked=20, warmup=2,
+                   steps=16, **widths):
+    """Phase 39: the symbolic BERT-base encoder (`bert_symbol` at full
+    width, float32, hidden and attention dropout 0.1) trained by
+    `Module.fit` with Adam at batch x seq_len (`masked` positions a row):
+    exactly `layers` flash forwards, dq and dkv and one Adam launch a
+    step; then one step under torch.profiler (idle share, top kernels)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import io as mxio, mod as mxmod, nd as mxnd
+    from mxnet_tpu_torch import random as mxrandom
+    cfg = dict(SYM_BERT, **widths)
+    _, loss = bert_symbol(L=seq_len, **cfg)
+    mxrandom.seed(0, dev)
+    module = mxmod.Module(loss, data_names=SYM_DATA, label_names=SYM_LABELS,
+                          context=dev)
+    # the same batch again and again: a falling loss shows the updates
+    # reach the weights
+    b = sym_bert_batch(batch, seq_len, masked, cfg["V"])
+    losses, res = sym_fit(module, [b] * (warmup + steps), warmup)
+    n_params = len(module._param_names)
+    per = res["counts"]
+    want = expect(flash_attention_fwd=cfg["layers"] * steps,
+                  flash_attention_dq=cfg["layers"] * steps,
+                  flash_attention_dkv=cfg["layers"] * steps,
+                  adam_update=steps * adam_launches(
+                      [module._exec.arg_dict[n]._t
+                       for n in module._param_names]))
+    check(per == want, f"symbolic BERT launches {per} != {want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"symbolic BERT losses {losses}")
+    step_ms = sorted(res["step_ms"])
+    dbatch = mxio.DataBatch(
+        [mxnd.array(b[k], ctx=torch.device("cpu")) for k in SYM_DATA],
+        [mxnd.array(b[k], ctx=torch.device("cpu")) for k in SYM_LABELS])
+
+    def one_step():
+        module.forward_backward(dbatch)
+        module.update()
+        float(module.get_outputs()[0]._t[0, 0])
+
+    prof, prof_ms, windows = profile_once(one_step)
+    busy, top, by_class, kernels = device_profile(prof, 1, 10)
+    med = step_ms[len(step_ms) // 2]
+    out = {"config": f"BERT-base encoder through sym: {cfg['layers']} x "
+                     f"{cfg['E']} units, FFN {cfg['F']}, {cfg['H']} heads, "
+                     f"vocabulary {cfg['V']}, float32, dropout 0.1 and "
+                     "attention dropout 0.1, Adam lr 1e-4",
+           "batch": batch, "seq_len": seq_len, "masked_per_row": masked,
+           "parameters": n_params,
+           "weights": sum(module._exec.arg_dict[n]._t.numel()
+                          for n in module._param_names),
+           "warmup": warmup, "steps": steps, "ms_per_step": med,
+           "ms_per_step_min": step_ms[0], "ms_per_step_max": step_ms[-1],
+           "tokens_per_s": batch * seq_len / med * 1e3,
+           "losses": losses, "launches": per,
+           "launches_per_step": {k: v / steps for k, v in per.items() if v},
+           "max_memory_allocated_bytes": res["max_memory_allocated_bytes"],
+           "profiled_step_ms": prof_ms, "profile_windows": windows,
+           "device_busy_ms_per_step": busy,
+           "device_idle_share": None if busy is None else 1 - busy / med,
+           "device_ms_per_step_by_class": by_class,
+           "kernels_per_step": kernels, "top_device_ms_per_step": top}
+    return out
+
+
+def sym_bert_parity_phase(dev, batch=8, seq_len=128, **widths):
+    """Phase 40: the symbolic encoder against `models.bert.BERTModel` on
+    the card: a BERTModel at BERT-base width (float32, seeded weights,
+    evaluation mode) carried into the symbol's argument names by
+    `sym_name_map`, both run forward on one padded batch: the symbolic
+    forward (is_train=False) equals the model's hidden states within
+    TOL_TRAIN."""
+    import torch
+    from mxnet_tpu_torch import nd as mxnd
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.models import bert
+    cfg = dict(SYM_BERT, **widths)
+    model = bert.BERTModel(cfg["V"], cfg["E"], cfg["F"], cfg["layers"],
+                           cfg["H"], max_length=cfg["max_len"])
+    model.to(dev)
+    model.initialize(generator=mxrandom.seed(3, dev))
+    b = sym_bert_batch(batch, seq_len, 4, cfg["V"], seed=5)
+    valid = torch.tensor(b["valid_mask"].sum(1), device=dev)
+    with torch.no_grad():
+        ref, _ = model(torch.tensor(b["data"], device=dev).long(),
+                       torch.tensor(b["token_types"], device=dev).long(),
+                       valid)
+    enc, _ = bert_symbol(L=seq_len, **cfg)
+    params = dict(model.named_parameters())
+    args = {sym_name_map(k): mxnd.array(v.detach(), ctx=dev)
+            for k, v in params.items() if not k.startswith("pooler")}
+    args.update({k: mxnd.array(b[k], ctx=dev) for k in SYM_DATA[:3]})
+    check(set(args) == set(enc.list_arguments()),
+          f"name map: {sorted(set(args) ^ set(enc.list_arguments()))}")
+    reset_counts()
+    got = enc.bind(ctx=dev, args=args).forward(is_train=False)[0]._t
+    counts = read_counts()
+    check(counts["flash_attention_fwd"] == cfg["layers"],
+          f"symbolic encoder forward launches {counts}")
+    err = max_err(got, ref)
+    check(err <= TOL_TRAIN, f"symbolic encoder vs BERTModel: {err}")
+    return {"batch": batch, "seq_len": seq_len, "layers": cfg["layers"],
+            "max_abs_err": err, "tol": TOL_TRAIN,
+            "flash_fwd_launches": counts["flash_attention_fwd"]}
+
+
+def sym_name_map(path):
+    """A BERTModel parameter path -> the symbol's argument name."""
+    fixed = {"word_embed.weight": "word_embed_weight",
+             "token_type_embed.weight": "token_type_embed_weight",
+             "position_embed": "position_weight",
+             "embed_ln.gamma": "embed_ln_gamma",
+             "embed_ln.beta": "embed_ln_beta"}
+    if path in fixed:
+        return fixed[path]
+    _, i, *rest = path.split(".")
+    rest = [r for r in rest if r != "attention"]
+    return f"l{i}_" + "_".join(rest)
+
+
+def sym_bucketing_phase(dev, batch=32, lens=(64, 128, 64, 128), masked=20,
+                        **widths):
+    """Phase 41: `BucketingModule` over sequence lengths {64, 128} of the
+    symbolic BERT-base encoder: one Module per length over one parameter
+    store, Adam; each step launches `layers` flash forwards, dq and dkv
+    and one Adam update, the buckets share every weight NDArray, and the
+    losses are finite."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import init, io, mod as mxmod, nd as mxnd
+    from mxnet_tpu_torch import random as mxrandom
+    cfg = dict(SYM_BERT, **widths)
+
+    def sym_gen(L):
+        return bert_symbol(L=L, **cfg)[1], SYM_DATA, SYM_LABELS
+
+    mxrandom.seed(1, dev)
+    bm = mxmod.BucketingModule(sym_gen, default_bucket_key=max(lens),
+                               context=dev)
+    first = sym_bert_batch(batch, max(lens), masked, cfg["V"])
+    bm.bind(data_shapes=[(k, first[k].shape) for k in SYM_DATA],
+            label_shapes=[(k, first[k].shape) for k in SYM_LABELS])
+    bm.init_params(initializer=init.Normal(0.02))
+    bm.init_optimizer(optimizer="adam",
+                      optimizer_params={"learning_rate": 1e-4})
+    cpu = torch.device("cpu")
+    losses, counts = [], []
+    for i, L in enumerate(lens):
+        b = sym_bert_batch(batch, L, masked, cfg["V"], seed=10 + i)
+        db = io.DataBatch([mxnd.array(b[k], ctx=cpu) for k in SYM_DATA],
+                          [mxnd.array(b[k], ctx=cpu) for k in SYM_LABELS])
+        db.bucket_key = L
+        reset_counts()
+        bm.forward_backward(db)
+        bm.update()
+        m = DeviceCE()
+        m.update(db.label, bm.get_outputs())
+        losses += m.losses()
+        counts.append(read_counts())
+    mods = bm._buckets
+    check(set(mods) == set(lens), f"buckets {sorted(mods)}")
+    names = mods[max(lens)]._param_names
+    check(all(mods[L]._exec.arg_dict[n] is mods[max(lens)]._exec.arg_dict[n]
+              for L in lens for n in names), "buckets do not share weights")
+    want = expect(flash_attention_fwd=cfg["layers"],
+                  flash_attention_dq=cfg["layers"],
+                  flash_attention_dkv=cfg["layers"], adam_update=1)
+    check(all(c == want for c in counts), f"bucket launches {counts}")
+    check(all(np.isfinite(losses)), f"bucket losses {losses}")
+    return {"lens": list(lens), "losses": losses, "buckets": sorted(mods),
+            "launches_per_step": {k: v for k, v in want.items() if v}}
+
+
+def _sym_mlp_bn():
+    from mxnet_tpu_torch import name, sym
+    with name.NameManager():
+        data = sym.var("data")
+        h = sym.FullyConnected(data, num_hidden=32, name="fc1", no_bias=True)
+        h = sym.BatchNorm(h, name="bn1")
+        h = sym.Activation(h, act_type="relu")
+        h = sym.FullyConnected(h, num_hidden=8, name="fc2")
+        return sym.SoftmaxOutput(h, name="softmax", normalization="batch")
+
+
+def _sym_fit_run(device, symbol, data, label, data_names, label_names,
+                 params, aux, opt, opt_params, batch=16, metric="acc"):
+    """One epoch of Module.fit over `data` on `device` from the carried
+    numpy weights: (weights and statistics after, the symbol file of
+    its checkpoint)."""
+    import tempfile
+    import numpy as np
+    from mxnet_tpu_torch import io, mod as mxmod, nd as mxnd
+    it = io.NDArrayIter(data, label, batch_size=batch)
+    module = mxmod.Module(symbol, data_names=data_names,
+                          label_names=label_names, context=device)
+    module.fit(it, eval_metric=metric() if callable(metric) else metric,
+               num_epoch=1, optimizer=opt, optimizer_params=opt_params,
+               arg_params={k: mxnd.array(v, ctx=device)
+                           for k, v in params.items()},
+               aux_params={k: mxnd.array(v, ctx=device)
+                           for k, v in aux.items()})
+    arg, auxs = module.get_params()
+    with tempfile.TemporaryDirectory(prefix="mxt_sym_") as tmp:
+        module.save_checkpoint(os.path.join(tmp, "m"), 1)
+        with open(os.path.join(tmp, "m-symbol.json"), "rb") as fh:
+            js = fh.read()
+    return {k: v.asnumpy() for k, v in {**arg, **auxs}.items()}, js
+
+
+def sym_parity_phase(dev, steps=3):
+    """Phase 42: card vs CPU through Module.fit, float32, 3 steps from the
+    same weights: a symbolic MLP with BatchNorm and a 2-layer symbolic
+    encoder (dropout 0), each with SGD, then with Adam: every weight and
+    moving statistic within TOL_TRAIN, the checkpoint's symbol file
+    equal, the Adam kernel launched once a step, the encoder's flash
+    kernels once a layer a step. The encoder's Adam takes epsilon 1e-4
+    (as phase 18's NMT does): its key bias has an exactly zero gradient
+    (softmax ignores a score shift shared by all keys), so the bias sees
+    only rounding noise, which epsilon 1e-8 would scale up to full-size
+    steps of opposite signs on the two devices."""
+    import numpy as np
+    import torch
+    cpu = torch.device("cpu")
+    rs = np.random.RandomState(0)
+    out = {}
+    x = rs.normal(size=(16 * steps, 20)).astype(np.float32)
+    y = rs.randint(0, 8, 16 * steps).astype(np.float32)
+    mlp_params = {"fc1_weight": rs.normal(0, 0.3, (32, 20)),
+                  "bn1_gamma": 1 + rs.normal(0, 0.1, 32),
+                  "bn1_beta": rs.normal(0, 0.1, 32),
+                  "fc2_weight": rs.normal(0, 0.3, (8, 32)),
+                  "fc2_bias": rs.normal(0, 0.1, 8)}
+    mlp_params = {k: v.astype(np.float32) for k, v in mlp_params.items()}
+    mlp_aux = {"bn1_moving_mean": np.zeros(32, np.float32),
+               "bn1_moving_var": np.ones(32, np.float32)}
+    tiny = dict(V=128, E=64, F=128, H=4, layers=2, max_len=64)
+    enc_params = {k: (rs.normal(0, 0.05, s) + (1.0 if k.endswith("gamma")
+                                               else 0.0)).astype(np.float32)
+                  for k, s in bert_symbol_params(**tiny).items()}
+    enc_params.update(mlm_transform_weight=rs.normal(0, 0.05, (64, 64)),
+                      mlm_transform_bias=np.zeros(64),
+                      mlm_ln_gamma=np.ones(64), mlm_ln_beta=np.zeros(64),
+                      mlm_decoder_weight=rs.normal(0, 0.05, (128, 64)),
+                      mlm_decoder_bias=np.zeros(128))
+    enc_params = {k: np.asarray(v, np.float32) for k, v in enc_params.items()}
+    bs = [sym_bert_batch(4, 32, 5, 128, seed=20 + i) for i in range(steps)]
+    enc_data = {k: np.concatenate([b[k] for b in bs]) for k in SYM_DATA}
+    enc_label = {k: np.concatenate([b[k] for b in bs]) for k in SYM_LABELS}
+    def encoder():
+        return bert_symbol(L=32, p=0.0, attn_p=0.0, **tiny)[1]
+
+    mlp = (_sym_mlp_bn, x, y, ("data",), ("softmax_label",), mlp_params,
+           mlp_aux)
+    enc = (encoder, enc_data, enc_label, SYM_DATA, SYM_LABELS, enc_params,
+           {})
+    lr = {"learning_rate": 0.05}
+    runs = (("mlp_batchnorm_sgd", *mlp, "sgd", lr, 16, "acc"),
+            ("mlp_batchnorm_adam", *mlp, "adam", lr, 16, "acc"),
+            ("encoder_sgd", *enc, "sgd", lr, 4, DeviceCE),
+            ("encoder_adam", *enc, "adam",
+             {"learning_rate": 0.01, "epsilon": 1e-4}, 4, DeviceCE))
+    for name, build, d, lab, dn, ln, params, aux, opt, kw, batch, met \
+            in runs:
+        res = {}
+        for where, device in (("card", dev), ("cpu", cpu)):
+            reset_counts()
+            res[where] = _sym_fit_run(device, build(), d, lab, dn, ln,
+                                      params, aux, opt, kw, batch, met)
+            if where == "card":
+                counts = read_counts()
+        (card, js_card), (host, js_cpu) = res["card"], res["cpu"]
+        check(js_card == js_cpu, f"{name}: symbol files differ")
+        err = max(float(np.abs(card[k] - host[k]).max()) for k in host)
+        check(err <= TOL_TRAIN, f"{name}: card vs CPU {err}")
+        flash = 2 * steps if name.startswith("encoder") else 0
+        want = expect(adam_update=steps if opt == "adam" else 0,
+                      flash_attention_fwd=flash, flash_attention_dq=flash,
+                      flash_attention_dkv=flash)
+        check(counts == want, f"{name}: launches {counts} != {want}")
+        out[name] = {"max_abs_err": err, "tol": TOL_TRAIN,
+                     "launches": {k: v for k, v in counts.items() if v}}
+    return out
+
+
+def sym_kernel_ops_phase(dev):
+    """Phase 43: the registry's kernel ops through `sym` on the card:
+    `_contrib_quantized_dense` (M = 8, the split-K route, and M = 512,
+    the wgmma route) and `_contrib_box_nms` bound and run, equal bit for
+    bit to the same ops through `nd` on the same inputs; each symbolic
+    run launches its kernel."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import nd as mxnd, sym
+    rs = np.random.RandomState(7)
+    out = {}
+    K, O = 768, 3072
+    w = mxnd.array(rs.randint(-127, 128, (O, K)), ctx=dev, dtype="int8")
+    s = mxnd.array(rs.rand(O) * 1e-2 + 1e-4, ctx=dev)
+    bias = mxnd.array(rs.randn(O), ctx=dev)
+    qd = sym.contrib.quantized_dense(sym.var("x"), sym.var("w"),
+                                     sym.var("s"), sym.var("b"), relu=True,
+                                     name="qd")
+    for M, counter in ((8, "int8_matmul"), (512, "int8_matmul_wgmma")):
+        x = mxnd.array(rs.randn(M, K), ctx=dev)
+        reset_counts()
+        got = qd.bind(ctx=dev, args={"x": x, "w": w, "s": s, "b": bias}) \
+            .forward()[0]._t
+        counts = read_counts()
+        check(counts[counter] == 1 and counts["int8_transpose"] == 0,
+              f"sym quantized_dense M={M}: launches {counts}")
+        ref = mxnd.contrib.quantized_dense(x, w, s, bias, relu=True)._t
+        check(torch.equal(got, ref), f"sym quantized_dense M={M} != nd")
+        out[f"quantized_dense_M{M}"] = {k: v for k, v in counts.items()
+                                        if v}
+    B, N = 8, 2048
+    rows = np.zeros((B, N, 6), np.float32)
+    rows[..., 0] = rs.randint(0, 20, (B, N))
+    rows[..., 1] = rs.rand(B, N)
+    xy = rs.rand(B, N, 2) * 400
+    rows[..., 2:4] = xy
+    rows[..., 4:6] = xy + 10 + rs.rand(B, N, 2) * 60
+    r = mxnd.array(rows, ctx=dev)
+    kw = dict(overlap_thresh=0.45, valid_thresh=0.01, topk=100, id_index=0)
+    nms = sym.contrib.box_nms(sym.var("rows"), name="nms", **kw)
+    reset_counts()
+    got = nms.bind(ctx=dev, args={"rows": r}).forward()[0]._t
+    counts = read_counts()
+    check(counts["box_nms"] == 1, f"sym box_nms launches {counts}")
+    ref = mxnd.contrib.box_nms(r, **kw)._t
+    check(torch.equal(got, ref), "sym box_nms != nd box_nms")
+    out["box_nms"] = {k: v for k, v in counts.items() if v}
+    return out
+
+
+def sym_flash_phase(dev, B=32, H=12, L=128, D=64, p=0.1,
+                    seed=0x5EED_1234_ABCD):
+    """The flash kernels at the symbolic encoder's shape (phase 39's
+    path): (B,H,L,64) float32 with the batch's padding mask and dropout
+    p: forward (its keep mask bit for bit), dq and dkv against their
+    plain versions, then timed beside SDPA with the same mask (its own
+    dropout mask: times only) and the bound at the float32 rate. Returns
+    {row: extra fields}."""
+    import torch
+    import torch.nn.functional as tF
+    from mxnet_tpu_torch.cuda_ops import flash_attention as fa
+    q, k, v, g, _ = train_flash_case(dev, torch.float32, B, H=H, L=L, D=D,
+                                     seed=4)
+    b = sym_bert_batch(B, L, 4, 100)
+    valid = torch.tensor(b["valid_mask"], device=dev).bool()
+    bias = torch.where(valid, 0.0, fa._NEG).float().contiguous()
+    BH = B * H
+    check(torch.equal(fa.dropout_mask(seed, BH, L, L, p, dev),
+                      fa.dropout_keep_mask(seed, BH, L, L, p, dev)),
+          "dropout keep mask at the symbolic encoder's shape differs")
+    o, lse = fa.flash_fwd(q, k, v, bias, False, dropout=p, seed=seed)
+    ro, rlse = fa.flash_fwd_reference(q, k, v, bias, False, dropout=p,
+                                      seed=seed)
+    e_fwd = max(max_err(o, ro), max_err(lse, rlse))
+    check(e_fwd <= TOL["flash"]["float32"],
+          f"flash fwd symbolic shape: max_abs_err {e_fwd}")
+    delta = (g * ro).sum(-1).reshape(BH, L)
+    bw = (q, k, v, bias, g, rlse, delta, False, None, p, seed)
+    ref = fa.flash_bwd_reference(*bw)
+    e_dq = max_err(fa.flash_bwd_dq(*bw), ref[0])
+    dk, dv = fa.flash_bwd_dkv(*bw)
+    e_dkv = max(max_err(dk, ref[1]), max_err(dv, ref[2]))
+    check(max(e_dq, e_dkv) <= TOL_BWD["float32"],
+          f"flash bwd symbolic shape: dq {e_dq}, dkv {e_dkv}")
+    del ro, ref, dk, dv, o, lse
+    io_b = BH * L * D * 4
+    shape = (f"q/k/v/dO ({B},{H},{L},{D}) float32, the padding mask of "
+             f"phase 39's batch, dropout {p}")
+    attn_mask = valid[:, None, None, :]
+
+    def sdpa():
+        return tF.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                               dropout_p=p)
+
+    lib_fwd = (time_ms(sdpa), device_ms(sdpa, skip=FLUSH_ONLY),
+               f"SDPA forward, the same mask, dropout_p {p} (its own mask: "
+               "times only)")
+    lib_bwd = (*sdpa_backward_ms(q, k, v, g, attn_mask=attn_mask,
+                                 dropout_p=p),
+               f"SDPA backward alone, the same mask, dropout_p {p} (dq, dk "
+               "and dv together)")
+    out = {}
+    for row, err, nbytes, flops, fn, plain, lib in (
+            ("flash_attention_fwd_dropout", e_fwd,
+             4 * io_b + 4 * BH * L + 4 * B * L, 4 * BH * L * L * D,
+             lambda: fa.flash_fwd(q, k, v, bias, False, dropout=p,
+                                  seed=seed),
+             lambda: fa.flash_fwd_reference(q, k, v, bias, False, dropout=p,
+                                            seed=seed), lib_fwd),
+            ("flash_attention_dq", e_dq, 5 * io_b + 8 * BH * L + 4 * B * L,
+             6 * BH * L * L * D, lambda: fa.flash_bwd_dq(*bw),
+             lambda: fa.flash_dq_reference(*bw), lib_bwd),
+            ("flash_attention_dkv", e_dkv, 6 * io_b + 8 * BH * L + 4 * B * L,
+             8 * BH * L * L * D, lambda: fa.flash_bwd_dkv(*bw),
+             lambda: fa.flash_dkv_reference(*bw), lib_bwd)):
+        b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        out[row] = {"symbolic_bert_shape": dict(
+            shapes=shape, max_abs_err=err, ms=time_ms(fn),
+            device_ms=device_ms(fn, match="mxt::"),
+            plain_ms=time_ms(plain, iters=5), bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib[0], library_device_ms=lib[1], library=lib[2])}
+    return out
+
+
 def main():
     try:
         import torch
@@ -6309,6 +6921,10 @@ def main():
         kernels[row].update(extra)
         print(f"chip_smoke: {row} at the Transformer NMT's shapes "
               + json.dumps(extra["nmt_shape"]))
+    for row, extra in sym_flash_phase(dev).items():
+        kernels[row].update(extra)
+        print(f"chip_smoke: {row} at the symbolic BERT encoder's shape "
+              + json.dumps(extra["symbolic_bert_shape"]))
     for k in kernels.values():
         lib = "none" if k["library_ms"] is None \
             else f"{k['library_ms']:.4f} ms"
@@ -6653,6 +7269,48 @@ def main():
     zpar = parity_phase(dev)
     print("chip_smoke: card-vs-CPU zoo, DataLoader, shape ops "
           + json.dumps(zpar) + f" in {time.perf_counter() - t38:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 39. the symbolic BERT-base encoder trained by Module.fit
+    t39 = time.perf_counter()
+    sbert = sym_bert_phase(dev)
+    print("chip_smoke: symbolic BERT-base Module.fit " + json.dumps(sbert))
+    steps = sbert["steps"]
+    for row, counter in (("flash_attention_fwd_dropout",
+                          "flash_attention_fwd"),
+                         ("flash_attention_dq", "flash_attention_dq"),
+                         ("flash_attention_dkv", "flash_attention_dkv")):
+        kernels[row]["symbolic_bert_shape"]["launches"] = \
+            sbert["launches"][counter]
+        kernels[row]["symbolic_bert_shape"]["steps"] = steps
+    kernels["adam_update"]["symbolic_bert_launches"] = \
+        sbert["launches"]["adam_update"]
+    torch.cuda.empty_cache()
+
+    # 40. the symbolic encoder against models.bert's BERTModel
+    spar = sym_bert_parity_phase(dev)
+    print("chip_smoke: symbolic encoder vs BERTModel " + json.dumps(spar))
+    torch.cuda.empty_cache()
+
+    # 41. BucketingModule over lengths 64 and 128
+    sbuck = sym_bucketing_phase(dev)
+    print("chip_smoke: BucketingModule " + json.dumps(sbuck))
+    torch.cuda.empty_cache()
+
+    # 42. card vs CPU through Module.fit
+    sppar = sym_parity_phase(dev)
+    print("chip_smoke: card-vs-CPU Module.fit " + json.dumps(sppar))
+
+    # 43. the registry's kernel ops through sym == through nd
+    sops = sym_kernel_ops_phase(dev)
+    print("chip_smoke: kernel ops through sym " + json.dumps(sops))
+    kernels["int8_matmul"]["symbolic_launches"] = \
+        sops["quantized_dense_M8"]["int8_matmul"]
+    kernels["int8_matmul_wgmma"]["symbolic_launches"] = \
+        sops["quantized_dense_M512"]["int8_matmul_wgmma"]
+    kernels["box_nms"]["symbolic_launches"] = sops["box_nms"]["box_nms"]
+    print(f"chip_smoke: symbolic phases 39-43 in "
+          f"{time.perf_counter() - t39:.1f} s")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(

@@ -24,19 +24,53 @@ greedy NMS (`ops.detection_ops`) and scores them by VOC07 mAP
 (`metric`); it trains the vision model zoo (`gluon.model_zoo`) on
 `gluon.data` pipelines, and tokenizes text (`contrib.text`). MXNet's
 contexts (`with mx.cpu():`) choose the device of code that names none,
-so the repo's examples run unchanged through `run_example`.
+so the repo's examples run unchanged through `run_example`. MXNet's
+symbolic half is here too: the op registry by MXNet name (`ops`, behind
+`nd.<op>`, `NDArray.<op>` and `sym.<op>`), `sym` with its executor,
+`io`, `mod.Module` / `BucketingModule`, `callback`, `monitor` and
+`gluon.SymbolBlock`.
 """
-from . import (autograd, base, config, context, contrib, dataflow, gluon,
-               initializer, lr_scheduler, memsafe, metric, models, ndarray,
-               optimizer, pages, parallel, random, resilience, serve,
-               weights)
+from . import (attribute, autograd, base, config, context, contrib,
+               dataflow, gluon, initializer, lr_scheduler, memsafe, metric,
+               models, name, ndarray, optimizer, pages, parallel, random,
+               resilience, serve, weights)
+from . import initializer as init
 from . import ndarray as nd
+from .attribute import AttrScope
+from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
 from .parallel import current_mesh, make_mesh, moe_apply, moe_ffn
 
-__all__ = ["autograd", "base", "config", "context", "contrib", "dataflow",
-           "gluon", "initializer", "lr_scheduler", "memsafe", "metric",
-           "models", "nd", "ndarray", "optimizer", "pages", "parallel",
-           "random", "resilience", "serve", "weights", "Context", "cpu",
-           "gpu", "current_context", "num_gpus",
-           "make_mesh", "current_mesh", "moe_apply", "moe_ffn"]
+__all__ = ["attribute", "autograd", "base", "config", "context", "contrib",
+           "dataflow", "gluon", "init", "initializer", "lr_scheduler",
+           "memsafe", "metric", "models", "name", "nd", "ndarray",
+           "optimizer", "pages", "parallel", "random", "resilience", "serve",
+           "weights", "AttrScope", "MXNetError", "Context", "cpu", "gpu",
+           "current_context", "num_gpus", "make_mesh", "current_mesh",
+           "moe_apply", "moe_ffn"]
+
+# the symbolic half and its helpers, imported at first use under the JAX
+# package's names (`mxnet_tpu/__init__.py` `_LAZY`)
+_LAZY = {
+    "callback": ".callback",
+    "io": ".io",
+    "mod": ".module",
+    "module": ".module",
+    "model": ".module",
+    "sym": ".symbol",
+    "symbol": ".symbol",
+    "mon": ".monitor",
+    "monitor": ".monitor",
+    "executor": ".symbol.executor",
+    "registry": ".registry",
+}
+
+
+def __getattr__(name):
+    import importlib
+    if name in _LAZY:
+        mod = importlib.import_module(_LAZY[name], __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module 'mxnet_tpu_torch' has no attribute "
+                         f"'{name}'")

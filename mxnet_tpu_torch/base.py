@@ -1,11 +1,15 @@
 """Base utilities of the port (counterpart of `mxnet_tpu/base.py`): the
-name -> object `Registry` and `part_range`, copied (the port never
-imports the JAX package)."""
+framework's error type `MXNetError`, the name -> object `Registry` and
+`part_range`, copied (the port never imports the JAX package)."""
 from __future__ import annotations
 
 import threading
 
-__all__ = ["Registry", "part_range"]
+__all__ = ["MXNetError", "Registry", "part_range"]
+
+
+class MXNetError(RuntimeError):
+    """Framework error type (reference: `include/mxnet/base.h` dmlc::Error)."""
 
 
 def part_range(n, num_parts, part_index):

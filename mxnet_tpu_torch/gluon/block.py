@@ -131,7 +131,7 @@ class Block(torch.nn.Module):
             if getattr(p, "mx_deferred", False):
                 p.mx_init_requested = (initializer, generator)
                 continue
-            initializer.init_array(p.mx_name, p.data, generator)
+            _init._fill(initializer, p.mx_name, p.data, generator)
             p.mx_initialized = True
         return self
 

@@ -161,7 +161,8 @@ def finish_deferred(p, shape, device):
     p.mx_deferred = False
     init, generator = p.mx_init_requested
     p.mx_init_requested = None
-    init.init_array(p.mx_name, p.data, generator)
+    from .. import initializer as _init
+    _init._fill(init, p.mx_name, p.data, generator)
     p.mx_initialized = True
 
 

@@ -1,7 +1,7 @@
 """`mx.nd` namespace of the port (counterpart of `mxnet_tpu/ndarray/`):
-the NDArray, its constructors, the shape and indexing ops
-(`ops.shape_ops`: `nd.transpose`, `nd.concat`, ...), the detection ops,
-`RNN` and `ctc_loss` under the JAX registry's names and `nd.contrib`.
+the NDArray, its constructors, every op of the port's op registry
+(`ops.OPS`: `nd.transpose`, `nd.FullyConnected`, `nd.broadcast_add`,
+...) under the JAX registry's names, and `nd.contrib`.
 Any other `nd.<op>` raises `NotPortedError` (a NotImplementedError and
 an AttributeError) naming ROADMAP.md queue 1's "The eager MXNet
 surface"."""

@@ -18,18 +18,15 @@ equals "bfloat16" where ml_dtypes is missing), `size`,
 codes (0, -1, -2, -3, -4), `transpose(axes=...)`; arithmetic,
 comparisons (0/1 in the left operand's dtype, as MXNet's), `argmax`
 (float32 indices), `mean` and `sum` (with `axis`, `keepdims`,
-`exclude`), `repeat`; the shape and indexing ops of `ops.shape_ops`
-(`nd.transpose`, `nd.stack`, `nd.split`, `nd.take`, `nd.concat`, ...);
-the detection ops under the JAX
-registry's names (`_contrib_box_iou`, `_contrib_box_nms`,
-`_contrib_MultiBoxPrior`, `_contrib_MultiBoxTarget`,
-`_contrib_MultiBoxDetection`, `_contrib_ROIAlign`, `ROIPooling`,
-`_contrib_AdaptiveAvgPooling2D`, `_contrib_Proposal`; also as
-`nd.contrib.<name without _contrib_>`), which run `ops.detection_ops`
-on the held tensors; `nd.RNN` (`ops.rnn_ops.rnn`) and `nd.ctc_loss`
-with its aliases `CTCLoss`, `_contrib_ctc_loss` and `_contrib_CTCLoss`
-(`ops.misc_ops.ctc_loss`). Every registry op is also a method
-(`x.flip(axis=1)`), as in the JAX package. Any other op raises
+`exclude`), `repeat`; and every op of the port's one op registry
+(`ops.OPS`, by the JAX registry's names) as `nd.<name>` and as a
+method (`x.flip(axis=1)`), as in the JAX package: the elementwise,
+reduction, linear-algebra and ordering ops of `ops.math_ops`, the
+network ops of `ops.nn_ops` (`FullyConnected`, `SoftmaxOutput`, ...),
+the shape and indexing ops of `ops.shape_ops`, the detection ops
+(`_contrib_box_nms`, ...; also as `nd.contrib.<name without
+_contrib_>`), `RNN` and `ctc_loss` with its aliases; `out=` writes
+the result into an NDArray. Any other op raises
 `NotPortedError`, a NotImplementedError naming ROADMAP.md queue 1's
 "The eager MXNet surface" that is also an AttributeError, so `hasattr`
 and `getattr(x, name, None)` treat it as a missing attribute.
@@ -61,7 +58,6 @@ import numpy as np
 import torch
 
 from .. import context
-from ..ops import shape_ops
 from .params_io import is_params_file, load_params, save_params
 
 __all__ = ["NDArray", "NotPortedError", "array", "zeros", "ones", "full",
@@ -145,7 +141,7 @@ class NDArray:
     def __getattr__(self, name):
         if name.startswith("_"):
             raise AttributeError(name)
-        if name in OPS:
+        if name in _registry():
             return functools.partial(registry_op(name), self)
         raise NotPortedError(f"NDArray.{name} {_NOT_PORTED}")
 
@@ -259,6 +255,7 @@ class NDArray:
             raise NotPortedError(f"reshape({sorted(kwargs)}) {_NOT_PORTED}")
         if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
             shape = shape[0]
+        from ..ops import shape_ops
         return NDArray(shape_ops.reshape(self._t, shape))
 
     def transpose(self, *axes, **kwargs):
@@ -269,6 +266,7 @@ class NDArray:
             raise NotPortedError(f"transpose({sorted(kwargs)}) {_NOT_PORTED}")
         if axes and len(axes) == 1 and isinstance(axes[0], (tuple, list)):
             axes = axes[0]
+        from ..ops import shape_ops
         return NDArray(shape_ops.transpose(self._t, axes))
 
     # -- reductions --------------------------------------------------------
@@ -301,6 +299,7 @@ class NDArray:
     def repeat(self, repeats, axis=None):
         """Each element `repeats` times along `axis` (the flattened
         array when None), as `jnp.repeat`."""
+        from ..ops import shape_ops
         return NDArray(shape_ops.repeat(self._t, repeats, axis))
 
     def argmax(self, axis=None, keepdims=False):
@@ -520,23 +519,11 @@ def load(fname, ctx=None):
     return out[0] if kind == "single" else out
 
 
-# the JAX registry's names of the ported ops -> (module of ops/, function)
-OPS = {"_contrib_box_iou": ("detection_ops", "box_iou"),
-       "_contrib_box_nms": ("detection_ops", "box_nms"),
-       "_contrib_MultiBoxPrior": ("detection_ops", "multibox_prior"),
-       "_contrib_MultiBoxTarget": ("detection_ops", "multibox_target"),
-       "_contrib_MultiBoxDetection": ("detection_ops", "multibox_detection"),
-       "_contrib_ROIAlign": ("detection_ops", "roi_align"),
-       "ROIPooling": ("detection_ops", "roi_pooling"),
-       "_contrib_AdaptiveAvgPooling2D": ("detection_ops",
-                                         "adaptive_avg_pooling"),
-       "_contrib_Proposal": ("detection_ops", "proposal"),
-       "RNN": ("rnn_ops", "rnn"),
-       "ctc_loss": ("misc_ops", "ctc_loss"),
-       "CTCLoss": ("misc_ops", "ctc_loss"),
-       "_contrib_ctc_loss": ("misc_ops", "ctc_loss"),
-       "_contrib_CTCLoss": ("misc_ops", "ctc_loss")}
-OPS.update({name: ("shape_ops", fn) for name, fn in shape_ops.NAMES.items()})
+def _registry():
+    """The op registry (`ops.OPS`), imported at first use: `ops` imports
+    modules that import this one."""
+    from .. import ops
+    return ops.OPS
 
 
 def _wrap(out):
@@ -548,27 +535,25 @@ def _wrap(out):
 def registry_op(name):
     """The registry op `name` on NDArrays: the port's op on the held
     tensors (positional and keyword arguments alike), NDArray (or a
-    tuple of them) out."""
-    import importlib
-    mod, attr = OPS[name]
-    fn = getattr(importlib.import_module(f"mxnet_tpu_torch.ops.{mod}"), attr)
+    tuple of them) out. `out=` writes the result into that NDArray."""
+    fn = _registry()[name]
 
-    def op(*args, **kwargs):
-        return _wrap(fn(*[_unwrap(a) for a in args],
-                        **{k: _unwrap(v) for k, v in kwargs.items()}))
+    def op(*args, out=None, **kwargs):
+        res = _wrap(fn(*[_unwrap(a) for a in args],
+                       **{k: _unwrap(v) for k, v in kwargs.items()}))
+        if out is None:
+            return res
+        out._t = res._t
+        return out
     op.__name__ = name
     op.__doc__ = fn.__doc__
     return op
 
 
-# nd.<op> for the shape ops, as module attributes (the JAX package's
-# module namespace holds every registry op)
-globals().update({name: registry_op(name) for name in shape_ops.NAMES})
-__all__ += list(shape_ops.NAMES)
-
-
 def __getattr__(name):
-    if name in OPS:
+    if name == "OPS":
+        return _registry()
+    if name in _registry():
         return registry_op(name)
     if name.startswith("_") and not name.startswith("_contrib_"):
         raise AttributeError(name)

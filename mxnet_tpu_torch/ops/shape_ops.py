@@ -5,8 +5,9 @@ broadcasts, tile, repeat, pad, stack, concat, split, split_v2, the
 slices, reverse, where, take, pick, gather_nd, scatter_nd and one_hot;
 then diag, shape_array, size_array, the `*_like` constructors, the
 sequence ops, boolean_mask and reshape_like. `NAMES` maps each JAX
-registry name (aliases included) to its function here; `nd.<name>` and
-`NDArray.<name>` reach them through `ndarray.OPS`.
+registry name (aliases included) to its function here; the op registry
+(`ops.OPS`) holds them under those names, for `nd.<name>`,
+`NDArray.<name>` and `sym.<name>`.
 
 The ops only move data, except one_hot's arithmetic and where's dtype
 promotion, so their outputs equal the JAX ops' bit for bit. `reshape`

@@ -1633,3 +1633,49 @@ def test_shape_ops_on_card_equal_cpu(dev, name):
     g = g if isinstance(g, tuple) else (g,)
     c = c if isinstance(c, tuple) else (c,)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(g, c))
+
+
+def test_symbolic_executor_flash_path_on_card_matches_cpu(dev):
+    """The executor's flash path: a 2-layer symbolic encoder (chip_smoke's
+    `bert_symbol`, float32, dropout 0) bound on the card and on the CPU
+    to the same weights: forward outputs and every gradient within 1e-4,
+    and one forward + backward on the card launches exactly one flash
+    forward, dq and dkv a layer."""
+    import chip_smoke
+    from mxnet_tpu_torch import nd
+    tiny = dict(V=128, E=64, F=128, H=4, layers=2, max_len=64)
+    _, loss = chip_smoke.bert_symbol(L=32, p=0.0, attn_p=0.0, **tiny)
+    b = chip_smoke.sym_bert_batch(4, 32, 5, 128)
+    rs = np.random.RandomState(0)
+    shapes, _, _ = loss.infer_shape(**{k: b[k].shape for k in b})
+    args = {n: (b[n] if n in b else rs.normal(0, 0.1, s).astype(np.float32))
+            for n, s in zip(loss.list_arguments(), shapes)}
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        ex = loss.bind(ctx=d, args={n: nd.array(v, ctx=d)
+                                    for n, v in args.items()},
+                       args_grad={n: nd.zeros(v.shape, ctx=d)
+                                  for n, v in args.items() if n not in b})
+        chip_smoke.reset_counts()
+        out = ex.forward(is_train=True)[0].asnumpy()
+        ex.backward()
+        res[d.type] = (out, {n: g.asnumpy() for n, g in ex.grad_dict.items()
+                             if g is not None}, chip_smoke.read_counts())
+    (o_c, g_c, counts), (o_h, g_h, _) = res["cuda"], res["cpu"]
+    assert counts == chip_smoke.expect(flash_attention_fwd=2,
+                                       flash_attention_dq=2,
+                                       flash_attention_dkv=2)
+    np.testing.assert_allclose(o_c, o_h, atol=1e-4)
+    for n in g_h:
+        np.testing.assert_allclose(g_c[n], g_h[n], atol=1e-4, err_msg=n)
+
+
+def test_symbolic_module_fit_and_kernel_ops_on_card(dev):
+    """chip_smoke's phases 42-43: Module.fit card vs CPU (an MLP with
+    BatchNorm and a 2-layer encoder, each under SGD and under Adam:
+    weights within TOL_TRAIN, exact launches a step), and the quantized
+    dense and box_nms registry ops through `sym` equal to `nd` bit for
+    bit, each launching its kernel."""
+    import chip_smoke
+    chip_smoke.sym_parity_phase(dev)
+    chip_smoke.sym_kernel_ops_phase(dev)

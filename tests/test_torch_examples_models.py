@@ -1,6 +1,7 @@
 """PyTorch port: `examples/nmt/train_transformer.py`,
 `examples/detection/train_yolo.py`, `examples/timeseries/
-train_deepar.py` and `examples/ocr/train_crnn.py`, unchanged, through
+train_deepar.py`, `examples/ocr/train_crnn.py` and
+`examples/module_api/train_mnist_module.py`, unchanged, through
 `run_example --device cpu` at a few steps, as
 `test_torch_examples_runner.py` runs them: exit 0, no module of the JAX
 package loaded, finite numbers, the lines that depend on no random
@@ -42,3 +43,12 @@ def test_crnn_ocr():
     held = [l for l in lines if l.startswith("held-out exact-match ")]
     assert len(held) == 1 and held[0].endswith(" on 128 strings")
     numbers(lines)
+
+
+def test_train_mnist_module():
+    """The classic symbolic loop: Symbol -> Module.fit with NDArrayIter,
+    Xavier, SGD, the Speedometer callback, then score."""
+    lines, _ = run_example("examples/module_api/train_mnist_module.py",
+                           "--epochs", "1", "--batch-size", "256")
+    assert lines[-1].startswith("final validation: {'accuracy': ")
+    assert 0.0 <= numbers(lines[-1:])[-1] <= 1.0

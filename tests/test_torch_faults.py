@@ -135,7 +135,7 @@ def test_fault11_hasattr_of_unknown_names(pkg):
 
 def test_fault11_not_ported_still_names_the_item():
     x = nd_t.array([1.0, 2.0], ctx=CPU)
-    for obj, name in ((x, "softmax"), (nd_t, "softmax")):
+    for obj, name in ((x, "smooth_l1"), (nd_t, "smooth_l1")):
         with pytest.raises(NotImplementedError,
                            match="The eager MXNet surface"):
             getattr(obj, name)

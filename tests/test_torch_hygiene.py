@@ -93,6 +93,50 @@ def test_examples_slice_modules_stand_alone():
     assert out.returncode == 0, out.stderr
 
 
+_SYMBOLIC_SLICE = ["symbol", "symbol.executor", "symbol.contrib", "module",
+                   "io", "callback", "monitor", "name", "attribute",
+                   "registry", "ops", "ops.math_ops", "gluon.symbol_block"]
+
+
+def _module_path(module):
+    path = os.path.join(PKG, *module.split(".")) + ".py"
+    if not os.path.exists(path):
+        path = os.path.join(PKG, *module.split("."), "__init__.py")
+    return path
+
+
+@pytest.mark.parametrize("module", _SYMBOLIC_SLICE)
+def test_symbolic_slice_module_imports_no_jax(module):
+    """Each module of MXNet's symbolic half (the op registry, symbol with
+    its executor, module, io, callback, monitor, name, attribute,
+    registry, SymbolBlock) is among the checked sources and imports no
+    JAX."""
+    path = _module_path(module)
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
+
+
+def test_symbolic_slice_modules_stand_alone():
+    """Loaded one after the other, the symbolic half's modules pull in no
+    JAX (so none does alone), nor do the package's lazy aliases
+    (`mx.sym`, `mx.mod`, ...)."""
+    code = ("import importlib, sys\n"
+            f"for m in {_SYMBOLIC_SLICE!r}:\n"
+            "    importlib.import_module('mxnet_tpu_torch.' + m)\n"
+            "    bad = [k for k in sys.modules if k.split('.')[0] in "
+            f"{_FORBIDDEN!r}]\n"
+            "    assert not bad, (m, bad)\n"
+            "import mxnet_tpu_torch as mx\n"
+            "mx.sym, mx.mod, mx.io, mx.callback, mx.mon, mx.executor\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            f"{_FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, importlib, pkgutil\n"
             "import mxnet_tpu_torch as m\n"
