@@ -221,7 +221,34 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      equal;
  43. the registry's kernel ops through `sym`: `_contrib_quantized_dense`
      (M = 8 and 512) and `_contrib_box_nms` bound and run, equal bit for
-     bit to the same ops through `nd`, each launching its kernel.
+     bit to the same ops through `nd`, each launching its kernel;
+ 44. eager BERT-base pretraining as GluonNLP's `run_pretraining.py`
+     runs it (`eager_bert_phase`): `models.bert.BERTForPretraining` at
+     `bert_base_config` (float32, TF32 off, dropout 0.1) with the
+     masked-LM and NSP heads, `autograd.record()`, `loss.backward()`,
+     `gluon.Trainer(..., "lamb", lr 1e-4, wd 0.01).step(1)` at 32 x 128
+     with 20 masked a row: 2 warm-up + 10 timed steps, then one under
+     torch.profiler; exactly 12 flash forwards, 12 dq, 12 dkv and one
+     launch of each LAMB pass a step (LAMB's eager `update_multi` over
+     `FusedLamb`'s flat layout); losses finite and falling; then 2
+     steps of a 2-layer float32 BERT (dropout 0) on the card and on the
+     CPU from the same weights: losses and parameters within 1e-5;
+ 45. the optimizers on the card (`eager_optimizers_phase`): each of
+     the 17 registered ones takes 3 `update`s through NDArrays on the
+     card and on the CPU from the same weight and gradients (weight and
+     state within 1e-5 of the largest |CPU value|; SGLD, which draws
+     noise, samples around the mode of a
+     quadratic as `test_sgld_samples_around_mode` asks); LAMB's eager
+     kernel route against its plain version on the card at BERT-base's
+     word embedding (30,522 x 768, within TOL_LAMB), timed (device and
+     events ms) beside the bound of the update's bytes; `nd.adam_update`
+     by name makes one Adam launch and equals `Adam.update` bit for
+     bit;
+ 46. the JAX package's unit-test files of `tests/test_torch_jax_unittests.py`
+     (`FILES`), unchanged, each in a process of its own through
+     `python -m mxnet_tpu_torch.run_example --pytest` with the card as
+     the default device, all at once: each must pass the tests it
+     passes on the CPU and fail only the named exclusions.
 
 Phase 1 also holds the training kernels against their plain versions at
 the training shapes: the flash forward with dropout 0.1 (its keep mask
@@ -5834,7 +5861,7 @@ def loader_rate(num_workers, batch=128, epochs=3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         for x, y in loader:
-            check(x.shape == (batch, 32, 32, 3) and x.context.type == "cuda",
+            check(x.shape == (batch, 32, 32, 3) and x.context.device_type == "gpu",
                   f"loader batch {x.shape} on {x.context}")
             n += epoch > 0
     torch.cuda.synchronize()
@@ -5850,8 +5877,8 @@ def examples_phase(dev):
     momentum 0.9 wd 1e-4), gpt/generate.py at its defaults (200 Adam
     steps, then `generate` of 16 tokens: exactly one Adam launch per
     weight dtype a step, the flash forward at least once), the others at
-    small step counts, three processes at a time (the first two alone:
-    their rates are read); train_mnist_module.py at its defaults binds
+    small step counts, all at once (the first two alone: their rates are
+    read); train_mnist_module.py at its defaults binds
     with context=mx.cpu(): it launches nothing and prints its final
     validation accuracy. Then the CIFAR-10 DataLoader alone on the
     card, num_workers 0 and 2. Examples that cannot run here are listed
@@ -5862,7 +5889,8 @@ def examples_phase(dev):
     with tempfile.TemporaryDirectory(prefix="mxt_examples_") as tmp:
         runs = [(path, tuple(a.format(tmp=tmp) for a in args))
                 for path, args in EXAMPLES]
-        results = run_examples(runs[:2]) + run_examples(runs[2:], width=3)
+        results = run_examples(runs[:2]) + run_examples(runs[2:],
+                                                        width=len(runs) - 2)
         for (path, args), (lines, res, secs) in zip(runs, results):
             counts = {k: v for k, v in res["launches"].items() if v}
             for key in EXAMPLE_KERNELS.get(path, ()):
@@ -6765,6 +6793,363 @@ def sym_flash_phase(dev, B=32, H=12, L=128, D=64, p=0.1,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 44-46: MXNet's eager surface
+# ---------------------------------------------------------------------------
+
+class EagerBertLoop:
+    """The eager step of GluonNLP's `run_pretraining.py` on the port:
+    `autograd.record()`, the model on NDArrays, `bert_pretrain_loss`,
+    `backward()`, `gluon.Trainer.step(1)`; `step(data, labels)` as
+    `timed_steps` calls a trainer."""
+
+    def __init__(self, model, optimizer_params):
+        from mxnet_tpu_torch import gluon
+        from mxnet_tpu_torch.models import bert
+        self.model = model
+        self.loss_fn = bert.bert_pretrain_loss
+        self.trainer = gluon.Trainer(model.collect_params(), "lamb",
+                                     dict(optimizer_params))
+
+    def step(self, data, labels):
+        from mxnet_tpu_torch import autograd
+        with autograd.record():
+            mlm, nsp = self.model(*data)
+            loss = self.loss_fn(mlm, nsp, *labels)
+        loss.backward()
+        self.trainer.step(1)
+        return loss.detach()
+
+
+def eager_bert_arrays(cfg, batch, seq_len, masked, device, seed=0):
+    """(data, labels) of a synthetic pretraining batch as NDArrays."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.models import bert
+    b = bert.make_synthetic_batch(cfg, batch, seq_len, masked, seed=seed)
+    ctx = "cpu" if str(device) == "cpu" else None
+    return ([nd.array(b[k], ctx=ctx) for k in _DATA],
+            [nd.array(b[k], ctx=ctx) for k in _LABELS])
+
+
+def eager_bert_phase(dev, batch=32, seq_len=128, masked=20, warmup=2,
+                     steps=10, **cfg_overrides):
+    """Phase 44: eager BERT-base pretraining with `gluon.Trainer(...,
+    "lamb")` (see the module docstring). Returns (the result, the launch
+    counts of the timed steps); `cfg_overrides` cut it for a rehearsal
+    on the CPU."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import bert
+    cfg = bert.bert_base_config(**cfg_overrides)
+    model = build_bert(cfg, 0, dev)
+    loop = EagerBertLoop(model, {"learning_rate": 1e-4, "wd": 0.01})
+    data, labels = eager_bert_arrays(cfg, batch, seq_len, masked, dev)
+    losses, counts, timing = timed_steps(loop, data, labels, warmup, steps)
+    check(np.isfinite(losses).all(), f"eager BERT-base losses {losses}")
+    check(losses[-1] < losses[0], f"eager BERT-base loss did not fall: "
+          f"{losses}")
+    L = cfg["num_layers"]
+    want = expect(flash_attention_fwd=L * steps, flash_attention_dq=L * steps,
+                  flash_attention_dkv=L * steps, lamb_pass1=steps,
+                  lamb_pass2=steps)
+    check(counts == want, f"eager BERT-base launches {counts} != {want}")
+    params = loop.trainer._params
+    res = {"model": "bert_base_config(float32, dropout 0.1), masked-LM + NSP"
+                    " heads, gluon.Trainer lamb lr 1e-4 wd 0.01",
+           "batch": batch, "seq_len": seq_len, "masked": masked,
+           "tokens_per_s": batch * seq_len * steps / timing["seconds"],
+           "param_count": sum(p.numel() for p in params),
+           "tensors": len(params), "losses": losses, **timing}
+    del loop, model
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def eager_bert_parity_phase(dev, steps=2, batch=8, seq_len=128, masked=20):
+    """A 2-layer float32 BERT at BERT-base's widths (dropout 0) trained
+    `steps` eager LAMB steps on the card (flash kernels, both LAMB
+    passes) and on the CPU (plain versions) from the same weights: the
+    losses and every parameter within 1e-5."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import bert
+    cfg = bert.bert_base_config(num_layers=2, dropout=0.0)
+    out = {}
+    for where in ("cpu", "cuda"):
+        model = build_bert(cfg, 7, "cpu")
+        model.to(where)
+        loop = EagerBertLoop(model, {"learning_rate": 1e-4, "wd": 0.01})
+        data, labels = eager_bert_arrays(cfg, batch, seq_len, masked,
+                                         where, seed=3)
+        reset_counts()
+        losses = [float(loop.step(data, labels)) for _ in range(steps)]
+        counts = read_counts()
+        out[where] = (losses, {k: p.detach().cpu() for k, p in
+                               model.collect_params().items()}, counts)
+        del loop, model
+    lc, wc, cc = out["cpu"]
+    lg, wg, counts = out["cuda"]
+    e_loss = float(np.abs(np.subtract(lg, lc)).max())
+    e_w = max(max_err(wg[k], wc[k]) for k in wc)
+    check(e_loss <= 1e-5 and e_w <= 1e-5,
+          f"eager LAMB card vs CPU: losses {lg} vs {lc}, params err {e_w}")
+    want = expect(flash_attention_fwd=2 * steps, flash_attention_dq=2 * steps,
+                  flash_attention_dkv=2 * steps, lamb_pass1=steps,
+                  lamb_pass2=steps)
+    check(counts == want, f"eager parity launches {counts} != {want}")
+    check(not any(cc.values()), f"CPU run launched kernels {cc}")
+    torch.cuda.empty_cache()
+    return {"losses_card": lg, "losses_cpu": lc, "max_loss_err": e_loss,
+            "max_param_err": e_w, "launches": counts}
+
+
+# the 17 optimizers of `optimizer.create`, with the options phase 45 sets
+EAGER_OPTIMIZERS = (
+    ("sgd", dict(learning_rate=0.1, momentum=0.9, wd=0.01)),
+    ("nag", dict(learning_rate=0.1, momentum=0.9)),
+    ("adam", dict(learning_rate=0.01, wd=0.01)),
+    ("adamw", dict(learning_rate=0.01, wd=0.1)),
+    ("lamb", dict(learning_rate=0.01, wd=0.01)),
+    ("adagrad", dict(learning_rate=0.1, wd=0.01)),
+    ("rmsprop", dict(learning_rate=0.01, centered=True)),
+    ("ftrl", dict(learning_rate=0.1, wd=0.01)),
+    ("signum", dict(learning_rate=0.01, wd_lh=0.01)),
+    ("signsgd", dict(learning_rate=0.01)),
+    ("lars", dict(learning_rate=0.1, wd=0.01)),
+    ("adamax", dict(learning_rate=0.01)),
+    ("nadam", dict(learning_rate=0.01, wd=0.01)),
+    ("adadelta", dict(rho=0.9, epsilon=1e-4)),
+    ("dcasgd", dict(learning_rate=0.1, momentum=0.9)),
+    ("sgld", dict(learning_rate=0.05)),
+    ("ftml", dict(learning_rate=0.05)),
+)
+
+
+def optimizer_updates(name, kw, w, gs, ctx):
+    """(weight, state arrays, launch counts) after len(gs) `update`s of
+    one optimizer through NDArrays on `ctx`."""
+    from mxnet_tpu_torch import nd, optimizer
+    o = optimizer.create(name, **kw)
+    weight = nd.array(w, ctx=ctx)
+    state = o.create_state(0, weight)
+    reset_counts()
+    for g in gs:
+        o.update(0, weight, nd.array(g, ctx=ctx), state)
+    counts = read_counts()
+    parts = state if isinstance(state, tuple) else (state,)
+    check(all(s is None or isinstance(s, nd.NDArray) for s in parts),
+          f"{name} states {[type(s) for s in parts]}")
+    return (weight.asnumpy(), [s.asnumpy() for s in parts if s is not None],
+            counts)
+
+
+def sgld_samples(ctx, steps=400):
+    """SGLD on the quadratic of `test_sgld_samples_around_mode`."""
+    import numpy as np
+    from mxnet_tpu_torch import nd, optimizer
+    from mxnet_tpu_torch import random as mxrandom
+    mxrandom.seed(0, ctx)
+    target = np.array([1.0, -2.0], np.float32)
+    w = nd.array(np.zeros(2, np.float32), ctx=ctx)
+    o = optimizer.create("sgld", learning_rate=0.05)
+    samples = []
+    for step in range(steps):
+        o.update(0, w, nd.array(w.asnumpy() - target, ctx=ctx), None)
+        if step > 200:
+            samples.append(w.asnumpy().copy())
+    samples = np.asarray(samples)
+    return {"max_dist_to_mode": float(np.abs(samples - target).max()),
+            "min_std": float(np.std(samples, axis=0).min()),
+            "finite": bool(np.isfinite(samples).all())}
+
+
+class plain_lamb_passes:
+    """Within the block the LAMB passes run their plain versions on any
+    device (`fused_update.lamb_pass*` replaced by `lamb_pass*_reference`):
+    the plain side of the eager route's check."""
+
+    def __enter__(self):
+        from mxnet_tpu_torch.cuda_ops import fused_update as fu
+        self.saved = (fu.lamb_pass1, fu.lamb_pass2)
+        fu.lamb_pass1 = fu.lamb_pass1_reference
+        fu.lamb_pass2 = fu.lamb_pass2_reference
+        return self
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch.cuda_ops import fused_update as fu
+        fu.lamb_pass1, fu.lamb_pass2 = self.saved
+        return False
+
+
+# phase 45's LAMB route shape: BERT-base's word embedding
+EAGER_ROUTE_SHAPE = (30522, 768)
+
+
+def eager_lamb_route(dev, shape=None, seed=0):
+    """LAMB's eager `update` (the kernel route) against the same update
+    with the plain passes, on the card, at `shape` (BERT-base's word
+    embedding), 3 steps from the same state; then one update timed:
+    CUDA events around the whole update (`time_ms`: the copies into and
+    out of the flat layout, both passes, the segment sums) and profiler
+    device time of the two passes, against the bound of the bytes the
+    update must move (w, g, m, v read once, w, m, v written once, all
+    float32)."""
+    import torch
+    from mxnet_tpu_torch import nd, optimizer
+    shape = shape or EAGER_ROUTE_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    w0 = torch.randn(shape, generator=gen, device=dev) * 0.02
+    gs = [torch.randn(shape, generator=gen, device=dev) * 1e-3
+          for _ in range(3)]
+    runs = {}
+    for route in ("kernel", "plain"):
+        o = optimizer.create("lamb", learning_rate=1e-4, wd=0.01)
+        w = nd.array(w0.clone(), ctx=dev)
+        st = o.create_state(0, w)
+        reset_counts()
+        if route == "plain":
+            with plain_lamb_passes():
+                for g in gs:
+                    o.update(0, w, nd.array(g, ctx=dev), st)
+        else:
+            for g in gs:
+                o.update(0, w, nd.array(g, ctx=dev), st)
+        torch.cuda.synchronize()
+        runs[route] = (w._t.clone(), [s._t.clone() for s in st],
+                       read_counts(), o, w, st)
+    wk, sk, ck, o, w, st = runs["kernel"]
+    wp, sp, cp = runs["plain"][:3]
+    err = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+              for a, b in [(wk, wp)] + list(zip(sk, sp)))
+    check(err <= TOL_LAMB, f"eager LAMB route vs plain: relative err {err}")
+    check(ck == expect(lamb_pass1=3, lamb_pass2=3),
+          f"eager LAMB launches {ck}")
+    check(cp == expect(), f"plain eager LAMB launched kernels {cp}")
+    g = nd.array(gs[0], ctx=dev)
+
+    def step():
+        o.update(0, w, g, st)
+    n = w0.numel()
+    nbytes = 7 * 4 * n                     # w, g, m, v in; w, m, v out
+    b_ms, b_by = bound(nbytes, 30 * n, F32_FLOPS)
+    ms = time_ms(step)
+    # the profiler drops some records of an update's ~23 kernels and
+    # copies, so each pass is timed as the mean of its kept records
+    kms = sum(device_ms(step, match=k, per_kernel=True)
+              for k in ("lamb1_kernel", "lamb2_kernel"))
+    with plain_lamb_passes():
+        plain = time_ms(step, iters=5)
+    return {"shape": list(shape), "elements": n, "max_abs_err": err,
+            "error_is": "relative to the largest |plain| over w, m, v "
+                        "after 3 updates",
+            "launches_per_update": {"lamb_pass1": 1, "lamb_pass2": 1},
+            "ms": ms, "device_ms": kms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes_per_call": nbytes,
+            "bound_share_device": b_ms / kms, "library_ms": None,
+            "times_are": "ms: CUDA events around one update (L2 flushed; "
+                         "the flat copies and the host's part included); "
+                         "device_ms: torch.profiler device time of the two "
+                         "passes"}
+
+
+def eager_optimizers_phase(dev, shape=(256, 384), steps=3, seed=0):
+    """Phase 45 (see the module docstring)."""
+    import math
+
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import nd, optimizer
+    rng = np.random.RandomState(seed)
+    w = rng.randn(*shape).astype(np.float32)
+    gs = [rng.randn(*shape).astype(np.float32) for _ in range(steps)]
+    rows = {}
+    for name, kw in EAGER_OPTIMIZERS:
+        if name == "sgld":
+            card, cpu = sgld_samples(dev), sgld_samples("cpu")
+            for r in (card, cpu):
+                check(r["finite"] and r["max_dist_to_mode"] < 5.0
+                      and r["min_std"] > 0.01, f"SGLD samples {r}")
+            rows[name] = {"card": card, "cpu": cpu}
+            continue
+        wg, sg, counts = optimizer_updates(name, kw, w, gs, dev)
+        wc, sc, _ = optimizer_updates(name, kw, w, gs, "cpu")
+        err = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                  for a, b in [(wg, wc)] + list(zip(sg, sc)))
+        check(err <= 1e-5, f"optimizer {name} card vs CPU: relative err "
+              f"{err}")
+        check(not np.allclose(wg, w), f"optimizer {name} did not move")
+        rows[name] = {"max_rel_err": err,
+                      "launches": {k: v for k, v in counts.items() if v}}
+    check(rows["adam"]["launches"] == {"adam_update": steps}
+          and rows["lamb"]["launches"] == {"lamb_pass1": steps,
+                                           "lamb_pass2": steps},
+          f"optimizer launches {rows['adam']}, {rows['lamb']}")
+    # nd.adam_update by name: one Adam launch, Adam.update's result
+    t = 1
+    o = optimizer.create("adam", learning_rate=0.01, wd=0.01)
+    wt, gt = nd.array(w, ctx=dev), nd.array(gs[0], ctx=dev)
+    st = o.create_state(0, wt)
+    reset_counts()
+    nw, nm, nv = nd.adam_update(
+        wt, gt, st[0], st[1],
+        0.01 * math.sqrt(1.0 - 0.999 ** t) / (1.0 - 0.9 ** t), wd=0.01)
+    by_name = read_counts()
+    o.update(0, wt, gt, st)
+    torch.cuda.synchronize()
+    bit_equal = all(torch.equal(a._t, b._t) for a, b in
+                    ((nw, wt), (nm, st[0]), (nv, st[1])))
+    check(by_name == expect(adam_update=1), f"nd.adam_update {by_name}")
+    check(bit_equal, "nd.adam_update != Adam.update")
+    rows["nd.adam_update"] = {"launches": 1, "bit_equal_to_Adam_update":
+                              bit_equal}
+    route = eager_lamb_route(dev)
+    torch.cuda.empty_cache()
+    return rows, route
+
+
+def jax_unittests_phase(width=12, timeout=300):
+    """Phase 46: the JAX package's unit-test files of
+    `tests/test_torch_jax_unittests.py`, each through `run_example
+    --pytest` on the card (no --device) in a process of its own, `width`
+    at a time. Each must fail exactly its CPU exclusions."""
+    import concurrent.futures
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_jax_unittests import FILES
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+
+    def run(name):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "mxnet_tpu_torch.run_example", "--pytest",
+             f"tests/unittest/{name}", "-p", "no:xdist"], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=timeout)
+        lines = out.stdout.strip().splitlines()
+        try:
+            res = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            check(False, f"{name}: no result line: {out.stdout[-2000:]} "
+                  f"{out.stderr[-2000:]}")
+        res["seconds"] = time.perf_counter() - t0
+        return res
+
+    with concurrent.futures.ThreadPoolExecutor(width) as pool:
+        results = dict(zip(FILES, pool.map(run, FILES)))
+    rows, wrong = {}, {}
+    for name, res in results.items():
+        total, excluded = FILES[name]
+        failed = sorted(f.split("::")[-1] for f in res["failures"])
+        rows[name] = {"passed": res["passed"], "failed": failed,
+                      "seconds": res["seconds"],
+                      "launches": {k: v for k, v in res["launches"].items()
+                                   if v}}
+        if failed != sorted(excluded) or \
+                res["passed"] != total - len(excluded):
+            wrong[name] = (res["passed"], total, res["failures"])
+    check(not wrong, f"JAX unit-test files on the card: {wrong}")
+    return rows
+
+
 def main():
     try:
         import torch
@@ -6826,6 +7211,13 @@ def main():
         print(smi or "nvidia-smi: no output")
         return 0
     t_start = time.perf_counter()
+
+    def lap(phase):
+        """When each phase starts: the script's time budget, phase by
+        phase."""
+        print(f"chip_smoke: phase {phase} starts at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     sys.path.insert(0, ROOT)
     import numpy as np
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6867,6 +7259,7 @@ def main():
               and len(pg) == 4 and all(m["UBLKCP"] > 0 for m in pg.values()),
               f"int8 wgmma / paged kernels' SASS {mix8}")
 
+    lap("1")
     # 1. kernels against their plain versions
     kernels = {"paged_attention": paged_phase(dev),
                "flash_attention_fwd": flash_phase(dev)}
@@ -6933,6 +7326,7 @@ def main():
               f"library {lib}, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']})")
 
+    lap("2")
     # 2. serving at full width, bfloat16
     model = build_model(gpt.gpt2_117m_config(dtype="bfloat16"), seed=0)
     reset_counts()
@@ -6962,6 +7356,7 @@ def main():
     print("chip_smoke: a context-filling request beside a prefilling peer "
           "served 200 ok")
 
+    lap("3")
     # 3. pages="on" == pages="off" in float32
     model32 = build_model(gpt.gpt2_117m_config(), seed=1)
     rng = np.random.RandomState(1)
@@ -6974,6 +7369,7 @@ def main():
     check(on == off, f"pages on {on} != off {off}")
     print("chip_smoke: float32 pages=on tokens == pages=off tokens")
 
+    lap("4")
     # 4. generate: flash prefill
     gp = np.random.RandomState(2).randint(0, 50257, (4, 100)).astype(np.int32)
     sync(model)
@@ -6996,12 +7392,14 @@ def main():
     check(gen32.tolist() == off, f"generate {gen32.tolist()} != serve {off}")
     print("chip_smoke: float32 generate tokens == pages=off server tokens")
 
+    lap("5")
     # 5. where a steady decode round's time goes
     br = breakdown_phase(model)
     print("chip_smoke: breakdown " + json.dumps(br))
     del model, model32
     torch.cuda.empty_cache()
 
+    lap("6")
     # 6. BERT-base pretraining steps
     train, counts = training_phase(dev)
     print("chip_smoke: training " + json.dumps(train))
@@ -7012,20 +7410,24 @@ def main():
                  "lamb_pass2"):
         kernels[name]["launches"] = counts[name]
 
+    lap("7")
     # 7. float32 training on the card == on the CPU
     parity = train_parity_phase(dev)
     print("chip_smoke: card-vs-CPU training " + json.dumps(parity))
 
+    lap("8")
     # 8. GPT-2 117M pretraining steps with Adam
     gtrain, counts, gmodel, gtrainer = gpt_pretrain_phase(dev)
     print("chip_smoke: GPT-2 training " + json.dumps(gtrain))
     print(f"chip_smoke: GPT-2 training launches {counts}")
     kernels["adam_update"]["launches"] = counts["adam_update"]
 
+    lap("9")
     # 9. float32 Adam and AdamW on the card == on the CPU
     aparity = adam_parity_phase(dev)
     print("chip_smoke: card-vs-CPU Adam/AdamW " + json.dumps(aparity))
 
+    lap("10")
     # 10. the trained model, quantized to int8, serving
     gtrainer.sync_to_block()
     del gtrainer
@@ -7040,6 +7442,7 @@ def main():
     narrow = int8_narrow_phase(dev)
     print("chip_smoke: int8 float32 narrow model " + json.dumps(narrow))
 
+    lap("11")
     # 11. the Switch-FFN LM at full width, Adam
     switch, counts = switch_phase(dev)
     torch.cuda.empty_cache()
@@ -7048,11 +7451,13 @@ def main():
     for name in ("moe_dispatch", "moe_combine"):
         kernels[name]["launches"] = counts[name]
 
+    lap("12")
     # 12. a float32 Switch LM on the card == on the CPU
     sparity = switch_parity_phase(dev)
     print("chip_smoke: card-vs-CPU Switch LM " + json.dumps(sparity))
     torch.cuda.empty_cache()
 
+    lap("13")
     # 13. BERT-large with per-layer remat, then without, LAMB
     large, counts = bert_large_phase(dev)
     print("chip_smoke: BERT-large training " + json.dumps(large))
@@ -7063,22 +7468,26 @@ def main():
             "flash_attention_fwd") else name
         kernels[name]["bert_large_shape"]["launches"] = counts[counter]
 
+    lap("14")
     # 14. a float32 BERT-large (2 layers, remat) on the card == on the CPU
     lparity = train_parity_phase(dev, config="bert_large_config")
     print("chip_smoke: card-vs-CPU BERT-large (remat) "
           + json.dumps(lparity))
 
+    lap("15")
     # 15. ResNet-50 v1 training, bf16, SGD
     rn, counts = resnet50_phase(dev)
     print("chip_smoke: ResNet-50 training " + json.dumps(rn))
     print(f"chip_smoke: ResNet-50 training launches {counts}")
 
+    lap("16")
     # 16. a float32 small ResNet v1 with grad accumulation, card == CPU
     rparity = resnet_parity_phase(dev)
     print("chip_smoke: card-vs-CPU ResNet v1 (SGD, grad accum 2) "
           + json.dumps(rparity))
     torch.cuda.empty_cache()
 
+    lap("17")
     # 17. Transformer base (NMT) through the eager Gluon loop, bf16, Adam
     nmt, counts, nmt_model = nmt_train_phase(dev)
     print("chip_smoke: NMT training " + json.dumps(nmt))
@@ -7088,6 +7497,7 @@ def main():
         kernels[row]["nmt_shape"]["launches"] = counts[row]
     kernels["adam_update"]["nmt_launches"] = counts["adam_update"]
 
+    lap("18")
     # 18. its greedy and beam-4 decode; a float32 NMT card == CPU
     dec = nmt_decode_phase(nmt_model, dev)
     print("chip_smoke: NMT decode " + json.dumps(dec))
@@ -7099,18 +7509,21 @@ def main():
 
     torch.cuda.empty_cache()
 
+    lap("19")
     # 19. YOLOv3-tiny through the eager Gluon loop, bf16, Adam
     ytrain, counts, ymodel = yolo_train_phase(dev)
     print("chip_smoke: YOLOv3-tiny training " + json.dumps(ytrain))
     print(f"chip_smoke: YOLOv3-tiny training launches {counts}")
     kernels["adam_update"]["yolo_launches"] = counts["adam_update"]
 
+    lap("20")
     # 20. its decode (box_nms kernel), VOC07 mAP; the kernel vs plain
     ydec, nms_cases = yolo_decode_phase(ymodel, dev)
     print("chip_smoke: YOLOv3-tiny decode " + json.dumps(ydec))
     del ymodel
     torch.cuda.empty_cache()
 
+    lap("21")
     # 21. SSD through the eager Gluon loop, bf16, Adam; multibox_detection
     strain, counts, nms_cases["ssd_multibox_detection"] = \
         ssd_train_phase(dev)
@@ -7149,29 +7562,34 @@ def main():
     for c, v in nms_cases.items():
         print(f"chip_smoke: box_nms {c}: " + json.dumps(v))
 
+    lap("22")
     # 22. float32 YOLOv3-tiny and SSD, card == CPU
     dparity = detection_parity_phase(dev)
     print("chip_smoke: card-vs-CPU detection (eager Adam, decode) "
           + json.dumps(dparity))
     torch.cuda.empty_cache()
 
+    lap("23")
     # 23. DeepAR through the eager Gluon loop, float32, Adam; sampling
     ar, counts = deepar_phase(dev)
     print("chip_smoke: DeepAR " + json.dumps(ar))
     print(f"chip_smoke: DeepAR training launches {counts}")
     kernels["adam_update"]["deepar_launches"] = counts["adam_update"]
 
+    lap("24")
     # 24. CRNN through ShardedTrainer and the CTC loss, float32, Adam
     ocr, counts = crnn_phase(dev)
     print("chip_smoke: CRNN " + json.dumps(ocr))
     print(f"chip_smoke: CRNN training launches {counts}")
     kernels["adam_update"]["crnn_launches"] = counts["adam_update"]
 
+    lap("25")
     # 25. small float32 DeepAR and CRNN, card == CPU
     rparity = rnn_parity_phase(dev)
     print("chip_smoke: card-vs-CPU DeepAR and CRNN " + json.dumps(rparity))
     torch.cuda.empty_cache()
 
+    lap("26-29")
     # 26-29. the serving request lifecycle, the admission ladder,
     # speculative decoding and beam search on phase 2's model
     model = build_model(gpt.gpt2_117m_config(dtype="bfloat16"), seed=0)
@@ -7198,6 +7616,7 @@ def main():
     del model
     torch.cuda.empty_cache()
 
+    lap("30")
     # 30. float32 speculative serving, beam search and the ladder, card
     # == CPU
     sparity = serve_parity_phase(dev)
@@ -7206,6 +7625,7 @@ def main():
 
     torch.cuda.empty_cache()
 
+    lap("31")
     # 31. BERT-large with bf16 LAMB moments against phase 13's float32 run
     bfm, counts = bf16_moments_phase(dev, large["remat"])
     print("chip_smoke: BERT-large, bf16 LAMB moments " + json.dumps(bfm))
@@ -7215,6 +7635,7 @@ def main():
         kernels[name]["bf16_moments"]["lamb_device_ms_per_step"] = \
             bfm["lamb_device_ms_per_step"]
 
+    lap("32")
     # 32. the remat policies at BERT-large, and bit equality on the card
     pol = remat_policies_phase(dev, large)
     print("chip_smoke: BERT-large remat policies " + json.dumps(
@@ -7226,23 +7647,27 @@ def main():
           "dropout 0.1) " + json.dumps(pbit))
     torch.cuda.empty_cache()
 
+    lap("33")
     # 33. the OOM ladder on a real out-of-memory (12 GB cap)
     ladder = oom_ladder_phase(dev, large["remat"]["losses"])
     print("chip_smoke: OOM ladder " + json.dumps(ladder))
     torch.cuda.empty_cache()
 
+    lap("34")
     # 34. checkpoints, preemption and resume (the --auto-checkpoint-dir
     # flow), .params save and load
     ckpt = ckpt_phase(dev)
     print("chip_smoke: checkpoint and preemption " + json.dumps(ckpt))
     torch.cuda.empty_cache()
 
+    lap("35")
     # 35. float32 card vs CPU: bf16-moment LAMB, files, the ladder
     dpar = durable_parity_phase(dev)
     print("chip_smoke: card-vs-CPU bf16 LAMB, checkpoint files, ladder "
           + json.dumps(dpar))
     torch.cuda.empty_cache()
 
+    lap("36")
     # 36. the repo's examples, unchanged, through run_example
     t36 = time.perf_counter()
     reset_counts()
@@ -7256,6 +7681,7 @@ def main():
         {"dataloader_batches_per_s": ex["dataloader_batches_per_s"],
          "seconds": time.perf_counter() - t36}))
 
+    lap("37")
     # 37. the vision model zoo at published widths, the example's loop
     t37 = time.perf_counter()
     zoo = zoo_phase(dev)
@@ -7263,6 +7689,7 @@ def main():
           f"{time.perf_counter() - t37:.1f} s")
     torch.cuda.empty_cache()
 
+    lap("38")
     # 38. card vs CPU: zoo families, a DataLoader forked after CUDA, the
     # shape ops
     t38 = time.perf_counter()
@@ -7271,6 +7698,7 @@ def main():
           + json.dumps(zpar) + f" in {time.perf_counter() - t38:.1f} s")
     torch.cuda.empty_cache()
 
+    lap("39")
     # 39. the symbolic BERT-base encoder trained by Module.fit
     t39 = time.perf_counter()
     sbert = sym_bert_phase(dev)
@@ -7287,20 +7715,24 @@ def main():
         sbert["launches"]["adam_update"]
     torch.cuda.empty_cache()
 
+    lap("40")
     # 40. the symbolic encoder against models.bert's BERTModel
     spar = sym_bert_parity_phase(dev)
     print("chip_smoke: symbolic encoder vs BERTModel " + json.dumps(spar))
     torch.cuda.empty_cache()
 
+    lap("41")
     # 41. BucketingModule over lengths 64 and 128
     sbuck = sym_bucketing_phase(dev)
     print("chip_smoke: BucketingModule " + json.dumps(sbuck))
     torch.cuda.empty_cache()
 
+    lap("42")
     # 42. card vs CPU through Module.fit
     sppar = sym_parity_phase(dev)
     print("chip_smoke: card-vs-CPU Module.fit " + json.dumps(sppar))
 
+    lap("43")
     # 43. the registry's kernel ops through sym == through nd
     sops = sym_kernel_ops_phase(dev)
     print("chip_smoke: kernel ops through sym " + json.dumps(sops))
@@ -7311,6 +7743,47 @@ def main():
     kernels["box_nms"]["symbolic_launches"] = sops["box_nms"]["box_nms"]
     print(f"chip_smoke: symbolic phases 39-43 in "
           f"{time.perf_counter() - t39:.1f} s")
+    torch.cuda.empty_cache()
+
+    lap("44")
+    # 44. eager BERT-base pretraining, gluon.Trainer(..., "lamb"); card
+    # vs CPU
+    t44 = time.perf_counter()
+    ebert, counts = eager_bert_phase(dev)
+    print("chip_smoke: eager BERT-base, gluon.Trainer lamb "
+          + json.dumps(ebert))
+    print(f"chip_smoke: eager BERT-base launches {counts}")
+    for name in ("lamb_pass1", "lamb_pass2"):
+        kernels[name]["eager_bert_base"] = {
+            "launches": counts[name], "steps": ebert["steps"]}
+    for row, counter in (("flash_attention_fwd_dropout",
+                          "flash_attention_fwd"),
+                         ("flash_attention_dq", "flash_attention_dq"),
+                         ("flash_attention_dkv", "flash_attention_dkv")):
+        kernels[row]["symbolic_bert_shape"]["eager_launches"] = \
+            counts[counter]
+    epar = eager_bert_parity_phase(dev)
+    print("chip_smoke: card-vs-CPU eager LAMB " + json.dumps(epar))
+
+    lap("45")
+    # 45. the optimizers through NDArrays on the card; LAMB's eager route
+    opts, route = eager_optimizers_phase(dev)
+    print("chip_smoke: optimizers card vs CPU " + json.dumps(opts))
+    print("chip_smoke: eager LAMB route at the word embedding "
+          + json.dumps(route))
+    for name in ("lamb_pass1", "lamb_pass2"):
+        kernels[name]["eager_bert_base"]["word_embedding_update"] = route
+    kernels["adam_update"]["nd_adam_update_launches"] = \
+        opts["nd.adam_update"]["launches"]
+
+    lap("46")
+    # 46. the JAX package's unit-test files on the card
+    t46 = time.perf_counter()
+    units = jax_unittests_phase()
+    print("chip_smoke: JAX unit-test files on the card " + json.dumps(units)
+          + f" in {time.perf_counter() - t46:.1f} s")
+    print(f"chip_smoke: eager phases 44-46 in "
+          f"{time.perf_counter() - t44:.1f} s")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(

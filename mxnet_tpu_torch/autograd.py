@@ -160,9 +160,14 @@ def mark_variables(variables, gradients, grad_reqs="write"):
 
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     """Differentiate `heads` (an NDArray or a list) into the leaves'
-    gradients; a head without a head gradient is seeded with ones."""
-    torch.autograd.backward(*_heads(heads, head_grads),
-                            retain_graph=retain_graph)
+    gradients; a head without a head gradient is seeded with ones. A head
+    that depends on no leaf (`BlockGrad`'s output) contributes nothing,
+    as in the JAX package."""
+    pairs = [(h, g) for h, g in zip(*_heads(heads, head_grads))
+             if h.requires_grad]
+    if pairs:
+        torch.autograd.backward([h for h, _ in pairs], [g for _, g in pairs],
+                                retain_graph=retain_graph)
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

@@ -41,6 +41,13 @@ class Context:
                              "(cpu or gpu)")
         self.device_id = int(device_id)
 
+    @classmethod
+    def of(cls, device):
+        """The Context of a torch device ("cuda" is the card: gpu)."""
+        if device.type == "cpu":
+            return cls("cpu", 0)
+        return cls("gpu", device.index or 0)
+
     @property
     def torch_device(self):
         """The torch.device this context names."""

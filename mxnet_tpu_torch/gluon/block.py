@@ -3,9 +3,24 @@
 A Block is a thin `torch.nn.Module`. Attribute paths name parameters
 exactly as the JAX package's `collect_params()` does
 (`gpt.layers.0.attn.qkv.weight`), so carrying weights between the two
-packages is the identity on names. PyTorch runs eagerly, so there is
-no hybridize/jit cache: `HybridBlock` is the same class and
-`hybridize()` changes nothing.
+packages is the identity on names. `collect_params()` lists every path,
+so a block added twice (`net.add(shared, shared)`) lists its parameters
+under both, as the JAX package's does; `gluon.Trainer` updates each
+parameter object once.
+
+MXNet's classic surface is here: `Block(prefix=None, params=None)`,
+`name_scope()`, `register_child`, `_children` (name -> child), `params`
+(this block's own parameters), `summary(*inputs)` (the JAX table; it
+refuses a hybridized tree), `Sequential` and `functional_call`. A
+`HybridBlock` subclass may define `hybrid_forward(F, *args, **params)`
+instead of `forward`: F is the port's `nd` in an eager call (the block's
+registered parameters are passed by name as NDArrays, so the block's
+arithmetic records on torch's tape), and `sym` when `export` traces the
+block into a symbolic graph. PyTorch runs eagerly, so `hybridize()`
+compiles nothing: a hybridized block keeps the JAX package's cache keys
+(input shapes and dtypes, the training flag, the trainable and auxiliary
+parameter counts) in `_cache`, each with the count of calls that had it,
+and no executable.
 
 A block starts in evaluation mode (`training` False), as the JAX
 package runs outside a train step; `train()` (what the trainer's step
@@ -28,6 +43,7 @@ keep their dtype.
 """
 from __future__ import annotations
 
+import contextlib
 import re
 
 import torch
@@ -38,7 +54,8 @@ from .. import initializer as _init
 from ..ndarray.ndarray import NDArray
 from .parameter import ParameterDict, dtype_of, finish_deferred
 
-__all__ = ["Block", "HybridBlock", "HybridSequential", "training"]
+__all__ = ["Block", "HybridBlock", "Sequential", "HybridSequential",
+           "functional_call", "training"]
 
 
 def training(block):
@@ -67,15 +84,42 @@ class Block(torch.nn.Module):
     # trainer (`memsafe.block_wrap_policy`)
     _remat_handles_policy = False
 
-    def __init__(self):
+    def __init__(self, prefix=None, params=None):
         super().__init__()
         self.training = False
         self._mx_recorded = False
         self._remat_policy = None
+        self.prefix = prefix or ""
+
+    @property
+    def _children(self):
+        """{name: child block} in registration order."""
+        return self._modules
+
+    def register_child(self, block, name=None):
+        self.add_module(name or str(len(self._modules)), block)
+        return block
+
+    @property
+    def params(self):
+        """This block's own parameters (not its children's), by name."""
+        return ParameterDict((n, p) for n, p in self._parameters.items()
+                             if p is not None)
+
+    @contextlib.contextmanager
+    def name_scope(self):
+        """Kept for MXNet's sake: names are attribute paths."""
+        yield self
 
     def __call__(self, *args, **kwargs):
+        if args and not isinstance(args[0], (torch.Tensor, NDArray)) \
+                and _is_symbol(args[0]):
+            return self._symbolic(*args, **kwargs)
         if _autograd._recording and not self._mx_recorded:
             self._attach_grads()
+        if self.__dict__.get("_active") and not kwargs and all(
+                isinstance(a, NDArray) for a in args):
+            self._note_signature(args)
         for a in args:
             if isinstance(a, NDArray):
                 return _wrap(super().__call__(
@@ -93,16 +137,76 @@ class Block(torch.nn.Module):
             if isinstance(m, Block):
                 m._mx_recorded = True
 
+    def _symbolic(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"{type(self).__name__} has no symbolic form in the port, so "
+            "export cannot trace it (ROADMAP.md queue 1, \"Left for later "
+            "PRs\")")
+
     def hybridize(self, active=True, **kwargs):
-        """Accepted for MXNet's sake; PyTorch runs eagerly."""
+        """Set every HybridBlock of the tree hybridized (`active`); PyTorch
+        runs eagerly, so nothing is compiled."""
+        for child in self._modules.values():
+            if isinstance(child, Block):
+                child.hybridize(active, **kwargs)
         return self
 
     def collect_params(self, select=None):
-        """All parameters of this subtree keyed by dotted path
-        (optionally filtered by a regex)."""
+        """All parameters of this subtree keyed by dotted path (optionally
+        filtered by a regex); a parameter reachable under two paths is
+        listed under both."""
         return ParameterDict(
-            (path, p) for path, p in self.named_parameters()
+            (path, p) for path, p in self.named_parameters(
+                remove_duplicate=False)
             if select is None or re.search(select, path))
+
+    def summary(self, *inputs):
+        """Print and return a table of each block's output shape and
+        parameter count for one forward of `inputs`, with the totals (the
+        JAX package's text). A hybridized tree is refused, as there."""
+        if any(getattr(m, "_active", False) for m in self.modules()):
+            raise ValueError(
+                "summary() needs the eager forward; call it before "
+                "hybridize() (or after hybridize(active=False))")
+        rows, handles = [], []
+
+        def install(block, path):
+            def hook(blk, ins, out, _path=path):
+                outs = out if isinstance(out, (list, tuple)) else [out]
+                shape = ", ".join(str(tuple(o.shape)) for o in outs
+                                  if hasattr(o, "shape"))
+                n_params = sum(p.numel() for p in blk._parameters.values()
+                               if p is not None)
+                rows.append((f"{_path}({type(blk).__name__})", shape,
+                             n_params))
+            handles.append(block.register_forward_hook(hook))
+            for cname, child in block._modules.items():
+                install(child, f"{path}.{cname}" if path else cname)
+
+        install(self, "")
+        try:
+            self(*inputs)
+        finally:
+            for h in handles:
+                h.remove()
+        params = list(self.named_parameters(remove_duplicate=False))
+        total = sum(p.numel() for _, p in params)
+        trainable = sum(p.numel() for _, p in params
+                        if getattr(p, "grad_req", "write") != "null")
+        width = max([len(r[0]) for r in rows] + [20])
+        lines = ["-" * (width + 40),
+                 f"{'Layer (type)':<{width}}  {'Output Shape':<24} Param #",
+                 "=" * (width + 40)]
+        for name, shape, n in rows:
+            lines.append(f"{name:<{width}}  {shape:<24} {n}")
+        lines += ["=" * (width + 40),
+                  f"Total params: {total}",
+                  f"Trainable params: {trainable}",
+                  f"Non-trainable params: {total - trainable}",
+                  "-" * (width + 40)]
+        text = "\n".join(lines)
+        print(text)
+        return text
 
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False, *, device=None, generator=None):
@@ -113,6 +217,9 @@ class Block(torch.nn.Module):
         gammas 1); a `Constant` keeps its value. `ctx` (a Context or a
         torch.device, MXNet's keyword) or `device` moves the block first;
         `verbose` is accepted and prints nothing, as in the JAX package;
+        without either, the parameters that no caller placed (a bare
+        layer's, `parameter.Parameter`) go to the entered context's
+        device, else to the card where there is one;
         `generator` is the explicit random source (its device must be the
         parameters'), else the device stream of `random.seed`. A deferred
         parameter draws nothing now: the choice is recorded and applied
@@ -122,6 +229,8 @@ class Block(torch.nn.Module):
         device = ctx if device is None else device
         if device is not None:
             self.to(context.resolve(device))
+        else:
+            self._place_unplaced()
         for _, p in self.named_parameters():
             if getattr(p, "mx_constant", False) or (
                     getattr(p, "mx_initialized", False) and not force_reinit):
@@ -134,6 +243,19 @@ class Block(torch.nn.Module):
             _init._fill(initializer, p.mx_name, p.data, generator)
             p.mx_initialized = True
         return self
+
+    def _place_unplaced(self):
+        """Move the parameters allocated outside any device request to
+        the default device: the entered context's, else the card (none
+        where there is no card and no context: they stay)."""
+        ctx = context.entered()
+        if ctx is None and not torch.cuda.is_available():
+            return
+        dev = context.resolve(ctx)
+        for p in self.parameters():
+            if not getattr(p, "mx_placed", True) and p.device != dev:
+                p.data = p.data.to(dev)
+                p.mx_placed = True
 
     def remat(self, policy="layers"):
         """Set this block tree's rematerialisation policy
@@ -192,22 +314,126 @@ class Block(torch.nn.Module):
                 finish_deferred(p, shapes[name], x.device)
 
 
-HybridBlock = Block
+def _is_symbol(x):
+    from ..symbol import Symbol
+    return isinstance(x, Symbol)
 
 
-class HybridSequential(Block):
+def _as_tensor(x):
+    if isinstance(x, NDArray):
+        return x._t
+    if isinstance(x, (tuple, list)):
+        return type(x)(_as_tensor(o) for o in x)
+    return x
+
+
+class HybridBlock(Block):
+    """A Block that may define `hybrid_forward(F, *args, **params)`, and
+    that `hybridize()` marks (see the module docstring)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._active = False
+        self._cache = {}
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        self._active = active
+        self._cache = {}
+        return super().hybridize(active, **kwargs)
+
+    def _note_signature(self, args):
+        """Count a hybridized call under the JAX package's cache key."""
+        n_grad = sum(1 for _, p in self.named_parameters(
+            remove_duplicate=False) if p.grad_req != "null")
+        n_all = sum(1 for _ in self.named_parameters(remove_duplicate=False))
+        key = (tuple((a.shape, str(a.dtype)) for a in args),
+               bool(training(self)), n_grad, n_all - n_grad)
+        self._cache[key] = self._cache.get(key, 0) + 1
+
+    def _reg_params(self):
+        return [(n, p) for n, p in self._parameters.items() if p is not None]
+
+    def forward(self, *args, **kwargs):
+        """`hybrid_forward(nd, *args, **params, **kwargs)` on NDArrays,
+        with this block's parameters by name; deferred ones take their
+        shapes from the first input first."""
+        if type(self).hybrid_forward is HybridBlock.hybrid_forward:
+            raise NotImplementedError(
+                f"{type(self).__name__} defines neither forward nor "
+                "hybrid_forward")
+        from .. import ndarray as nd
+        if args and any(getattr(p, "mx_deferred", False)
+                        for _, p in self._reg_params()):
+            self._resolve_deferred(args[0])
+        def wrap(a):
+            return NDArray(a) if isinstance(a, torch.Tensor) else a
+        params = {n: NDArray(p) for n, p in self._reg_params()}
+        out = self.hybrid_forward(
+            nd, *map(wrap, args), **params,
+            **{k: wrap(v) for k, v in kwargs.items()})
+        return _as_tensor(out)
+
+    def hybrid_forward(self, F, *args, **kwargs):
+        raise NotImplementedError
+
+    def _symbolic(self, *args, **kwargs):
+        if type(self).hybrid_forward is HybridBlock.hybrid_forward:
+            return super()._symbolic(*args, **kwargs)
+        from .. import symbol as sym
+        params = {n: sym.var(self._export_names[n])
+                  for n, _ in self._reg_params()}
+        return self.hybrid_forward(sym, *args, **params, **kwargs)
+
+    def infer_shape(self, *args):
+        """Complete deferred parameter shapes from `args` by one eager
+        forward, without recording."""
+        with torch.no_grad():
+            self(*args)
+
+    def export(self, path, epoch=0):
+        """Write `path-symbol.json` (the block traced with F = `sym` from
+        one input `data`; every parameter a variable named by its
+        `collect_params` path) and `path-%04d.params` (`save_parameters`:
+        the JAX package's file), which `gluon.SymbolBlock.imports` reads
+        back. Each block of the tree needs a symbolic form: a
+        `hybrid_forward`, or one of the layers that have one."""
+        from .. import symbol as sym
+        named = {}
+        for prefix, m in self.named_modules(remove_duplicate=False):
+            if id(m) not in named:
+                named[id(m)] = prefix
+        for m in self.modules():
+            base = named[id(m)]
+            m._export_names = {
+                n: f"{base}.{n}" if base else n
+                for n, p in m._parameters.items() if p is not None}
+        try:
+            out = self(sym.var("data"))
+        finally:
+            for m in self.modules():
+                del m._export_names
+        out.save(f"{path}-symbol.json")
+        self.save_parameters(f"{path}-{epoch:04d}.params")
+
+
+class Sequential(Block):
     """Children registered as "0", "1", ... in insertion order; a forward
     runs them one after the other."""
 
     def add(self, *blocks):
         for b in blocks:
-            self.add_module(str(len(self._modules)), b)
+            self.register_child(b)
         return self
 
-    def forward(self, x):
+    def forward(self, x, *args):
         for block in self._modules.values():
-            x = block(x)
+            x = block(x, *args)
+            args = ()
         return x
+
+    def _symbolic(self, x, *args):
+        return self.forward(x, *args)
 
     def __iter__(self):
         return iter(self._modules.values())
@@ -217,3 +443,43 @@ class HybridSequential(Block):
 
     def __getitem__(self, i):
         return list(self._modules.values())[i]
+
+
+class HybridSequential(HybridBlock):
+    """The hybridizable Sequential."""
+
+    add = Sequential.add
+    forward = Sequential.forward
+    _symbolic = Sequential._symbolic
+    __iter__ = Sequential.__iter__
+    __len__ = Sequential.__len__
+    __getitem__ = Sequential.__getitem__
+
+
+def functional_call(block, train=True):
+    """(fn, grad_params, aux_params) of `block`: fn(gp_data, aux_data,
+    rng, *inputs) -> (outputs, new_aux) runs the block's forward with the
+    given tensors in place of its parameters (trainable ones, then the
+    'null' ones, in `collect_params` order), in training mode when
+    `train`, as the JAX package's functionalization does. `rng` is
+    accepted for the signature's sake: the port's random streams are
+    process state (`random`)."""
+    grad_params, aux_params = [], []
+    for path, p in block.collect_params().items():
+        (aux_params if p.grad_req == "null" else grad_params).append(
+            (path, p))
+
+    def fn(gp_data, aux_data, rng, *inputs):
+        values = {path: _as_tensor(d) for (path, _), d in
+                  zip(grad_params + aux_params, list(gp_data)
+                      + list(aux_data))}
+        prev = _autograd.set_training(train)
+        try:
+            out = torch.func.functional_call(
+                block, values, tuple(_as_tensor(a) for a in inputs),
+                strict=False, tie_weights=False)
+        finally:
+            _autograd.set_training(prev)
+        return out, [values[path] for path, _ in aux_params]
+
+    return fn, grad_params, aux_params

@@ -11,7 +11,11 @@ gradient, so serving builds no autograd graph: training goes through
 `parallel.ShardedTrainer`, which substitutes views of its flat float32
 master (which do record gradients) for every parameter whose grad_req
 is not 'null'. Storage is allocated on torch's current default device,
-which the model constructors set to the model's device.
+which the model constructors set to the model's device (`with
+torch.device(...)`); a parameter allocated outside such a block (a
+bare gluon layer) is unplaced (`mx_placed` False), and
+`Block.initialize` without `ctx` puts it on the default device, as the
+JAX package's `initialize` does.
 
 A `Constant` is a 'null' parameter that holds a given value of any dtype
 (int8 included) and that `Block.initialize` leaves alone.
@@ -30,11 +34,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["Parameter", "ParameterDict", "Constant", "dtype_of",
-           "finish_deferred", "set_data", "zero_grad"]
+__all__ = ["Parameter", "ParameterDict", "Constant",
+           "DeferredInitializationError", "dtype_of", "finish_deferred",
+           "set_data", "zero_grad"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+
+
+class DeferredInitializationError(RuntimeError):
+    """A parameter whose shape is not known yet was asked for its data."""
+
+
+def _placed():
+    """Whether storage allocated now goes where a caller asked: inside a
+    `with torch.device(...)` block, or under a non-CPU default device."""
+    stack = getattr(torch.overrides, "_get_current_function_mode_stack",
+                    lambda: [])()
+    return (torch.get_default_device().type != "cpu"
+            or any(type(m).__name__ == "DeviceContext" for m in stack))
 
 
 def dtype_of(dtype):
@@ -51,6 +69,7 @@ def Parameter(name, shape, dtype="float32", init=None,  # noqa: N802
                          "'write', 'add' or 'null'")
     p = torch.nn.Parameter(torch.empty(tuple(shape), dtype=dtype_of(dtype)),
                            requires_grad=False)
+    p.mx_placed = _placed()
     p.mx_name = name
     p.mx_init = init
     p.mx_initialized = False
@@ -155,8 +174,8 @@ def finish_deferred(p, shape, device):
         raise ValueError(f"Parameter {p.mx_name}: shape {tuple(p.shape)} "
                          f"cannot become {shape}")
     if p.mx_init_requested is None:
-        raise RuntimeError(f"Parameter '{p.mx_name}' not initialized; call "
-                           ".initialize()")
+        raise DeferredInitializationError(
+            f"Parameter '{p.mx_name}' not initialized; call .initialize()")
     p.data = torch.empty(shape, dtype=p.dtype, device=device)
     p.mx_deferred = False
     init, generator = p.mx_init_requested

@@ -10,15 +10,17 @@
 and updates every trainable parameter (grad_req not 'null'), in place,
 under `torch.no_grad()`: with one `optimizer.update_multi(indices,
 params, grads, states)` call where the optimizer has it (Adam, AdamW:
-one kernel launch for each weight dtype), else
-`optimizer.update(i, param, param.grad, state)` per parameter; the
-optimizer's state is created at the first step.
-A parameter that no backward has reached updates with a zero gradient,
-as the JAX package's zero-initialised gradient buffers do. One device:
+one kernel launch for each weight dtype; LAMB: one launch of each LAMB
+pass), else `optimizer.update(i, param, param.grad, state)` per
+parameter; the optimizer's state is created at the first step. A
+parameter listed under two paths (a block added twice) is updated once a
+step. A parameter that no backward has reached updates with a zero
+gradient, as the JAX package's zero-initialised gradient buffers do. One device:
 there is no kvstore to reduce through, so `kvstore` and
 `update_on_kvstore` are accepted and `allreduce_grads` does nothing;
 `compression_params` raises as in the JAX package.
 
+The states are the optimizer's NDArrays (`create_state`).
 `save_states(fname)` writes the optimizer state as the JAX package does:
 one `nd.save` dict, key "i" for a single state tensor of parameter i and
 "i.j" for entry j of a tuple state (absent entries, as SGD without
@@ -52,6 +54,11 @@ class Trainer:
             params = list(params.values())
         elif isinstance(params, dict):
             params = [params[k] for k in sorted(params)]
+        # a block added twice lists its parameters under both paths: each
+        # parameter object is updated once a step, as upstream MXNet does
+        seen = set()
+        params = [p for p in params if id(p) not in seen
+                  and not seen.add(id(p))]
         if compression_params is not None:
             raise ValueError(
                 "Trainer does not route gradients through a kvstore (one "
@@ -147,9 +154,9 @@ class Trainer:
             for key, arr in flat.items():
                 if "." in key:
                     i, j = map(int, key.split("."))
-                    dst = self._states[i][j]
+                    dst = self._states[i][j]._t
                 else:
-                    dst = self._states[int(key)]
+                    dst = self._states[int(key)]._t
                 if tuple(dst.shape) != tuple(arr.shape):
                     raise ValueError(
                         f"{fname}: state {key} has shape {tuple(arr.shape)}"

@@ -444,17 +444,16 @@ def _state_to_np(state):
         return None
     if isinstance(state, tuple):
         return tuple(_state_to_np(s) for s in state)
-    if isinstance(state, torch.Tensor):
-        return state.detach().cpu().numpy()
     return state.asnumpy() if isinstance(state, NDArray) else state
 
 
 def _state_from_np(state, device):
+    """An optimizer state of the `.states` file as NDArrays on device."""
     if state is None:
         return None
     if isinstance(state, tuple):
         return tuple(_state_from_np(s, device) for s in state)
-    return torch.from_numpy(_np.array(state)).to(device)
+    return _nd.array(_np.array(state), ctx=device, dtype=state.dtype)
 
 
 class BucketingModule(BaseModule):

@@ -77,7 +77,7 @@ class Monitor:
                         self._activations.append((tag, o))
 
             block.register_forward_hook(hook)
-        for cname, child in block.named_children():
+        for cname, child in block._modules.items():
             self.install(child, f"{name}.{cname}")
         if prefix == "":
             self._params = block.collect_params()

@@ -61,7 +61,8 @@ from .. import context
 from .params_io import is_params_file, load_params, save_params
 
 __all__ = ["NDArray", "NotPortedError", "array", "zeros", "ones", "full",
-           "arange", "concatenate", "waitall", "save", "load"]
+           "empty", "arange", "eye", "linspace", "concatenate", "waitall",
+           "save", "load"]
 
 _NOT_PORTED = ("is not in the port yet (ROADMAP.md queue 1, \"The eager "
                "MXNet surface\")")
@@ -166,7 +167,29 @@ class NDArray:
 
     @property
     def context(self):
-        return self._t.device
+        """The Context of the device that holds the array (`cpu(0)` or
+        `gpu(i)`)."""
+        return context.Context.of(self._t.device)
+
+    ctx = context
+
+    @property
+    def T(self):
+        return self.transpose()
+
+    @property
+    def stype(self):
+        """The storage type: "default" (dense); `sparse` has the others."""
+        return "default"
+
+    def tostype(self, stype):
+        from . import sparse
+        return sparse.cast_storage(self, stype)
+
+    def __len__(self):
+        if not self.shape:
+            raise TypeError("len() of 0-d array")
+        return self.shape[0]
 
     def __repr__(self):
         return (f"\n{self.asnumpy()}\n<NDArray "
@@ -189,8 +212,14 @@ class NDArray:
     def item(self):
         return self.asscalar()
 
+    def tolist(self):
+        return self.asnumpy().tolist()
+
     def __float__(self):
         return float(self.asscalar())
+
+    def __int__(self):
+        return int(self.asscalar())
 
     def __bool__(self):
         if self._t.numel() == 1:
@@ -200,6 +229,12 @@ class NDArray:
     def __array__(self, dtype=None, copy=None):
         a = self.asnumpy()
         return a.astype(dtype) if dtype is not None else a
+
+    def wait_to_read(self):
+        """Wait until the card has written this array."""
+        if self._t.is_cuda:
+            torch.cuda.current_stream(self._t.device).synchronize()
+        return self
 
     # -- autograd ----------------------------------------------------------
     def _mark(self, grad, grad_req):
@@ -239,8 +274,19 @@ class NDArray:
     def copy(self):
         return NDArray(self._t.detach().clone())
 
+    def copyto(self, other):
+        """Copy into the NDArray `other` (which then holds this array's
+        values) or onto the device of the Context `other`."""
+        if isinstance(other, NDArray):
+            other._check_mutable()
+            other._t = self._t.detach().clone()
+            return other
+        return self.as_in_context(other)
+
     def as_in_context(self, ctx):
         return NDArray(self._t.to(context.resolve(ctx)))
+
+    as_in_ctx = as_in_context
 
     def astype(self, dtype, copy=True):
         out = self._t.to(_torch_dtype(dtype))
@@ -307,6 +353,65 @@ class NDArray:
         return NDArray(torch.argmax(self._t, dim=axis, keepdim=keepdims)
                        .to(torch.float32))
 
+    # -- mutation ------------------------------------------------------------
+    def _check_mutable(self):
+        if self._t.grad_fn is not None:
+            raise RuntimeError(
+                "in-place mutation of an array that is part of a recorded "
+                "graph is not allowed (matches reference autograd restriction)")
+
+    def _assign(self, new):
+        """Make `new` this array's value. A leaf that records gradients
+        keeps its tensor (written in place, outside the graph); any
+        other array takes `new` as its tensor, so an array that shared
+        the old one keeps the old values, as the JAX package's immutable
+        buffers do."""
+        if self._t.requires_grad:
+            with torch.no_grad():
+                self._t.copy_(new)
+        else:
+            self._t = new
+
+    def __setitem__(self, key, value):
+        """Basic and advanced keys, NDArray keys included. A leaf that
+        records gradients is written in place (outside the graph); any
+        other array gets a written copy as its tensor (see `_assign`)."""
+        self._check_mutable()
+        leaf = self._t.requires_grad
+        t = self._t.detach() if leaf else self._t.detach().clone()
+        v = value._t if isinstance(value, NDArray) else value
+        if not isinstance(v, (torch.Tensor, int, float, bool)):
+            v = torch.as_tensor(np.asarray(v))
+        if isinstance(v, torch.Tensor):
+            v = v.detach().to(device=t.device, dtype=t.dtype)
+        t[_index(key, t.device)] = v
+        if not leaf:
+            self._t = t
+
+    def __getitem__(self, key):
+        return registry_op("_getitem")(self, key=_index(key, self._t.device))
+
+    # in-place arithmetic (reference: engine write-var)
+    def __iadd__(self, o):
+        self._check_mutable()
+        self._assign(self._t.detach() + self._other(o))
+        return self
+
+    def __isub__(self, o):
+        self._check_mutable()
+        self._assign(self._t.detach() - self._other(o))
+        return self
+
+    def __imul__(self, o):
+        self._check_mutable()
+        self._assign(self._t.detach() * self._other(o))
+        return self
+
+    def __itruediv__(self, o):
+        self._check_mutable()
+        self._assign(self._t.detach() / self._other(o))
+        return self
+
     # -- operators ---------------------------------------------------------
     def _other(self, o):
         if isinstance(o, NDArray):
@@ -348,6 +453,9 @@ class NDArray:
 
     def __neg__(self):
         return NDArray(-self._t)
+
+    def __matmul__(self, o):
+        return registry_op("dot")(self, o)
 
     def __abs__(self):
         return NDArray(self._t.abs())
@@ -422,6 +530,21 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
     if repeat > 1:
         out = out.repeat_interleave(repeat)
     return NDArray(out)
+
+
+def empty(shape, ctx=None, dtype="float32"):
+    return zeros(shape, ctx=ctx, dtype=dtype)
+
+
+def eye(N, M=0, k=0, ctx=None, dtype="float32"):
+    return NDArray(registry_op("_eye")(N=N, M=M, k=k, dtype=dtype,
+                                       ctx=ctx)._t)
+
+
+def linspace(start, stop, num, endpoint=True, ctx=None, dtype="float32"):
+    return NDArray(registry_op("_linspace")(
+        start=start, stop=stop, num=num, endpoint=endpoint, dtype=dtype,
+        ctx=ctx)._t)
 
 
 def concatenate(arrays, axis=0):
@@ -517,6 +640,20 @@ def load(fname, ctx=None):
         return {k: NDArray(t.to(dev)) for k, t in arrays.items()}
     out = [NDArray(t.to(dev)) for t in arrays]
     return out[0] if kind == "single" else out
+
+
+def _index(key, device):
+    """An indexing key on tensors: an NDArray becomes an int64 index
+    tensor on `device` (a float one is truncated, as the JAX package
+    casts it to int32; a bool one stays a mask)."""
+    if isinstance(key, NDArray):
+        key = key._t
+    if isinstance(key, torch.Tensor):
+        key = key.to(device)
+        return key if key.dtype == torch.bool else key.long()
+    if isinstance(key, tuple):
+        return tuple(_index(k, device) for k in key)
+    return key
 
 
 def _registry():

@@ -12,7 +12,9 @@ modules of the same names. The port's own functions (`nn_ops.
 fully_connected`, `nn_ops.batch_norm`, ...) stay where their callers use
 them; a registry entry is a thin adapter over them. The shape ops, the
 detection ops, `RNN` and `ctc_loss` (modules ported before the registry)
-are registered below under the JAX registry's names.
+are registered below under the JAX registry's names, and so is
+`_getitem` (indexing as an op). `optimizer_ops`, `random_ops` and the
+rest of `misc_ops` register the JAX modules' names themselves.
 
 An op that reads the training flag (`Dropout`, `BatchNorm`,
 `flash_attention`, `fused_self_attention`) takes `_training`, as the JAX
@@ -56,6 +58,8 @@ from . import shape_ops      # noqa: E402
 from . import detection_ops  # noqa: E402
 from . import rnn_ops        # noqa: E402
 from . import misc_ops       # noqa: E402
+from . import optimizer_ops  # noqa: E402,F401
+from . import random_ops     # noqa: E402,F401
 
 for _name, _fn in shape_ops.NAMES.items():
     register(_name)(getattr(shape_ops, _fn))
@@ -75,4 +79,15 @@ for _name, _fn in {"_contrib_box_iou": detection_ops.box_iou,
 for _name in ("CTCLoss", "_contrib_ctc_loss", "_contrib_CTCLoss"):
     alias(_name, "ctc_loss")
 
-RNG_OPS.update({"Dropout", "RNN", "flash_attention", "fused_self_attention"})
+
+
+@register("_getitem")
+def _getitem(data, key=None):
+    """`NDArray.__getitem__` as an op, so indexing records a gradient."""
+    return data[key]
+
+
+RNG_OPS.update(name for name in OPS
+               if name.startswith(("_random_", "_sample_")))
+RNG_OPS.update({"Dropout", "shuffle", "RNN", "flash_attention",
+                "fused_self_attention"})

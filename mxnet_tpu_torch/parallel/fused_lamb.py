@@ -178,11 +178,14 @@ class FusedLamb:
                                          self.shapes)]
 
     # -- the fused step --------------------------------------------------
-    def apply_flat(self, w, g, m, v, t, lr):
+    def apply_flat(self, w, g, m, v, t, lr, trust_scale=None):
         """One LAMB step at update count t (>= 1) and learning rate lr on
         the flat state (w float32, m and v in the moments' dtype). w, m and
         v update IN PLACE (the JAX package donated them and wrote new
-        buffers); g is the flat float32 gradient. Returns (w, m, v)."""
+        buffers); g is the flat float32 gradient. `trust_scale`, (n,)
+        float32 on w's device, multiplies each tensor's trust ratio (the
+        eager optimizer's per-tensor learning rates, with lr 1). Returns
+        (w, m, v)."""
         R, C = self.n_rows, _CHUNK
         W, G = w.view(R, C), g.view(R, C)
         M, V = m.view(R, C), v.view(R, C)
@@ -205,6 +208,8 @@ class FusedLamb:
             trust = torch.clamp(trust, min=self.lo)
         if self.hi and self.hi > 0:
             trust = torch.clamp(trust, max=self.hi)
+        if trust_scale is not None:
+            trust = trust * trust_scale
         _fu.lamb_pass2(W, M, V, wd_rows, trust[row_seg].contiguous(), c1, c2,
                        lr, epsilon=self.eps,
                        bias_correction=self.bias_correction)

@@ -16,6 +16,18 @@ package was loaded, then prints one JSON line: `launches`, every
 `seconds`, the script's wall time, and where the card was used,
 `max_memory_allocated_bytes`, its peak device memory.
 
+    python -m mxnet_tpu_torch.run_example [--device cpu] \\
+        --pytest tests/unittest/<file>.py [pytest arguments...]
+
+runs pytest on an unchanged test file of the JAX package under the same
+alias (`run_pytest`), with `--noconftest` (the suite's conftest imports
+jax) and in its place a fixture that seeds `random` and numpy's global
+stream with 0 before each test, as that conftest does. It fails if any
+module of the JAX package loaded, and prints one JSON line: `passed`,
+`failed`, `failures` (each failed test's id), `skipped` and `launches`.
+Run it in a fresh process: one that holds the JAX package already is
+refused.
+
 Importing this module installs nothing: the alias exists only while
 `run` runs a script, and is removed after it.
 """
@@ -31,7 +43,7 @@ import runpy
 import sys
 import time
 
-__all__ = ["run", "main", "launch_counts"]
+__all__ = ["run", "run_pytest", "main", "launch_counts"]
 
 _ALIAS = "mxnet_tpu"
 _PORT = "mxnet_tpu_torch"
@@ -76,10 +88,10 @@ def _jax_modules():
                   if (getattr(m, "__file__", None) or "").startswith(_JAX_DIR))
 
 
-def run(script, args=(), device=None):
-    """Run `script` as `__main__` with `args` under the alias (inside
-    `with Context(device):` when a device is named); returns the launch
-    counters. Raises if a module of the JAX package was loaded."""
+def _aliased_call(fn, argv, device):
+    """fn() under the alias, with `sys.argv` = argv, inside
+    `with Context(device):` when a device is named. Raises if a module of
+    the JAX package was loaded before or during the call."""
     from . import context
     finder = _PortAlias()
     saved_argv, saved_path = sys.argv, list(sys.path)
@@ -87,13 +99,13 @@ def run(script, args=(), device=None):
     if already:
         raise RuntimeError(f"the JAX package is loaded already: {already}")
     sys.meta_path.insert(0, finder)
-    sys.argv = [script, *args]
+    sys.argv = list(argv)
     try:
         if device is None:
-            runpy.run_path(script, run_name="__main__")
+            result = fn()
         else:
             with context.Context(device):
-                runpy.run_path(script, run_name="__main__")
+                result = fn()
     finally:
         sys.meta_path.remove(finder)
         sys.argv = saved_argv
@@ -102,8 +114,62 @@ def run(script, args=(), device=None):
             del sys.modules[name]
     loaded = _jax_modules()
     if loaded:
-        raise RuntimeError(f"{script} loaded the JAX package: {loaded}")
+        raise RuntimeError(f"{argv[0]} loaded the JAX package: {loaded}")
+    return result
+
+
+def run(script, args=(), device=None):
+    """Run `script` as `__main__` with `args` under the alias (inside
+    `with Context(device):` when a device is named); returns the launch
+    counters. Raises if a module of the JAX package was loaded."""
+    _aliased_call(lambda: runpy.run_path(script, run_name="__main__"),
+                  [script, *args], device)
     return launch_counts()
+
+
+class _Seeded:
+    """The pytest plugin that stands in for the suite's conftest: each
+    test starts from `random.seed(0)` and `np.random.seed(0)`, and the
+    outcome of each test is kept."""
+
+    def __init__(self):
+        self.passed, self.failures, self.skipped = [], [], []
+
+    def pytest_runtest_setup(self, item):
+        import numpy as np
+        from . import random
+        random.seed(0)
+        np.random.seed(0)
+
+    def pytest_runtest_logreport(self, report):
+        if report.failed:
+            if report.nodeid not in self.failures:
+                self.failures.append(report.nodeid)
+        elif report.skipped:
+            self.skipped.append(report.nodeid)
+        elif report.when == "call":
+            self.passed.append(report.nodeid)
+
+    def pytest_collectreport(self, report):
+        if report.failed:
+            self.failures.append(report.nodeid)
+
+
+def run_pytest(path, args=(), device=None):
+    """pytest on the test file `path` under the alias, with
+    `--noconftest` and `_Seeded` in the suite's conftest's place.
+    Returns {"passed", "failed", "failures", "skipped", "launches",
+    "exit_code"}; raises if a module of the JAX package was loaded."""
+    import pytest
+    plugin = _Seeded()
+    code = _aliased_call(
+        lambda: pytest.main(["--noconftest", "-p", "no:cacheprovider",
+                             "-p", "no:randomly", "-q", path, *args],
+                            plugins=[plugin]),
+        [path, *args], device)
+    return {"passed": len(plugin.passed), "failed": len(plugin.failures),
+            "failures": plugin.failures, "skipped": len(plugin.skipped),
+            "exit_code": int(code), "launches": launch_counts()}
 
 
 def main(argv=None):
@@ -114,6 +180,10 @@ def main(argv=None):
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
+    if argv[0] == "--pytest":
+        out = run_pytest(argv[1], argv[2:], device)
+        print(json.dumps(out))
+        return 0 if out["failed"] == 0 else 1
     t0 = time.perf_counter()
     out = {"launches": run(argv[0], argv[1:], device),
            "seconds": time.perf_counter() - t0}

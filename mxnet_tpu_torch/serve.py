@@ -367,7 +367,8 @@ class Server:
 
     @staticmethod
     def _measure_params(model):
-        return _memsafe.resident_bytes(model.collect_params().values())
+        # each parameter once: a shared one is listed under every path
+        return _memsafe.resident_bytes(model.parameters())
 
     def _init_paged(self, page_size, pool_pages, prefill_chunk, spec_k):
         """Build the page pool and prefix tree. The usable position range

@@ -72,14 +72,6 @@ def _eval_graph(sym, values, training):
     return heads, aux_updates
 
 
-def _device_context(device):
-    """The Context of a torch device (ops with no inputs, `_zeros` and
-    `_ones`, make their tensor on the entered context's device)."""
-    if device.type == "cpu":
-        return _context.cpu()
-    return _context.gpu(device.index or 0)
-
-
 def _as_nd(v, device):
     return v if isinstance(v, NDArray) else _nd.array(v, ctx=device)
 
@@ -174,7 +166,7 @@ class Executor:
         prev = _autograd.set_training(training)
         try:
             with torch.set_grad_enabled(bool(leaves)), \
-                    _device_context(self._device):
+                    _context.Context.of(self._device):
                 heads, aux_up = _eval_graph(self._symbol, values, training)
         finally:
             _autograd.set_training(prev)

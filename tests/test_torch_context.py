@@ -73,7 +73,7 @@ def test_an_entered_cpu_context_is_an_explicit_request(no_card):
     with mxt.cpu():
         assert context.resolve() == torch.device("cpu")
         x = nd.array(np.arange(3, dtype=np.float32))
-        assert x.context == torch.device("cpu")
+        assert x.context == mxt.cpu()
         m = gpt.GPTForCausalLM(gpt.gpt_tiny_config())
         assert m.device == torch.device("cpu")
         # an explicit device still wins over the entered context
@@ -88,10 +88,10 @@ def test_an_entered_cpu_context_is_an_explicit_request(no_card):
 def test_resolve_takes_a_context_wherever_it_takes_a_device():
     assert context.resolve(mxt.cpu()) == torch.device("cpu")
     assert context.resolve(mxt.cpu(5)) == torch.device("cpu")
-    assert nd.array([1.0], ctx=mxt.cpu()).context == torch.device("cpu")
-    assert nd.zeros((2,), ctx=mxt.cpu()).context.type == "cpu"
+    assert nd.array([1.0], ctx=mxt.cpu()).context == mxt.cpu()
+    assert nd.zeros((2,), ctx=mxt.cpu()).context.device_type == "cpu"
     x = nd.array([1.0], ctx="cpu").as_in_context(mxt.cpu())
-    assert x.context == torch.device("cpu")
+    assert x.context == mxt.cpu()
     assert mxt.random.generator(mxt.cpu()).device == torch.device("cpu")
 
 

@@ -109,7 +109,7 @@ def test_custom_embedding_load_lookup_and_update(tmp_path):
     np.testing.assert_array_equal(tables[1][0], tables[0][0])
     assert tables[1][1] == tables[0][1]
     assert text_t.embedding.CustomEmbedding(
-        pretrained_file_path=p).idx_to_vec.context.type == "cpu"
+        pretrained_file_path=p).idx_to_vec.context.device_type == "cpu"
 
 
 @pytest.mark.parametrize("text", PKGS)

@@ -1134,7 +1134,7 @@ def test_eager_trainer_launches_adam_once_per_dtype(dev):
     src = nd.array(rng.randint(3, 50, (4, 12)))
     tgt = nd.array(rng.randint(3, 60, (4, 13)))
     valid = nd.array([12, 5, 9, 1])
-    assert src.context.type == "cuda"
+    assert src.context.device_type == "gpu"
     n = (fa.launches, fa.launches_dq, fa.launches_dkv, fu.launches_adam)
     with autograd.record():
         loss = transformer.label_smoothing_loss(m(src, tgt, valid), tgt)
@@ -1152,14 +1152,14 @@ def test_eager_trainer_launches_adam_once_per_dtype(dev):
 
 
 def test_nd_array_lands_on_the_card(dev):
-    from mxnet_tpu_torch import cpu, nd
+    from mxnet_tpu_torch import cpu, gpu, nd
     x = nd.array(np.arange(6.0).reshape(2, 3))
-    assert x.context == torch.device("cuda", torch.cuda.current_device())
+    assert x.context == gpu(torch.cuda.current_device())
     assert x.dtype == np.float32
     for y in (nd.zeros((2,)), nd.ones((2,)), nd.full((2,), 3.0),
               nd.arange(4), x * 2, x.as_in_context(dev)):
-        assert y.context.type == "cuda"
-    assert nd.array([1.0], ctx=cpu()).context.type == "cpu"
+        assert y.context.device_type == "gpu"
+    assert nd.array([1.0], ctx=cpu()).context.device_type == "cpu"
     np.testing.assert_array_equal((x + 1).asnumpy(),
                                   np.arange(6.0).reshape(2, 3) + 1)
 
@@ -1679,3 +1679,61 @@ def test_symbolic_module_fit_and_kernel_ops_on_card(dev):
     import chip_smoke
     chip_smoke.sym_parity_phase(dev)
     chip_smoke.sym_kernel_ops_phase(dev)
+
+
+def test_eager_lamb_trainer_on_card(dev):
+    """chip_smoke's phase 44 parity: a 2-layer float32 BERT trained two
+    eager steps with `gluon.Trainer(..., "lamb")` on the card (flash
+    kernels, one launch of each LAMB pass a step) and on the CPU:
+    losses and parameters within 1e-5."""
+    import chip_smoke
+    res = chip_smoke.eager_bert_parity_phase(dev, batch=4)
+    assert res["launches"]["lamb_pass1"] == res["launches"]["lamb_pass2"] == 2
+
+
+def test_optimizers_and_eager_lamb_route_on_card(dev, monkeypatch):
+    """chip_smoke's phase 45: the 17 optimizers through NDArrays card vs
+    CPU within 1e-5 (SGLD around its mode), `nd.adam_update` one launch
+    equal to `Adam.update` bit for bit, and LAMB's eager kernel route
+    against its plain version (rtol 1e-5) at a smaller embedding."""
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "EAGER_ROUTE_SHAPE", (4096, 768))
+    rows, route = chip_smoke.eager_optimizers_phase(dev)
+    assert rows["nd.adam_update"]["bit_equal_to_Adam_update"]
+    assert route["max_abs_err"] <= chip_smoke.TOL_LAMB
+
+
+def test_random_and_indexing_land_on_the_card(dev):
+    """nd.random draws on the card from its device stream, seeded; an
+    index and an assignment keep the card."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch import random as mxrandom
+    mxrandom.seed(3)
+    a = nd.random.normal(shape=(1000,))
+    mxrandom.seed(3)
+    b = nd.random.normal(shape=(1000,))
+    assert a.context.device_type == "gpu"
+    np.testing.assert_array_equal(a.asnumpy(), b.asnumpy())
+    x = nd.array(np.arange(12.0).reshape(3, 4))
+    x[1] = 0.0
+    assert x[1:].context.device_type == "gpu"
+    assert x.asnumpy()[1].sum() == 0.0
+
+
+def test_jax_unit_test_file_on_card(dev):
+    """chip_smoke's phase 46 for one file: the JAX package's
+    test_optimizer.py unchanged through `run_example --pytest` with the
+    card as the default device passes all 20 tests."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.run_example", "--pytest",
+         "tests/unittest/test_optimizer.py", "-p", "no:xdist"], cwd=root,
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=root))
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert (res["passed"], res["failed"]) == (20, 0), res
+    assert res["launches"]["fused_update.launches_adam"] > 0

@@ -1,5 +1,6 @@
-"""PyTorch port, ROADMAP.md queue 3 faults 10-12, each call made the
-same way on both packages (JAX keywords and positions) on the CPU.
+"""PyTorch port, ROADMAP.md queue 3 faults 10-12 and 14-16, each call
+made the same way on both packages (JAX keywords and positions) on the
+CPU.
 
 Fault 10: `ShardedTrainer(net, loss)` trains with SGD, the JAX default,
 and takes the JAX package's keywords at their defaults (`donate=True`,
@@ -12,6 +13,16 @@ queue item. Fault 12: `Block.initialize(init, ctx, verbose,
 force_reinit)` and `GPTForCausalLM.generate(..., seed, on_device,
 num_beams)` in the JAX order: the same parameters, the same greedy
 tokens.
+
+Fault 14: `NDArray.context` (and `ctx`) is the port's `Context`, as the
+JAX package's is, and `as_in_ctx` exists. Fault 15: `collect_params()`
+lists a block added twice under both paths and `Monitor` reports both,
+as the JAX package does; the port's `gluon.Trainer` updates the shared
+parameter once a step, the JAX package's twice (the test writes both
+down; ROADMAP.md "The oracle is red"). Fault 16: the optimizers'
+`create_state` returns NDArrays and `update` takes NDArrays, updating
+the weight and the state in place: three steps equal the JAX package's
+within 1e-6; `Module._opt_states` holds NDArrays.
 """
 import numpy as np
 import pytest
@@ -135,7 +146,7 @@ def test_fault11_hasattr_of_unknown_names(pkg):
 
 def test_fault11_not_ported_still_names_the_item():
     x = nd_t.array([1.0, 2.0], ctx=CPU)
-    for obj, name in ((x, "smooth_l1"), (nd_t, "smooth_l1")):
+    for obj, name in ((x, "Custom"), (nd_t, "Custom")):
         with pytest.raises(NotImplementedError,
                            match="The eager MXNet surface"):
             getattr(obj, name)
@@ -202,3 +213,166 @@ def test_fault12_generate_on_device_in_the_jax_position():
             np.asarray(jm.generate(prompt, 6, None, 0.0, 0, 0, False)), ref)
     finally:
         parallel_j.set_mesh(None)
+
+
+# -- fault 14: NDArray.context is a Context ----------------------------------
+
+def test_fault14_context_is_a_context_like_jax():
+    j = nd_j.ones((2, 2)).as_in_context(mx.cpu(0))
+    t = nd_t.ones((2, 2), ctx=CPU).as_in_context(mxt.cpu(0))
+    for x, pkg in ((j, mx), (t, mxt)):
+        assert x.context.device_type == "cpu"
+        assert x.ctx == x.context == pkg.cpu(0)
+        assert isinstance(x.context, pkg.Context)
+        y = x.as_in_ctx(pkg.cpu(0))
+        assert y.context == pkg.cpu(0)
+        np.testing.assert_array_equal(y.asnumpy(), np.ones((2, 2)))
+    assert repr(t.context) == repr(j.context) == "cpu(0)"
+
+
+def test_fault14_contexts_compare_as_in_jax():
+    for pkg in (mx, mxt):
+        assert pkg.Context("cpu", 0) == pkg.cpu(0)
+        assert pkg.Context("gpu", 0) == pkg.gpu(0)
+        assert pkg.Context("cpu", 0) != pkg.gpu(0)
+        assert hash(pkg.Context("cpu", 0)) == hash(pkg.cpu(0))
+    assert mxt.Context.of(torch.device("cpu")) == mxt.cpu(0)
+    assert mxt.Context.of(torch.device("cuda", 1)) == mxt.gpu(1)
+
+
+# -- fault 15: a block added twice ---------------------------------------------
+
+def _shared_net(gluon):
+    shared = gluon.nn.Dense(3, in_units=3)
+    net = gluon.nn.HybridSequential()
+    net.add(shared, shared)
+    return net
+
+
+def _shared_pair():
+    w = np.random.RandomState(5).randn(3, 3).astype(np.float32) * 0.3
+    b = np.random.RandomState(6).randn(3).astype(np.float32) * 0.1
+    jn = _shared_net(gluon_j)
+    jn.initialize()
+    with mxt.cpu():
+        tn = _shared_net(gluon_t)
+        tn.initialize()
+    for net, setter in ((jn, lambda p, v: p.set_data(nd_j.array(v))),
+                        (tn, lambda p, v: gluon_t.parameter.set_data(
+                            p, torch.from_numpy(v)))):
+        params = net.collect_params()
+        setter(params["0.weight"], w)
+        setter(params["0.bias"], b)
+    return jn, tn, w, b
+
+
+def test_fault15_collect_params_lists_every_path():
+    jn, tn, _, _ = _shared_pair()
+    keys = ["0.weight", "0.bias", "1.weight", "1.bias"]
+    assert list(jn.collect_params()) == list(tn.collect_params()) == keys
+    tp = tn.collect_params()
+    assert tp["0.weight"] is tp["1.weight"]
+    assert list(tn.collect_params(".*bias")) == ["0.bias", "1.bias"]
+
+
+def test_fault15_monitor_reports_both_names_as_jax():
+    jn, tn, _, _ = _shared_pair()
+    x = np.random.RandomState(7).rand(2, 3).astype(np.float32)
+    rows = {}
+    for pkg, net, nd, ctx in (("jax", jn, nd_j, None),
+                              ("port", tn, nd_t, CPU)):
+        mod = mx if pkg == "jax" else mxt
+        mon = mod.monitor.Monitor(interval=1, monitor_gradient=False)
+        mon.install(net)
+        mon.tic()
+        net(nd.array(x) if ctx is None else nd.array(x, ctx=ctx))
+        rows[pkg] = [(name, float(stat)) for _, name, stat in mon.toc()]
+    assert [n for n, _ in rows["port"]] == [n for n, _ in rows["jax"]]
+    assert len(rows["port"]) == 9
+    np.testing.assert_allclose([v for _, v in rows["port"]],
+                               [v for _, v in rows["jax"]], rtol=1e-5)
+
+
+def test_fault15_trainer_updates_a_shared_parameter_once():
+    """The port's Trainer: one SGD update of the shared weight a step
+    (upstream MXNet keys parameters by name). The JAX package's Trainer
+    takes `list(params.values())` as is and applies two: this test
+    writes both down (ROADMAP.md, "The oracle is red")."""
+    jn, tn, w, b = _shared_pair()
+    x = np.random.RandomState(8).rand(2, 3).astype(np.float32)
+    grads, after = {}, {}
+    for pkg, net, nd, ctx in (("jax", jn, nd_j, None),
+                              ("port", tn, nd_t, CPU)):
+        gl = gluon_j if pkg == "jax" else gluon_t
+        ag = mx.autograd if pkg == "jax" else mxt.autograd
+        tr = gl.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1})
+        xa = nd.array(x) if ctx is None else nd.array(x, ctx=ctx)
+        with ag.record():
+            loss = net(xa).sum()
+        loss.backward()
+        p = net.collect_params()["0.bias"]
+        grads[pkg] = (p.grad().asnumpy() if pkg == "jax"
+                      else p.grad.numpy().copy())
+        tr.step(1)
+        after[pkg] = (p.data().asnumpy() if pkg == "jax"
+                      else p.detach().numpy().copy())
+        n_params = len(tr._params)
+        assert n_params == (4 if pkg == "jax" else 2)
+    np.testing.assert_allclose(grads["port"], grads["jax"], rtol=1e-5,
+                               atol=1e-6)
+    g = grads["port"]
+    np.testing.assert_allclose(after["port"], b - 0.1 * g, rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(after["jax"], b - 2 * 0.1 * g, rtol=1e-6,
+                               atol=1e-7)
+
+
+# -- fault 16: the optimizer's NDArray boundary ---------------------------------
+
+@pytest.mark.parametrize("name,kw", [
+    ("sgd", {"learning_rate": 0.1, "wd": 0.01}),
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("adam", {"learning_rate": 0.01}),
+    ("lamb", {"learning_rate": 0.01, "wd": 0.01})])
+def test_fault16_update_takes_ndarrays_like_jax(name, kw):
+    rng = np.random.RandomState(0)
+    w = rng.randn(4, 3).astype(np.float32)
+    gs = [rng.randn(4, 3).astype(np.float32) for _ in range(3)]
+    out = {}
+    for pkg, optm, nd, ctx in (("jax", mx.optimizer, nd_j, None),
+                               ("port", mxt.optimizer, nd_t, CPU)):
+        arr = (lambda v: nd.array(v)) if ctx is None else \
+            (lambda v: nd.array(v, ctx=ctx))
+        o = optm.create(name, **kw)
+        weight = arr(w)
+        state = o.create_state(0, weight)
+        parts = state if isinstance(state, tuple) else (state,)
+        for s in parts:
+            assert s is None or isinstance(s, nd.NDArray)
+        for g in gs:
+            o.update(0, weight, arr(g), state)
+        out[pkg] = (weight.asnumpy(), [s.asnumpy() for s in parts
+                                       if s is not None])
+    np.testing.assert_allclose(out["port"][0], out["jax"][0], rtol=1e-6,
+                               atol=1e-6)
+    for a, b in zip(out["port"][1], out["jax"][1]):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_fault16_module_holds_ndarray_states():
+    from mxnet_tpu_torch import io as io_t
+    from mxnet_tpu_torch import module as mod_t
+    from mxnet_tpu_torch import symbol as sym_t
+    data = sym_t.var("data")
+    out = sym_t.SoftmaxOutput(sym_t.FullyConnected(data, num_hidden=3,
+                                                   name="fc"), name="softmax")
+    x = np.random.RandomState(1).rand(8, 4).astype(np.float32)
+    y = np.random.RandomState(2).randint(0, 3, 8).astype(np.float32)
+    it = io_t.NDArrayIter(x, y, batch_size=4)
+    m = mod_t.Module(out, context=CPU)
+    m.fit(it, num_epoch=1, optimizer="adam",
+          optimizer_params={"learning_rate": 0.01})
+    assert m._opt_states
+    for st in m._opt_states.values():
+        assert isinstance(st, tuple) and all(
+            isinstance(s, nd_t.NDArray) for s in st)

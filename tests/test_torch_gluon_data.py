@@ -161,7 +161,7 @@ def test_synthetic_datasets_are_bit_equal(cls, train, tmp_path):
     np.testing.assert_array_equal(dt._label, dj._label)
     assert dt._data.dtype == np.uint8 and dt._label.dtype == np.int32
     img, label = dt[5]
-    assert isinstance(img, nd_t.NDArray) and img.context.type == "cpu"
+    assert isinstance(img, nd_t.NDArray) and img.context.device_type == "cpu"
     np.testing.assert_array_equal(img.asnumpy(), dj[5][0].asnumpy())
     assert label == dj[5][1]
 

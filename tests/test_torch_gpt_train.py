@@ -282,8 +282,8 @@ def test_optimizers_have_the_jax_defaults():
         assert type(got).__name__.lower() == name
         assert (got.lr, got.momentum, got.wd) == \
             (ref.lr, ref.momentum, ref.wd)
-    with pytest.raises(NotImplementedError):
-        opt_t.create("rmsprop")
+    with pytest.raises(KeyError, match="Unknown optimizer"):
+        opt_t.create("no_such_optimizer")
     # an lr scheduler is ported: it takes the optimizer's rate as its base
     from mxnet_tpu_torch import lr_scheduler as lrs_t
     sched = lrs_t.FactorScheduler(step=1, factor=0.5)

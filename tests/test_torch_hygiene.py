@@ -190,3 +190,29 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode == 2, out.stderr
     assert '"ok"' not in out.stdout
+
+
+_EAGER_SLICE = ["test_utils", "ndarray.ndarray", "ndarray.random",
+                "ops.random_ops", "ops.optimizer_ops", "ops.misc_ops",
+                "optimizer", "gluon.block", "gluon.nn", "gluon.loss",
+                "gluon.utils", "run_example"]
+
+
+@pytest.mark.parametrize("module", _EAGER_SLICE)
+def test_eager_slice_module_imports_no_jax(module):
+    """Each module of MXNet's eager surface (the NDArray with indexing,
+    `nd.random`, the sampling, optimizer and misc ops, the optimizers,
+    gluon's classic Block, layers, losses and utils, the test oracles and
+    the unit-test runner) is among the checked sources and imports no
+    JAX; loaded alone it pulls in none."""
+    path = _module_path(module)
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
+    code = (f"import sys; import mxnet_tpu_torch.{module}\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            f"{_FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -360,7 +360,7 @@ def test_iter_batches_are_host_arrays_and_multi_input():
                           np.zeros(4), batch_size=2)
     b = next(it)
     assert [d.shape for d in b.data] == [(2, 2), (2, 3)]
-    assert all(d.context.type == "cpu" for d in b.data + b.label)
+    assert all(d.context.device_type == "cpu" for d in b.data + b.label)
     assert [d.name for d in it.provide_data] == ["a", "b"]
 
 

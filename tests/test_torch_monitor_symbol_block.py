@@ -88,7 +88,7 @@ def test_monitor_install_idempotent_and_pattern():
     mon2 = mxt.monitor.Monitor(interval=1, pattern=".*weight.*",
                                monitor_gradient=False)
     mon2.install(net2)
-    assert len(shared._forward_hooks) == 1   # torch lists a child once
+    assert len(shared._forward_hooks) == 2   # one hook under each name
     mon2.tic()
     net2(nd_t.ones((2, 4), ctx=CPU))
     rows = mon2.toc()

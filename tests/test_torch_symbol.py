@@ -342,7 +342,7 @@ def test_generic_ops_variable_heads_and_internals():
 
 def test_simple_bind_places_arrays_on_the_context():
     ex = _mlp(sym_t).simple_bind(ctx=mxt.cpu(), data=(2, 5))
-    assert all(a.context.type == "cpu" for a in ex.arg_dict.values())
+    assert all(a.context.device_type == "cpu" for a in ex.arg_dict.values())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):   # the card, and there is none
             _mlp(sym_t).simple_bind(data=(2, 5))
