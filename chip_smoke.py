@@ -245,10 +245,32 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      by name makes one Adam launch and equals `Adam.update` bit for
      bit;
  46. the JAX package's unit-test files of `tests/test_torch_jax_unittests.py`
-     (`FILES`), unchanged, each in a process of its own through
-     `python -m mxnet_tpu_torch.run_example --pytest` with the card as
-     the default device, all at once: each must pass the tests it
-     passes on the CPU and fail only the named exclusions.
+     and `tests/test_torch_jax_unittests_more.py` (`FILES`), unchanged,
+     through `python -m mxnet_tpu_torch.run_example --pytest` with the
+     card as the default device, the first harness's each in a process
+     of its own, the second's three a process, all at once: each must
+     pass the tests it passes on the CPU and fail only the named
+     exclusions (the second harness's `ON_CARD` ones too);
+ 47. the observability layer on the main paths, in one process, off,
+     on, off: phase 6's BERT-base `ShardedTrainer` (32 x 512, LAMB) for 8
+     steps and phase 2's traffic through `Server(pages="on")`, with
+     telemetry, trace (every step sampled, the skew probe every 4th) and
+     diagnostics on in the middle run: losses and tokens bit equal and
+     launch counts equal, on against off; `trainer_step_seconds` one
+     entry a timed step, the TTFT histogram one a request, the request
+     and token counters equal to `Server.stats()`, every span once per
+     step or round; a telemetry JSONL and the span file written and read
+     back, the span file merged by `tools/trace_report.py` into a valid
+     chrome trace; ms per step and tokens/s on against off printed;
+ 48. diagnostics, profiler and inspect on a BERT-base trainer: inspect
+     counts the first step (FLOPs within 10% of the step's analytic
+     count, attention included; MFU of the timed steps printed);
+     `profiler.set_state("run")` ... `dump()` around 2 steps names the
+     flash and LAMB kernels as many times as the launch counters say; a
+     1 s watchdog over an injected 2.5 s stall writes its stacks and a
+     post-mortem; `nan_sentinel` with a NaN loss injected at the run's
+     third step raises NonFiniteError and writes a post-mortem with the
+     ring tail and the card's memory watermarks.
 
 Phase 1 also holds the training kernels against their plain versions at
 the training shapes: the flash forward with dropout 0.1 (its keep mask
@@ -7108,33 +7130,447 @@ def eager_optimizers_phase(dev, shape=(256, 384), steps=3, seed=0):
     return rows, route
 
 
-def jax_unittests_phase(width=12, timeout=300):
+# ---------------------------------------------------------------------------
+# phases 47-48: the observability layer (telemetry, trace, diagnostics,
+# profiler, inspect) on the main paths
+# ---------------------------------------------------------------------------
+
+def obs_arm(tmp, skew_every=4):
+    """Telemetry, trace (every step sampled, spans to `tmp`/trace) and
+    diagnostics (post-mortems to `tmp`/diag) on, all state reset."""
+    from mxnet_tpu_torch import diagnostics, telemetry, trace
+    os.makedirs(tmp, exist_ok=True)
+    for m in (telemetry, trace, diagnostics):
+        m.reset()
+    telemetry.enable()
+    trace.enable(trace_dir=os.path.join(tmp, "trace"), rank=0,
+                 sample_every=1, skew_every=skew_every)
+    diagnostics.install(diagnostics_dir=os.path.join(tmp, "diag"), rank=0)
+
+
+def obs_disarm():
+    from mxnet_tpu_torch import diagnostics, telemetry, trace
+    diagnostics.uninstall()
+    trace.disable()
+    telemetry.disable()
+    for m in (telemetry, trace, diagnostics):
+        m.reset()
+
+
+def obs_bert_run(dev, steps, observe, tmp=None, batch=32, seq_len=512,
+                 masked=76, **cfg_overrides):
+    """Phase 6's BERT-base trainer (seed 0, bf16, dropout 0.1, LAMB, 32 x
+    512 with 76 masked positions) for `steps` steps, the observers on
+    when `observe`. Returns (losses as floats, launch counts, ms per
+    step of steps 2..n by the host clock with the card synchronised at
+    both ends, what the observers saw)."""
+    import torch
+    from mxnet_tpu_torch import parallel, telemetry
+    from mxnet_tpu_torch.models import bert
+    cfg = bert.bert_base_config(dtype="bfloat16", **cfg_overrides)
+    model = build_bert(cfg, 0, dev)
+    trainer = parallel.ShardedTrainer(
+        model, bert.bert_pretrain_loss, "lamb",
+        {"learning_rate": 1e-3, "wd": 0.01}, device=dev)
+    b = bert.make_synthetic_batch(cfg, batch, seq_len, masked, seed=0)
+    data = [torch.from_numpy(b[k]).to(dev) for k in _DATA]
+    labels = [torch.from_numpy(b[k]).to(dev) for k in _LABELS]
+    if observe:
+        obs_arm(tmp)
+    seen = None
+    try:
+        reset_counts()
+        losses = [trainer.step(data, labels)]
+        sync(model)
+        t0 = time.perf_counter()
+        losses += [trainer.step(data, labels) for _ in range(steps - 1)]
+        sync(model)
+        ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+        counts = read_counts()
+        if observe:
+            events = [e["kind"] for e in telemetry.events()]
+            files, spans = obs_files(tmp)
+            by_step = {}
+            for sp in spans:
+                by_step.setdefault(sp.get("step"), []).append(sp["name"])
+            seen = {
+                "events": events,
+                "step_seconds_count":
+                    telemetry.get("trainer_step_seconds").count,
+                "compile_total": telemetry.get("compile_total").value,
+                "spans": {k: sorted(v) for k, v in by_step.items()},
+                "files": files}
+    finally:
+        if observe:
+            obs_disarm()
+    out = [float(x) for x in losses]
+    del trainer, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out, counts, ms, seen
+
+
+def obs_files(tmp):
+    """Write the telemetry JSONL and the span file, read both back, and
+    merge the span file into a chrome trace with tools/trace_report.py;
+    returns (what was read, every span of the file: the recorder
+    appends to it every 256 records)."""
+    from mxnet_tpu_torch import telemetry, trace
+    jsonl = telemetry.dump_jsonl(os.path.join(tmp, "telemetry.jsonl"))
+    with open(jsonl) as fh:
+        lines = [json.loads(line) for line in fh]
+    check(lines and lines[-1]["kind"] == "snapshot"
+          and "trainer_step_seconds" in lines[-1]["metrics"],
+          f"telemetry JSONL {jsonl}: last line {lines[-1:]}")
+    spans_path = trace.flush()
+    with open(spans_path) as fh:
+        recs = [json.loads(line) for line in fh]
+    check(recs and recs[0]["kind"] == "meta", f"span file {spans_path}")
+    merged = os.path.join(tmp, "trace_merged.json")
+    rep = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "trace_report.py"),
+         os.path.join(tmp, "trace"), "--out", merged], capture_output=True,
+        text=True, timeout=120)
+    check(rep.returncode == 0, f"trace_report: {rep.stdout[-2000:]} "
+          f"{rep.stderr[-2000:]}")
+    with open(merged) as fh:
+        doc = json.load(fh)
+    xs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    check(xs and all(e["dur"] >= 0 and e["ts"] >= 0 and e["name"]
+                     for e in xs), f"merged chrome trace {merged}")
+    return {"telemetry_jsonl_lines": len(lines), "span_records": len(recs),
+            "chrome_trace_events": len(doc["traceEvents"]),
+            "verdict": [ln for ln in rep.stdout.splitlines()
+                        if "verdict" in ln][:1]}, \
+        [r for r in recs if r["kind"] == "span"]
+
+
+def obs_serve_run(model, observe, tmp=None, **kw):
+    """Phase 2's traffic through `Server(pages="on")`, the observers on
+    when `observe`. Returns (tokens per request, launch counts, server
+    stats, seconds, what the observers saw)."""
+    from mxnet_tpu_torch import telemetry
+    if observe:
+        obs_arm(tmp)
+    seen = None
+    try:
+        reset_counts()
+        reqs, stats, secs = serving_phase(model, **kw)
+        counts = read_counts()
+        if observe:
+            names = {}
+            for sp in obs_files(tmp)[1]:
+                names[sp["name"]] = names.get(sp["name"], 0) + 1
+            outcomes = telemetry.get("serve_requests_total")._children
+            seen = {
+                "tokens_total": telemetry.get("serve_tokens_total").value,
+                "completed": sum(c.value for k, c in outcomes.items()
+                                 if dict(k).get("outcome") == "completed"),
+                "ttft_count": telemetry.get("serve_ttft_seconds").count,
+                "queue_wait_count":
+                    telemetry.get("serve_queue_wait_seconds").count,
+                "spans": names}
+    finally:
+        if observe:
+            obs_disarm()
+    return [list(r.tokens) for r in reqs], counts, stats, secs, seen
+
+
+def observability_phase(dev, steps=8, serve_model=None, serve_kw=None,
+                        **train_kw):
+    """Phase 47: BERT-base training and phase 2's serving, each off, on,
+    off in this process. Bit equal losses and tokens, equal launch
+    counts; the observers' counts against the runs'; ms per step and
+    tokens/s printed, not gated. `serve_model`, `serve_kw` and
+    `train_kw` cut it for a rehearsal on the CPU."""
+    import tempfile
+    import torch
+    from mxnet_tpu_torch.models import gpt
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    runs = [obs_bert_run(dev, steps, observe, os.path.join(tmp, "train"),
+                         **train_kw) for observe in (False, True, False)]
+    (l0, c0, ms0, _), (l1, c1, ms1, seen), (l2, c2, ms2, _) = runs
+    check(l0 == l2, f"BERT-base off runs differ: {l0} {l2}")
+    check(l1 == l0, f"BERT-base losses with the layer on {l1} != off {l0}")
+    check(c0 == c1 == c2, f"launch counts off {c0}, on {c1}, off {c2}")
+    check(dev.type != "cuda" or c1["flash_attention_fwd"] > 0,
+          "flash kernel never launched")
+    check(seen["step_seconds_count"] == steps - 1
+          and seen["compile_total"] == 1,
+          f"trainer_step_seconds {seen['step_seconds_count']}, "
+          f"compile_total {seen['compile_total']}")
+    want = {1: ["step.compile"]}
+    want.update({i: ["step.dispatch", "step.fence"]
+                 for i in range(2, steps + 1)})
+    check(seen["spans"] == want, f"trainer spans {seen['spans']}")
+    # the skew probe runs on every 4th step, after that step's event
+    events = []
+    for i in range(1, steps + 1):
+        events += ["compile" if i == 1 else "step"] \
+            + (["trace_skew"] if i % 4 == 0 else [])
+    check(seen["events"] == events, f"telemetry events {seen['events']}")
+    train = {"losses_bit_equal": True, "launches": c1,
+             "ms_per_step_off": [ms0, ms2], "ms_per_step_on": ms1,
+             "events": seen["events"], "files": seen["files"]}
+    del runs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    model = serve_model or build_model(gpt.gpt2_117m_config(
+        dtype="bfloat16"), seed=0)
+    runs = [obs_serve_run(model, observe, os.path.join(tmp, "serve"),
+                          **(serve_kw or {}))
+            for observe in (False, True, False)]
+    (t0, c0, s0, sec0, _), (t1, c1, s1, sec1, seen), (t2, c2, _, sec2, _) = \
+        runs
+    check(t0 == t2, "serving off runs differ")
+    check(t1 == t0, "served tokens with the layer on != off")
+    check(c0 == c1 == c2, f"serving launches off {c0}, on {c1}, off {c2}")
+    n_req, n_tok = len(t1), sum(len(t) for t in t1)
+    check(seen["tokens_total"] == s1["tokens"] == n_tok
+          and seen["completed"] == s1["completed"] == n_req,
+          f"serve counters {seen} against stats {s1}")
+    check(seen["ttft_count"] == seen["queue_wait_count"] == n_req,
+          f"TTFT / queue-wait counts {seen}")
+    sp = seen["spans"]
+    check(sp.get("serve.queue_wait") == sp.get("serve.admit") == n_req
+          and sp.get("serve.decode_step") == sp.get("serve.stream")
+          == s1["steps"], f"serving spans {sp} (rounds {s1['steps']})")
+    serving = {"tokens_bit_equal": True, "launches": c1,
+               "tokens_per_s_off": [n_tok / sec0, n_tok / sec2],
+               "tokens_per_s_on": n_tok / sec1, "rounds": s1["steps"],
+               "spans": sp}
+    return {"training": train, "serving": serving}
+
+
+def analytic_bert_flops(cfg, B, S, M):
+    """The matmul FLOPs of one BERT pretraining step: forward and
+    backward (2x the forward) of every Dense of the encoder on B*S
+    tokens, the pooler and NSP head on B, the MLM transform and the tied
+    decoder on the B*M masked positions, and the attention kernels'
+    products as `inspect` counts them (forward 2, dq 3 and dkv 4 L x L
+    products a layer)."""
+    D, F, V = cfg["units"], cfg["hidden_size"], cfg["vocab_size"]
+    L, H = cfg["num_layers"], cfg["num_heads"]
+    d = D // H
+    dense = 6 * B * S * L * (4 * D * D + 2 * D * F)
+    heads = 6 * B * (D * D + 2 * D) + 6 * B * M * (D * D + D * V)
+    attention = 9 * 2 * B * H * S * S * d * L
+    return dense + heads + attention, attention
+
+
+def diag_profile_inspect_phase(dev, B=32, S=512, M=76, **cfg_overrides):
+    """Phase 48 on one BERT-base trainer (32 x 512, 76 masked):
+    inspect, the profiler, the watchdog and the NaN sentinel.
+    `cfg_overrides` and a smaller batch cut it for a rehearsal on the
+    CPU (where the profiler names no kernels)."""
+    import math
+    import tempfile
+    import torch
+    from mxnet_tpu_torch import config as mxconfig
+    from mxnet_tpu_torch import diagnostics, inspect as mxinspect
+    from mxnet_tpu_torch import parallel, profiler
+    from mxnet_tpu_torch.models import bert
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_diag_")
+    cfg = bert.bert_base_config(dtype="bfloat16", **cfg_overrides)
+    on_card = dev.type == "cuda"
+    model = build_bert(cfg, 0, dev)
+    trainer = parallel.ShardedTrainer(
+        model, bert.bert_pretrain_loss, "lamb",
+        {"learning_rate": 1e-3, "wd": 0.01}, device=dev)
+    b = bert.make_synthetic_batch(cfg, B, S, M, seed=0)
+    data = [torch.from_numpy(b[k]).to(dev) for k in _DATA]
+    labels = [torch.from_numpy(b[k]).to(dev) for k in _LABELS]
+    out = {}
+
+    # inspect: the first step counted, three timed
+    mxinspect.reset()
+    mxinspect.enable()
+    try:
+        for _ in range(4):
+            trainer.step(data, labels)
+        rec = mxinspect.get(f"ShardedTrainer({type(model).__name__})")
+    finally:
+        mxinspect.disable()
+    want, attn = analytic_bert_flops(cfg, B, S, M)
+    check(rec is not None and rec.compiles == 1 and rec.steps == 3,
+          f"inspect record {rec and rec.as_dict()}")
+    check(abs(rec.flops - want) <= 0.1 * want,
+          f"inspect flops {rec.flops:.4g}, analytic {want:.4g}")
+    out["inspect"] = {k: v for k, v in rec.as_dict().items()
+                      if k not in ("key", "created")}
+    out["inspect"].update({"analytic_flops": want,
+                           "analytic_attention_flops": attn,
+                           "flops_over_analytic": rec.flops / want})
+    mxinspect.reset()
+
+    # the profiler around two steps: the kernels by their CUDA names
+    prof_path = os.path.join(tmp, "profile.json")
+    profiler.set_config(filename=prof_path, aggregate_stats=True)
+    reset_counts()
+    profiler.set_state("run")
+    try:
+        for _ in range(2):
+            trainer.step(data, labels)
+    finally:
+        profiler.set_state("stop")
+    counts = read_counts()
+    with open(profiler.dump()) as fh:
+        doc = json.load(fh)
+    names = [e["name"] for e in doc["traceEvents"]
+             if e.get("cat") == "kernel"]
+    seen = {row: sum(1 for n in names if kern in n) for row, kern in (
+        ("flash_attention_fwd", "flash_fwd_wgmma_kernel"),
+        ("flash_attention_dq", "dq_wgmma_kernel"),
+        ("flash_attention_dkv", "dkv_wgmma_kernel"),
+        ("lamb_pass1", "lamb1_kernel"), ("lamb_pass2", "lamb2_kernel"))}
+    if on_card:
+        check(all(seen[r] == counts[r] and counts[r] > 0 for r in seen),
+              f"profiler kernels {seen} against launches {counts}")
+    out["profiler"] = {"kernels_named": seen, "launches": {
+        r: counts[r] for r in seen}, "device_events": len(names)}
+
+    # the watchdog over an injected stall
+    mxconfig.set("watchdog_deadline_s", 1.0)
+    wd_dir = os.path.join(tmp, "watchdog")
+    try:
+        diagnostics.install(diagnostics_dir=wd_dir, rank=0)
+        check(diagnostics._watchdog is not None, "watchdog not armed")
+        trainer.step(data, labels)
+        sync(model)
+        with diagnostics.scope("injected_stall", trainer.num_update + 1):
+            time.sleep(2.5)
+        fired = diagnostics._watchdog.fired
+    finally:
+        diagnostics.uninstall()
+        diagnostics.reset()
+        mxconfig.reset("watchdog_deadline_s")
+    stacks = os.path.join(wd_dir, "0", "watchdog_stacks.txt")
+    with open(os.path.join(wd_dir, "0", "postmortem.json")) as fh:
+        pm = json.load(fh)
+    check(fired == 1 and os.path.getsize(stacks) > 0
+          and pm["reason"] == "watchdog"
+          and "stuck in injected_stall" in pm["note"],
+          f"watchdog fired {fired}, post-mortem {pm.get('reason')} "
+          f"{pm.get('note')}")
+    out["watchdog"] = {"fired": fired, "note": pm["note"],
+                       "stacks_bytes": os.path.getsize(stacks)}
+
+    # the NaN sentinel: a NaN loss at this run's third step
+    calls = [0]
+    plain = trainer.loss_fn
+
+    def nan_at_third(*a):
+        calls[0] += 1
+        loss = plain(*a)
+        return loss * float("nan") if calls[0] == 3 else loss
+
+    trainer.loss_fn = nan_at_third
+    nan_dir = os.path.join(tmp, "nan")
+    mxconfig.set("nan_sentinel", True)
+    raised = None
+    try:
+        diagnostics.install(diagnostics_dir=nan_dir, rank=0)
+        for _ in range(4):
+            trainer.step(data, labels)
+    except diagnostics.NonFiniteError as e:
+        raised = str(e)
+    finally:
+        diagnostics.uninstall()
+        diagnostics.reset()
+        mxconfig.reset("nan_sentinel")
+        trainer.loss_fn = plain
+    with open(os.path.join(nan_dir, "0", "postmortem.json")) as fh:
+        pm = json.load(fh)
+    last = pm["ring"][-1]
+    cards = [m for m in pm["memory"] if m["device"].startswith("cuda")]
+    check(raised is not None and calls[0] == 3 and pm["reason"] == "nan"
+          and last["kind"] == "step" and math.isnan(last["loss"])
+          and (cards or not on_card)
+          and all(m["peak_bytes_in_use"] > 0 for m in cards),
+          f"NaN sentinel: raised {raised}, post-mortem {pm.get('reason')}, "
+          f"ring tail {pm['ring'][-2:]}, memory {pm['memory']}")
+    out["nan_sentinel"] = {"error": raised, "ring_tail": pm["ring"][-2:],
+                           "memory": pm["memory"]}
+    del trainer, model
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+# phase 46's processes: three files a process (each process's imports
+# and CUDA context cost more than most of these files' tests), the first
+# harness's files apart from the second's (those run with -m 'not slow')
+BASE_GROUPS = (("test_optimizer.py", "test_ndarray.py",
+                "test_autograd_modes.py"),
+               ("test_misc_ops.py", "test_gluon_data.py",
+                "test_sparse_ndarray.py"),
+               ("test_symbol.py", "test_monitor.py", "test_gluon.py"),
+               ("test_autograd.py", "test_module.py", "test_model_zoo.py"))
+UNIT_GROUPS = (("test_telemetry.py", "test_trace.py", "test_profiler.py"),
+               ("test_diagnostics.py", "test_inspect.py", "test_ctc.py"),
+               ("test_memsafe.py", "test_resilience.py", "test_params_io.py"),
+               ("test_gluon_rnn.py", "test_detection_ops.py",
+                "test_contrib_text.py"))
+
+
+def jax_unittests_phase(width=8, timeout=300, device=None):
     """Phase 46: the JAX package's unit-test files of
-    `tests/test_torch_jax_unittests.py`, each through `run_example
-    --pytest` on the card (no --device) in a process of its own, `width`
-    at a time. Each must fail exactly its CPU exclusions."""
+    `tests/test_torch_jax_unittests.py` and
+    `tests/test_torch_jax_unittests_more.py` (the latter's with "-m 'not
+    slow'" and its deselections, as on the CPU), three a process
+    (`BASE_GROUPS`, `UNIT_GROUPS`), through `run_example --pytest` on
+    the card (no --device; `device="cpu"` rehearses it on the CPU),
+    `width` processes at a time. Each file must fail exactly its CPU
+    exclusions, and the second harness's on the card also its
+    `ON_CARD` ones."""
     import concurrent.futures
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from test_torch_jax_unittests import FILES
+    from test_torch_jax_unittests import FILES as BASE
+    from test_torch_jax_unittests_more import FILES as MORE, ON_CARD
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    on_card = device is None
+    FILES = {name: (total, list(excluded)) for name, (total, excluded)
+             in BASE.items()}
+    jobs = [(group, []) for group in BASE_GROUPS]
+    for name, (total, excluded, _) in MORE.items():
+        FILES[name] = (total, list(excluded)
+                       + list(ON_CARD.get(name, ()) if on_card else ()))
+    for groups, files in ((BASE_GROUPS, BASE), (UNIT_GROUPS, MORE)):
+        check(sorted(n for g in groups for n in g) == sorted(files),
+              f"phase 46's groups {groups} against {sorted(files)}")
+    for group in UNIT_GROUPS:
+        jobs.append((group, ["-m", "not slow"] + [
+            a for name in group for t in MORE[name][2]
+            for a in ("--deselect", f"tests/unittest/{name}::{t}")]))
 
-    def run(name):
+    def run(job):
+        names, extra = job
         t0 = time.perf_counter()
+        paths = [f"tests/unittest/{n}" for n in names]
         out = subprocess.run(
-            [sys.executable, "-m", "mxnet_tpu_torch.run_example", "--pytest",
-             f"tests/unittest/{name}", "-p", "no:xdist"], cwd=ROOT, env=env,
+            [sys.executable, "-m", "mxnet_tpu_torch.run_example",
+             *([] if on_card else ["--device", device]), "--pytest",
+             *paths, "-p", "no:xdist", *extra], cwd=ROOT, env=env,
             capture_output=True, text=True, timeout=timeout)
         lines = out.stdout.strip().splitlines()
         try:
             res = json.loads(lines[-1])
         except (IndexError, ValueError):
-            check(False, f"{name}: no result line: {out.stdout[-2000:]} "
+            check(False, f"{names}: no result line: {out.stdout[-2000:]} "
                   f"{out.stderr[-2000:]}")
-        res["seconds"] = time.perf_counter() - t0
-        return res
+        secs = time.perf_counter() - t0
+        return {n: {"passed": sum(1 for t in res["passed_ids"]
+                                  if t.startswith(p + "::")),
+                    "failures": [f for f in res["failures"]
+                                 if f.startswith(p)],
+                    "seconds": secs, "launches": res["launches"]}
+                for n, p in zip(names, paths)}
 
+    results = {}
     with concurrent.futures.ThreadPoolExecutor(width) as pool:
-        results = dict(zip(FILES, pool.map(run, FILES)))
+        for part in pool.map(run, jobs):
+            results.update(part)
     rows, wrong = {}, {}
     for name, res in results.items():
         total, excluded = FILES[name]
@@ -7784,13 +8220,28 @@ def main():
           + f" in {time.perf_counter() - t46:.1f} s")
     print(f"chip_smoke: eager phases 44-46 in "
           f"{time.perf_counter() - t44:.1f} s")
-    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
-    print(smi[0] if smi else "nvidia-smi: no output")
+    card = smi[0] if smi else "nvidia-smi: no output"
+    lap("47")
+    # 47. the observability layer on the training and serving paths
+    t47 = time.perf_counter()
+    obs = observability_phase(dev)
+    obs["card"] = card
+    print("chip_smoke: observability " + json.dumps(obs))
+    lap("48")
+    # 48. diagnostics, profiler and inspect
+    diag = diag_profile_inspect_phase(dev)
+    diag["card"] = card
+    print("chip_smoke: diagnostics, profiler, inspect " + json.dumps(diag))
+    print(f"chip_smoke: observability phases 47-48 in "
+          f"{time.perf_counter() - t47:.1f} s")
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
+
+    print(card)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

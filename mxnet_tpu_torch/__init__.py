@@ -28,7 +28,10 @@ so the repo's examples run unchanged through `run_example`. MXNet's
 symbolic half is here too: the op registry by MXNet name (`ops`, behind
 `nd.<op>`, `NDArray.<op>` and `sym.<op>`), `sym` with its executor,
 `io`, `mod.Module` / `BucketingModule`, `callback`, `monitor` and
-`gluon.SymbolBlock`.
+`gluon.SymbolBlock`. The observability layer (`telemetry`, `trace`,
+`diagnostics`, `profiler`, `inspect`) watches the trainers, the blocks,
+the server, memsafe, resilience and the DataLoader, each hook one module
+bool while its knob is off.
 """
 from . import (attribute, autograd, base, config, context, contrib,
                dataflow, gluon, initializer, lr_scheduler, memsafe, metric,
@@ -63,6 +66,12 @@ _LAZY = {
     "monitor": ".monitor",
     "executor": ".symbol.executor",
     "registry": ".registry",
+    "profiler": ".profiler",
+    "telemetry": ".telemetry",
+    "diagnostics": ".diagnostics",
+    "trace": ".trace",
+    "inspect": ".inspect",
+    "util": ".util",
 }
 
 

@@ -7,15 +7,20 @@ the declared default. Call sites read through `get()` at use time, so a
 `set()` takes effect without a restart. A `Server` constructor argument
 overrides the serving knobs; `get()` gives the default when the argument
 is left as None.
+
+`describe()` and `option(name)` have the JAX package's return shapes;
+`describe()` lists the knobs the port declares, not the JAX package's
+whole surface.
 """
 from __future__ import annotations
 
 import os
-import threading
 
-__all__ = ["get", "set", "reset"]
+from . import _locklint
 
-_lock = threading.Lock()
+__all__ = ["get", "set", "reset", "describe", "option"]
+
+_lock = _locklint.make_lock("config.registry")
 _options = {}
 _overrides = {}
 
@@ -44,10 +49,10 @@ def _coerce(opt, raw):
     return val
 
 
-def _register(name, default, doc, typ=None, choices=None):
+def _register(name, default, doc, typ=None, choices=None, env=None):
     typ = typ or (type(default) if default is not None else str)
-    _options[name] = _Option(name, default, typ, "MXNET_TPU_" + name.upper(),
-                             doc, choices)
+    _options[name] = _Option(name, default, typ,
+                             env or "MXNET_TPU_" + name.upper(), doc, choices)
 
 
 def get(name):
@@ -73,6 +78,25 @@ def reset(name=None):
             _overrides.clear()
         else:
             _overrides.pop(name, None)
+
+
+def describe():
+    """Every declared knob: name -> {value, default, env, doc, source},
+    `source` one of "set", "env" or "default"."""
+    out = {}
+    for name, opt in sorted(_options.items()):
+        source = ("set" if name in _overrides
+                  else "env" if os.environ.get(opt.env) is not None
+                  else "default")
+        out[name] = {"value": get(name), "default": opt.default,
+                     "env": opt.env, "doc": opt.doc, "source": source}
+    return out
+
+
+def option(name):
+    """The declaration record of knob `name` (name, default, typ, env,
+    doc, choices)."""
+    return _options[name]
 
 
 _register(
@@ -259,3 +283,113 @@ _register(
         "there are data replicas; never on one card) optimizer-state "
         "sharding, then gradient accumulation x2 while the batch "
         "divides; it retries the step after each rung.")
+
+# -- the observability layer (telemetry, trace, diagnostics, inspect) ----
+_register(
+    "telemetry", False,
+    "Enable the mx.telemetry metrics registry and event stream at import. "
+    "Off by default: every instrumentation site then reduces to a single "
+    "module-bool check. mx.telemetry.enable()/disable() toggle at "
+    "runtime.")
+_register(
+    "telemetry_jsonl_path", "",
+    "When set, telemetry events are appended to this JSONL file every "
+    "telemetry_flush_interval seconds and a final metrics snapshot line is "
+    "written at process exit. Empty disables auto-flush; "
+    "mx.telemetry.dump_jsonl(path) still works.")
+_register(
+    "telemetry_flush_interval", 5.0,
+    "Seconds between auto-flushes of buffered telemetry events to "
+    "telemetry_jsonl_path. Checked on event emission (no flush thread).")
+_register(
+    "diagnostics", False,
+    "Arm mx.diagnostics at import: flight recorder, crash post-mortem "
+    "writer (sys.excepthook + atexit + faulthandler), and — when "
+    "watchdog_deadline_s > 0 — the hang watchdog. Off by default: every "
+    "recording site then reduces to a single module-bool check and no "
+    "ring buffer or watchdog thread exists. mx.diagnostics.install() "
+    "arms at runtime.")
+_register(
+    "diagnostics_dir", "diagnostics",
+    "Base directory for per-rank diagnostic artifacts: "
+    "<dir>/<rank>/postmortem.json, faulthandler.log, "
+    "watchdog_stacks.txt.")
+_register(
+    "diagnostics_ring_size", 256,
+    "Flight-recorder capacity: the last N step/compile records kept in "
+    "the in-memory ring buffer and written into postmortem.json.")
+_register(
+    "watchdog_deadline_s", 0.0,
+    "Seconds without a completed step before the mx.diagnostics watchdog "
+    "fires (names the last-entered scope, dumps all-thread stacks and a "
+    "post-mortem, then re-arms on the next step). 0 disables the "
+    "watchdog thread entirely.")
+_register(
+    "nan_sentinel", False,
+    "Opt-in NaN/Inf sentinel: trainers host-fetch and finiteness-check "
+    "the loss (ShardedTrainer) or global grad-norm (gluon Trainer) each "
+    "step; a non-finite value writes a post-mortem and raises "
+    "mx.diagnostics.NonFiniteError instead of silently corrupting the "
+    "run. Works with diagnostics off (the dump then has an empty ring). "
+    "Costs one device sync per step.")
+_register(
+    "trace", "off", choices=("off", "on"),
+    doc="mx.trace step tracing. 'off' (default): every hook site "
+        "(ShardedTrainer dispatch/fence, block compile, checkpoint save, "
+        "serving rounds) reduces to one module-bool check — no span "
+        "buffer, no recorder calls. 'on' records host-side spans tagged "
+        "(rank, step) for every trace_sample_every-th step, wraps "
+        "sampled steps in a torch.profiler record_function range so a "
+        "profile of the card carries the same step id, and runs the "
+        "step-skew probe.")
+_register(
+    "trace_dir", "",
+    "Base directory for mx.trace span files: each rank appends its "
+    "sampled spans and skew probes to <dir>/<rank>/trace.jsonl (meta "
+    "line first, carrying the rank's wall-clock epoch). Empty keeps "
+    "spans in memory only (bounded buffer; mx.trace.flush(path) still "
+    "works).")
+_register(
+    "trace_sample_every", 1,
+    "Record mx.trace spans for every N-th step (and every N-th record "
+    "of step-less streams). 1 traces everything; raise it for always-on "
+    "tracing so the span volume and the sampled-step fence cost shrink "
+    "by N. Compile and checkpoint spans are always recorded.")
+_register(
+    "trace_skew_every", 16,
+    "Run the mx.trace step-skew probe every N SAMPLED steps: the rank "
+    "wall-stamps its arrival at the step boundary, feeding the "
+    "step_skew_seconds / straggler_rank telemetry gauges and a "
+    "flight-ring 'trace' entry. In one process the probe reports this "
+    "rank alone. 0 disables the probe (spans still record).")
+_register(
+    "inspect", False,
+    "Enable mx.inspect at import: the first step at each new signature "
+    "counts its FLOPs (torch.utils.flop_counter plus the formulas of the "
+    "hand-written kernels) and the device bytes it touched, and keeps a "
+    "CostRecord (flops, bytes, peak memory, MFU). Off by default: every "
+    "hook site then reduces to a single module-bool check. Trainers "
+    "fence each step while enabled so recorded step time is device "
+    "time.")
+_register(
+    "inspect_dir", "",
+    "When set, mx.inspect writes its registry to <dir>/<rank>/inspect.json "
+    "at process exit and refreshes it periodically during the run. Empty "
+    "keeps the registry in memory only; mx.inspect.dump(path) still "
+    "works.")
+_register(
+    "peak_flops", 0.0,
+    "Per-card peak FLOP/s used for MFU and roofline classification. 0 "
+    "(default) looks the card up by torch.cuda.get_device_name() "
+    "(mx.inspect's table: dense bf16 peaks); set explicitly for cards "
+    "the table does not know or for non-bf16 workloads. When neither "
+    "yields a value (the CPU), MFU is reported null, never 0 or inf.")
+_register(
+    "check_threads", False, env="MXNET_TPU_CHECK_THREADS",
+    doc="tsan-lite mode (read by _locklint.py at import, also directly "
+        "from the env var): instrumented-module locks become "
+        "order-recording CheckedLocks — an acquisition that closes a "
+        "cycle in the lock-order graph raises LockOrderError naming both "
+        "acquisition stacks, and guarded shared structures assert their "
+        "lock is held on mutation. Off (default): the factories return "
+        "plain threading primitives, zero overhead.")

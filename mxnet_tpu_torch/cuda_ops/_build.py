@@ -32,6 +32,23 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _lib = None
 
+# While mx.inspect counts a step, [flops, bytes] that the kernel wrappers
+# add each launch's matmul FLOPs and tensor bytes to (`tally`); None
+# otherwise (one attribute check a launch). A dispatch mode sees ATen
+# ops only, not these ctypes launches; on the CPU it sees the plain
+# versions' own ops, which compute the same products.
+cost_tally = None
+
+
+def tally(flops, *tensors):
+    """Add one launch's FLOPs and the bytes of `tensors` (each read or
+    written once) to `cost_tally`."""
+    t = cost_tally
+    if t is not None:
+        t[0] += flops
+        t[1] += sum(x.numel() * x.element_size() for x in tensors
+                    if x is not None)
+
 
 def _nvcc():
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"

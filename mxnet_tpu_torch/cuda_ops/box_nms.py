@@ -164,6 +164,8 @@ def box_nms_keep(boxes, valid, ids=None, overlap_thresh=0.5,
         int(bool(clamp_area)), torch.cuda.current_stream(boxes.device)
         .cuda_stream)
     _build.check(err, "box_nms_keep")
+    if _build.cost_tally is not None:
+        _build.tally(0, boxes, valid, ids, keep)
     global launches
     launches += 1
     return keep

@@ -288,6 +288,8 @@ def flash_fwd(q, k, v, bias, causal=False, sm_scale=None, dropout=0.0,
         int(bool(causal)), _DTYPE_CODE[q.dtype], *_drop_args(dropout, seed),
         _stream(q))
     _build.check(err, "flash_attention")
+    if _build.cost_tally is not None:
+        _build.tally(4 * B * H * Lq * Lk * D, q, k, v, bias, out, lse)
     global launches
     launches += 1
     return out, lse
@@ -311,6 +313,15 @@ def _bwd_prep(what, q, k, v, bias, dout, lse, delta, causal, sm_scale,
                  _DTYPE_CODE[q.dtype], *_drop_args(dropout, seed), _stream(q))
 
 
+def _bwd_flops(q, k, products):
+    """Matmul FLOPs of a backward kernel that forms `products` (L x L)
+    products: dq 3 (the scores again, dP, dQ), dkv 4 (the scores again,
+    dP, dV, dK), as the plain versions do. Counted over the whole L x L
+    square, causal or not, as the plain versions compute it."""
+    B, H, Lq, D = q.shape
+    return 2 * products * B * H * Lq * k.shape[2] * D
+
+
 def flash_bwd_dq(q, k, v, bias, dout, lse, delta, causal=False,
                  sm_scale=None, dropout=0.0, seed=0):
     """The dq kernel's wrapper (arguments as `flash_bwd`). Returns dq."""
@@ -322,6 +333,9 @@ def flash_bwd_dq(q, k, v, bias, dout, lse, delta, causal=False,
     dq = torch.empty_like(q)
     _build.check(_entry("mx_flash_bwd_dq")(*ins, dq.data_ptr(), *tail),
                  "flash_attention dq")
+    if _build.cost_tally is not None:
+        _build.tally(_bwd_flops(q, k, 3), q, k, v, bias, dout, lse, delta,
+                     dq)
     global launches_dq
     launches_dq += 1
     return dq
@@ -341,6 +355,9 @@ def flash_bwd_dkv(q, k, v, bias, dout, lse, delta, causal=False,
     _build.check(_entry("mx_flash_bwd_dkv")(*ins, dk.data_ptr(), dv.data_ptr(),
                                             *tail),
                  "flash_attention dkv")
+    if _build.cost_tally is not None:
+        _build.tally(_bwd_flops(q, k, 4), q, k, v, bias, dout, lse, delta,
+                     dk, dv)
     global launches_dkv
     launches_dkv += 1
     return dk, dv

@@ -255,6 +255,9 @@ def adam_update_multi(ws, gs, ms, vs, lrs, wds, *, beta1=0.9, beta2=0.999,
         int(bool(decoupled_wd)),
         torch.cuda.current_stream(ws[0].device).cuda_stream,
         ctypes.byref(launched), ctypes.byref(bad))
+    if _build.cost_tally is not None:
+        # w, m and v are read and written, g read
+        _build.tally(0, *ws, *ws, *gs, *ms, *ms, *vs, *vs)
     global launches_adam
     launches_adam += launched.value
     if bad.value >= 0:
@@ -298,6 +301,9 @@ def lamb_pass1(W, G, m, v, wd_rows, c1, c2, *, beta1, beta2, epsilon,
         c1, c2, int(bool(bias_correction)), mdt,
         torch.cuda.current_stream(W.device).cuda_stream)
     _build.check(err, "lamb_pass1")
+    if _build.cost_tally is not None:
+        # m and v are read and written
+        _build.tally(0, W, G, m, v, m, v, wd_rows, rw, ru)
     global launches_pass1
     launches_pass1 += 1
     return rw, ru
@@ -319,6 +325,8 @@ def lamb_pass2(W, m, v, wd_rows, trust_rows, c1, c2, lr, *, epsilon,
         int(bool(bias_correction)), lr, mdt,
         torch.cuda.current_stream(W.device).cuda_stream)
     _build.check(err, "lamb_pass2")
+    if _build.cost_tally is not None:
+        _build.tally(0, W, W, m, v, wd_rows, trust_rows)
     global launches_pass2
     launches_pass2 += 1
     return W

@@ -195,6 +195,9 @@ def int8_matmul(x_q, w_q_t, x_scale, w_scale, bias=None, relu=False,
                             _stream(dev.index))
     if err:
         _build.check(err, "int8_matmul")
+    if _build.cost_tally is not None:
+        _build.tally(2 * M * K * O, x_q, w_q_k if route == _ROUTE_WGMMA
+                     else w_q_t, ws, bias, out)
     launches += 1
     if route == _ROUTE_DECODE:
         launches_decode += 1

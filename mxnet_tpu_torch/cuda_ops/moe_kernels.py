@@ -131,6 +131,8 @@ def _dispatch(x, expert, pos, num_experts, capacity):
         scratch.data_ptr(), N, D, num_experts, capacity, _vec4(D, x, buf),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "dispatch_to_experts")
+    if _build.cost_tally is not None:
+        _build.tally(0, x, expert, pos, buf)
     global launches_dispatch
     launches_dispatch += 1
     return buf
@@ -152,6 +154,8 @@ def _combine(buf, expert, pos, gate):
         y.data_ptr(), N, D, E, C, _vec4(D, buf, y),
         torch.cuda.current_stream(buf.device).cuda_stream)
     _build.check(err, "combine_from_experts")
+    if _build.cost_tally is not None:
+        _build.tally(0, buf, expert, pos, gate, y)
     global launches_combine
     launches_combine += 1
     return y

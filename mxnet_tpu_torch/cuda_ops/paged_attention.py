@@ -119,6 +119,13 @@ def paged_attention(q, k_pages, v_pages, tables, t):
              _DTYPE_CODE[q.dtype], _stream(dev.index))
     if err:
         _build.check(err, "paged_attention")
+    if _build.cost_tally is not None:
+        # over the table's whole width, as the plain version computes it
+        # (counting to t would read t on the host); the pages' bytes are
+        # the table's rows
+        width = tables.shape[1] * k_pages.shape[2]
+        _build.tally(4 * B * H * D * width, q, tables, t, out)
+        _build.cost_tally[1] += 2 * B * H * width * D * q.element_size()
     global launches
     launches += 1
     return out

@@ -20,7 +20,11 @@ block into a symbolic graph. PyTorch runs eagerly, so `hybridize()`
 compiles nothing: a hybridized block keeps the JAX package's cache keys
 (input shapes and dtypes, the training flag, the trainable and auxiliary
 parameter counts) in `_cache`, each with the count of calls that had it,
-and no executable.
+and no executable. A key's first call is where the JAX package compiles:
+there the observers record it (`compile_total`, `compile_seconds`, a
+compile or recompile event with the signature diff, a flight-ring
+compile record, a `compile` span, an inspect cost record), and later
+calls count `hybrid_cache_hits_total`.
 
 A block starts in evaluation mode (`training` False), as the JAX
 package runs outside a train step; `train()` (what the trainer's step
@@ -45,17 +49,38 @@ from __future__ import annotations
 
 import contextlib
 import re
+import time
 
 import torch
 
 from .. import autograd as _autograd
 from .. import context
+from .. import diagnostics as _diagnostics
 from .. import initializer as _init
+from .. import inspect as _inspect
+from .. import telemetry as _telemetry
+from .. import trace as _trace
 from ..ndarray.ndarray import NDArray
 from .parameter import ParameterDict, dtype_of, finish_deferred
 
 __all__ = ["Block", "HybridBlock", "Sequential", "HybridSequential",
            "functional_call", "training"]
+
+_M_CACHE_HITS = _telemetry.counter(
+    "hybrid_cache_hits_total", "hybridized calls at a signature seen "
+    "before (the JAX package's jit-cache hits)")
+_M_CACHE_MISSES = _telemetry.counter(
+    "hybrid_cache_misses_total", "hybridized calls at a new signature "
+    "(the JAX package's jit-cache misses)")
+_M_COMPILES = _telemetry.counter(
+    "compile_total", "first calls at a new signature (hybridized blocks "
+    "and ShardedTrainer steps; PyTorch compiles nothing, so this counts "
+    "where the JAX package compiles)")
+_M_RECOMPILES = _telemetry.counter(
+    "recompile_total", "new signatures after the first for the same "
+    "block/step (shape/dtype churn)")
+_M_COMPILE_SECONDS = _telemetry.histogram(
+    "compile_seconds", "wall time of the first call at a new signature")
 
 
 def training(block):
@@ -119,7 +144,15 @@ class Block(torch.nn.Module):
             self._attach_grads()
         if self.__dict__.get("_active") and not kwargs and all(
                 isinstance(a, NDArray) for a in args):
-            self._note_signature(args)
+            key, is_miss = self._note_signature(args)
+            if is_miss and (_telemetry._enabled or _diagnostics._enabled
+                            or _trace._enabled or _inspect._enabled):
+                return self._observed_first_call(args, key)
+            if not is_miss and _telemetry._enabled:
+                _M_CACHE_HITS.inc()
+        return self._mx_call(args, kwargs)
+
+    def _mx_call(self, args, kwargs):
         for a in args:
             if isinstance(a, NDArray):
                 return _wrap(super().__call__(
@@ -335,6 +368,7 @@ class HybridBlock(Block):
         super().__init__(prefix, params)
         self._active = False
         self._cache = {}
+        self._tele_sig = None     # last new input signature (telemetry)
 
     def hybridize(self, active=True, static_alloc=False, static_shape=False,
                   **kwargs):
@@ -343,13 +377,55 @@ class HybridBlock(Block):
         return super().hybridize(active, **kwargs)
 
     def _note_signature(self, args):
-        """Count a hybridized call under the JAX package's cache key."""
+        """Count a hybridized call under the JAX package's cache key;
+        returns (key, whether the key is new: the JAX package's cache
+        miss)."""
         n_grad = sum(1 for _, p in self.named_parameters(
             remove_duplicate=False) if p.grad_req != "null")
         n_all = sum(1 for _ in self.named_parameters(remove_duplicate=False))
         key = (tuple((a.shape, str(a.dtype)) for a in args),
                bool(training(self)), n_grad, n_all - n_grad)
-        self._cache[key] = self._cache.get(key, 0) + 1
+        n = self._cache.get(key, 0)
+        self._cache[key] = n + 1
+        return key, n == 0
+
+    def _observed_first_call(self, args, key):
+        """The first call at a new signature with an observer on: timed
+        as the JAX package times its trace and compile (telemetry's
+        compile accounting and signature diff, a flight-ring compile
+        record, an always-recorded `compile` span) and, with inspect on,
+        counted by `inspect.count_step`."""
+        name = type(self).__name__
+        t0 = time.perf_counter()
+        if _inspect._enabled:
+            out = _inspect.count_step(
+                name, _inspect.key_repr(key), lambda: self._mx_call(args, {}),
+                args=[a._t for a in args] + list(self.parameters()))
+        else:
+            out = self._mx_call(args, {})
+        dt = time.perf_counter() - t0
+        if _telemetry._enabled:
+            _, train, n_grad, n_aux = key
+            _M_CACHE_MISSES.inc()
+            _M_COMPILES.inc()
+            _M_COMPILE_SECONDS.observe(dt)
+            sig = _telemetry.signature(args, train=train, n_grad=n_grad,
+                                       n_aux=n_aux)
+            causes, changed = _telemetry.diff_signature(self._tele_sig, sig)
+            kind = "compile" if self._tele_sig is None else "recompile"
+            if self._tele_sig is not None:
+                _M_RECOMPILES.inc()
+            self._tele_sig = sig
+            _telemetry.event(kind, block=name, compile_time_s=round(dt, 6),
+                             causes=causes, changed=changed, signature=sig)
+        if _diagnostics._enabled:
+            _diagnostics.record_event(
+                "compile", block=name, compile_time_s=round(dt, 6),
+                shapes=[list(a.shape) for a in args])
+        if _trace._enabled:
+            _trace.record_span("compile", t0, t0 + dt, cat="compile",
+                               always=True, block=name)
+        return out
 
     def _reg_params(self):
         return [(n, p) for n, p in self._parameters.items() if p is not None]

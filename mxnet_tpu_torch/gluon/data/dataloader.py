@@ -22,15 +22,17 @@ host samples through numpy. `pin_memory=True` stages each host batch in
 pinned memory and copies it to the card with `non_blocking=True`. A dead
 worker is fatal, or with `resilience` enabled respawned, its in-flight
 batches sent again, up to the `RetryPolicy`'s attempts; a worker pool
-that sends nothing for `dataloader_timeout` seconds raises. The JAX
-package's telemetry (`dataloader_wait_seconds`,
-`dataloader_prefetch_depth`) is not in the port yet.
+that sends nothing for `dataloader_timeout` seconds raises. With
+telemetry on, the wait for each batch lands in `dataloader_wait_seconds`
+and the batches ready ahead of the consumer in the gauge
+`dataloader_prefetch_depth` (stage="host"), as in the JAX package.
 """
 from __future__ import annotations
 
 import queue
 import sys
 import threading
+import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 
 from ... import context
+from ... import telemetry as _telemetry
 from ...ndarray import NDArray
 from ...ndarray import ndarray as _nd
 from .sampler import BatchSampler, RandomSampler, SequentialSampler
@@ -46,6 +49,15 @@ __all__ = ["DataLoader", "default_batchify_fn", "numpy_batchify_fn",
            "in_worker"]
 
 _IN_WORKER = False
+
+_M_WAIT = _telemetry.histogram(
+    "dataloader_wait_seconds", "time the consumer waited for the next "
+    "batch (the input stall a train step sees)")
+# the host-side prefetch queue: worker/thread batches ready ahead of the
+# consumer, labeled stage="host"
+_M_DEPTH = _telemetry.gauge(
+    "dataloader_prefetch_depth", "batches ready ahead of the consumer "
+    "(0 = the consumer is starved: input-bound)").labels(stage="host")
 _FORK_MSG = ("DataLoader worker produced an NDArray: with num_workers>0 "
              "the transform/batchify chain must stay host-side (numpy) — "
              "CUDA cannot run in a forked worker. Use numpy transforms "
@@ -182,6 +194,22 @@ class DataLoader:
         return self._batchify_fn(samples)
 
     def __iter__(self):
+        if not _telemetry._enabled:
+            yield from self._iter_impl()
+            return
+        # batch-wait accounting: the gap between the consumer asking for a
+        # batch and one being ready is the input stall the step sees
+        it = self._iter_impl()
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            _M_WAIT.observe(time.perf_counter() - t0)
+            yield batch
+
+    def _iter_impl(self):
         if self._num_workers == 0:
             for indices in self._batch_sampler:
                 yield self._load_batch(indices)
@@ -201,10 +229,24 @@ class DataLoader:
         with ThreadPoolExecutor(max_workers=self._num_workers) as pool:
             futures = queue.Queue()
             stop = object()
+            # depth = completed - consumed, from done callbacks (the queue
+            # holds every future of the epoch, so its size is not the
+            # prefetch depth); two monotonic counts, as result() can return
+            # before the done callback runs
+            counts_lock = threading.Lock()
+            counts = [0, 0]     # [completed, consumed], tracked futures only
+
+            def _mark_ready(_):
+                with counts_lock:
+                    counts[0] += 1
 
             def submitter():
                 for indices in self._batch_sampler:
-                    futures.put(pool.submit(load, indices))
+                    fut = pool.submit(load, indices)
+                    if _telemetry._enabled:
+                        fut._tele_tracked = True
+                        fut.add_done_callback(_mark_ready)
+                    futures.put(fut)
                 futures.put(stop)
 
             t = threading.Thread(target=submitter, daemon=True)
@@ -213,7 +255,14 @@ class DataLoader:
                 fut = futures.get()
                 if fut is stop:
                     break
-                yield fut.result()
+                batch = fut.result()
+                if _telemetry._enabled and getattr(fut, "_tele_tracked",
+                                                   False):
+                    with counts_lock:
+                        counts[1] += 1
+                        depth = max(0, counts[0] - counts[1])
+                    _M_DEPTH.set(depth)
+                yield batch
             t.join()
 
     def _respawn_or_raise(self, workers, dead, respawns, ctx, bfn,
@@ -292,10 +341,14 @@ class DataLoader:
             next_yield = 0
             while True:
                 if next_yield in buf:
+                    if _telemetry._enabled:
+                        _M_DEPTH.set(len(buf))
                     yield _to_device_tree(buf.pop(next_yield),
                                           self._pin_memory)
                     next_yield += 1
                     continue
+                if _telemetry._enabled:
+                    _M_DEPTH.set(0)     # the consumer is starved
                 if not inflight:        # nothing in flight, nothing buffered
                     break
                 from ... import config as _config

@@ -32,18 +32,37 @@ update counts nor the learning rate.
 An out-of-memory error of a step under memsafe (`oom_recover` or
 `device_bytes_limit` set) is counted and annotated
 (`memsafe.note_eager_oom`) before it propagates: the eager loop cannot
-degrade a step whose tape already ran. The JAX package's AMP loss
-scaler, telemetry and diagnostics hooks are not in the port.
+degrade a step whose tape already ran.
+
+Observers, as in the JAX package: with telemetry on, a step's host wall
+time lands in `trainer_step_seconds`; with diagnostics on or the
+`nan_sentinel` knob set, the step is recorded in the flight ring before
+the update, and the sentinel checks the gradients' global norm there
+(one host fetch) and raises NonFiniteError after a post-mortem, before
+any parameter changes. Where an AMP loss scaler with a scale other than
+1 is attached (`_amp_loss_scaler`, the JAX package's attribute) the
+sentinel stands down: an Inf gradient there is the scaler's routine
+overflow. The AMP scaler itself is not in the port.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
+from .. import config as _config
+from .. import diagnostics as _diagnostics
 from .. import memsafe as _memsafe
 from .. import optimizer as opt_mod
+from .. import telemetry as _telemetry
 from .parameter import ParameterDict, zero_grad
 
 __all__ = ["Trainer"]
+
+_M_STEP_SECONDS = _telemetry.histogram(
+    "trainer_step_seconds", "Trainer.step / ShardedTrainer.step time "
+    "(gluon Trainer: host wall time of the optimizer apply; "
+    "ShardedTrainer: the fenced step, on the card by CUDA events)")
 
 
 class Trainer:
@@ -92,7 +111,20 @@ class Trainer:
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Scale the gradients by 1/batch_size and apply the updates."""
+        if _telemetry._enabled:
+            t0 = time.perf_counter()
+            try:
+                self._step_guarded(batch_size, ignore_stale_grad)
+            finally:
+                _M_STEP_SECONDS.observe(time.perf_counter() - t0)
+            return
+        self._step_guarded(batch_size, ignore_stale_grad)
+
+    def _step_guarded(self, batch_size, ignore_stale_grad):
         self._num_update += 1
+        sentinel = _config.get("nan_sentinel")
+        if _diagnostics._enabled or sentinel:
+            self._diag_record_step(sentinel)
         self._optimizer.rescale_grad = 1.0 / batch_size
         try:
             self._update(ignore_stale_grad)
@@ -100,6 +132,24 @@ class Trainer:
             if _memsafe._enabled and _memsafe.is_oom(e):
                 _memsafe.note_eager_oom(e, step=self._num_update)
             raise
+
+    def _diag_record_step(self, sentinel):
+        """The flight-ring record of this step, before the update; with
+        the sentinel (and no scaling AMP scaler) the gradients' global
+        norm is checked after recording, so the fatal step is the ring's
+        last entry and no parameter has changed."""
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        amp_scaled = scaler is not None and scaler.loss_scale != 1.0
+        gnorm = None
+        if sentinel and not amp_scaled:
+            gnorm = _diagnostics.grad_global_norm(
+                [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self._params])
+        _diagnostics.record_step(self._num_update, lr=self.learning_rate,
+                                 grad_norm=gnorm, trainer="Trainer")
+        if gnorm is not None:
+            _diagnostics.sentinel_check(gnorm, "grad_norm",
+                                        self._num_update)
 
     def update(self, batch_size, ignore_stale_grad=False):
         self.step(batch_size, ignore_stale_grad)

@@ -38,6 +38,13 @@ when `oom_recover="auto"` or `device_bytes_limit` is set; disabled (the
 default), the step's hook is one module-bool read on an already failing
 path. The JAX package's auto-fit and the pre-flight check at a jit-cache
 miss are not ported (XLA's memory analysis has no eager counterpart).
+
+Observers, as in the JAX package: telemetry's `memory_headroom_bytes`
+gauge (each budget check), `oom_events_total` (device OOMs and budget
+rejections, with an `oom` event) and `oom_recoveries_total`,
+`memsafe_warning` and `memsafe` (ladder rung) events, and the same
+records in the diagnostics flight ring; the post-mortem carries
+`snapshot()`.
 """
 from __future__ import annotations
 
@@ -49,6 +56,8 @@ import traceback
 import torch
 
 from . import config as _config
+from . import diagnostics as _diagnostics
+from . import telemetry as _telemetry
 
 __all__ = ["enable", "disable", "enabled", "maybe_enable",
            "MemoryBudgetError", "SimulatedResourceExhausted", "is_oom",
@@ -65,6 +74,18 @@ _warned = set()               # executables already headroom-warned
 _totals = {}                  # CUDA device index -> its total memory
 _transitions = []             # degradation-ladder transitions this process
 _oom_events = 0
+
+_M_HEADROOM = _telemetry.gauge(
+    "memory_headroom_bytes", "device capacity minus the predicted peak of "
+    "the last budget-checked executable (resident state + execution "
+    "peak); negative would have been an OOM — the check raises instead")
+_M_OOM_EVENTS = _telemetry.counter(
+    "oom_events_total", "out-of-memory events seen at the trainer boundary "
+    "(device out-of-memory errors) plus budget-check rejections")
+_M_OOM_RECOVERIES = _telemetry.counter(
+    "oom_recoveries_total", "OOM events survived by the oom_recover=auto "
+    "degradation ladder (the step completed after remat escalation and/or "
+    "gradient-accumulation microbatching)")
 
 
 def _fmt(n):
@@ -221,7 +242,10 @@ def check_budget(executable, exec_peak, resident, capacity=None):
         }
     if capacity is None:
         return _last_check
+    if _telemetry._enabled:
+        _M_HEADROOM.set(headroom)
     if headroom < 0:
+        _count_oom("budget", executable)
         raise MemoryBudgetError(executable, predicted, capacity,
                                 exec_peak_bytes=exec_peak,
                                 resident_bytes=int(resident or 0))
@@ -234,6 +258,15 @@ def check_budget(executable, exec_peak, resident, capacity=None):
               f"capacity, warn threshold {warn_frac:.1%}); one larger bucket "
               "or a fragmentation spike away from an out-of-memory",
               file=sys.stderr)
+        if _telemetry._enabled:
+            _telemetry.event("memsafe_warning", executable=executable,
+                             headroom_bytes=headroom,
+                             predicted_bytes=predicted,
+                             capacity_bytes=capacity)
+        if _diagnostics._enabled:
+            _diagnostics.record_event(
+                "memsafe_warning", executable=executable,
+                headroom_bytes=headroom, predicted_bytes=predicted)
     return _last_check
 
 
@@ -314,10 +347,16 @@ def block_wrap_policy(block):
 # graceful OOM degradation (the ladder)
 # ---------------------------------------------------------------------------
 
-def _count_oom():
+def _count_oom(kind, executable=None, step=None):
     global _oom_events
     with _lock:
         _oom_events += 1
+    if _telemetry._enabled:
+        _M_OOM_EVENTS.inc()
+        _telemetry.event("oom", cause=kind, executable=executable, step=step)
+    if _diagnostics._enabled:
+        _diagnostics.record_event("oom", cause=kind, executable=executable,
+                                  step=step)
 
 
 def _release(exc):
@@ -355,6 +394,11 @@ def _note_transition(trainer, kind, value, step):
         f"gradient accumulation x{value} (microbatch = batch/{value})"
     print(f"mx.memsafe: degradation ladder at step {step}: {what}",
           file=sys.stderr)
+    if _telemetry._enabled:
+        _telemetry.event("memsafe", action=kind, value=value, step=step)
+    if _diagnostics._enabled:
+        _diagnostics.record_event("memsafe", action=kind, value=value,
+                                  step=step)
 
 
 def recover_trainer(trainer, exc, data, labels):
@@ -372,7 +416,7 @@ def recover_trainer(trainer, exc, data, labels):
     have."""
     step = int(trainer.num_update) + 1
     if not isinstance(exc, MemoryBudgetError):
-        _count_oom()
+        _count_oom("device", step=step)
     if _config.get("oom_recover") != "auto":
         raise exc
     while True:
@@ -395,13 +439,17 @@ def recover_trainer(trainer, exc, data, labels):
         _note_transition(trainer, kind, value, step)
         failed = None
         try:
-            return trainer._step_once(data, labels)
+            out = trainer._step_once(data, labels)
         except Exception as e:  # noqa: BLE001 - classified below
             if not is_oom(e):
                 raise
             failed = _release(e)
+        if failed is None:
+            if _telemetry._enabled:
+                _M_OOM_RECOVERIES.inc()
+            return out
         if not isinstance(failed, MemoryBudgetError):
-            _count_oom()
+            _count_oom("device", step=step)
         exc = failed
 
 
@@ -409,7 +457,7 @@ def note_eager_oom(exc, step=None):
     """Record an OOM of the eager `gluon.Trainer` (which cannot
     microbatch a tape that already ran) and annotate the exception with
     the remediation before it propagates."""
-    _count_oom()
+    _count_oom("device", step=step)
     exc.add_note(
         "mx.memsafe: eager-path OOM — the gluon Trainer cannot degrade a "
         "step whose tape already ran. Remat the model "

@@ -669,15 +669,45 @@ def _wrap(out):
     return NDArray(out)
 
 
+# numpy dtypes `jnp.asarray` narrows without 64-bit mode
+_JAX_NARROW = {np.dtype(np.float64): np.float32,
+               np.dtype(np.int64): np.int32,
+               np.dtype(np.uint64): np.uint32,
+               np.dtype(np.complex128): np.complex64}
+
+
+def _array_args(args, kwargs):
+    """The op's arguments with every NDArray unwrapped and every numpy
+    array made a tensor, as `jnp.asarray` would take it (float64 becomes
+    float32, int64 int32; other dtypes stay), on the device of the
+    NDArray (or tensor) arguments, else of the current context. Scalars,
+    tuples and strings stay attributes."""
+    args = [_unwrap(a) for a in args]
+    kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
+    vals = list(args) + list(kwargs.values())
+    if not any(isinstance(v, np.ndarray) for v in vals):
+        return args, kwargs
+    device = next((v.device for v in vals if isinstance(v, torch.Tensor)),
+                  None) or context.resolve(None)
+
+    def conv(v):
+        if not isinstance(v, np.ndarray):
+            return v
+        v = v.astype(_JAX_NARROW.get(v.dtype, v.dtype), copy=False)
+        return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return [conv(a) for a in args], {k: conv(v) for k, v in kwargs.items()}
+
+
 def registry_op(name):
     """The registry op `name` on NDArrays: the port's op on the held
-    tensors (positional and keyword arguments alike), NDArray (or a
-    tuple of them) out. `out=` writes the result into that NDArray."""
+    tensors (positional and keyword arguments alike; numpy arrays become
+    tensors, `_array_args`), NDArray (or a tuple of them) out. `out=`
+    writes the result into that NDArray."""
     fn = _registry()[name]
 
     def op(*args, out=None, **kwargs):
-        res = _wrap(fn(*[_unwrap(a) for a in args],
-                       **{k: _unwrap(v) for k, v in kwargs.items()}))
+        args, kwargs = _array_args(args, kwargs)
+        res = _wrap(fn(*args, **kwargs))
         if out is None:
             return res
         out._t = res._t

@@ -76,18 +76,37 @@ exit), and construction auto-resumes under the `resume` knob
 consumes (`memsafe.block_wrap_policy`) runs its whole forward under that
 policy's checkpoint.
 
+Observers, as in the JAX package's step, each behind one module bool
+(with all of them off a step creates no event, thread or fence):
+telemetry (`trainer_step_seconds`, a `step` event; at a new signature
+`compile_total`, `recompile_total`, `compile_seconds` and a compile or
+recompile event with the signature diff), trace (spans `step.compile`
+at a new signature, else `step.dispatch` and `step.fence`, the sampled
+step inside an "mx.trace.step" profiler range, the skew probe),
+diagnostics (the flight-ring record, the watchdog's scope) and the
+`nan_sentinel` knob (the loss fetched and checked; NonFiniteError after
+a post-mortem), and inspect (the first step at a signature counted by
+`inspect.count_step`, later ones timed). PyTorch compiles nothing: "a
+new signature" is the first step at a batch shape, grad-accumulation
+factor and remat policy, the probe pass included. Where the JAX package
+fences (telemetry, the sentinel, inspect, a traced step; not
+diagnostics alone), the step records a CUDA event pair on the current
+stream around its work and waits on the second: the step time is the
+events' elapsed time on the card, the host clock on the CPU.
+
 The constructor is the JAX package's: `optimizer` defaults to "sgd";
 `donate` is accepted and changes nothing (the step updates in place);
 `data_specs` and `label_specs` are accepted when they are None or hold
 only None (the default batch layout). Single device and
 `param_mode="replicate"` only: meshes, fsdp/tp modes, sharding specs,
-zero, guard, check and telemetry are not in the port yet, and ask for
-ROADMAP.md queue 1's "Multi-device".
+zero, guard and check are not in the port yet, and ask for ROADMAP.md
+queue 1's "Multi-device" and the later observability modules.
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import time
 
 import numpy as np
 import torch
@@ -95,10 +114,14 @@ from torch.func import functional_call
 
 from .. import config as _config
 from .. import context
+from .. import diagnostics as _diagnostics
+from .. import inspect as _inspect
 from .. import memsafe as _memsafe
 from .. import optimizer as opt_mod
 from .. import random as _random
 from .. import resilience as _resilience
+from .. import telemetry as _telemetry
+from .. import trace as _trace
 from ..models import _remat
 from ..ndarray.ndarray import NDArray
 from .functional_opt import FunctionalOptimizer
@@ -108,6 +131,16 @@ _STATE_FILE = "state.pt"
 _STATE_FORMAT = "mxnet_tpu_torch.ShardedTrainer/1"
 
 __all__ = ["ShardedTrainer", "call_loss"]
+
+# reusable do-nothing context for the unsampled/disabled trace path
+_NULLCTX = contextlib.nullcontext()
+
+# shared, framework-wide series (get-or-create: the same objects the
+# hybridized blocks and the gluon Trainer register)
+_M_COMPILES = _telemetry.counter("compile_total")
+_M_RECOMPILES = _telemetry.counter("recompile_total")
+_M_COMPILE_SECONDS = _telemetry.histogram("compile_seconds")
+_M_STEP_SECONDS = _telemetry.histogram("trainer_step_seconds")
 
 
 def call_loss(loss_fn, outs, labels):
@@ -168,6 +201,8 @@ class ShardedTrainer:
         self._ready = False
         self._state_touched = False
         self._host_bufs = {}            # dtype -> pinned host buffer
+        self._sigs = set()              # step signatures seen (misses)
+        self._tele_sig = None           # last new signature (telemetry)
         _memsafe.maybe_enable()
         if not any(getattr(p, "mx_deferred", False)
                    for p in block.parameters()):
@@ -267,14 +302,82 @@ class ShardedTrainer:
             raise
 
     def _step_impl(self, data, labels):
+        batch = list(data) + list(labels)
+        shapes = tuple(tuple(b.shape) for b in batch)
+        # the effective remat policy joins the key only with memsafe
+        # armed (its ladder changes it mid-run), as in the JAX package
+        key = (len(data), len(labels), shapes, self._accum,
+               _memsafe.policy_marker(self.block) if _memsafe._enabled
+               else None)
+        is_miss = key not in self._sigs
+        step_no = self.num_update + 1
+        # per-step config read so mx.config.set("nan_sentinel", ...)
+        # takes effect mid-run
+        sentinel = _config.get("nan_sentinel")
+        tracing = _trace._enabled and (is_miss or _trace.sampled(step_no))
+        observing = (_telemetry._enabled or _diagnostics._enabled
+                     or sentinel or _inspect._enabled or tracing)
+        t_build = time.perf_counter() if (is_miss and observing) else None
         if not self._ready:
             self._finish_setup(data)
         micro = self._microbatches(data, labels)
-        t = self.num_update + 1
         if _resilience._enabled:
             # the `oom@step:N` fault fires here, before anything runs
-            _resilience.fault_point("dispatch", step=t)
-        lr = self.fopt.lr_at(t)
+            _resilience.fault_point("dispatch", step=step_no)
+        lr = self.fopt.lr_at(step_no)
+        # the JAX package fences for these, not for diagnostics alone
+        fencing = _telemetry._enabled or sentinel or _inspect._enabled \
+            or tracing
+        events = None
+        if fencing and self.device.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        t_step = time.perf_counter() if observing else None
+        in_scope = _diagnostics._enabled
+        if in_scope:
+            # what the watchdog names when the step never completes
+            _diagnostics._scope_begin("sharded_step(dispatch)", step_no)
+        try:
+            ann = _trace.annotate(step_no) if tracing else _NULLCTX
+            with ann:
+                if is_miss and _inspect._enabled:
+                    loss = _inspect.count_step(
+                        self._cost_name(), _inspect.key_repr(key),
+                        lambda: self._update(micro, step_no, lr),
+                        args=self._resident() + batch)
+                else:
+                    loss = self._update(micro, step_no, lr)
+            t_disp = time.perf_counter() if tracing else None
+            self.num_update = step_no
+            self._sigs.add(key)
+            if observing:
+                if events is not None:
+                    # the fence: where the JAX package blocks on the loss
+                    events[1].record()
+                    events[1].synchronize()
+                t_done = time.perf_counter()
+                dur = t_done - t_step if events is None \
+                    else events[0].elapsed_time(events[1]) / 1e3
+                if _telemetry._enabled:
+                    self._tele_record_step(batch, t_build, dur)
+                if _diagnostics._enabled or sentinel:
+                    self._diag_record_step(loss, lr, shapes, t_build,
+                                           sentinel)
+                if tracing:
+                    self._trace_record_step(step_no, t_build, t_step,
+                                            t_disp, t_done)
+                if _inspect._enabled and t_build is None:
+                    _inspect.note_step(self._cost_name(),
+                                       _inspect.key_repr(key), dur)
+        finally:
+            if in_scope:
+                _diagnostics._scope_end()
+        return NDArray(loss.detach())
+
+    def _update(self, micro, t, lr):
+        """Forward, backward and the optimizer update of step t; returns
+        the float32 loss tensor."""
         if self._fl is None:
             leaves = [p.detach().requires_grad_(True) for p in self.params]
             loss, grads = self._accumulate(leaves, lambda: leaves, micro)
@@ -287,8 +390,76 @@ class ShardedTrainer:
             m, v = self.opt_state
             self._state_touched = True
             self._fl.apply_flat(self.params, grad, m, v, t, lr)
-        self.num_update = t
-        return NDArray(loss.detach())
+        return loss
+
+    def _resident(self):
+        """The tensors the step holds between steps: trained parameters,
+        optimizer state and aux tensors."""
+        state = [t for st in self.opt_state
+                 for t in (st if isinstance(st, (list, tuple)) else [st])]
+        params = [self.params] if self._fl is not None else list(self.params)
+        return params + state + [self.block.get_parameter(n)
+                                 for n in self._aux_names]
+
+    def _cost_name(self):
+        return f"ShardedTrainer({type(self.block).__name__})"
+
+    def _trace_record_step(self, step_no, t_build, t_step, t_disp, t_done):
+        """mx.trace spans of one sampled step: host dispatch
+        (t_step→t_disp) and the fence (t_disp→t_done), plus the skew
+        probe's tick. A new-signature step records ONE `step.compile`
+        span (probe pass through the fenced step) instead."""
+        if t_build is not None:
+            _trace.record_span("step.compile", t_build, t_done,
+                               step=step_no, cat="compile", always=True,
+                               block=type(self.block).__name__)
+        else:
+            _trace.record_span("step.dispatch", t_step, t_disp,
+                               step=step_no, cat="step")
+            _trace.record_span("step.fence", t_disp, t_done, step=step_no,
+                               cat="step")
+        _trace.skew_tick(step_no)
+
+    def _diag_record_step(self, loss, lr, shapes, t_build, sentinel):
+        """Flight-recorder entry for one step; with the nan_sentinel knob
+        on (with diagnostics off too — the dump then has an empty ring)
+        the loss is fetched and checked here, and NonFiniteError
+        propagates after the post-mortem."""
+        if t_build is not None:
+            _diagnostics.record_event(
+                "compile", block=self._cost_name(),
+                compile_time_s=round(time.perf_counter() - t_build, 6),
+                step=self.num_update)
+        loss_val = _diagnostics._scalar(loss) if sentinel else None
+        _diagnostics.record_step(
+            self.num_update, loss=loss_val, lr=float(lr), shapes=shapes,
+            trainer="ShardedTrainer", compiled=t_build is not None)
+        if sentinel:
+            # checked AFTER recording so the fatal step is the ring's last
+            # entry in the post-mortem
+            _diagnostics.sentinel_check(loss_val, "loss", self.num_update)
+
+    def _tele_record_step(self, batch, t_build, dur):
+        """Telemetry of one step: at a new signature the compile
+        accounting (with a signature diff explaining it), else the step
+        latency histogram and a `step` event."""
+        if t_build is None:
+            _M_STEP_SECONDS.observe(dur)
+            _telemetry.event("step", dur_s=round(dur, 6),
+                             step=self.num_update)
+            return
+        dt = time.perf_counter() - t_build
+        _M_COMPILES.inc()
+        _M_COMPILE_SECONDS.observe(dt)
+        sig = _telemetry.signature(batch)
+        causes, changed = _telemetry.diff_signature(self._tele_sig, sig)
+        kind = "compile" if self._tele_sig is None else "recompile"
+        if self._tele_sig is not None:
+            _M_RECOMPILES.inc()
+        self._tele_sig = sig
+        _telemetry.event(kind, block=self._cost_name(),
+                         compile_time_s=round(dt, 6), causes=causes,
+                         changed=changed, signature=sig)
 
     def _microbatches(self, data, labels):
         """[(data, labels)] of the step's `accum` equal microbatches."""
@@ -490,6 +661,12 @@ class ShardedTrainer:
                 self.block.get_parameter(name).copy_(src)
         self.num_update = int(state["num_update"])
         _random.set_state(state["rng"])
+
+    @property
+    def _fused(self):
+        """True on the fused flat-master LAMB path (the JAX trainer's
+        attribute name)."""
+        return self._fl is not None
 
     @property
     def param_count(self):

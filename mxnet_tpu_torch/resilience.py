@@ -46,9 +46,18 @@ both. The `resilience` knob installs at import.
 
 One process: the port trains on one device, so the JAX package's
 multi-host branch (the writer running against the final directory, the
-manifest written by process 0) is not here. The JAX package's
-telemetry, diagnostics, goodput and guard hooks, elastic reshape and
-estimator checkpoints are not ported yet.
+manifest written by process 0) is not here. The JAX package's goodput
+and guard hooks, elastic reshape and estimator checkpoints are not
+ported yet.
+
+Observers, as in the JAX package (each behind its module bool):
+telemetry's `checkpoint_save_seconds`, `checkpoint_restore_seconds`,
+`checkpoint_verify_failures_total`, `restarts_total`,
+`preemptions_total` and `retries_total{site=}` with `checkpoint`,
+`resume` and `preempt` events; an always-recorded `checkpoint.save`
+trace span; flight-ring `checkpoint`, `resume`, `restart` and `preempt`
+records. A save or restore runs under `diagnostics.suspend_watchdog`:
+a long write is progress, not a hang.
 """
 from __future__ import annotations
 
@@ -63,6 +72,9 @@ import time
 import zlib
 
 from . import config as _config
+from . import diagnostics as _diagnostics
+from . import telemetry as _telemetry
+from . import trace as _trace
 
 __all__ = [
     "enable", "disable", "enabled", "install", "uninstall", "preempted",
@@ -71,7 +83,7 @@ __all__ = [
     "write_checkpoint", "verify_checkpoint", "list_checkpoints",
     "check_fingerprint", "trainer_fingerprint", "CheckpointManager",
     "manager_for", "on_trainer_init", "on_step", "FaultInjector",
-    "fault_point", "restart_count", "last_resume"]
+    "fault_point", "restart_count", "last_resume", "note_preemption"]
 
 # "preempted: state saved, exiting on request": outside the shell's
 # (126..128+N) and the common errno ranges, so a supervisor can tell it
@@ -85,6 +97,26 @@ _prev_handlers = {}
 _preempt = {"flag": False, "signum": None}
 _injector = None          # FaultInjector parsed from the fault_inject knob
 _resume_info = None       # {"path", "step", "fallbacks"} of the last restore
+
+_M_SAVE_SECONDS = _telemetry.histogram(
+    "checkpoint_save_seconds", "wall time of one managed checkpoint save "
+    "(state write + manifest hash + atomic rename)")
+_M_RESTORE_SECONDS = _telemetry.histogram(
+    "checkpoint_restore_seconds", "wall time of one verified checkpoint "
+    "restore (checksum verify + state load)")
+_M_VERIFY_FAILURES = _telemetry.counter(
+    "checkpoint_verify_failures_total", "checkpoints rejected at restore "
+    "time (torn write, checksum mismatch, missing manifest entry) — each "
+    "one fell back to an older checkpoint")
+_M_RESTARTS = _telemetry.counter(
+    "restarts_total", "supervised relaunches this process has been "
+    "through (from MXNET_TPU_RESTART_COUNT)")
+_M_PREEMPTIONS = _telemetry.counter(
+    "preemptions_total", "SIGTERM/SIGINT preemptions handled gracefully "
+    "(final checkpoint written, exited EXIT_PREEMPTED)")
+_M_RETRIES = _telemetry.counter(
+    "retries_total", "transient-fault retries by site (label site=): "
+    "dataloader worker respawn, checkpoint I/O, serving dispatch")
 
 _KINDS = ("sigterm", "kill", "corrupt_ckpt", "stall_input", "exc", "shrink",
           "grow", "oom", "hang", "corrupt_grad", "stall_heartbeat",
@@ -160,6 +192,10 @@ def install(signals=(_signal.SIGTERM, _signal.SIGINT)):
                 except (ValueError, OSError):
                     pass           # not the main thread
             _installed = True
+    n = restart_count()
+    if n:
+        _M_RESTARTS.inc(n)
+        _diagnostics.record_event("restart", count=n)
     return _installed
 
 
@@ -311,6 +347,8 @@ class RetryPolicy:
                 if abort is not None and abort():
                     raise
                 delay = self.delay(attempt)
+                if _telemetry._enabled:
+                    _M_RETRIES.labels(site=site).inc()
                 if on_retry is not None:
                     on_retry(e, attempt, delay)
                 else:
@@ -549,10 +587,24 @@ class CheckpointManager:
         step = int(self.trainer.num_update)
         if not force and self._last_saved_step == step:
             return None
+        t0 = time.perf_counter()
         path = self._step_dir(step)
-        self.policy.call(self.trainer.save_states, path,
-                         site="checkpoint-io")
+        # a long write is a legitimate non-step region: the watchdog may
+        # not fire during it (a real hang inside is still named)
+        with _diagnostics.suspend_watchdog("checkpoint.save", step):
+            self.policy.call(self.trainer.save_states, path,
+                             site="checkpoint-io")
         self._last_saved_step = step
+        dt = time.perf_counter() - t0
+        if _telemetry._enabled:
+            _M_SAVE_SECONDS.observe(dt)
+            _telemetry.event("checkpoint", step=step, path=path,
+                             dur_s=round(dt, 6))
+        if _trace._enabled:
+            _trace.record_span("checkpoint.save", t0, t0 + dt, step=step,
+                               cat="checkpoint", always=True)
+        _diagnostics.record_event("checkpoint", step=step, path=path,
+                                  dur_s=round(dt, 6))
         self._gc()
         return path
 
@@ -590,6 +642,8 @@ class CheckpointManager:
                 self.restore(path)
             except CheckpointCorruptError as e:
                 fallbacks += 1
+                if _telemetry._enabled:
+                    _M_VERIFY_FAILURES.inc()
                 print(f"mx.resilience: rejecting checkpoint: {e} — "
                       "falling back to the previous one", file=sys.stderr)
                 continue
@@ -605,13 +659,17 @@ class CheckpointManager:
             raise CheckpointCorruptError(
                 f"{path}: no {_MANIFEST} — torn write or not a managed "
                 "checkpoint")
+        t0 = time.perf_counter()
         if not _enabled:
             manifest = verify_checkpoint(path)
             check_fingerprint(manifest, trainer_fingerprint(self.trainer),
                               str(path))
-        self.policy.call(self.trainer.load_states, path,
-                         site="checkpoint-io")
+        with _diagnostics.suspend_watchdog("checkpoint.restore"):
+            self.policy.call(self.trainer.load_states, path,
+                             site="checkpoint-io")
         self._last_saved_step = int(self.trainer.num_update)
+        if _telemetry._enabled:
+            _M_RESTORE_SECONDS.observe(time.perf_counter() - t0)
         return path
 
     def last_saved_path(self):
@@ -628,6 +686,22 @@ def _note_resume(path, step, fallbacks=0):
     print(f"mx.resilience: resumed from {path} (step {step}"
           + (f", {fallbacks} corrupt checkpoint(s) skipped" if fallbacks
              else "") + ")", file=sys.stderr)
+    if _telemetry._enabled:
+        _telemetry.event("resume", path=path, step=int(step),
+                         fallbacks=fallbacks)
+    _diagnostics.record_event("resume", path=path, step=int(step),
+                              fallbacks=fallbacks)
+
+
+def note_preemption(step, path=None, signum=None):
+    """Record one graceful preemption in telemetry and the flight ring."""
+    signum = signum if signum is not None else _preempt["signum"]
+    if _telemetry._enabled:
+        _M_PREEMPTIONS.inc()
+        _telemetry.event("preempt", step=step, signum=signum, path=path,
+                         request="preempt")
+    _diagnostics.record_event("preempt", step=step, signum=signum,
+                              path=path, request="preempt")
 
 
 # ---------------------------------------------------------------------------
@@ -701,6 +775,7 @@ def _finalize_preemption(mgr, step):
             save_failed = True
             print(f"mx.resilience: final preemption checkpoint failed: {e}",
                   file=sys.stderr)
+    note_preemption(step, path, signum)
     if save_failed:
         # EXIT_PREEMPTED means "state saved": a failed final save exits
         # with the fatal-signal code instead

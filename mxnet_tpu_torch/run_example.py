@@ -24,7 +24,9 @@ alias (`run_pytest`), with `--noconftest` (the suite's conftest imports
 jax) and in its place a fixture that seeds `random` and numpy's global
 stream with 0 before each test, as that conftest does. It fails if any
 module of the JAX package loaded, and prints one JSON line: `passed`,
-`failed`, `failures` (each failed test's id), `skipped` and `launches`.
+`failed`, `failures` (each failed test's id), `skipped`, `passed_ids`
+(each passed test's id: more files may follow the first among the
+pytest arguments) and `launches`.
 Run it in a fresh process: one that holds the JAX package already is
 refused.
 
@@ -158,8 +160,9 @@ class _Seeded:
 def run_pytest(path, args=(), device=None):
     """pytest on the test file `path` under the alias, with
     `--noconftest` and `_Seeded` in the suite's conftest's place.
-    Returns {"passed", "failed", "failures", "skipped", "launches",
-    "exit_code"}; raises if a module of the JAX package was loaded."""
+    Returns {"passed", "failed", "failures", "skipped", "passed_ids",
+    "launches", "exit_code"}; raises if a module of the JAX package was
+    loaded."""
     import pytest
     plugin = _Seeded()
     code = _aliased_call(
@@ -169,7 +172,8 @@ def run_pytest(path, args=(), device=None):
         [path, *args], device)
     return {"passed": len(plugin.passed), "failed": len(plugin.failures),
             "failures": plugin.failures, "skipped": len(plugin.skipped),
-            "exit_code": int(code), "launches": launch_counts()}
+            "passed_ids": plugin.passed, "exit_code": int(code),
+            "launches": launch_counts()}
 
 
 def main(argv=None):

@@ -73,9 +73,20 @@ it until nothing runs; under a byte-budget overrun the paged server
 seats a shrunk or re-admitted request through its page allocator, where
 the JAX package's ladder would build a dense group.
 
-Not yet ported (listed in ROADMAP.md): the telemetry, trace, guard,
-slo, goodput and check hooks, and the `servers()` registry with the
-cost model's `note_dispatch`.
+Observers, as in the JAX package, each behind its module bool:
+telemetry's `serve_requests_total{outcome=}`, `serve_tokens_total`,
+`serve_deadline_missed_total`, `serve_degraded_total`,
+`serve_ttft_seconds`, `serve_queue_wait_seconds`, `serve_queue_depth`
+and `serve_active_requests` (with `serve` events for the degradation
+ladder and for every request that does not complete); trace spans
+`serve.queue_wait` and `serve.admit` per admitted request,
+`serve.decode_step` (dispatch to the host fetch of the logits) and
+`serve.stream` per round; flight-ring `serve` records. The round's host
+fetch is its fence already, so observing adds none.
+
+Not yet ported (listed in ROADMAP.md): the guard, slo, goodput and check
+hooks, and the `servers()` registry with the cost model's
+`note_dispatch`.
 """
 from __future__ import annotations
 
@@ -90,9 +101,12 @@ import torch
 
 from . import config as _config
 from . import dataflow as _dataflow
+from . import diagnostics as _diagnostics
 from . import memsafe as _memsafe
 from . import pages as _pages
 from . import resilience as _resilience
+from . import telemetry as _telemetry
+from . import trace as _trace
 
 __all__ = ["Server", "Request", "QUEUED", "RUNNING", "DONE", "REJECTED",
            "SHED", "EXPIRED", "CANCELLED", "FAILED", "TERMINAL"]
@@ -107,6 +121,31 @@ EXPIRED = "expired"      # deadline passed; evicted between decode steps
 CANCELLED = "cancelled"  # client/injected cancellation (499-style)
 FAILED = "failed"        # scheduler error surfaced to the request (500)
 TERMINAL = frozenset({DONE, REJECTED, SHED, EXPIRED, CANCELLED, FAILED})
+
+_M_REQUESTS = _telemetry.counter(
+    "serve_requests_total", "serving requests by terminal outcome "
+    "(completed / rejected / shed / expired / cancelled / failed)")
+_M_TOKENS = _telemetry.counter(
+    "serve_tokens_total", "tokens generated and streamed by mx.serve")
+_M_DEADLINE_MISS = _telemetry.counter(
+    "serve_deadline_missed_total", "requests whose deadline expired "
+    "(evicted between decode steps, or expired while still queued)")
+_M_DEGRADED = _telemetry.counter(
+    "serve_degraded_total", "graceful-degradation ladder transitions, by "
+    "action: shrink_max_new (request admitted with a clamped token "
+    "budget) or evict_requeue (youngest running request evicted and "
+    "requeued to free KV pages)")
+_M_TTFT = _telemetry.histogram(
+    "serve_ttft_seconds", "time-to-first-token: submit to the first "
+    "generated token landing in the request's stream")
+_M_QWAIT = _telemetry.histogram(
+    "serve_queue_wait_seconds", "time a request waited in the bounded "
+    "queue before admission to a decode slot")
+_M_QDEPTH = _telemetry.gauge(
+    "serve_queue_depth", "requests currently waiting in the bounded "
+    "admission queue (capacity serve_queue_depth)")
+_M_ACTIVE = _telemetry.gauge(
+    "serve_active_requests", "requests currently holding a decode slot")
 
 _EOS_SENTINEL = object()
 
@@ -465,6 +504,8 @@ class Server:
                              "503 shed: displaced by newer request "
                              f"{req.id} (serve_shed=oldest)")
             self._queue.append(req)
+            if _telemetry._enabled:
+                _M_QDEPTH.set(len(self._queue))
         self._wake.set()
         return req
 
@@ -599,6 +640,9 @@ class Server:
         self._error = exc
         print(f"mx.serve: scheduler error: {type(exc).__name__}: {exc}",
               file=sys.stderr)
+        if _diagnostics._enabled:
+            _diagnostics.record_event("serve", action="scheduler_error",
+                                      error=f"{type(exc).__name__}: {exc}")
         with self._lock:
             for r in list(self._by_id.values()):
                 if r.state not in TERMINAL:
@@ -667,6 +711,10 @@ class Server:
                 self._decode_group(grp)
         with self._lock:
             self._gc_groups()
+            if _telemetry._enabled:
+                _M_QDEPTH.set(len(self._queue))
+                _M_ACTIVE.set(sum(len(g.active())
+                                  for g in self._groups.values()))
         return self.busy()
 
     def _prewarm_buckets(self):
@@ -732,6 +780,8 @@ class Server:
                 self._note_deadline_miss(r, running=False)
 
     def _note_deadline_miss(self, req, running):
+        if _telemetry._enabled:
+            _M_DEADLINE_MISS.inc()
         where = (f"evicted mid-generation after {len(req.tokens)} tokens "
                  "(KV pages reclaimed)") if running else "expired in queue"
         self._finish(req, EXPIRED, f"504 deadline: {where}")
@@ -1127,8 +1177,15 @@ class Server:
         self._stats["degraded"] += 1
         print(f"mx.serve: degradation ladder: {action} (request "
               f"{req.id}: {extra})", file=sys.stderr)
+        if _telemetry._enabled:
+            _M_DEGRADED.inc()
+            _telemetry.event("serve", action=action, req=req.id, **extra)
+        if _diagnostics._enabled:
+            _diagnostics.record_event("serve", action=action, req=req.id,
+                                      **extra)
 
     def _place(self, req, bucket):
+        t0 = time.perf_counter()
         grp = self._groups.get(bucket)
         if grp is None:
             grp = self._groups[bucket] = _Group(
@@ -1136,12 +1193,13 @@ class Server:
         i = grp.free_slot()
         grp.slots[i] = req
         grp.pos[i] = 0
-        self._note_admitted(req)
+        self._note_admitted(req, bucket, t0)
 
     def _place_paged(self, req, bucket, got):
         """Seat an admitted request with the page table `_paged_alloc`
         built; a prefix-tree match starts it at the first unmatched
         position, skipping the matched prefix's prefill outright."""
+        t0 = time.perf_counter()
         pages, matched, pos0 = got
         grp = self._groups.get(bucket)
         if grp is None:
@@ -1156,15 +1214,22 @@ class Server:
         self._stats["prefix_tokens"] += pos0
         if matched:
             self._stats["prefix_hits"] += 1
-        self._note_admitted(req)
+        self._note_admitted(req, bucket, t0)
 
-    def _note_admitted(self, req):
+    def _note_admitted(self, req, bucket, t0):
         try:
             self._queue.remove(req)
         except ValueError:
             pass
         req.state = RUNNING
         req._admit_perf = time.perf_counter()
+        if _telemetry._enabled:
+            _M_QWAIT.observe(req.queue_wait_s)
+        if _trace._enabled:
+            _trace.record_span("serve.queue_wait", req._submit_perf,
+                               req._admit_perf, cat="serve", req=req.id)
+            _trace.record_span("serve.admit", t0, cat="serve", req=req.id,
+                               bucket=bucket)
 
     def _vacate(self, grp, i):
         """Release slot i. Paged slots drop one pool reference per owned
@@ -1236,11 +1301,13 @@ class Server:
             tok[i] = r.prompt[p] if p < lp else r.tokens[p - lp]
             t[i] = p
         n_l = self._n_l
+        tdec = time.perf_counter() if _trace._enabled else None
         lead = self._to_device(tok, t)
         logits = self._retried(
             lambda: self.model.decode_step_slots(
                 *lead, grp.caches[:n_l], grp.caches[n_l:])[0], grp, "decode")
         lg = logits.float().cpu().numpy()        # the host fetch syncs
+        t_emit = self._trace_decode(grp, active, tdec)
         with self._lock:
             self._stats["steps"] += 1
             for i in active:
@@ -1257,6 +1324,23 @@ class Server:
                         or len(r.tokens) >= r.max_new_tokens:
                     grp.slots[i] = None
                     self._finish(r, DONE, "200 ok")
+        if t_emit is not None:
+            _trace.record_span("serve.stream", t_emit, cat="serve",
+                               step=self._sched_step)
+
+    def _trace_decode(self, grp, active, tdec, **extra):
+        """The `serve.decode_step` span of one round (its dispatches
+        through the host fetch of the logits, which syncs); returns the
+        start of its `serve.stream` span, or None while trace is off.
+        The request ids ride in the span."""
+        if not _trace._enabled:
+            return None
+        _trace.record_span("serve.decode_step", tdec, cat="serve",
+                           step=self._sched_step, bucket=grp.bucket,
+                           slots=len(active),
+                           reqs=[grp.slots[i].id for i in active
+                                 if grp.slots[i] is not None], **extra)
+        return time.perf_counter()
 
     # -- paged decode ----------------------------------------------------
     def _decode_group_paged(self, grp):
@@ -1318,6 +1402,7 @@ class Server:
             t0[i] = p
             n[i] = ni
             tables[i, :len(grp.pages[i])] = grp.pages[i]
+        tdec = time.perf_counter() if _trace._enabled else None
         lead = self._to_device(toks, t0, n, tables)
         logits = self._dispatch_paged(grp, self.model.decode_paged_chunk,
                                       lead, "target")
@@ -1328,6 +1413,7 @@ class Server:
             self._dispatch_paged(grp, self._drafter.decode_paged_chunk,
                                  lead, "draft")
         lg = logits.cpu().numpy()                # the host fetch syncs
+        t_emit = self._trace_decode(grp, active, tdec, chunk=C)
         with self._lock:
             self._stats["steps"] += 1
             self._stats["chunk_dispatches"] += 1
@@ -1349,6 +1435,9 @@ class Server:
                         or len(r.tokens) >= r.max_new_tokens:
                     self._vacate(grp, i)
                     self._finish(r, DONE, "200 ok")
+        if t_emit is not None:
+            _trace.record_span("serve.stream", t_emit, cat="serve",
+                               step=self._sched_step)
 
     def _spec_round(self, grp, active):
         """One speculative decoding round: the drafter chains k greedy
@@ -1387,11 +1476,13 @@ class Server:
                 n[i] = k + 1
             else:
                 n[i] = 1
+        tdec = time.perf_counter() if _trace._enabled else None
         toks_d, n_d = self._to_device(toks, n)
         logits = self._dispatch_paged(
             grp, self.model.decode_paged_chunk, (toks_d, t0_d, n_d, tables_d),
             "target", full=True)
         lgs = logits.cpu().numpy()                             # (B, k+1, V)
+        t_emit = self._trace_decode(grp, active, tdec, spec_k=k)
         with self._lock:
             self._stats["steps"] += 1
             self._stats["spec_rounds"] += 1
@@ -1429,6 +1520,9 @@ class Server:
                 if done:
                     self._vacate(grp, i)
                     self._finish(r, DONE, "200 ok")
+        if t_emit is not None:
+            _trace.record_span("serve.stream", t_emit, cat="serve",
+                               step=self._sched_step)
 
     def _tree_insert(self, grp, i, req):
         """One-time prefix-tree registration of a slot's fully prefilled
@@ -1459,10 +1553,14 @@ class Server:
     def _emit(self, req, tok):
         req.tokens.append(int(tok))
         self._stats["tokens"] += 1
+        if _telemetry._enabled:
+            _M_TOKENS.inc()
         if len(req.tokens) > req._streamed:
             req._streamed = len(req.tokens)
             if req._first_token_perf is None:
                 req._first_token_perf = time.perf_counter()
+                if _telemetry._enabled:
+                    _M_TTFT.observe(req.ttft_s)
             req._stream_q.put(int(tok))
 
     # -- terminal transitions -------------------------------------------
@@ -1483,5 +1581,10 @@ class Server:
         self._stats[self._OUTCOME[state]] += 1
         if state != DONE:
             print(f"mx.serve: request {req.id}: {verdict}", file=sys.stderr)
+        if _telemetry._enabled:
+            _M_REQUESTS.labels(outcome=self._OUTCOME[state]).inc()
+            if state != DONE:
+                _telemetry.event("serve", action="finish", req=req.id,
+                                 state=state, verdict=verdict)
         req._stream_q.put(_EOS_SENTINEL)
         req._done.set()

@@ -1737,3 +1737,25 @@ def test_jax_unit_test_file_on_card(dev):
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert (res["passed"], res["failed"]) == (20, 0), res
     assert res["launches"]["fused_update.launches_adam"] > 0
+
+
+def test_observability_layer_on_card(dev, tmp_path):
+    """chip_smoke's phase 47 at a tiny size: a 2-layer BERT (bf16, LAMB)
+    two steps with telemetry, trace and diagnostics off and on: the
+    losses and launch counts with the layer on equal the off run's, and
+    the events, spans and histogram counts equal the same run's on the
+    CPU."""
+    import chip_smoke
+    small = dict(batch=4, seq_len=64, masked=8, vocab_size=128, units=64,
+                 hidden_size=128, num_layers=2, num_heads=4, max_length=64)
+    off = chip_smoke.obs_bert_run(dev, 2, False, **small)
+    on = chip_smoke.obs_bert_run(dev, 2, True, str(tmp_path / "card"),
+                                 **small)
+    assert on[0] == off[0] and on[1] == off[1]
+    assert on[1]["flash_attention_fwd"] == 4 and on[1]["lamb_pass1"] == 2
+    cpu = chip_smoke.obs_bert_run(torch.device("cpu"), 2, True,
+                                  str(tmp_path / "cpu"), **small)
+    for key in ("events", "step_seconds_count", "compile_total", "spans"):
+        assert on[3][key] == cpu[3][key], key
+    assert on[3]["spans"] == {1: ["step.compile"],
+                              2: ["step.dispatch", "step.fence"]}

@@ -23,6 +23,16 @@ down; ROADMAP.md "The oracle is red"). Fault 16: the optimizers'
 `create_state` returns NDArrays and `update` takes NDArrays, updating
 the weight and the state in place: three steps equal the JAX package's
 within 1e-6; `Module._opt_states` holds NDArrays.
+
+Fault 17: ops by name take numpy arrays as array arguments, as the JAX
+package's do (`jnp.asarray`): eight ops on a (4, 3, 2) float32 array
+with numpy indices, lengths, operands and conditions, and `nd.RNN` with
+numpy `sequence_length`, equal the JAX package's within 1e-6 and in
+its dtypes (int32 stays int32, float64 becomes float32). Fault 18:
+`config.describe()` and `config.option(name)` exist with the JAX
+package's shapes; for every knob the port declares, the JAX package
+declares it with the same default and environment variable, and
+`source` reads "default", "env" and "set" alike in both.
 """
 import numpy as np
 import pytest
@@ -376,3 +386,105 @@ def test_fault16_module_holds_ndarray_states():
     for st in m._opt_states.values():
         assert isinstance(st, tuple) and all(
             isinstance(s, nd_t.NDArray) for s in st)
+
+
+# -- fault 17: numpy arrays as array arguments of ops by name ----------------
+
+_X17 = np.arange(24, dtype=np.float32).reshape(4, 3, 2)
+_LENS17 = np.array([1, 2, 3], np.int32)
+
+
+def _fault17_calls(nd):
+    x = nd.array(_X17)
+    return {
+        "take": nd.take(x, np.array([0, 2], np.int32)),
+        "SequenceMask": nd.SequenceMask(x, sequence_length=_LENS17,
+                                        use_sequence_length=True),
+        "SequenceLast": nd.SequenceLast(x, sequence_length=_LENS17,
+                                        use_sequence_length=True),
+        "SequenceReverse": nd.SequenceReverse(x, sequence_length=_LENS17,
+                                              use_sequence_length=True),
+        "broadcast_add": nd.broadcast_add(x, np.ones((1, 3, 2))),
+        "where": nd.where((_X17 > 10).astype(np.float32), x, x * 0),
+        "pick": nd.pick(x, np.array([[0, 1, 1], [1, 0, 1], [0, 0, 1],
+                                     [1, 1, 0]], np.int32), axis=2),
+        "one_hot": nd.one_hot(np.array([0, 1], np.int32), depth=3),
+    }
+
+
+def test_fault17_numpy_arguments_of_ops_by_name_as_jax():
+    jax_out = {k: v.asnumpy() for k, v in _fault17_calls(nd_j).items()}
+    with mxt.cpu():
+        port_out = {k: v.asnumpy() for k, v in _fault17_calls(nd_t).items()}
+    assert sorted(port_out) == sorted(jax_out)
+    for name, want in jax_out.items():
+        got = port_out[name]
+        assert got.dtype == want.dtype, (name, got.dtype, want.dtype)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6,
+                                   err_msg=name)
+    # the sums the JAX package gives (broadcast_add: float64 ones)
+    assert {k: float(v.sum()) for k, v in port_out.items()} == {
+        "take": 102.0, "SequenceMask": 86.0, "SequenceLast": 51.0,
+        "SequenceReverse": 276.0, "broadcast_add": 300.0, "where": 221.0,
+        "pick": 139.0, "one_hot": 2.0}
+
+
+def _rnn17(nd, rnn_ops, mode):
+    T, N, I, H = 6, 3, 4, 5
+    rs = np.random.RandomState(3)
+    x = np.random.RandomState(0).randn(T, N, I).astype(np.float32)
+    n = rnn_ops.rnn_param_size(mode, 1, I, H, True)
+    params = rs.uniform(-0.2, 0.2, n).astype(np.float32)
+    args = [nd.array(x), nd.array(params), nd.zeros((2, N, H))]
+    if mode == "lstm":
+        args.append(nd.zeros((2, N, H)))
+    out = nd.RNN(*args, state_size=H, num_layers=1, mode=mode,
+                 bidirectional=True, state_outputs=True,
+                 use_sequence_length=True,
+                 sequence_length=np.array([4, 6, 2], np.int32))
+    return [o.asnumpy() for o in out]
+
+
+@pytest.mark.parametrize("mode", ["lstm", "gru"])
+def test_fault17_rnn_numpy_sequence_length_as_jax(mode):
+    from mxnet_tpu.ops import rnn_ops as rnn_j
+    from mxnet_tpu_torch.ops import rnn_ops as rnn_t
+    want = _rnn17(nd_j, rnn_j, mode)
+    with mxt.cpu():
+        got = _rnn17(nd_t, rnn_t, mode)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
+
+
+# -- fault 18: config.describe / config.option -------------------------------
+
+def test_fault18_describe_and_option_as_jax(monkeypatch):
+    from mxnet_tpu import config as cfg_j
+    from mxnet_tpu_torch import config as cfg_t
+    port, jax = cfg_t.describe(), cfg_j.describe()
+    assert port and set(port) <= set(jax), set(port) - set(jax)
+    for name, row in port.items():
+        assert set(row) == set(jax[name]) == {"value", "default", "env",
+                                              "doc", "source"}
+        assert (row["default"], row["env"]) == \
+            (jax[name]["default"], jax[name]["env"]), name
+        assert row["source"] == jax[name]["source"] == "default", name
+        opt_t, opt_j = cfg_t.option(name), cfg_j.option(name)
+        assert (opt_t.name, opt_t.default, opt_t.typ, opt_t.env,
+                opt_t.choices) == (opt_j.name, opt_j.default, opt_j.typ,
+                                   opt_j.env, opt_j.choices), name
+    for cfg in (cfg_t, cfg_j):
+        cfg.set("trace_sample_every", 4)
+    monkeypatch.setenv("MXNET_TPU_TELEMETRY_FLUSH_INTERVAL", "2.5")
+    try:
+        port, jax = cfg_t.describe(), cfg_j.describe()
+        for name, source, value in (
+                ("trace_sample_every", "set", 4),
+                ("telemetry_flush_interval", "env", 2.5),
+                ("diagnostics_ring_size", "default", 256)):
+            assert port[name]["source"] == jax[name]["source"] == source
+            assert port[name]["value"] == jax[name]["value"] == value
+    finally:
+        for cfg in (cfg_t, cfg_j):
+            cfg.reset("trace_sample_every")

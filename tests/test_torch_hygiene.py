@@ -137,6 +137,45 @@ def test_symbolic_slice_modules_stand_alone():
     assert out.returncode == 0, out.stderr
 
 
+_OBSERVABILITY_SLICE = ["telemetry", "trace", "diagnostics", "profiler",
+                        "inspect", "util", "_locklint"]
+
+
+@pytest.mark.parametrize("module", _OBSERVABILITY_SLICE)
+def test_observability_module_imports_no_jax(module):
+    """Each module of the observability layer is among the checked
+    sources and imports no JAX."""
+    path = _module_path(module)
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
+
+
+def test_observability_modules_stand_alone_and_off():
+    """Loaded one after the other (and through the package's lazy
+    names), the observability modules pull in no JAX and, with their
+    knobs unset, leave everything off: no thread started, no CUDA
+    initialised."""
+    code = ("import importlib, sys, threading\n"
+            "n = threading.active_count()\n"
+            f"for m in {_OBSERVABILITY_SLICE!r}:\n"
+            "    importlib.import_module('mxnet_tpu_torch.' + m)\n"
+            "    bad = [k for k in sys.modules if k.split('.')[0] in "
+            f"{_FORBIDDEN!r}]\n"
+            "    assert not bad, (m, bad)\n"
+            "import mxnet_tpu_torch as mx\n"
+            "assert not (mx.telemetry.enabled() or mx.trace.enabled() or "
+            "mx.diagnostics.enabled() or mx.inspect.enabled())\n"
+            "assert threading.active_count() == n\n"
+            "import torch\n"
+            "assert not torch.cuda.is_initialized()\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MXNET_TPU_")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(env, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, importlib, pkgutil\n"
             "import mxnet_tpu_torch as m\n"
