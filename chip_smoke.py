@@ -270,7 +270,26 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      1 s watchdog over an injected 2.5 s stall writes its stacks and a
      post-mortem; `nan_sentinel` with a NaN loss injected at the run's
      third step raises NonFiniteError and writes a post-mortem with the
-     ring tail and the card's memory watermarks.
+     ring tail and the card's memory watermarks;
+ 49. the operations layer on phase 2's serving, off, on, off: slo
+     (every journal written), goodput, guard's heartbeat, check (warn)
+     and scope (an ephemeral 127.0.0.1 port) armed in the middle run,
+     with telemetry: tokens bit equal and launch counts equal; a journal
+     record with a `200 ok` verdict for every request, each TTFT within
+     1 ms of the request's, and `serve_ttft_seconds` summing to the
+     journal's; no check finding; /statusz lists the live server,
+     /metrics parses, `tools/scope_top.py --once` renders the rank;
+     `tools/slo_report.py` and `tools/goodput_report.py` read the files;
+     a `scope.request_profile` capture around two requests names the
+     paged attention kernel; tokens/s on against off printed;
+ 50. the operations layer on phase 6's BERT-base trainer (8 steps) off
+     and on (goodput, check, guard with `sdc_check_every=2`): losses bit
+     equal, launches 12 a step of each flash kernel and 1 + 1 LAMB in
+     both runs, the last SDC vote clean at step 8, goodput's categories
+     {compile, step}; one digest's ms; `tools/goodput_report.py` reads
+     the run's files; then `chip_smoke.py --hang-child DIR` trains a
+     small net on the CPU under `hang@step:5` with a 2 s step deadline
+     and must exit 86 with a `peer_lost` post-mortem naming step 5.
 
 Phase 1 also holds the training kernels against their plain versions at
 the training shapes: the flash forward with dropout 0.1 (its keep mask
@@ -2102,10 +2121,12 @@ def drive(srv, specs, submit_kw=None, on_step=None):
 
 
 def serving_phase(model, n_req=16, lo=16, hi=384, prefix=128, new=64,
-                  slots=8, page_size=16, chunk=8, seed=0):
+                  slots=8, page_size=16, chunk=8, seed=0, during=None):
     """Staggered traffic: one request behind the shared prefix prefills
     first, then the rest arrive together (half of them behind the same
-    prefix). Returns (requests, server stats, seconds)."""
+    prefix). `during(server)`, when given, runs after the traffic and
+    before the server stops, outside the timing. Returns (requests,
+    server stats, seconds)."""
     from mxnet_tpu_torch import serve
     specs = serving_specs(model, n_req, lo, hi, prefix, new, seed)
     srv = serve.Server(model, slots=slots, pages="on", page_size=page_size,
@@ -2116,6 +2137,8 @@ def serving_phase(model, n_req=16, lo=16, hi=384, prefix=128, new=64,
     sync(model)
     seconds = time.perf_counter() - t0
     stats = srv.stats()
+    if during is not None:
+        during(srv)
     srv.stop()
     return reqs, stats, seconds
 
@@ -2872,6 +2895,9 @@ def ckpt_trainer(dev, cfg_overrides=None):
 
 CKPT_BATCH = (32, 512, 76)     # batch, sequence, masked positions
 CKPT_STEPS = 8
+# phase 34 trains 8 of BERT-large's 24 layers (its widths unchanged): the
+# script's 1,200 s limit (a 24-layer run took 120 s of a 968 s script)
+CKPT_DEPTH = {"num_layers": 8}
 
 
 def ckpt_child(mode, directory, cfg_overrides=None):
@@ -7498,6 +7524,372 @@ def diag_profile_inspect_phase(dev, B=32, S=512, M=76, **cfg_overrides):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 49-50: the operations layer (goodput, guard, slo, check, scope)
+# on the serving and training paths
+# ---------------------------------------------------------------------------
+
+HANG_STEP = 5              # phase 50's child: `hang@step:5`
+HANG_DEADLINE_S = 2.0      # its guard step deadline
+
+
+def hang_child(directory):
+    """Phase 50's child process: a small Dense net trained on the CPU
+    under the `hang@step:5` fault, with mx.guard's step deadline
+    (HANG_DEADLINE_S), heartbeats and diagnostics writing under
+    `directory`. Step 5's boundary never returns; the deadline names the
+    stall in a post-mortem and exits EXIT_PEER_LOST (86). Never returns
+    normally."""
+    import numpy as np
+    from mxnet_tpu_torch import config as mxconfig
+    from mxnet_tpu_torch import (context, diagnostics, gluon, guard, nd,
+                                 parallel, resilience)
+    from mxnet_tpu_torch import random as mxrandom
+    mxconfig.set("fault_inject", f"hang@step:{HANG_STEP}")
+    resilience.enable()
+    diagnostics.install(diagnostics_dir=directory, rank=0)
+    guard.enable(guard_dir=directory, rank=0,
+                 collective_timeout_s=HANG_DEADLINE_S)
+    mxrandom.seed(0, "cpu")
+    net = gluon.nn.Dense(4, in_units=8)
+    net.initialize(device="cpu")
+    lfn = gluon.loss.L2Loss()
+    tr = parallel.ShardedTrainer(net, lambda o, l: lfn(o, l), "sgd",
+                                 {"learning_rate": 0.1}, device="cpu")
+    x = nd.array(np.ones((8, 8), np.float32), ctx=context.cpu())
+    y = nd.array(np.zeros((8, 4), np.float32), ctx=context.cpu())
+    for i in range(1, 2 * HANG_STEP):
+        tr.step(x, y)
+        print(f"hang child: step {i} done", flush=True)
+    print("hang child: the hang never fired", flush=True)
+    sys.exit(1)
+
+
+def start_hang_child(directory):
+    """Start phase 50's child (`--hang-child DIR`), on the CPU."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--hang-child",
+         directory], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def hang_child_result(proc, directory, timeout=120):
+    """Wait for the child; its exit code, the post-mortem's reason and
+    guard section, and the seconds from its last step to the exit are
+    checked and returned."""
+    out = proc.communicate(timeout=timeout)[0]
+    check(proc.returncode == 86,
+          f"hang child exit {proc.returncode} (want 86): {out[-3000:]}")
+    check(f"hang at step {HANG_STEP}" in out,
+          f"the hang fault did not fire: {out[-3000:]}")
+    with open(os.path.join(directory, "0", "postmortem.json")) as fh:
+        pm = json.load(fh)
+    lost = (pm.get("guard") or {}).get("peer_lost") or {}
+    check(pm.get("reason") == "peer_lost"
+          and f"@ step {HANG_STEP}" in str(lost.get("note")),
+          f"post-mortem reason {pm.get('reason')!r}, guard {lost}")
+    beat = lost.get("last_heartbeat") or {}
+    return {"exit": proc.returncode, "postmortem_reason": pm["reason"],
+            "deadline_note": lost.get("note"),
+            "last_heartbeat": {k: beat.get(k) for k in ("step", "phase")},
+            "deadline_s": HANG_DEADLINE_S}
+
+
+def ops_arm(tmp, guard_kw=None):
+    """slo (every journal written), goodput, guard's heartbeats, check
+    (warn) and scope on an ephemeral port, with telemetry for the serve
+    histograms; files under `tmp`. Returns scope's port."""
+    from mxnet_tpu_torch import check as mxcheck
+    from mxnet_tpu_torch import goodput, guard, scope, slo, telemetry
+    os.makedirs(tmp, exist_ok=True)
+    for m in (telemetry, slo, goodput, guard, mxcheck):
+        m.reset()
+    telemetry.enable()
+    slo.enable(slo_dir=os.path.join(tmp, "slo"), rank=0, sample_every=1)
+    goodput.enable(goodput_dir=os.path.join(tmp, "goodput"), rank=0)
+    guard.enable(guard_dir=os.path.join(tmp, "guard"), rank=0,
+                 **(guard_kw or {}))
+    mxcheck.enable("warn")
+    return scope.enable(port=0)
+
+
+def ops_disarm():
+    from mxnet_tpu_torch import check as mxcheck
+    from mxnet_tpu_torch import config as mxconfig
+    from mxnet_tpu_torch import goodput, guard, scope, slo, telemetry
+    scope.disable()
+    for m in (slo, goodput, guard, mxcheck, telemetry):
+        m.disable()
+    for m in (slo, goodput, guard, mxcheck, telemetry):
+        m.reset()
+    mxconfig.reset("check")
+
+
+def http_get(url):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.read().decode()
+
+
+def ops_serve_check(srv, port, tmp):
+    """While the armed run's server is alive: /statusz lists it, /metrics
+    parses as Prometheus text, tools/scope_top.py renders the rank."""
+    base = f"http://127.0.0.1:{port}"
+    st = json.loads(http_get(base + "/statusz"))
+    servers = (st.get("serve") or {}).get("servers") or []
+    check(any(s == srv.stats() for s in servers),
+          f"/statusz does not list the live server: {st.get('serve')}")
+    text = http_get(base + "/metrics")
+    samples = [ln for ln in text.splitlines()
+               if ln and not ln.startswith("#")]
+    for ln in samples:
+        float(ln.rsplit(" ", 1)[1])        # every sample line parses
+    check(any(ln.startswith("serve_tokens_total") for ln in samples),
+          "/metrics lacks serve_tokens_total")
+    top = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "scope_top.py"),
+         "--port", str(port), "--once"], capture_output=True, text=True,
+        timeout=60)
+    check(top.returncode == 0 and top.stdout.strip(),
+          f"scope_top: {top.stdout[-2000:]} {top.stderr[-2000:]}")
+    return {"statusz_servers": len(servers), "metrics_samples":
+            len(samples), "scope_top_lines": len(top.stdout.splitlines())}
+
+
+def ops_serve_run(model, armed, tmp, **kw):
+    """Phase 2's traffic through `Server(pages="on")`, the layer armed
+    when `armed`. Returns (tokens per request, launch counts, stats,
+    seconds, what the layer saw)."""
+    from mxnet_tpu_torch import check as mxcheck
+    from mxnet_tpu_torch import goodput, slo, telemetry
+    port = ops_arm(tmp) if armed else None
+    seen = {}
+    try:
+        reset_counts()
+        reqs, stats, secs = serving_phase(
+            model, during=(lambda srv: seen.update(
+                ops_serve_check(srv, port, tmp))) if armed else None, **kw)
+        counts = read_counts()
+        if armed:
+            slo.flush_summary()
+            goodput.flush()
+            seen["findings"] = mxcheck.findings()
+            seen["goodput"] = goodput.snapshot()["categories"]
+            h = telemetry.get("serve_ttft_seconds")
+            seen["ttft_hist"] = (h.count, h.sum)
+            seen["ttft_req_ms"] = {r.id: r.ttft_s * 1e3 for r in reqs}
+            seen["access"] = os.path.join(tmp, "slo", "0", "access.jsonl")
+    finally:
+        if armed:
+            ops_disarm()
+    return [list(r.tokens) for r in reqs], counts, stats, secs, seen
+
+
+def ops_profile_paged(model, tmp):
+    """A capture through scope's `request_profile`, driven at scope's step
+    hook around two serving requests: the chrome trace names the paged
+    attention kernel. Returns the kernel names that match."""
+    import numpy as np
+    from mxnet_tpu_torch import scope, serve
+    scope.enable(port=0)
+    try:
+        rec = scope.request_profile(1, trace_dir=os.path.join(tmp, "prof"))
+        scope.on_step(None, 1)                 # starts the capture
+        srv = serve.Server(model, **PAGED_KW)
+        rng = np.random.RandomState(9)
+        V = model.cfg["vocab_size"]
+        for _ in range(2):
+            srv.submit(rng.randint(0, V, (40,)).astype(np.int32),
+                       max_new_tokens=8)
+        srv.drain()
+        srv.stop()
+        sync(model)
+        scope.on_step(None, 2)                 # stops it, writes the trace
+        check(rec["done"].is_set() and rec["error"] is None,
+              f"profile capture {scope.profile_status()}")
+    finally:
+        scope.disable()
+    with open(os.path.join(rec["dir"], "trace.json")) as fh:
+        doc = json.load(fh)
+    names = sorted({e.get("name", "") for e in doc.get("traceEvents", [])
+                    if e.get("cat") == "kernel"
+                    and "paged_attention" in e.get("name", "")})
+    check(names, "the profile names no paged attention kernel")
+    return names
+
+
+def ops_serve_phase(model, tmp, **kw):
+    """Phase 49: phase 2's traffic off, on, off. Tokens bit equal and
+    launches equal; a journal record with a verdict for every request,
+    its TTFT against the request's and serve_ttft_seconds; no check
+    finding; /statusz, /metrics, scope_top; a profile naming the paged
+    kernel; tools/slo_report.py over the journal; tokens/s."""
+    runs = [ops_serve_run(model, armed, os.path.join(tmp, "serve"), **kw)
+            for armed in (False, True, False)]
+    (t0, c0, s0, sec0, _), (t1, c1, s1, sec1, seen), (t2, c2, _, sec2, _) = \
+        runs
+    check(t0 == t2, "serving off runs differ")
+    check(t1 == t0, "served tokens with the layer on != off")
+    check(c0 == c1 == c2, f"serving launches off {c0}, on {c1}, off {c2}")
+    n_req, n_tok = len(t1), sum(len(t) for t in t1)
+    recs = [json.loads(ln) for ln in open(seen["access"])]
+    access = {r["req"]: r for r in recs if r["kind"] == "access"}
+    check(sorted(access) == sorted(seen["ttft_req_ms"])
+          and all(r["verdict"] == "200 ok" and r["good"] is True
+                  for r in access.values()),
+          f"journal: {len(access)} records for {n_req} requests")
+    gap = max(abs(access[i]["ttft_ms"] - ms)
+              for i, ms in seen["ttft_req_ms"].items())
+    check(gap < 1.0, f"journal TTFT {gap:.3f} ms from the request's")
+    count, total = seen["ttft_hist"]
+    jsum = sum(r["ttft_ms"] for r in access.values()) / 1e3
+    check(count == n_req and abs(total - jsum) < 1e-3 * n_req,
+          f"serve_ttft_seconds {count} / {total} against the journal "
+          f"{len(access)} / {jsum}")
+    check(seen["findings"] == [], f"check findings {seen['findings']}")
+    check("serve_decode" in seen["goodput"],
+          f"goodput categories {seen['goodput']}")
+    rep = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "slo_report.py"),
+         os.path.join(tmp, "serve", "slo")], capture_output=True,
+        text=True, timeout=120)
+    check(rep.returncode == 0 and "1 rank(s)" in rep.stdout,
+          f"slo_report: {rep.stdout[-2000:]} {rep.stderr[-2000:]}")
+    gp = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "goodput_report.py"),
+         os.path.join(tmp, "serve", "goodput"), "--json"],
+        capture_output=True, text=True, timeout=120)
+    check(gp.returncode == 0, f"goodput_report: {gp.stderr[-2000:]}")
+    kernels = ops_profile_paged(model, tmp)
+    return {"tokens_bit_equal": True, "launches": c1,
+            "tokens_per_s_off": [n_tok / sec0, n_tok / sec2],
+            "tokens_per_s_on": n_tok / sec1, "rounds": s1["steps"],
+            "journal_records": len(access), "ttft_gap_ms": gap,
+            "ttft_p50_ms_journal": sorted(
+                r["ttft_ms"] for r in access.values())[n_req // 2],
+            "goodput_s": seen["goodput"], "scope": {
+                k: seen[k] for k in ("statusz_servers", "metrics_samples",
+                                     "scope_top_lines")},
+            "slo_report_lines": len(rep.stdout.splitlines()),
+            "profile_kernels": kernels}
+
+
+def ops_bert_run(dev, steps, armed, tmp, batch=32, seq_len=512, masked=76,
+                 **cfg_overrides):
+    """Phase 6's BERT-base trainer (seed 0, bf16, LAMB, 32 x 512) for
+    `steps` steps; armed: goodput, check and guard with
+    `sdc_check_every=2`. Returns (losses, launches, ms per step of steps
+    2..n, the layer's view, the trainer)."""
+    from mxnet_tpu_torch import check as mxcheck
+    from mxnet_tpu_torch import goodput, guard, parallel
+    from mxnet_tpu_torch.models import bert
+    import torch
+    cfg = bert.bert_base_config(dtype="bfloat16", **cfg_overrides)
+    model = build_bert(cfg, 0, dev)
+    trainer = parallel.ShardedTrainer(
+        model, bert.bert_pretrain_loss, "lamb",
+        {"learning_rate": 1e-3, "wd": 0.01}, device=dev)
+    b = bert.make_synthetic_batch(cfg, batch, seq_len, masked, seed=0)
+    data = [torch.from_numpy(b[k]).to(dev) for k in _DATA]
+    labels = [torch.from_numpy(b[k]).to(dev) for k in _LABELS]
+    if armed:
+        ops_arm(tmp, guard_kw={"sdc_check_every": 2})
+    seen = None
+    try:
+        reset_counts()
+        losses = [trainer.step(data, labels)]
+        sync(model)
+        t0 = time.perf_counter()
+        losses += [trainer.step(data, labels) for _ in range(steps - 1)]
+        sync(model)
+        ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+        counts = read_counts()
+        if armed:
+            goodput.flush()
+            snap = guard.snapshot()
+            seen = {"findings": [(f["rule"], f["location"], f["message"])
+                                 for f in mxcheck.findings()],
+                    "goodput": goodput.snapshot(),
+                    "last_sdc": snap["last_sdc"],
+                    "heartbeat": snap["heartbeat"]}
+    finally:
+        if armed:
+            ops_disarm()
+    return [float(x) for x in losses], counts, ms, seen, trainer
+
+
+def ops_train_phase(dev, tmp, steps=8, **train_kw):
+    """Phase 50: BERT-base off and on (goodput, check, guard with an SDC
+    vote every 2 steps): losses bit equal, launches equal; one digest's
+    cost; tools/goodput_report.py over the run's files; the hang child,
+    started first (on the CPU; it spends its time importing and then
+    waiting on its deadline, beside the runs on the card): exit 86 and
+    its post-mortem."""
+    import torch
+    from mxnet_tpu_torch import guard
+    child_dir = os.path.join(tmp, "hang")
+    t_child = time.perf_counter()
+    child = start_hang_child(child_dir)
+    try:
+        out = ops_train_runs(dev, tmp, steps, **train_kw)
+        out["hang_child"] = hang_child_result(child, child_dir)
+        out["hang_child"]["seconds"] = time.perf_counter() - t_child
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    return out
+
+
+def ops_train_runs(dev, tmp, steps, **train_kw):
+    """Phase 50's two BERT-base runs, the digest's cost and the goodput
+    report."""
+    import torch
+    from mxnet_tpu_torch import guard
+    l0, c0, ms0, _, tr = ops_bert_run(dev, steps, False, None, **train_kw)
+    del tr
+    l1, c1, ms1, seen, tr = ops_bert_run(dev, steps, True,
+                                         os.path.join(tmp, "train"),
+                                         **train_kw)
+    check(l1 == l0, f"BERT-base losses with the layer on {l1} != off {l0}")
+    check(c0 == c1, f"launch counts off {c0}, on {c1}")
+    check(dev.type != "cuda" or (
+        c1["flash_attention_fwd"] == c1["flash_attention_dq"]
+        == c1["flash_attention_dkv"] == 12 * steps
+        and c1["lamb_pass1"] == c1["lamb_pass2"] == steps),
+        f"BERT-base launches {c1}")
+    check(seen["last_sdc"] and seen["last_sdc"]["ok"]
+          and seen["last_sdc"]["step"] == steps,
+          f"last SDC vote {seen['last_sdc']}")
+    cats = seen["goodput"]["categories"]
+    check(set(cats) == {"compile", "step"}
+          and seen["goodput"]["intervals"]["step"] == steps - 1
+          and seen["goodput"]["hw_step"] == steps,
+          f"goodput {seen['goodput']}")
+    sync(tr.block)
+    t0 = time.perf_counter()
+    guard.param_digests(tr)
+    digest_ms = (time.perf_counter() - t0) * 1e3
+    n_bytes = tr.params.numel() * tr.params.element_size()
+    del tr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    gp = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "goodput_report.py"),
+         os.path.join(tmp, "train", "goodput"), "--json"],
+        capture_output=True, text=True, timeout=120)
+    check(gp.returncode == 0, f"goodput_report: {gp.stderr[-2000:]}")
+    report = json.loads(gp.stdout)
+    return {"losses_bit_equal": True, "launches": c1,
+            "ms_per_step_off": ms0, "ms_per_step_on": ms1,
+            "sdc_digest_ms": digest_ms,
+            "sdc_digest_bytes": n_bytes,
+            "check_findings": seen["findings"],
+            "goodput_categories": cats,
+            "goodput_fraction": seen["goodput"]["goodput_fraction"],
+            "goodput_report_keys": sorted(report)[:8]}
+
+
 # phase 46's processes: three files a process (each process's imports
 # and CUDA context cost more than most of these files' tests), the first
 # harness's files apart from the second's (those run with -m 'not slow')
@@ -7599,6 +7991,12 @@ def main():
         ckpt_child(sys.argv[2], sys.argv[3],
                    json.loads(sys.argv[4]) if len(sys.argv) == 5 else None)
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--hang-child" \
+            and os.path.isdir(os.path.join(ROOT, "mxnet_tpu_torch")):
+        # phase 50's child process (on the CPU)
+        sys.path.insert(0, ROOT)
+        hang_child(sys.argv[2])
+        return 1
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script measures the port "
               "on an NVIDIA GPU", file=sys.stderr)
@@ -8092,7 +8490,7 @@ def main():
     lap("34")
     # 34. checkpoints, preemption and resume (the --auto-checkpoint-dir
     # flow), .params save and load
-    ckpt = ckpt_phase(dev)
+    ckpt = ckpt_phase(dev, CKPT_DEPTH)
     print("chip_smoke: checkpoint and preemption " + json.dumps(ckpt))
     torch.cuda.empty_cache()
 
@@ -8239,6 +8637,26 @@ def main():
     print("chip_smoke: diagnostics, profiler, inspect " + json.dumps(diag))
     print(f"chip_smoke: observability phases 47-48 in "
           f"{time.perf_counter() - t47:.1f} s")
+
+    lap("49")
+    # 49-50. the operations layer (goodput, guard, slo, check, scope) on
+    # the serving and training paths
+    import tempfile
+    t49 = time.perf_counter()
+    tmp_ops = tempfile.mkdtemp(prefix="chip_smoke_ops_")
+    ops_serve = ops_serve_phase(build_model(gpt.gpt2_117m_config(
+        dtype="bfloat16"), seed=0), tmp_ops)
+    ops_serve["card"] = card
+    print("chip_smoke: operations layer, serving " + json.dumps(ops_serve))
+    torch.cuda.empty_cache()
+    lap("50")
+    ops_train = ops_train_phase(dev, tmp_ops)
+    ops_train["card"] = card
+    print("chip_smoke: operations layer, training " + json.dumps(ops_train))
+    kernels["paged_attention"]["ops_layer_launches"] = \
+        ops_serve["launches"]["paged_attention"]
+    print(f"chip_smoke: operations phases 49-50 in "
+          f"{time.perf_counter() - t49:.1f} s")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

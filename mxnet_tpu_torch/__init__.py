@@ -31,7 +31,9 @@ symbolic half is here too: the op registry by MXNet name (`ops`, behind
 `gluon.SymbolBlock`. The observability layer (`telemetry`, `trace`,
 `diagnostics`, `profiler`, `inspect`) watches the trainers, the blocks,
 the server, memsafe, resilience and the DataLoader, each hook one module
-bool while its knob is off.
+bool while its knob is off; so does the operations layer (`goodput`,
+`guard`, `slo`, `check`, `scope`), hooked into the server and the
+trainers.
 """
 from . import (attribute, autograd, base, config, context, contrib,
                dataflow, gluon, initializer, lr_scheduler, memsafe, metric,
@@ -72,6 +74,11 @@ _LAZY = {
     "trace": ".trace",
     "inspect": ".inspect",
     "util": ".util",
+    "goodput": ".goodput",
+    "guard": ".guard",
+    "slo": ".slo",
+    "check": ".check",
+    "scope": ".scope",
 }
 
 

@@ -393,3 +393,146 @@ _register(
         "acquisition stacks, and guarded shared structures assert their "
         "lock is held on mutation. Off (default): the factories return "
         "plain threading primitives, zero overhead.")
+_register(
+    "goodput", "off", choices=("off", "on"),
+    doc="mx.goodput wall-clock accounting. 'off' (default): every hook "
+        "site (trainer step and first step at a signature, checkpoint "
+        "save/restore, the OOM ladder, the serving scheduler loop) "
+        "reduces to one module-bool check — no accountant state. 'on' "
+        "classifies every second of run wall-clock into exhaustive, "
+        "non-overlapping categories (goodput: step, serve_decode; "
+        "badput: compile, checkpoint, OOM recovery, rollback replay, "
+        "serve idle/degraded) with a step-id high-water mark, so steps "
+        "trained again after a rollback or restart count as replay. "
+        "tools/goodput_report.py merges the rank files.")
+_register(
+    "goodput_dir", "",
+    "Base directory for mx.goodput interval files: each rank appends its "
+    "classified intervals to <dir>/<rank>/goodput.jsonl (meta line "
+    "first, torn-line tolerant). A relaunched rank recovers its step-id "
+    "high-water mark from the existing file. Empty (default) accounts in "
+    "memory only.")
+_register(
+    "guard", False,
+    "Arm mx.guard at import: per-rank liveness heartbeats "
+    "(diagnostics_dir/<rank>/heartbeat.json), the step deadline "
+    "(collective_timeout_s) and the SDC digest vote (sdc_check_every). "
+    "Off (default): every hook site reduces to a single module-bool "
+    "check — no heartbeat record, no deadline thread, no digest.")
+_register(
+    "heartbeat_timeout_s", 60.0,
+    "Seconds without a fresh heartbeat before a rank is considered "
+    "stuck (read by a supervisor polling the heartbeat files). Also "
+    "paces the heartbeat file write: at most once per timeout/4, capped "
+    "at 1 s.")
+_register(
+    "collective_timeout_s", 0.0,
+    "mx.guard deadline on the step boundary: when no step completes "
+    "within this many seconds (first step onward; first steps at a new "
+    "signature and checkpoint writes suspend the clock), the rank dumps "
+    "a post-mortem naming the suspected dead peer and exits "
+    "EXIT_PEER_LOST (86). 0 (default) runs no deadline thread.")
+_register(
+    "sdc_check_every", 0,
+    "Run the mx.guard silent-data-corruption digest vote every N "
+    "completed trainer steps: blake2b over each parameter's bytes in "
+    "declaration order (one host copy of the parameters), exchanged "
+    "across launcher ranks and majority-voted; a mismatch rolls back to "
+    "the last verified checkpoint. 0 (default) disables.")
+_register(
+    "slo", "off", choices=("off", "on"),
+    doc="mx.slo per-request serving observability. 'off' (default): "
+        "every serve.py hook site reduces to one module-bool check — no "
+        "journal object. 'on' journals every request's event timeline, "
+        "classifies each terminated request against the slo_* "
+        "objectives, feeds the burn-rate gauges and tail-samples full "
+        "journals into slo_dir/<rank>/access.jsonl "
+        "(tools/slo_report.py renders them).")
+_register(
+    "slo_dir", "",
+    "Base directory for mx.slo exemplar journals: <dir>/<rank>/"
+    "access.jsonl (meta line first). Empty (default) classifies and "
+    "serves live stats only.")
+_register(
+    "slo_ttft_ms", 0.0,
+    "SLO objective: client-visible time-to-first-token budget per "
+    "request, in milliseconds. 0 (default) disables the objective.")
+_register(
+    "slo_tbt_ms", 0.0,
+    "SLO objective: worst time-between-tokens budget per request, in "
+    "milliseconds. 0 (default) disables the objective.")
+_register(
+    "slo_availability", 0.999,
+    "SLO objective: target fraction of non-cancelled requests that must "
+    "terminate 'completed'; the error budget is 1 - target.")
+_register(
+    "slo_burn_alert", 2.0,
+    "Burn-rate alert threshold for mx.slo: a window whose error-budget "
+    "burn rate reaches this multiple of the sustainable rate fires an "
+    "alert (once per excursion).")
+_register(
+    "slo_window_fast_s", 300.0,
+    "Fast burn-rate window for mx.slo, in seconds (default 5 min).")
+_register(
+    "slo_window_slow_s", 3600.0,
+    "Slow burn-rate window for mx.slo, in seconds (default 1 h).")
+_register(
+    "slo_sample_every", 10,
+    "mx.slo healthy-exemplar sampling: persist every N-th classified "
+    "request's journal even when it met every objective. 0 persists only "
+    "the tail.")
+_register(
+    "check", "off", choices=("off", "warn", "error"),
+    doc="mx.check analysis mode. 'off' (default): the cache-miss hook "
+        "sites (a hybridized block's first call at a key, the trainer's "
+        "first step at a signature, the server's paged construction) "
+        "reduce to one module-bool check. 'warn' lints each recorded "
+        "first call (large captured constants, donation misses, bf16 -> "
+        "f32 promotions, retrace hazards, degenerate paging) and reports "
+        "to stderr, check_findings_total{rule=...} and "
+        "check_dir/<rank>/check.json; 'error' raises CheckError.")
+_register(
+    "check_dir", "",
+    "When set, mx.check writes its findings to <dir>/<rank>/check.json at "
+    "process exit and after each new finding (tools/check_graph.py reads "
+    "them). Empty keeps findings in memory.")
+_register(
+    "check_large_const_bytes", 1 << 20,
+    "mx.check threshold: a tensor an op of the recorded call reads that "
+    "is not an argument, a parameter or buffer, or a value made inside "
+    "the call, at or above this many bytes, fires 'large-constant'. "
+    "<=0 disables the rule.")
+_register(
+    "check_promotion_min_bytes", 1 << 20,
+    "mx.check threshold: a bf16/f16 -> f32/f64 conversion whose output is "
+    "at or above this many bytes, in a block whose parameters are "
+    "lower-precision, fires 'dtype-promotion'. <=0 disables the rule.")
+_register(
+    "check_replicated_min_bytes", 64 << 20,
+    "mx.check threshold for 'degenerate-sharding' (replicated params or "
+    "batch on a data mesh of more than one device; never on one card). "
+    "<=0 disables the rule.")
+_register(
+    "check_donation_min_bytes", 1 << 20,
+    "mx.check threshold for 'donation-miss': trainer state at or above "
+    "this many bytes that a step replaces with a new allocation instead "
+    "of updating in place. <=0 disables the storage comparison (the "
+    "donate=False detector still fires).")
+_register(
+    "check_retrace_limit", 4,
+    "mx.check: distinct values of one signature component (an input-shape "
+    "axis, or a learning rate) seen for one block or trainer before "
+    "'retrace-hazard' fires. <=0 disables the rule.")
+_register(
+    "scope", "off", choices=("off", "on"),
+    doc="mx.scope live introspection. 'off' (default): the trainer step "
+        "hook reduces to one module-bool check — no HTTP thread, no "
+        "socket. 'on' serves /healthz, /metrics (Prometheus text of "
+        "mx.telemetry), /statusz (step rate, flight ring, memsafe, live "
+        "servers' stats, slo, goodput, guard), /tracez and "
+        "/profilez?steps=N (a torch.profiler capture of the next N "
+        "steps) on scope_port.")
+_register(
+    "scope_port", 8917,
+    "TCP port the mx.scope server binds (127.0.0.1). 0 picks an "
+    "ephemeral port (read back with mx.scope.port()).")

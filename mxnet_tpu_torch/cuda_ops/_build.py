@@ -38,16 +38,23 @@ _lib = None
 # ops only, not these ctypes launches; on the CPU it sees the plain
 # versions' own ops, which compute the same products.
 cost_tally = None
+# a callable given every launch's tensors while mx.check records a call
+launch_observer = None
 
 
 def tally(flops, *tensors):
     """Add one launch's FLOPs and the bytes of `tensors` (each read or
-    written once) to `cost_tally`."""
+    written once) to `cost_tally`, and hand the tensors to
+    `launch_observer` (mx.check's recorder: a ctypes launch's reads are
+    invisible to a dispatch mode)."""
     t = cost_tally
     if t is not None:
         t[0] += flops
         t[1] += sum(x.numel() * x.element_size() for x in tensors
                     if x is not None)
+    o = launch_observer
+    if o is not None:
+        o(tensors)
 
 
 def _nvcc():

@@ -16,8 +16,9 @@ module answers "why did it die". Four pieces:
     post-mortem dump and raises `NonFiniteError`.
   * **post-mortem writer** — `faulthandler` + `sys.excepthook` + `atexit`
     integration that dumps ring buffer, telemetry registry, config
-    snapshot, device-memory watermarks (`torch.cuda.memory_stats`), and
-    the tail of the profiler's event buffer to
+    snapshot, device-memory watermarks (`torch.cuda.memory_stats`), the
+    mx.guard and mx.goodput sections when those are armed, and the tail
+    of the profiler's event buffer to
     `diagnostics_dir/<rank>/postmortem.json`.
 
 No observer initialises CUDA: the memory poll reads the card only where
@@ -157,6 +158,14 @@ def record_step(step, loss=None, lr=None, grad_norm=None, shapes=None,
         "compile_total": _M_COMPILE_TOTAL.value,
         "recompile_total": _M_RECOMPILE_TOTAL.value,
     }
+    _gp = sys.modules.get(__package__ + ".goodput")
+    if _gp is not None and _gp._enabled and _gp._t_enable is not None:
+        # bare dict reads, no accountant lock — same compact-digest
+        # discipline as the telemetry counters above
+        _el = time.perf_counter() - _gp._t_enable
+        if _el > 0:
+            _good = sum((_gp._totals or {}).get(c, 0.0) for c in _gp.GOOD)
+            rec["goodput_fraction"] = round(min(1.0, _good / _el), 4)
     rec.update(extra)
     with _lock:
         # appends share the readers' lock: records() list()s the deque and
@@ -410,8 +419,9 @@ def notify_progress(step=None):
 
 class suspend_watchdog:
     """Context manager for a NAMED legitimate long non-step region — a
-    multi-GB checkpoint write — during which the module watchdog may not
-    fire (a long save is progress, not a hang). The deadline restarts
+    multi-GB checkpoint write — during which neither the module watchdog
+    nor mx.guard's step deadline may fire (a long save is progress, not
+    a hang). The deadline restarts
     its idle clock at exit, so a save just under the deadline can't
     trip it one poll later. Doubles as a diagnostics scope: a REAL hang
     *inside* the region still gets named by the post-mortem ("stuck in
@@ -430,6 +440,11 @@ class suspend_watchdog:
         w = _watchdog
         if w is not None:
             dogs.append(w)
+        g = sys.modules.get(__package__ + ".guard")
+        if g is not None:
+            d = g._deadline
+            if d is not None:
+                dogs.append(d)
         self._dogs = tuple(dogs)
         for d in self._dogs:
             d.suspend()
@@ -723,6 +738,23 @@ def dump(reason="manual", exc_info=None, note=None, path=None):
             pm["trace"] = _tr.snapshot()
     except Exception as e:
         pm["trace"] = {"error": str(e)}
+    try:
+        # liveness/SDC story (mx.guard, via sys.modules): last heartbeat,
+        # deadline and digest-vote config, the last SDC verdict, and —
+        # when the step deadline fired — the suspected dead peer
+        _g = sys.modules.get(__package__ + ".guard")
+        if _g is not None and (_g._enabled or _g._peer_lost_info
+                               or _g._last_sdc):
+            pm["guard"] = _g.snapshot()
+    except Exception as e:
+        pm["guard"] = {"error": str(e)}
+    try:
+        # wall-clock accounting story (mx.goodput, via sys.modules)
+        _gp = sys.modules.get(__package__ + ".goodput")
+        if _gp is not None and _gp._enabled:
+            pm["goodput"] = _gp.snapshot()
+    except Exception as e:
+        pm["goodput"] = {"error": str(e)}
     try:
         pm["profiler_tail"] = _profiler_tail()
     except Exception:

@@ -23,8 +23,11 @@ parameter counts) in `_cache`, each with the count of calls that had it,
 and no executable. A key's first call is where the JAX package compiles:
 there the observers record it (`compile_total`, `compile_seconds`, a
 compile or recompile event with the signature diff, a flight-ring
-compile record, a `compile` span, an inspect cost record), and later
-calls count `hybrid_cache_hits_total`.
+compile record, a `compile` span, an inspect cost record), mx.check
+records the call (`check.StepRecord`, inside inspect's counting pass
+when both are on) and lints it (`check.check_jit`; under check=error
+the key is forgotten and CheckError propagates), and later calls count
+`hybrid_cache_hits_total`.
 
 A block starts in evaluation mode (`training` False), as the JAX
 package runs outside a train step; `train()` (what the trainer's step
@@ -35,6 +38,21 @@ A call with an NDArray among its arguments is a call at the user's
 boundary: the block runs on the held tensors and its tensor outputs come
 back as NDArrays. Inside `autograd.record()` a call lets the block's
 trainable parameters record gradients (once per block).
+
+Whose `forward` runs on what: the port's own layers and models (every
+class whose `forward` is defined in a module of this package) compute
+on torch tensors. A block whose `forward` is defined anywhere else — a
+user's `HybridBlock` subclass written as MXNet users write one, with
+`.astype`, `.reshape`, `nd.arange` and `h.sum(axis=1)` — is the user's,
+and its forward receives NDArrays, as the JAX package passes them
+(`_user_forward`, decided once per class from
+`type(block).forward.__module__`). Tensors given to such a block (by a
+port layer that holds it, or by `ShardedTrainer`'s `functional_call`)
+are wrapped into NDArrays before its forward and its outputs are
+unwrapped after it, so the caller gets what it gave; NDArrays hold the
+very tensors, so gradients flow through them unchanged. A
+`hybrid_forward` block keeps `HybridBlock.forward`, which hands
+`hybrid_forward` NDArrays itself.
 
 A layer whose parameters have deferred shapes (a 0 in the shape: `Dense`
 without `in_units`, convolutions without `in_channels`, `BatchNorm`)
@@ -54,6 +72,7 @@ import time
 import torch
 
 from .. import autograd as _autograd
+from .. import check as _check
 from .. import context
 from .. import diagnostics as _diagnostics
 from .. import initializer as _init
@@ -103,6 +122,22 @@ def _unwrap(x):
     return x._t if isinstance(x, NDArray) else x
 
 
+_PORT_PACKAGE = __name__.split(".")[0]
+_user_forward_of = {}
+
+
+def _user_forward(cls):
+    """True when `cls.forward` is the user's: defined outside this
+    package (then it computes on NDArrays)."""
+    user = _user_forward_of.get(cls)
+    if user is None:
+        module = getattr(cls.forward, "__module__", None) or ""
+        user = not (module == _PORT_PACKAGE
+                    or module.startswith(_PORT_PACKAGE + "."))
+        _user_forward_of[cls] = user
+    return user
+
+
 class Block(torch.nn.Module):
     # True on a block that consumes remat policies per layer (BERTModel,
     # GPTModel); any other block's policy wraps its whole forward in the
@@ -146,18 +181,24 @@ class Block(torch.nn.Module):
                 isinstance(a, NDArray) for a in args):
             key, is_miss = self._note_signature(args)
             if is_miss and (_telemetry._enabled or _diagnostics._enabled
-                            or _trace._enabled or _inspect._enabled):
+                            or _trace._enabled or _inspect._enabled
+                            or _check._enabled):
                 return self._observed_first_call(args, key)
             if not is_miss and _telemetry._enabled:
                 _M_CACHE_HITS.inc()
         return self._mx_call(args, kwargs)
 
     def _mx_call(self, args, kwargs):
-        for a in args:
-            if isinstance(a, NDArray):
-                return _wrap(super().__call__(
-                    *[_unwrap(x) for x in args],
-                    **{k: _unwrap(v) for k, v in kwargs.items()}))
+        at_boundary = any(isinstance(a, NDArray) for a in args)
+        if _user_forward(type(self)):
+            out = super().__call__(
+                *[_wrap(x) for x in args],
+                **{k: _wrap(v) for k, v in kwargs.items()})
+            return _wrap(out) if at_boundary else _as_tensor(out)
+        if at_boundary:
+            return _wrap(super().__call__(
+                *[_unwrap(x) for x in args],
+                **{k: _unwrap(v) for k, v in kwargs.items()}))
         return super().__call__(*args, **kwargs)
 
     def _attach_grads(self):
@@ -397,13 +438,31 @@ class HybridBlock(Block):
         counted by `inspect.count_step`."""
         name = type(self).__name__
         t0 = time.perf_counter()
+        record = None
+        if _check._enabled:
+            record = _check.StepRecord(
+                known=[a._t for a in args] + list(self.parameters())
+                + list(self.buffers()))
         if _inspect._enabled:
             out = _inspect.count_step(
                 name, _inspect.key_repr(key), lambda: self._mx_call(args, {}),
-                args=[a._t for a in args] + list(self.parameters()))
+                args=[a._t for a in args] + list(self.parameters()),
+                observer=record)
+        elif record is not None:
+            out = record.run(lambda: self._mx_call(args, {}))
         else:
             out = self._mx_call(args, {})
         dt = time.perf_counter() - t0
+        if record is not None:
+            try:
+                _check.check_jit(name, key, record,
+                                 owner=_check.owner_token(self),
+                                 params=list(self.parameters()))
+            except _check.CheckError:
+                # check=error: forget the key, so the next call at it
+                # records and raises again
+                self._cache.pop(key, None)
+                raise
         if _telemetry._enabled:
             _, train, n_grad, n_aux = key
             _M_CACHE_MISSES.inc()

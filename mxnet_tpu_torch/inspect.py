@@ -478,11 +478,15 @@ class _BytesMode(TorchDispatchMode):
     """Sums the bytes every ATen op of the step reads and writes (each
     tensor argument and result once; a view moves none): what an eager
     step moves through memory, the counterpart of XLA's `bytes accessed`
-    for a program of unfused ops."""
+    for a program of unfused ops. `observer(func, args, kwargs, out)`,
+    when given, sees every op too: mx.check's `StepRecord` rides this
+    mode, so a first call that both modules watch runs under one
+    dispatch mode."""
 
-    def __init__(self):
+    def __init__(self, observer=None):
         super().__init__()
         self.bytes = 0
+        self.observer = observer
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -493,6 +497,8 @@ class _BytesMode(TorchDispatchMode):
                 t.numel() * t.element_size()
                 for t in torch.utils._pytree.tree_leaves((args, kwargs, out))
                 if isinstance(t, torch.Tensor))
+        if self.observer is not None:
+            self.observer(func, args, kwargs, out)
         return out
 
 
@@ -520,7 +526,7 @@ def _nbytes(tensors):
     return n
 
 
-def count_step(name, key, fn, args=(), collectives=None):
+def count_step(name, key, fn, args=(), collectives=None, observer=None):
     """Run `fn()` (the first step at signature `key`) once, counting its
     FLOPs (FlopCounterMode plus the kernel wrappers' tallies), the bytes
     its ops and kernels read and write (`_BytesMode` plus the tallies),
@@ -531,8 +537,9 @@ def count_step(name, key, fn, args=(), collectives=None):
     caching allocator's peak on the card; on the CPU, a `torch.profiler`
     session's memory events), `peak_bytes` arguments + temps. Folds them
     into the record of (`name`, `key`), the telemetry gauges and `cost`
-    event, and the flight ring. Returns fn's result; fn's exceptions
-    propagate."""
+    event, and the flight ring. `observer` (mx.check's `StepRecord`)
+    rides the same dispatch mode and sees every op and kernel launch.
+    Returns fn's result; fn's exceptions propagate."""
     from torch.utils.flop_counter import FlopCounterMode
     from .cuda_ops import _build
     rec = _get_record(name, key)
@@ -548,7 +555,10 @@ def count_step(name, key, fn, args=(), collectives=None):
             profile_memory=True)
     tally = [0, 0]
     prev, _build.cost_tally = _build.cost_tally, tally
-    flops, moved = FlopCounterMode(display=False), _BytesMode()
+    prev_obs = _build.launch_observer
+    if observer is not None:
+        _build.launch_observer = observer.note_launch
+    flops, moved = FlopCounterMode(display=False), _BytesMode(observer)
     try:
         if prof is not None:
             prof.start()
@@ -560,6 +570,7 @@ def count_step(name, key, fn, args=(), collectives=None):
                 prof.stop()
     finally:
         _build.cost_tally = prev
+        _build.launch_observer = prev_obs
     temp = None
     if on_card:
         torch.cuda.synchronize()

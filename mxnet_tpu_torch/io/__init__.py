@@ -234,13 +234,15 @@ class ImageRecordIter(DataIter):
 
 
 class LibSVMIter(DataIter):
-    """Sparse libsvm iterator (reference: `src/io/iter_libsvm.cc`); needs
-    sparse NDArrays, which the port lacks."""
+    """Sparse libsvm iterator (reference: `src/io/iter_libsvm.cc`). The
+    sparse NDArrays it yields are in the port (`nd.sparse`); the libsvm
+    text reader and the iterator over it are not yet."""
 
     def __init__(self, *args, **kwargs):
         raise NotPortedError(
-            "io.LibSVMIter needs sparse NDArrays, which are not in the port "
-            "yet (ROADMAP.md queue 1, \"The eager MXNet surface\")")
+            "io.LibSVMIter: the libsvm text reader and its csr batches are "
+            "not in the port yet (sparse NDArrays are: nd.sparse); "
+            "ROADMAP.md queue 1, \"Left for later PRs\"")
 
 
 class MNISTIter(NDArrayIter):

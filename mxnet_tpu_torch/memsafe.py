@@ -57,6 +57,7 @@ import torch
 
 from . import config as _config
 from . import diagnostics as _diagnostics
+from . import goodput as _goodput
 from . import telemetry as _telemetry
 
 __all__ = ["enable", "disable", "enabled", "maybe_enable",
@@ -415,6 +416,7 @@ def recover_trainer(trainer, exc, data, labels):
     drew from, so a recovered step draws what an uninterrupted one would
     have."""
     step = int(trainer.num_update) + 1
+    t_rung = time.perf_counter() if _goodput._enabled else None
     if not isinstance(exc, MemoryBudgetError):
         _count_oom("device", step=step)
     if _config.get("oom_recover") != "auto":
@@ -437,6 +439,14 @@ def recover_trainer(trainer, exc, data, labels):
         else:
             trainer.set_grad_accum(value)
         _note_transition(trainer, kind, value, step)
+        if _goodput._enabled:
+            # the ladder walk so far (failed attempt + re-plan) is
+            # badput:oom_recovery, and so is the retried step below
+            # (note_oom_begin re-categorizes its first-step interval)
+            now = time.perf_counter()
+            _goodput.note("oom_recovery", t_rung, now, step=step, rung=kind)
+            t_rung = now
+            _goodput.note_oom_begin(step)
         failed = None
         try:
             out = trainer._step_once(data, labels)

@@ -31,7 +31,35 @@ import torch
 
 from . import context
 
-__all__ = ["PagePool", "PrefixTree", "PagesExhausted"]
+__all__ = ["PagePool", "PrefixTree", "PagesExhausted",
+           "enable", "disable", "enabled"]
+
+_enabled = False
+
+
+def enabled():
+    """True while a paged server is armed (serve.Server(pages='on')
+    builds the pool and sets it; the pages='off' path never reaches
+    this module)."""
+    return _enabled
+
+
+def enable():
+    global _enabled
+    _enabled = True
+
+
+def disable():
+    global _enabled
+    _enabled = False
+
+
+def _torch_dtype(dt):
+    """A torch dtype from a torch dtype, a numpy dtype or its name."""
+    if isinstance(dt, torch.dtype):
+        return dt
+    from .gluon.parameter import dtype_of
+    return dtype_of(np.dtype(dt).name)
 
 
 class PagesExhausted(RuntimeError):
@@ -59,7 +87,8 @@ class PagePool:
     """Refcounted fixed-size KV pages over pooled per-layer tensors.
 
     `streams` maps a tag ('target') to a list of (heads, head_dim,
-    dtype) specs, one per pooled tensor (2 * n_layers: K then V). Every
+    dtype) specs, one per pooled tensor (2 * n_layers: K then V; a
+    torch or numpy dtype). Every
     tensor is allocated as (pages, heads, page_size, head_dim) zeros on
     `device` (the card unless the caller names another); page id p is
     physical row p in all of them. Refcounts and the free list live on
@@ -80,7 +109,8 @@ class PagePool:
         self.free = collections.deque(range(self.scratch, self.num_pages))
         self.state = {
             tag: [torch.zeros((self.num_pages, h, self.page_size, d),
-                              dtype=dt, device=dev) for (h, d, dt) in specs]
+                              dtype=_torch_dtype(dt), device=dev)
+                  for (h, d, dt) in specs]
             for tag, specs in streams.items()}
         self.stats = {"allocs": 0, "frees": 0, "cow_copies": 0,
                       "peak_used": 0}

@@ -150,7 +150,17 @@ def moe_apply(x, router_w, w1, w2, mesh=None, axis_name="ep",
     """The Switch FFN over the mesh: x (N, D) the global tokens, w1 and
     w2 all E experts, router replicated. Each process along `axis_name`
     takes its slice of the tokens and of the experts; returns (this
-    process' rows of y, aux_loss). In one process that is all of y."""
+    process' rows of y, aux_loss). In one process that is all of y.
+    NDArray arguments (a user block's forward computes on NDArrays) are
+    unwrapped, and y and aux_loss come back as NDArrays then."""
+    from ..ndarray.ndarray import NDArray
+    if any(isinstance(a, NDArray) for a in (x, router_w, w1, w2)):
+        y, aux = moe_apply(*(a._t if isinstance(a, NDArray) else a
+                             for a in (x, router_w, w1, w2)),
+                           mesh=mesh, axis_name=axis_name,
+                           capacity_factor=capacity_factor,
+                           activation=activation)
+        return NDArray(y), NDArray(aux)
     mesh = mesh or current_mesh()
     n = mesh.shape[axis_name]
     if n > 1:

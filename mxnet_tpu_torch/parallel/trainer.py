@@ -98,9 +98,25 @@ The constructor is the JAX package's: `optimizer` defaults to "sgd";
 `donate` is accepted and changes nothing (the step updates in place);
 `data_specs` and `label_specs` are accepted when they are None or hold
 only None (the default batch layout). Single device and
-`param_mode="replicate"` only: meshes, fsdp/tp modes, sharding specs,
-zero, guard and check are not in the port yet, and ask for ROADMAP.md
-queue 1's "Multi-device" and the later observability modules.
+`param_mode="replicate"` only: meshes, fsdp/tp modes, sharding specs and
+zero are not in the port yet, and ask for ROADMAP.md queue 1's
+"Multi-device".
+
+The operations layer, as in the JAX package: construction arms check,
+guard and scope when their knobs ask (`maybe_enable`); goodput accounts
+each completed step (`compile` for the first step at a signature,
+`replay` at or below the step-id high-water mark, else `step`; it fences
+as telemetry does); guard beats at the dispatch (suspending its
+deadline across a first step at a new signature) and after the step
+(then the SDC digest vote every `sdc_check_every` steps), after
+resilience's hook, so a `corrupt_grad` fault of that step is voted on
+at once; scope stamps the completed step and drives an armed
+/profilez capture at the boundary. With check on, the first step at a
+signature runs under `check.StepRecord` (inside inspect's counting
+pass when inspect is on too: one dispatch mode) and `check.check_step`
+lints it; under check=error the signature is forgotten, so the next
+step records and raises again (the step itself has run: the port
+records a call by running it).
 """
 from __future__ import annotations
 
@@ -112,14 +128,18 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from .. import check as _check
 from .. import config as _config
 from .. import context
 from .. import diagnostics as _diagnostics
+from .. import goodput as _goodput
+from .. import guard as _guard
 from .. import inspect as _inspect
 from .. import memsafe as _memsafe
 from .. import optimizer as opt_mod
 from .. import random as _random
 from .. import resilience as _resilience
+from .. import scope as _scope
 from .. import telemetry as _telemetry
 from .. import trace as _trace
 from ..models import _remat
@@ -203,7 +223,12 @@ class ShardedTrainer:
         self._host_bufs = {}            # dtype -> pinned host buffer
         self._sigs = set()              # step signatures seen (misses)
         self._tele_sig = None           # last new signature (telemetry)
+        # construction-time knob reads only: the step keeps one module
+        # bool a subsystem
         _memsafe.maybe_enable()
+        _check.maybe_enable()
+        _guard.maybe_enable()
+        _scope.maybe_enable()
         if not any(getattr(p, "mx_deferred", False)
                    for p in block.parameters()):
             self._setup()
@@ -286,6 +311,13 @@ class ShardedTrainer:
             loss = _memsafe.recover_trainer(self, failed, data, labels)
         if _resilience._enabled:
             _resilience.on_step(self)
+        if _guard._enabled:
+            # the completed-step beat (re-arms the deadline), then the
+            # SDC vote on its cadence: after resilience, so a corrupt_grad
+            # fault of this step is caught at this same boundary
+            _guard.on_step(self, self.num_update)
+        if _scope._enabled:
+            _scope.on_step(self, self.num_update)
         return loss
 
     def _step_once(self, data, labels):
@@ -315,8 +347,10 @@ class ShardedTrainer:
         # takes effect mid-run
         sentinel = _config.get("nan_sentinel")
         tracing = _trace._enabled and (is_miss or _trace.sampled(step_no))
+        accounting = _goodput._enabled
         observing = (_telemetry._enabled or _diagnostics._enabled
-                     or sentinel or _inspect._enabled or tracing)
+                     or sentinel or _inspect._enabled or tracing
+                     or accounting)
         t_build = time.perf_counter() if (is_miss and observing) else None
         if not self._ready:
             self._finish_setup(data)
@@ -324,10 +358,21 @@ class ShardedTrainer:
         if _resilience._enabled:
             # the `oom@step:N` fault fires here, before anything runs
             _resilience.fault_point("dispatch", step=step_no)
+        if _guard._enabled:
+            # beat the dispatch; a first step at a new signature is a
+            # legitimate long region, so the deadline is suspended
+            _guard.step_begin(step_no, compiling=is_miss)
         lr = self.fopt.lr_at(step_no)
         # the JAX package fences for these, not for diagnostics alone
         fencing = _telemetry._enabled or sentinel or _inspect._enabled \
-            or tracing
+            or tracing or accounting
+        record = None
+        if is_miss and _check._enabled:
+            resident = self._resident()
+            held = [] if self._fl is None else _check.tensors_of(self._fl)
+            record = _check.StepRecord(
+                known=resident + batch + held + list(self.block.parameters())
+                + list(self.block.buffers()), state=resident)
         events = None
         if fencing and self.device.type == "cuda":
             events = (torch.cuda.Event(enable_timing=True),
@@ -345,12 +390,23 @@ class ShardedTrainer:
                     loss = _inspect.count_step(
                         self._cost_name(), _inspect.key_repr(key),
                         lambda: self._update(micro, step_no, lr),
-                        args=self._resident() + batch)
+                        args=self._resident() + batch, observer=record)
+                elif record is not None:
+                    loss = record.run(
+                        lambda: self._update(micro, step_no, lr))
                 else:
                     loss = self._update(micro, step_no, lr)
             t_disp = time.perf_counter() if tracing else None
             self.num_update = step_no
             self._sigs.add(key)
+            if record is not None:
+                try:
+                    _check.check_step(self, key, record, batch=batch)
+                except _check.CheckError:
+                    # check=error: forget the signature, so the next step
+                    # at it records and raises again
+                    self._sigs.discard(key)
+                    raise
             if observing:
                 if events is not None:
                     # the fence: where the JAX package blocks on the loss
@@ -367,6 +423,10 @@ class ShardedTrainer:
                 if tracing:
                     self._trace_record_step(step_no, t_build, t_step,
                                             t_disp, t_done)
+                if accounting:
+                    # before inspect: the step's interval ends at the
+                    # fence
+                    _goodput.note_step(step_no, t_build, t_step, t_done)
                 if _inspect._enabled and t_build is None:
                     _inspect.note_step(self._cost_name(),
                                        _inspect.key_repr(key), dur)

@@ -32,11 +32,18 @@
     `sigterm@step:N` and `kill@step:N` at the step boundary,
     `oom@step:N` at the step's dispatch (`memsafe.
     SimulatedResourceExhausted`) and `corrupt_ckpt@step:N` after that
-    step's checkpoint is written; serving consumes `slow_client:ms`,
-    `burst:N@step:K` and `cancel@req:N` (`Server._fire_faults`). The
-    other kinds of the grammar (stall_input, exc, shrink, grow, hang,
-    corrupt_grad, stall_heartbeat, kill_replica, wedge_replica,
-    slow_replica) parse, but no port code fires them yet.
+    step's checkpoint is written, and at the step boundary also
+    `exc@step:N` (a RuntimeError), `hang@step:N` (the step boundary never
+    returns: the stuck-but-alive process mx.guard's deadline and a
+    heartbeat supervisor exist for) and `corrupt_grad@step:N` (one bit
+    flipped in the first parameter, `FaultInjector.corrupt_gradient`:
+    the silent corruption mx.guard's digest vote catches); mx.guard's
+    heartbeat consumes `stall_heartbeat:ms`; serving consumes
+    `slow_client:ms`, `burst:N@step:K` and `cancel@req:N`
+    (`Server._fire_faults`). The other kinds of the grammar parse, but
+    no port code fires them: `stall_input` needs the prefetch stager,
+    `shrink`/`grow` the elastic resize (queue 1's "Multi-device"), and
+    `kill_replica`, `wedge_replica` and `slow_replica` the fleet.
 
 Disabled (the default) the trainer hook is one module-bool check, no
 signal handler is installed, and `ShardedTrainer.save_states` writes
@@ -46,11 +53,14 @@ both. The `resilience` knob installs at import.
 
 One process: the port trains on one device, so the JAX package's
 multi-host branch (the writer running against the final directory, the
-manifest written by process 0) is not here. The JAX package's goodput
-and guard hooks, elastic reshape and estimator checkpoints are not
-ported yet.
+manifest written by process 0) is not here. Elastic reshape
+(`request_shrink` raises `NotPortedError`) and estimator checkpoints
+are not ported yet.
 
 Observers, as in the JAX package (each behind its module bool):
+mx.guard heartbeats at a save's start and end and after a restore (a
+long write is progress); mx.goodput's `checkpoint_save` and
+`checkpoint_restore` intervals and a `resume` marker;
 telemetry's `checkpoint_save_seconds`, `checkpoint_restore_seconds`,
 `checkpoint_verify_failures_total`, `restarts_total`,
 `preemptions_total` and `retries_total{site=}` with `checkpoint`,
@@ -73,6 +83,8 @@ import zlib
 
 from . import config as _config
 from . import diagnostics as _diagnostics
+from . import goodput as _goodput
+from . import guard as _guard
 from . import telemetry as _telemetry
 from . import trace as _trace
 
@@ -83,7 +95,8 @@ __all__ = [
     "write_checkpoint", "verify_checkpoint", "list_checkpoints",
     "check_fingerprint", "trainer_fingerprint", "CheckpointManager",
     "manager_for", "on_trainer_init", "on_step", "FaultInjector",
-    "fault_point", "restart_count", "last_resume", "note_preemption"]
+    "fault_point", "restart_count", "last_resume", "note_preemption",
+    "request_shrink"]
 
 # "preempted: state saved, exiting on request": outside the shell's
 # (126..128+N) and the common errno ranges, so a supervisor can tell it
@@ -589,11 +602,18 @@ class CheckpointManager:
             return None
         t0 = time.perf_counter()
         path = self._step_dir(step)
-        # a long write is a legitimate non-step region: the watchdog may
-        # not fire during it (a real hang inside is still named)
+        if _guard._enabled:
+            # liveness: a supervisor's staleness clock must see the save
+            # START (a long write is progress, not a hang)
+            _guard.heartbeat(step, phase="checkpoint.save", force=True)
+        # a long write is a legitimate non-step region: neither the
+        # watchdog nor mx.guard's deadline may fire during it (a real
+        # hang inside is still named)
         with _diagnostics.suspend_watchdog("checkpoint.save", step):
             self.policy.call(self.trainer.save_states, path,
                              site="checkpoint-io")
+        if _guard._enabled:
+            _guard.heartbeat(step, phase="checkpoint.save", force=True)
         self._last_saved_step = step
         dt = time.perf_counter() - t0
         if _telemetry._enabled:
@@ -603,6 +623,8 @@ class CheckpointManager:
         if _trace._enabled:
             _trace.record_span("checkpoint.save", t0, t0 + dt, step=step,
                                cat="checkpoint", always=True)
+        if _goodput._enabled:
+            _goodput.note("checkpoint_save", t0, t0 + dt, step=step)
         _diagnostics.record_event("checkpoint", step=step, path=path,
                                   dur_s=round(dt, 6))
         self._gc()
@@ -667,9 +689,15 @@ class CheckpointManager:
         with _diagnostics.suspend_watchdog("checkpoint.restore"):
             self.policy.call(self.trainer.load_states, path,
                              site="checkpoint-io")
+        if _guard._enabled:
+            _guard.heartbeat(int(self.trainer.num_update),
+                             phase="checkpoint.restore", force=True)
         self._last_saved_step = int(self.trainer.num_update)
         if _telemetry._enabled:
             _M_RESTORE_SECONDS.observe(time.perf_counter() - t0)
+        if _goodput._enabled:
+            _goodput.note("checkpoint_restore", t0, time.perf_counter(),
+                          step=int(self.trainer.num_update))
         return path
 
     def last_saved_path(self):
@@ -691,6 +719,22 @@ def _note_resume(path, step, fallbacks=0):
                          fallbacks=fallbacks)
     _diagnostics.record_event("resume", path=path, step=int(step),
                               fallbacks=fallbacks)
+    if _goodput._enabled:
+        # marker for the offline report: replayed-step count must equal
+        # the high-water mark minus this restored step
+        _goodput.note_resume(int(step))
+
+
+def request_shrink(reason=None):
+    """The JAX package's elastic shrink request (how mx.guard quarantines
+    a rank voted corrupt twice). The port has no elastic resize: one
+    device a process, no data replicas to shrink."""
+    from .ndarray.ndarray import NotPortedError
+    raise NotPortedError(
+        "resilience.request_shrink"
+        + (f" ({reason})" if reason else "")
+        + ": the elastic shrink needs data replicas, which the port does "
+        "not have yet (ROADMAP.md queue 1, \"Multi-device\")")
 
 
 def note_preemption(step, path=None, signum=None):
@@ -758,7 +802,7 @@ def on_step(trainer):
     if mgr is not None and every > 0 and step % every == 0:
         mgr.save()
     if _injector is not None:
-        _injector.fire("step", step=step)
+        _injector.fire("step", step=step, trainer=trainer)
     if _preempt["flag"]:
         _finalize_preemption(mgr, step)
 
@@ -821,9 +865,16 @@ class FaultInjector:
                               state (memsafe.SimulatedResourceExhausted):
                               repeat the spec to fail the retries too
                               and walk further rungs of the ladder
-      stall_input, exc, shrink, grow, hang, corrupt_grad,
-      stall_heartbeat, kill_replica, wedge_replica, slow_replica
-                            — parsed, not fired by any port code yet
+      exc@step:2            — RuntimeError at the boundary of step 2
+      hang@step:5           — the boundary of step 5 never returns
+      corrupt_grad@step:4   — one bit of the first parameter flipped at
+                              the boundary of step 4
+      stall_heartbeat:250   — mx.guard's heartbeat file writes stop for
+                              250 ms (the process stays healthy)
+      stall_input, shrink, grow, kill_replica, wedge_replica,
+      slow_replica          — parsed; no port code fires them (the
+                              prefetch stager, elastic resize and the
+                              fleet are not ported)
     Any spec may append @rank:N to fire on that rank only. Specs fire at
     most once, and only on the FIRST launch (MXNET_TPU_RESTART_COUNT=0)
     unless @every_restart is appended."""
@@ -875,9 +926,10 @@ class FaultInjector:
             and (spec["rank"] is None or spec["rank"] == rank) \
             and (spec["every_restart"] or restart_count() == 0)
 
-    def fire(self, point, step=None, path=None):
+    def fire(self, point, step=None, path=None, trainer=None):
         """Run every armed spec that matches this fault point: "step" (a
-        trainer step boundary), "dispatch" (a step about to run, nothing
+        trainer step boundary; `trainer` handed through so corrupt_grad
+        reaches its parameters), "dispatch" (a step about to run, nothing
         touched yet) or "ckpt" (a checkpoint just written at `path`)."""
         rank = _process_index()
         for spec in self._specs:
@@ -885,9 +937,13 @@ class FaultInjector:
                 continue
             kind = spec["kind"]
             due = spec["step"] is None or step == spec["step"]
-            if point == "step" and kind in ("sigterm", "kill") and due:
+            if point == "step" and kind in ("sigterm", "kill", "exc",
+                                            "hang") and due:
                 spec["fired"] = True
                 self._fire_process_fault(kind, step)
+            elif point == "step" and kind == "corrupt_grad" and due:
+                spec["fired"] = True
+                self.corrupt_gradient(trainer, step)
             elif point == "dispatch" and kind == "oom" and due:
                 spec["fired"] = True
                 print(f"mx.resilience: fault injection: synthetic "
@@ -904,8 +960,42 @@ class FaultInjector:
         print(f"mx.resilience: fault injection: {kind} at step {step} "
               f"(rank {_process_index()})", file=sys.stderr)
         sys.stderr.flush()
+        if kind == "exc":
+            raise RuntimeError(
+                f"mx.resilience fault injection: crash at step {step}")
+        if kind == "hang":
+            # a stuck host: the step boundary never returns, and SIGTERM
+            # cannot break it (the handler only sets a flag) — exactly
+            # the stuck-but-alive process mx.guard's deadline and a
+            # heartbeat supervisor exist for
+            while True:
+                time.sleep(3600)
         os.kill(os.getpid(), _signal.SIGTERM if kind == "sigterm"
                 else _signal.SIGKILL)
+
+    @staticmethod
+    def corrupt_gradient(trainer, step):
+        """Deterministic silent data corruption: flip one bit (0x10 of
+        the middle byte) of the trainer's first parameter in place, as
+        the step's update lands — the JAX package flips the same byte of
+        one device's replica of its first leaf. On the fused LAMB path
+        the first parameter is the leading slice of the flat master."""
+        if trainer is None or not hasattr(trainer, "params"):
+            return
+        import torch
+        params = trainer.params
+        if isinstance(params, (list, tuple)):
+            leaf = params[0]
+        else:
+            fl = getattr(trainer, "_fl", None)
+            leaf = params if fl is None else \
+                params[fl.offsets[0]:fl.offsets[0] + fl.sizes[0]]
+        with torch.no_grad():
+            buf = leaf.detach().reshape(-1).view(torch.uint8)
+            buf[buf.numel() // 2] ^= 0x10
+        print(f"mx.resilience: fault injection: corrupt_grad at step "
+              f"{step} (rank {_process_index()}): flipped one bit in "
+              f"param leaf 0 on {leaf.device}", file=sys.stderr)
 
     @staticmethod
     def corrupt_checkpoint(path):

@@ -84,9 +84,23 @@ ladder and for every request that does not complete); trace spans
 `serve.stream` per round; flight-ring `serve` records. The round's host
 fetch is its fence already, so observing adds none.
 
-Not yet ported (listed in ROADMAP.md): the guard, slo, goodput and check
-hooks, and the `servers()` registry with the cost model's
-`note_dispatch`.
+The operations layer, at the JAX package's sites, each behind its
+module bool: mx.slo journals every request (submit before any verdict,
+admit, first dispatch, each new token, stream delivery, degradation and
+retry events, the terminal verdict; `Request._slo_j` stays None while
+slo is off); mx.goodput claims each round's decode (`serve_decode`, or
+`serve_degraded` when a slot of the bucket was shrunk or requeued) and
+the scheduler thread's idle waits (`serve_idle`); mx.guard beats each
+scheduler step with phase `serve`; mx.check lints a `pages="on"`
+configuration at construction (`lint_paging`) and records each bucket's
+first dispatch of each shape (`check.check_jit`: captured constants,
+upcasts, caches replaced instead of updated in place). `servers()`
+lists the live servers (a WeakSet that construction fills; mx.scope's
+/statusz reads each one's `stats()`), and `note_dispatch` counts every
+batched dispatch while serving is armed (`dispatches()`), which
+constructing a Server does, as in the JAX package. A round's host fetch
+of the logits is its fence already, so none of these adds a
+synchronisation.
 """
 from __future__ import annotations
 
@@ -95,21 +109,28 @@ import queue as _pyqueue
 import sys
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
 
+from . import _locklint
+from . import check as _check
 from . import config as _config
 from . import dataflow as _dataflow
 from . import diagnostics as _diagnostics
+from . import goodput as _goodput
+from . import guard as _guard
 from . import memsafe as _memsafe
 from . import pages as _pages
 from . import resilience as _resilience
+from . import slo as _slo
 from . import telemetry as _telemetry
 from . import trace as _trace
 
 __all__ = ["Server", "Request", "QUEUED", "RUNNING", "DONE", "REJECTED",
-           "SHED", "EXPIRED", "CANCELLED", "FAILED", "TERMINAL"]
+           "SHED", "EXPIRED", "CANCELLED", "FAILED", "TERMINAL", "enable",
+           "disable", "enabled", "note_dispatch", "dispatches", "servers"]
 
 # request lifecycle states
 QUEUED = "queued"        # accepted, waiting for a slot
@@ -121,6 +142,51 @@ EXPIRED = "expired"      # deadline passed; evicted between decode steps
 CANCELLED = "cancelled"  # client/injected cancellation (499-style)
 FAILED = "failed"        # scheduler error surfaced to the request (500)
 TERMINAL = frozenset({DONE, REJECTED, SHED, EXPIRED, CANCELLED, FAILED})
+
+_lock = _locklint.make_lock("serve.module")
+_enabled = False          # the fast-path bool; the dispatch hook reads it
+_dispatches = 0           # batched dispatches seen at the hook site
+# live Server objects (weak: a dropped server must not be pinned by the
+# registry) — mx.scope's /statusz surfaces each one's stats()
+_servers = weakref.WeakSet()
+
+
+def servers():
+    """The live Server objects of this process (construction registers
+    them; garbage collection removes them)."""
+    return list(_servers)
+
+
+def enabled():
+    """True while serving instrumentation is armed (the dispatch hook
+    reads the module bool directly; this is the public spelling)."""
+    return _enabled
+
+
+def enable():
+    global _enabled
+    _enabled = True
+
+
+def disable():
+    global _enabled
+    _enabled = False
+
+
+def note_dispatch(model_name, t0=None):
+    """Dispatch hook, called by the server for every batched dispatch
+    while serving is armed (`Server._retried`). Callers gate on the
+    module bool — this function is never reached while disabled."""
+    global _dispatches
+    with _lock:
+        _dispatches += 1
+
+
+def dispatches():
+    """Batched dispatches observed at the hook site this process."""
+    with _lock:
+        return _dispatches
+
 
 _M_REQUESTS = _telemetry.counter(
     "serve_requests_total", "serving requests by terminal outcome "
@@ -168,6 +234,7 @@ class Request:
         self.id = seq
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
+        self.requested_new_tokens = int(max_new_tokens)
         self.eos = eos
         self.temperature = float(temperature or 0.0)
         self.top_k = int(top_k or 0)
@@ -180,6 +247,7 @@ class Request:
         self.requeues = 0
         self.evicted_once = False         # each request triggers <= 1 evict
         self._streamed = 0                # replay high-water mark
+        self._slo_j = None                # mx.slo journal (None while off)
         self._rng = None
         self._stream_q = _pyqueue.Queue()
         self._done = threading.Event()
@@ -212,13 +280,23 @@ class Request:
                 print(f"mx.serve: fault injection: slow client — "
                       f"{arg} ms stall per streamed token (request "
                       f"{self.id})", file=sys.stderr)
-        while True:
-            tok = self._stream_q.get()
-            if tok is _EOS_SENTINEL:
-                return
-            if delay:
-                time.sleep(delay)
-            yield tok
+        if _slo._enabled and self._slo_j is not None:
+            _slo.note_stream_start(self)
+        try:
+            while True:
+                tok = self._stream_q.get()
+                if tok is _EOS_SENTINEL:
+                    return
+                if delay:
+                    time.sleep(delay)
+                if self._slo_j is not None:
+                    _slo.note_delivered(self)
+                yield tok
+        finally:
+            # sentinel, break or a collected generator: the delivery
+            # timeline is over — mx.slo can finalize
+            if self._slo_j is not None:
+                _slo.note_stream_end(self)
 
     @property
     def done(self):
@@ -386,6 +464,9 @@ class Server:
         self._wake = threading.Event()
         self._error = None
         self._stopped = False
+        self._checked = set()      # (what, bucket, shapes) recorded once
+        enable()
+        _servers.add(self)
 
     # -- construction helpers -------------------------------------------
     def _parse_buckets(self, buckets):
@@ -453,6 +534,15 @@ class Server:
             "chunk_dispatches": 0, "spec_rounds": 0,
             "drafts_proposed": 0, "drafts_accepted": 0,
         })
+        if _check._enabled:
+            smallest = self._buckets[0] if self._buckets is not None \
+                else max(1, int(_config.get("bucket_pad_min")))
+            _check.lint_paging(
+                f"serve.Server(pages=on,page_size={ps})", ps, smallest,
+                int(self.model.gpt.word_embed.weight.shape[0]),
+                None if self._drafter is None
+                else int(self._drafter.gpt.word_embed.weight.shape[0]))
+        _pages.enable()
 
     # -- client surface --------------------------------------------------
     def submit(self, prompt, max_new_tokens=32, eos=None, temperature=0.0,
@@ -473,6 +563,10 @@ class Server:
             self._seq += 1
             self._by_id[req.id] = req
             self._stats["submitted"] += 1
+            # journal BEFORE any admission verdict: rejected and shed
+            # requests are exactly the ones mx.slo must explain
+            if _slo._enabled:
+                _slo.note_submit(req)
             if self._error is not None:
                 self._finish(req, FAILED,
                              f"500 scheduler failed earlier: "
@@ -628,7 +722,14 @@ class Server:
                 self._scheduler_failed(e)
                 return
             if not work:
-                self._wake.wait(0.005)
+                if _goodput._enabled:
+                    # an empty scheduler pass is queue-idle wall-clock
+                    # (coalesced into one record per idle span)
+                    t0 = time.perf_counter()
+                    self._wake.wait(0.005)
+                    _goodput.note("serve_idle", t0)
+                else:
+                    self._wake.wait(0.005)
                 self._wake.clear()
 
     def _scheduler_failed(self, exc):
@@ -692,6 +793,8 @@ class Server:
             self._sched_step += 1
             n = self._sched_step
         self._fire_faults(n)
+        if _guard._enabled:
+            _guard.heartbeat(phase="serve")
         # execution peaks are measured OUTSIDE the lock (a dispatch each;
         # submit/cancel from client threads must not block behind it)
         self._prewarm_buckets()
@@ -705,10 +808,20 @@ class Server:
             self._admit()
             groups = [g for g in self._groups.values() if g.active()]
         for grp in groups:
-            if self._paged:
-                self._decode_group_paged(grp)
-            else:
-                self._decode_group(grp)
+            decode = self._decode_group_paged if self._paged \
+                else self._decode_group
+            if not _goodput._enabled:
+                decode(grp)
+                continue
+            # decode time for a batch holding any degraded or requeued
+            # request is "serve_degraded": capacity spent delivering
+            # below-contract service rather than clean goodput
+            with self._lock:
+                degr = any(grp.slots[i].degraded or grp.slots[i].requeues
+                           for i in grp.active())
+            t0 = time.perf_counter()
+            decode(grp)
+            _goodput.note("serve_degraded" if degr else "serve_decode", t0)
         with self._lock:
             self._gc_groups()
             if _telemetry._enabled:
@@ -821,6 +934,22 @@ class Server:
         D = self._units // self._heads
         item = torch.empty((), dtype=self._cache_dtype).element_size()
         return 2 * self._n_l * self._slots * self._heads * bucket * D * item
+
+    def _runner(self, bucket):
+        """The dense bucket's dispatch, under the JAX package's name:
+        run(tok, t, caches) -> logits, one `decode_step_slots` that
+        writes the bucket's caches in place (where the JAX package's
+        runner is the bucket's jitted step, donating them).
+        `run.aot_exec_peak()` is the bucket's execution peak
+        (`_exec_peak`)."""
+        model, n_l = self.model, self._n_l
+
+        def run(tok, t, caches):
+            return model.decode_step_slots(tok, t, caches[:n_l],
+                                           caches[n_l:])[0]
+
+        run.aot_exec_peak = lambda *avals: self._exec_peak(bucket)
+        return run
 
     def _exec_peak(self, bucket):
         """Execution-peak bytes of the heaviest dispatch the bucket can
@@ -1175,6 +1304,8 @@ class Server:
 
     def _note_degraded(self, action, req, extra):
         self._stats["degraded"] += 1
+        if _slo._enabled and req._slo_j is not None:
+            _slo.note_event(req, action, **extra)
         print(f"mx.serve: degradation ladder: {action} (request "
               f"{req.id}: {extra})", file=sys.stderr)
         if _telemetry._enabled:
@@ -1223,6 +1354,8 @@ class Server:
             pass
         req.state = RUNNING
         req._admit_perf = time.perf_counter()
+        if _slo._enabled and req._slo_j is not None:
+            _slo.note_admit(req, bucket)
         if _telemetry._enabled:
             _M_QWAIT.observe(req.queue_wait_s)
         if _trace._enabled:
@@ -1256,7 +1389,13 @@ class Server:
             del self._groups[L]
 
     # -- dispatch under the RetryPolicy ------------------------------------
-    def _retried(self, call, grp, what):
+    def _note_first_dispatch(self, grp, active):
+        for i in active:
+            r = grp.slots[i]
+            if r._slo_j is not None:
+                _slo.note_first_dispatch(r)
+
+    def _retried(self, call, grp, what, lead=(), state=()):
         """Run one batched dispatch under the RetryPolicy.
 
         The port writes caches and pages IN PLACE (the JAX package
@@ -1275,13 +1414,50 @@ class Server:
         def on_retry(exc, attempt, delay):
             with self._lock:
                 self._stats["retries"] += 1
+                if _slo._enabled:
+                    for i in grp.active():
+                        r = grp.slots[i]
+                        if r is not None and r._slo_j is not None:
+                            _slo.note_event(r, "retry", attempt=attempt,
+                                            error=type(exc).__name__)
             print(f"mx.serve: retrying {what} dispatch after "
                   f"{type(exc).__name__}: {exc} (attempt {attempt + 2}/"
                   f"{self._retry.max_attempts}, backoff {delay:.2f}s, "
                   f"bucket {grp.bucket})", file=sys.stderr)
 
+        if _check._enabled:
+            key = (what, grp.bucket, tuple(tuple(x.shape) for x in lead))
+            if key not in self._checked:
+                call = self._checked_call(call, key, lead, state)
+        if _enabled:
+            note_dispatch(type(self.model).__name__)
         return self._retry.call(call, site="serve-dispatch",
                                 abort=self._stop.is_set, on_retry=on_retry)
+
+    def _checked_call(self, call, key, lead, state):
+        """`call` for a dispatch at a new (what, bucket, shapes) key:
+        recorded once under `check.StepRecord` and linted
+        (`check.check_jit`, with the caches or page pool as the state
+        that must be updated in place). Under check=error the key is not
+        kept, so the next dispatch at it records and raises again."""
+        model = self.model
+        params = list(model.parameters())
+        if self._drafter is not None:
+            params += list(self._drafter.parameters())
+
+        def checked():
+            record = _check.StepRecord(
+                known=list(lead) + list(state) + params
+                + list(model.buffers()), state=state)
+            out = record.run(call)
+            # no signature history: buckets bound the shapes by
+            # construction (the JAX package's decode keys are bucketed)
+            _check.check_jit(
+                f"serve.Server({type(model).__name__}).{key[0]}", None,
+                record, params=params, can_donate=True)
+            self._checked.add(key)
+            return out
+        return checked
 
     def _to_device(self, *arrays):
         dev = self.model.device
@@ -1300,12 +1476,13 @@ class Server:
             lp = r.prompt.size
             tok[i] = r.prompt[p] if p < lp else r.tokens[p - lp]
             t[i] = p
-        n_l = self._n_l
+        if _slo._enabled:
+            self._note_first_dispatch(grp, active)
         tdec = time.perf_counter() if _trace._enabled else None
         lead = self._to_device(tok, t)
-        logits = self._retried(
-            lambda: self.model.decode_step_slots(
-                *lead, grp.caches[:n_l], grp.caches[n_l:])[0], grp, "decode")
+        run = self._runner(grp.bucket)
+        logits = self._retried(lambda: run(*lead, grp.caches), grp,
+                               "decode", lead, grp.caches)
         lg = logits.float().cpu().numpy()        # the host fetch syncs
         t_emit = self._trace_decode(grp, active, tdec)
         with self._lock:
@@ -1362,6 +1539,8 @@ class Server:
                 max_need = max(max_need, min(self._prefill_chunk, left))
             if r.temperature == 0.0:
                 any_greedy = True
+        if _slo._enabled:
+            self._note_first_dispatch(grp, active)
         if self._drafter is not None and all_decoding and any_greedy:
             self._spec_round(grp, active)
         else:
@@ -1384,7 +1563,8 @@ class Server:
         RetryPolicy. Returns its first output."""
         return self._retried(
             lambda: fn(*lead, self._pool.state[tag], self._page_size,
-                       **kw)[0], grp, f"paged {tag}")
+                       **kw)[0], grp, f"paged {tag}", lead,
+            self._pool.state[tag])
 
     def _chunk_round(self, grp, active, max_need):
         C = self._prefill_chunk if max_need > 1 else 1
@@ -1557,6 +1737,8 @@ class Server:
             _M_TOKENS.inc()
         if len(req.tokens) > req._streamed:
             req._streamed = len(req.tokens)
+            if _slo._enabled and req._slo_j is not None:
+                _slo.note_token(req)
             if req._first_token_perf is None:
                 req._first_token_perf = time.perf_counter()
                 if _telemetry._enabled:
@@ -1586,5 +1768,7 @@ class Server:
             if state != DONE:
                 _telemetry.event("serve", action="finish", req=req.id,
                                  state=state, verdict=verdict)
+        if _slo._enabled and req._slo_j is not None:
+            _slo.note_finish(req, self._OUTCOME[state], verdict)
         req._stream_q.put(_EOS_SENTINEL)
         req._done.set()

@@ -32,7 +32,17 @@ its dtypes (int32 stays int32, float64 becomes float32). Fault 18:
 `config.describe()` and `config.option(name)` exist with the JAX
 package's shapes; for every knob the port declares, the JAX package
 declares it with the same default and environment variable, and
-`source` reads "default", "env" and "set" alike in both.
+`source` reads "default", "env" and "set" alike in both; the operations
+layer's knobs (goodput, guard, slo, check, scope) are among them.
+
+Fault 19: a user's `HybridBlock` whose `forward` is written for NDArrays
+(`.astype`, `.reshape`, `nd.arange`, `h.sum(axis=1)`; the masked
+sequence net of `tests/unittest/test_dataflow.py`) gets NDArrays in an
+eager call and inside `ShardedTrainer`'s step: on the same weights its
+forward sums to the JAX package's 0.12768534 and its first SGD loss is
+the JAX package's 0.44101596, each within 1e-6, and the gradient
+reaches its Dense layer. `io.LibSVMIter`'s refusal names what is
+missing and the ROADMAP.md list that carries it.
 """
 import numpy as np
 import pytest
@@ -459,11 +469,22 @@ def test_fault17_rnn_numpy_sequence_length_as_jax(mode):
 
 # -- fault 18: config.describe / config.option -------------------------------
 
+_LAYER_KNOBS = (
+    "goodput", "goodput_dir", "guard", "heartbeat_timeout_s",
+    "collective_timeout_s", "sdc_check_every", "slo", "slo_dir",
+    "slo_ttft_ms", "slo_tbt_ms", "slo_availability", "slo_burn_alert",
+    "slo_window_fast_s", "slo_window_slow_s", "slo_sample_every", "check",
+    "check_dir", "check_large_const_bytes", "check_promotion_min_bytes",
+    "check_replicated_min_bytes", "check_donation_min_bytes",
+    "check_retrace_limit", "scope", "scope_port")
+
+
 def test_fault18_describe_and_option_as_jax(monkeypatch):
     from mxnet_tpu import config as cfg_j
     from mxnet_tpu_torch import config as cfg_t
     port, jax = cfg_t.describe(), cfg_j.describe()
     assert port and set(port) <= set(jax), set(port) - set(jax)
+    assert set(_LAYER_KNOBS) <= set(port), set(_LAYER_KNOBS) - set(port)
     for name, row in port.items():
         assert set(row) == set(jax[name]) == {"value", "default", "env",
                                               "doc", "source"}
@@ -488,3 +509,102 @@ def test_fault18_describe_and_option_as_jax(monkeypatch):
     finally:
         for cfg in (cfg_t, cfg_j):
             cfg.reset("trace_sample_every")
+
+
+# -- fault 19: a user block's forward gets NDArrays --------------------------
+
+def _masked_seq_net(mx_pkg):
+    """The masked sequence net of tests/unittest/test_dataflow.py, on
+    `mx_pkg`'s gluon and nd."""
+    nd, nn = mx_pkg.nd, mx_pkg.gluon.nn
+
+    class MaskedSeqNet(nn.HybridBlock):
+        def __init__(self, features):
+            super().__init__()
+            self.proj = nn.Dense(1, in_units=features, flatten=False)
+
+        def forward(self, x, valid_len):
+            h = self.proj(x)
+            b, length = x.shape[0], x.shape[1]
+            pos = nd.arange(length).reshape((1, length))
+            mask = (pos < valid_len.reshape((-1, 1)).astype("float32")) \
+                .astype("float32")
+            h = h.reshape((b, length)) * mask
+            return h.sum(axis=1) / valid_len.astype("float32")
+
+    return MaskedSeqNet(6)
+
+
+def _fault19_nets():
+    mx.random.seed(5)
+    jn = _masked_seq_net(mx)
+    jn.initialize()
+    arrays = {k: p.data().asnumpy() for k, p in jn.collect_params().items()}
+    with CPU:
+        tn = _masked_seq_net(mxt)
+        tn.initialize()
+    weights.load_named_arrays(tn, arrays)
+    rng = np.random.RandomState(2)
+    x = rng.randn(8, 5, 6).astype(np.float32)
+    y = rng.randn(8).astype(np.float32)
+    return jn, tn, x, y, np.full(8, 5, np.int32)
+
+
+def test_fault19_user_forward_gets_ndarrays_in_an_eager_call():
+    jn, tn, x, _, valid = _fault19_nets()
+    sj = float(jn(nd_j.array(x), nd_j.array(valid)).sum().asscalar())
+    with CPU:
+        out = tn(nd_t.array(x), nd_t.array(valid))
+    assert isinstance(out, nd_t.NDArray)
+    st = float(out.sum().asscalar())
+    assert abs(sj - 0.12768534) < 1e-6
+    assert abs(st - sj) < 1e-6, (st, sj)
+
+
+def test_fault19_user_forward_gets_ndarrays_in_the_trainer_step(mesh):
+    jn, tn, x, y, valid = _fault19_nets()
+    lj, lt = gluon_j.loss.L2Loss(), gluon_t.loss.L2Loss()
+    tr_j = parallel_j.ShardedTrainer(jn, lambda o, l: lj(o, l), "sgd",
+                                     {"learning_rate": 0.05})
+    loss_j = float(tr_j.step([nd_j.array(x), nd_j.array(valid)],
+                             [nd_j.array(y)]).asscalar())
+    with CPU:
+        tr_t = parallel_t.ShardedTrainer(tn, lambda o, l: lt(o, l), "sgd",
+                                         {"learning_rate": 0.05})
+        before = tr_t.params[0].clone()
+        loss_t = float(tr_t.step([nd_t.array(x), nd_t.array(valid)],
+                                 [nd_t.array(y)]).asscalar())
+    assert abs(loss_j - 0.44101596) < 1e-6
+    assert abs(loss_t - loss_j) < 1e-6, (loss_t, loss_j)
+    # the gradient flowed through the NDArrays into the Dense weight
+    assert not torch.equal(tr_t.params[0], before)
+    tr_j.sync_to_block()
+    tr_t.sync_to_block()
+    np.testing.assert_allclose(
+        tn.proj.weight.detach().numpy(),
+        np.asarray(jn.proj.weight.data()._data), rtol=0, atol=1e-6)
+
+
+def test_fault19_port_layers_keep_their_tensor_forward():
+    from mxnet_tpu_torch.gluon import block as block_t
+    assert not block_t._user_forward(gluon_t.nn.Dense)
+    assert not block_t._user_forward(gpt_t.GPTForCausalLM)
+    assert block_t._user_forward(type(_masked_seq_net(mxt)))
+
+
+def test_libsvmiter_message_names_its_queue_item():
+    import os
+    import re
+    from mxnet_tpu_torch import io as io_t
+    from mxnet_tpu_torch.ndarray.ndarray import NotPortedError
+    with pytest.raises(NotPortedError) as ei:
+        io_t.LibSVMIter(data_libsvm="x", data_shape=(4,), batch_size=2)
+    msg = str(ei.value)
+    assert "sparse NDArrays are" in msg
+    title = re.search(r'"([^"]+)"', msg).group(1)
+    assert title == "Left for later PRs"
+    roadmap = open(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "ROADMAP.md")).read()
+    section = roadmap[roadmap.index(title + ", in this order"):]
+    section = section[:section.index("\n\n1. ")]
+    assert "io.LibSVMIter" in section

@@ -22,8 +22,6 @@ the test's own use of JAX:
   * prefetch and autofit (item 5): `dataflow.prefetch_to_mesh` and its
     stager, `predict_step_bytes`, memsafe's pre-flight check at a new
     shape, the async step's device-resident counter `_t_dev`;
-  * the resilience fault kinds that parse but that no port code fires
-    (item 6: `exc`, `stall_input`);
   * the test's own use of JAX: a `jnp` array handed to the port, or
     XLA's out-of-memory text (`RESOURCE_EXHAUSTED`) raised by the test.
 
@@ -59,7 +57,6 @@ _ESTIMATOR = "estimator"
 _ACCESSORS = "Parameter's accessors"
 _MULTI = "multi-device"
 _PREFETCH = "prefetch/autofit"
-_FAULTS = "fault kinds no port code fires"
 _JNP = "the test's own use of JAX"
 
 # file -> (tests run, {expected failure: reason}, deselected tests)
@@ -98,8 +95,6 @@ FILES = {
         "test_eager_trainer_oom_counts_and_annotates": _JNP,
     }, []),
     "test_resilience.py": (37, {
-        "test_fault_injector_rank_filter_and_one_shot": _FAULTS,
-        "test_fault_injector_disarmed_after_restart": _FAULTS,
         "test_manager_save_retention_restore": _PREFETCH,
         "test_mesh_mismatch_raises_only_when_reshard_off": _MULTI,
         "test_fused_lamb_rng_counter_roundtrip_bit_exact": _PREFETCH,

@@ -397,5 +397,5 @@ def test_record_and_libsvm_iters_are_not_ported_yet():
     with pytest.raises(NotPortedError, match="The facades"):
         io_t.ImageRecordIter(path_imgrec="x.rec", data_shape=(3, 8, 8),
                              batch_size=4)
-    with pytest.raises(NotPortedError, match="The eager MXNet surface"):
+    with pytest.raises(NotPortedError, match="Left for later PRs"):
         io_t.LibSVMIter(data_libsvm="x", data_shape=(4,), batch_size=2)
