@@ -12,6 +12,10 @@
     python3 chip_smoke.py --adam-ab PATH    # Adam over a GPT-2 and an NMT
                                             # step's tensors: PATH's
                                             # wrapper and kernel vs ours
+    python3 chip_smoke.py --accessor-ab PATH
+                                            # eager BERT-base steps and
+                                            # phase 2's serving, with peak
+                                            # memory: PATH's port vs ours
     python3 chip_smoke.py --bert-repeat N [deterministic]
                                             # the tiny BERT LAMB run of
                                             # the card-vs-CPU test, N times
@@ -155,8 +159,9 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      and on the CPU: losses and parameters within TOL_TRAIN, CRNN
      decodes equal; the same card runs with TF32 allowed, and a second
      card run, are reported beside them.
- 26. serves phase 2's traffic on phase 2's model (rebuilt from seed 0)
-     as the reference, then again with deadlines (every fourth request
+ 26. serves phase 2's traffic on phase 2's model (rebuilt from seed 0,
+     6 of its 12 layers since the script grew past 1,000 s:
+     `SERVE_DEPTH`, also in phases 47 and 49) as the reference, then again with deadlines (every fourth request
      at half the reference's median request wall: 504 with a prefix of
      its reference tokens), a `cancel@req:1` fault and a
      `Server.cancel` mid-generation (499, a prefix), one injected
@@ -244,8 +249,9 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      events ms) beside the bound of the update's bytes; `nd.adam_update`
      by name makes one Adam launch and equals `Adam.update` bit for
      bit;
- 46. the JAX package's unit-test files of `tests/test_torch_jax_unittests.py`
-     and `tests/test_torch_jax_unittests_more.py` (`FILES`), unchanged,
+ 46. the JAX package's unit-test files of `tests/test_torch_jax_unittests.py`,
+     `tests/test_torch_jax_unittests_more.py` and
+     `tests/test_torch_jax_unittests_flow.py` (`FILES`), unchanged,
      through `python -m mxnet_tpu_torch.run_example --pytest` with the
      card as the default device, the first harness's each in a process
      of its own, the second's three a process, all at once: each must
@@ -289,7 +295,22 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      {compile, step}; one digest's ms; `tools/goodput_report.py` reads
      the run's files; then `chip_smoke.py --hang-child DIR` trains a
      small net on the CPU under `hang@step:5` with a 2 s step deadline
-     and must exit 86 with a `peer_lost` post-mortem naming step 5.
+     and must exit 86 with a `peer_lost` post-mortem naming step 5;
+ 51. fine-tunes BERT-base for SQuAD (`BERTForQuestionAnswering`, float32,
+     32 x 384, valid lengths 192-384, AdamW lr 3e-5 through
+     `gluon.Trainer`, 2 + 10 steps, one profiled): `span.weight.grad()`
+     equal to torch's gradient of it, a falling loss, 12 flash forwards,
+     dq and dkv and the Adam launches a step; the median step and its
+     spread, examples/s, peak memory, device time by kernel, idle share;
+ 52. the QA head (2 layers at BERT-base's widths, 4 x 384) and the
+     classifier (4 x 128) card against CPU from the same weights: logits,
+     losses and gradients within 1e-5; `BERTClassifier` at BERT-base's
+     full width, 32 x 128, 3 steps, its loss without dropout falling;
+ 53. `nd.contrib`'s foreach, while_loop (one that never runs too) and
+     cond with gradients, and `sym.contrib`'s through `Module.fit` and
+     `simple_bind` bound on the card, against the CPU (1e-5), no kernel
+     launched; a parameter's `data()` and `grad()` on the card,
+     `set_data` from numpy, a CPU NDArray and a card NDArray.
 
 Phase 1 also holds the training kernels against their plain versions at
 the training shapes: the flash forward with dropout 0.1 (its keep mask
@@ -318,7 +339,9 @@ shapes (bf16, B 64, H 8, D 64): the encoder's (64,8,64,64) with the
 padding bias, the decoder's (64,8,65,64) causal, and cross-attention
 (q 65 over k/v 64 positions) with the bias; and the flash forward,
 dq and dkv at phase 39's (32,12,128,64) float32 with its padding mask
-and dropout 0.1 (`symbolic_bert_shape` in the rows).
+and dropout 0.1 (`symbolic_bert_shape` in the rows), and at phase 51's
+SQuAD fine-tuning shape (32,12,384,64) float32 with a padding mask of
+lengths in [192, 384] and dropout 0.1 (`squad_shape`).
 
 The flash rows' library yardsticks are SDPA calls computing the same
 function: the causal forward, the forward with dropout_p 0.1 at BERT's
@@ -1237,6 +1260,82 @@ def host_path_times(root):
     out["decode_round"] = {k: br[k] for k in (
         "decode_round_ms", "device_busy_ms_per_round", "device_idle_share")}
     return out
+
+
+def accessor_times(root):
+    """Phase 44's eager BERT-base steps and phase 2's serving traffic on
+    the checkout at `root` (its `mxnet_tpu_torch`, built there), with
+    their peak memory: what `gluon.Parameter`'s accessors cost, paired by
+    `accessor_ab`. Eager BERT-base (32 x 128 float32, `gluon.Trainer`
+    LAMB): the peak from the model's build to the end of its first
+    recorded step (the step allocates the gradients and the optimizer's
+    state), then 1 + 10 timed steps (`timed_steps`: ms a step, the
+    timed steps' peak). Serving (GPT-2 117M bf16, `serving_phase`): the
+    peak above what was allocated before the model's build, tokens/s
+    and a digest of the tokens."""
+    import hashlib
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.cuda_ops import _build
+    from mxnet_tpu_torch.models import bert, gpt
+    check(gluon.__file__.startswith(os.path.abspath(root)),
+          f"gluon imported from {gluon.__file__}, not {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    dev = torch.device("cuda")
+    cfg = bert.bert_base_config()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_bert(cfg, 0, dev)
+    loop = EagerBertLoop(model, {"learning_rate": 1e-4, "wd": 0.01})
+    data, labels = eager_bert_arrays(cfg, 32, 128, 20, dev)
+    first = float(loop.step(data, labels))
+    first_peak = torch.cuda.max_memory_allocated()
+    losses, counts, timing = timed_steps(loop, data, labels, 1, 10,
+                                         profiled=False)
+    check(np.isfinite([first] + losses).all(), f"losses {losses}")
+    out = {"eager_bert": {
+        "first_step_peak_bytes": first_peak,
+        "ms_per_step": timing["ms_per_step"],
+        "timed_peak_bytes": timing["max_memory_allocated_bytes"],
+        "losses": [first] + losses,
+        "launches": {k: v for k, v in counts.items() if v}}}
+    del loop, model, data, labels
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(gpt.gpt2_117m_config(dtype="bfloat16"), seed=0)
+    reset_counts()
+    reqs, _, secs = serving_phase(model)
+    counts = read_counts()
+    check(all(r.verdict == "200 ok" for r in reqs), "serving verdicts")
+    tokens = [list(map(int, r.tokens)) for r in reqs]
+    out["serving"] = {
+        "peak_bytes_above_base": torch.cuda.max_memory_allocated() - base,
+        "tokens_per_s": sum(map(len, tokens)) / secs,
+        "tokens_digest": hashlib.blake2b(json.dumps(tokens).encode(),
+                                         digest_size=8).hexdigest(),
+        "launches": {k: v for k, v in counts.items() if v}}
+    return out
+
+
+def accessor_ab(other):
+    """`accessor_times` of the checkout at `other` against this one's on
+    one card, in the order other, this, this, other, each in its own
+    process (`--accessor-times`)."""
+    rounds = []
+    for root in (other, ROOT, ROOT, other):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--accessor-times", root], capture_output=True,
+                           text=True, timeout=900)
+        check(r.returncode == 0,
+              f"--accessor-times {root}: {r.stderr[-3000:]}")
+        rounds.append({"root": "other" if root == other else "this",
+                       "times": json.loads(r.stdout.strip().splitlines()[-1])})
+        print("chip_smoke: accessor A/B " + json.dumps(rounds[-1]), flush=True)
+    return rounds
 
 
 def host_ab(other):
@@ -2895,9 +2994,13 @@ def ckpt_trainer(dev, cfg_overrides=None):
 
 CKPT_BATCH = (32, 512, 76)     # batch, sequence, masked positions
 CKPT_STEPS = 8
-# phase 34 trains 8 of BERT-large's 24 layers (its widths unchanged): the
-# script's 1,200 s limit (a 24-layer run took 120 s of a 968 s script)
-CKPT_DEPTH = {"num_layers": 8}
+# phase 34 trains 2 of BERT-large's 24 layers (its widths unchanged): the
+# script's 1,200 s limit (a 24-layer run took 120 s of a 968 s script, a
+# 4-layer one 85.1 s of a 1,142.5 s script on a slow host)
+CKPT_DEPTH = {"num_layers": 2}
+# phases 26-29, 47 and 49 serve 6 of GPT-2 117M's 12 layers (its widths
+# unchanged), for the same limit (26-29 took 163.1 s of that script)
+SERVE_DEPTH = {"num_layers": 6}
 
 
 def ckpt_child(mode, directory, cfg_overrides=None):
@@ -6768,13 +6871,17 @@ def sym_kernel_ops_phase(dev):
 
 
 def sym_flash_phase(dev, B=32, H=12, L=128, D=64, p=0.1,
-                    seed=0x5EED_1234_ABCD):
+                    seed=0x5EED_1234_ABCD, key="symbolic_bert_shape",
+                    path="phase 39's"):
     """The flash kernels at the symbolic encoder's shape (phase 39's
-    path): (B,H,L,64) float32 with the batch's padding mask and dropout
-    p: forward (its keep mask bit for bit), dq and dkv against their
-    plain versions, then timed beside SDPA with the same mask (its own
-    dropout mask: times only) and the bound at the float32 rate. Returns
-    {row: extra fields}."""
+    path), or with L = 384 and `key="squad_shape"` at SQuAD fine-tuning's
+    (phase 51's): (B,H,L,64) float32 with a padding mask (lengths drawn
+    in [L/2, L]) and dropout p: forward (its keep mask bit for bit), dq
+    and dkv against their plain versions, then timed beside SDPA with the
+    same mask (its own dropout mask: times only) and the bound at the
+    float32 rate, its operations counted over the valid keys only (a
+    masked key adds exactly 0: L x the sum of the lengths score pairs a
+    head, not B x L^2). Returns {row: {key: extra fields}}."""
     import torch
     import torch.nn.functional as tF
     from mxnet_tpu_torch.cuda_ops import flash_attention as fa
@@ -6803,8 +6910,9 @@ def sym_flash_phase(dev, B=32, H=12, L=128, D=64, p=0.1,
           f"flash bwd symbolic shape: dq {e_dq}, dkv {e_dkv}")
     del ro, ref, dk, dv, o, lse
     io_b = BH * L * D * 4
+    pairs = H * L * int(valid.sum())      # (query, valid key) pairs
     shape = (f"q/k/v/dO ({B},{H},{L},{D}) float32, the padding mask of "
-             f"phase 39's batch, dropout {p}")
+             f"{path} batch, dropout {p}")
     attn_mask = valid[:, None, None, :]
 
     def sdpa():
@@ -6821,20 +6929,21 @@ def sym_flash_phase(dev, B=32, H=12, L=128, D=64, p=0.1,
     out = {}
     for row, err, nbytes, flops, fn, plain, lib in (
             ("flash_attention_fwd_dropout", e_fwd,
-             4 * io_b + 4 * BH * L + 4 * B * L, 4 * BH * L * L * D,
+             4 * io_b + 4 * BH * L + 4 * B * L, 4 * pairs * D,
              lambda: fa.flash_fwd(q, k, v, bias, False, dropout=p,
                                   seed=seed),
              lambda: fa.flash_fwd_reference(q, k, v, bias, False, dropout=p,
                                             seed=seed), lib_fwd),
             ("flash_attention_dq", e_dq, 5 * io_b + 8 * BH * L + 4 * B * L,
-             6 * BH * L * L * D, lambda: fa.flash_bwd_dq(*bw),
+             6 * pairs * D, lambda: fa.flash_bwd_dq(*bw),
              lambda: fa.flash_dq_reference(*bw), lib_bwd),
             ("flash_attention_dkv", e_dkv, 6 * io_b + 8 * BH * L + 4 * B * L,
-             8 * BH * L * L * D, lambda: fa.flash_bwd_dkv(*bw),
+             8 * pairs * D, lambda: fa.flash_bwd_dkv(*bw),
              lambda: fa.flash_dkv_reference(*bw), lib_bwd)):
         b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
-        out[row] = {"symbolic_bert_shape": dict(
-            shapes=shape, max_abs_err=err, ms=time_ms(fn),
+        out[row] = {key: dict(
+            shapes=shape, valid_key_share=pairs / (BH * L * L),
+            max_abs_err=err, ms=time_ms(fn),
             device_ms=device_ms(fn, match="mxt::"),
             plain_ms=time_ms(plain, iters=5), bound_ms=b_ms, bound_by=b_by,
             library_ms=lib[0], library_device_ms=lib[1], library=lib[2])}
@@ -6871,12 +6980,10 @@ class EagerBertLoop:
 
 def eager_bert_arrays(cfg, batch, seq_len, masked, device, seed=0):
     """(data, labels) of a synthetic pretraining batch as NDArrays."""
-    from mxnet_tpu_torch import nd
     from mxnet_tpu_torch.models import bert
     b = bert.make_synthetic_batch(cfg, batch, seq_len, masked, seed=seed)
-    ctx = "cpu" if str(device) == "cpu" else None
-    return ([nd.array(b[k], ctx=ctx) for k in _DATA],
-            [nd.array(b[k], ctx=ctx) for k in _LABELS])
+    return (nd_arrays([b[k] for k in _DATA], device),
+            nd_arrays([b[k] for k in _LABELS], device))
 
 
 def eager_bert_phase(dev, batch=32, seq_len=128, masked=20, warmup=2,
@@ -7343,7 +7450,7 @@ def observability_phase(dev, steps=8, serve_model=None, serve_kw=None,
         torch.cuda.empty_cache()
 
     model = serve_model or build_model(gpt.gpt2_117m_config(
-        dtype="bfloat16"), seed=0)
+        dtype="bfloat16", **SERVE_DEPTH), seed=0)
     runs = [obs_serve_run(model, observe, os.path.join(tmp, "serve"),
                           **(serve_kw or {}))
             for observe in (False, True, False)]
@@ -7890,6 +7997,484 @@ def ops_train_runs(dev, tmp, steps, **train_kw):
             "goodput_report_keys": sorted(report)[:8]}
 
 
+# ---------------------------------------------------------------------------
+# phases 51-53: BERT's fine-tuning heads, control flow, Parameter's
+# accessors
+# ---------------------------------------------------------------------------
+
+# GluonNLP's finetune_squad.py: AdamW, lr 3e-5, weight decay 0.01
+SQUAD_OPT = {"learning_rate": 3e-5, "wd": 0.01}
+# its finetune_classifier.py on MRPC: AdamW, lr 2e-5, weight decay 0.01,
+# the learning rate warmed up linearly from 0 over warmup_ratio 0.1 of
+# the run's int(3,668 / 32 x 3) = 343 steps: 34 steps, of which phase 52
+# takes the first (without the warm-up, at lr 5e-5, Adam's first step
+# overshoots from random weights: the loss rises, in the JAX package as
+# in the port, tests/test_torch_bert_finetune.py)
+GLUE_OPT = {"learning_rate": 2e-5, "wd": 0.01}
+GLUE_WARMUP = 34
+
+
+def glue_lrs(steps):
+    """The learning rates of finetune_classifier.py's first `steps`
+    steps: lr x step / warm-up steps, from step 0."""
+    return [GLUE_OPT["learning_rate"] * i / GLUE_WARMUP
+            for i in range(steps)]
+
+
+def squad_batch(cfg, B, L, seed=0):
+    """A synthetic SQuAD batch (numpy): valid lengths drawn in [L/2, L]
+    ([192, 384] at BERT's L = 384: every row has padding but the
+    longest), token type 0 over [CLS] and a question prefix (8-63
+    tokens at L = 384) and 1 after it up to the valid length, padding
+    id 0, and a
+    gold span start <= end inside the context. Returns ([ids, types,
+    valid], [start, end])."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    valid = rs.randint(L // 2, L + 1, B)
+    q = rs.randint(min(8, L // 8), min(64, L // 4), B)
+    pos = np.arange(L)[None]
+    ids = rs.randint(1, cfg["vocab_size"], (B, L))
+    ids[pos >= valid[:, None]] = 0
+    types = (pos > q[:, None]) & (pos < valid[:, None])
+    start = np.asarray([rs.randint(a + 1, v) for a, v in zip(q, valid)])
+    end = np.minimum(start + rs.randint(0, 30, B), valid - 1)
+    return ([ids.astype(np.int32), types.astype(np.int32),
+             valid.astype(np.int32)],
+            [start.astype(np.int32), end.astype(np.int32)])
+
+
+def nd_arrays(arrays, device):
+    """The numpy arrays as NDArrays on `device` (the card unless it is
+    the CPU)."""
+    from mxnet_tpu_torch import nd
+    ctx = "cpu" if str(device) == "cpu" else None
+    return [nd.array(a, ctx=ctx) for a in arrays]
+
+
+class FinetuneLoop:
+    """The eager step of GluonNLP's fine-tuning scripts on the port:
+    `autograd.record()`, the head on NDArrays, its loss (`bert_qa_loss`
+    for the QA head, softmax cross-entropy for the classifier),
+    `backward()`, `gluon.Trainer(..., "adamw").step(1)`; `step(data,
+    labels)` as `timed_steps` calls a trainer."""
+
+    def __init__(self, model, optimizer_params):
+        from mxnet_tpu_torch import gluon
+        self.model = model
+        self.trainer = gluon.Trainer(model.collect_params(), "adamw",
+                                     dict(optimizer_params))
+
+    def loss(self, out, labels):
+        from mxnet_tpu_torch import gluon
+        from mxnet_tpu_torch.models import bert
+        if isinstance(out, tuple):
+            return bert.bert_qa_loss(*out, *labels)
+        return gluon.loss.SoftmaxCrossEntropyLoss()(out, labels[0]).mean()
+
+    def forward(self, data, labels):
+        from mxnet_tpu_torch import autograd
+        with autograd.record():
+            out = self.model(*data)
+            loss = self.loss(out, labels)
+        return out, loss
+
+    def step(self, data, labels):
+        _, loss = self.forward(data, labels)
+        loss.backward()
+        self.trainer.step(1)
+        return loss.detach()
+
+    def eval_loss(self, data, labels):
+        """The loss on the batch without dropout and without recording."""
+        from mxnet_tpu_torch import autograd
+        with autograd.pause():
+            return float(self.loss(self.model(*data), labels).asscalar())
+
+
+def finetune_model(make, cfg, seed, device):
+    from mxnet_tpu_torch import random as mxrandom
+    model = make(cfg, device=device)
+    model.initialize(generator=mxrandom.seed(seed, device))
+    return model
+
+
+def qa_head(cfg, device):
+    from mxnet_tpu_torch.models import bert
+    return bert.BERTForQuestionAnswering(cfg, device=device)
+
+
+def classifier_head(cfg, device):
+    from mxnet_tpu_torch.models import bert
+    return bert.BERTClassifier(cfg, num_classes=2, device=device)
+
+
+def squad_phase(dev, batch=32, seq_len=384, warmup=2, steps=10,
+                **cfg_overrides):
+    """Phase 51: BERT-base SQuAD fine-tuning (GluonNLP's
+    `finetune_squad.py` step) at full width, float32 as the config gives
+    it, B = 32, L = 384, padding in every row but the longest. The first
+    warm-up step holds `model.span.weight.grad()` equal to torch's
+    gradient of that parameter (`torch.autograd.grad` of the same
+    recorded loss); then `warmup` - 1 more, `steps` timed one by one
+    (synchronized: median and spread), and one profiled
+    (`profile_once`: device time by kernel, idle share). The loss on the
+    fixed batch must fall over the warm-up and timed steps; launches a
+    step: 12 flash forwards, dq and dkv and the Adam launches of
+    `adam_launches`. `cfg_overrides` cut it for a rehearsal on the
+    CPU."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import bert
+    cfg = bert.bert_base_config(**cfg_overrides)
+    model = finetune_model(qa_head, cfg, 0, dev)
+    loop = FinetuneLoop(model, SQUAD_OPT)
+    arrays, labels = squad_batch(cfg, batch, seq_len)
+    data, labels = nd_arrays(arrays, dev), nd_arrays(labels, dev)
+    eval_before = loop.eval_loss(data, labels)
+    _, loss = loop.forward(data, labels)
+    ref = torch.autograd.grad(loss._t, model.span.weight,
+                              retain_graph=True)[0]
+    loss.backward()
+    g = model.span.weight.grad()
+    e_grad = max_err(g._t, ref)
+    check(e_grad <= 1e-6, f"span.weight.grad() against torch's gradient: "
+          f"{e_grad}")
+    check(g.context.device_type == ("cpu" if str(dev) == "cpu" else "gpu"),
+          f"span gradient on {g.context}")
+    loop.trainer.step(1)
+    losses = [float(loss.asscalar())]
+    losses += [float(loop.step(data, labels)) for _ in range(warmup - 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(loop.step(data, labels)))   # the fetch syncs
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    prof, prof_ms, windows = profile_once(
+        lambda: float(loop.step(data, labels)))
+    busy_ms, top, by_class, kernels = device_profile(prof, 1, 10)
+    med = float(np.median(times))
+    eval_after = loop.eval_loss(data, labels)
+    check(np.isfinite(losses).all(), f"SQuAD losses {losses}")
+    check(eval_after < eval_before and losses[-1] < losses[0],
+          f"SQuAD loss did not fall: {losses}, without dropout "
+          f"{eval_before} -> {eval_after}")
+    L = cfg["num_layers"]
+    params = loop.trainer._params
+    want = expect(flash_attention_fwd=L * steps, flash_attention_dq=L * steps,
+                  flash_attention_dkv=L * steps,
+                  adam_update=adam_launches(params) * steps)
+    check(counts == want, f"SQuAD fine-tuning launches {counts} != {want}")
+    valid = arrays[2]
+    res = {"model": "BERTForQuestionAnswering(bert_base_config(), float32, "
+                    "dropout 0.1), gluon.Trainer adamw lr 3e-5 wd 0.01",
+           "batch": batch, "seq_len": seq_len, "warmup": warmup,
+           "steps": steps, "valid_length_min_max_mean": [int(valid.min()), int(valid.max()),
+                                         float(valid.mean())],
+           "losses": losses, "span_grad_max_abs_err_vs_torch": e_grad,
+           "loss_without_dropout_before_after": [eval_before, eval_after],
+           "ms_per_step_median": med,
+           "ms_per_step_min_max": [min(times), max(times)],
+           "ms_per_step_iqr": [float(np.percentile(times, 25)),
+                               float(np.percentile(times, 75))],
+           "examples_per_s": batch * 1e3 / med,
+           "max_memory_allocated_bytes": peak,
+           "profiled_step_ms": prof_ms, "profile_windows": windows,
+           "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": None if busy_ms is None
+           else 1 - busy_ms / med,
+           "device_ms_per_step_by_class": by_class,
+           "kernels_per_step": kernels, "top_device_ms_per_step": top,
+           "launches_per_step": {k: v / steps for k, v in counts.items()
+                                 if v},
+           "param_count": sum(p.numel() for p in params),
+           "tensors": len(params)}
+    del loop, model
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def finetune_run(make, cfg, arrays, labels, where, steps, opt, seed=7,
+                 lrs=None):
+    """`steps` eager fine-tuning steps of a head built on the CPU from
+    `seed` and moved to `where`, step i at learning rate `lrs[i]` where
+    given: (the first forward's outputs, the losses followed by the loss
+    without dropout before and after the steps, {name: gradient after
+    step 1 through `p.grad()`}, the launch counts of the steps), host
+    copies."""
+    model = finetune_model(make, cfg, seed, "cpu")
+    model.to(where)
+    loop = FinetuneLoop(model, opt)
+    data, labels = nd_arrays(arrays, where), nd_arrays(labels, where)
+    evals = [loop.eval_loss(data, labels)]
+    lrs = lrs or [opt["learning_rate"]] * steps
+    reset_counts()
+    out, loss = loop.forward(data, labels)
+    out = [o.asnumpy() for o in (out if isinstance(out, tuple) else (out,))]
+    loss.backward()
+    grads = {k: p.grad().asnumpy() for k, p in model.collect_params().items()
+             if k.startswith(("span.", "classifier."))}
+    loop.trainer.set_learning_rate(lrs[0])
+    loop.trainer.step(1)
+    losses = [float(loss.asscalar())]
+    for lr in lrs[1:]:
+        loop.trainer.set_learning_rate(lr)
+        losses.append(float(loop.step(data, labels)))
+    counts = read_counts()
+    evals.append(loop.eval_loss(data, labels))
+    del loop, model
+    return out, losses + evals, grads, counts
+
+
+def finetune_parity(make, cfg, arrays, labels, dev, steps, opt, what,
+                    lrs=None):
+    """`finetune_run` of the head on the CPU and on `dev` from the same
+    weights: the first forward's outputs, the losses and the head's
+    gradients within 1e-5 (the tolerance of phase 44's parity). Returns
+    (the runs, {max errors})."""
+    import numpy as np
+    import torch
+    runs = [finetune_run(make, cfg, arrays, labels, w, steps, opt, lrs=lrs)
+            for w in ("cpu", dev)]
+    (oc, lc, gc, cc), (og, lg, gg, _) = runs
+    errs = {"max_logit_err": max(max_err(torch.tensor(a), torch.tensor(b))
+                                 for a, b in zip(og, oc)),
+            "max_loss_err": float(np.abs(np.subtract(lg, lc)).max()),
+            "max_grad_err": max(max_err(torch.tensor(gg[k]),
+                                        torch.tensor(gc[k])) for k in gc)}
+    check(max(errs.values()) <= 1e-5,
+          f"{what} card vs CPU: {errs}, losses {lg} vs {lc}")
+    check(not any(cc.values()), f"{what}: the CPU run launched {cc}")
+    return runs, errs
+
+
+def finetune_parity_phase(dev, batch=4, seq_len=384, steps=2,
+                          cls_batch=32, cls_len=128, cls_steps=3,
+                          **cfg_overrides):
+    """Phase 52: the fine-tuning heads card against CPU. The QA head at
+    BERT-base's widths with 2 layers (as phase 44's parity; dropout 0),
+    B = 4, L = 384, `steps` steps from the same weights: start and end
+    logits (the masked positions -1e9 on both), the losses and the span
+    gradient after step 1 within 1e-5. `BERTClassifier(bert_base_config(),
+    num_classes=2)` at B = 32, L = 128 trains `cls_steps` steps on the
+    card under `finetune_classifier.py`'s warm-up (`glue_lrs`) to finite
+    losses, and its loss on the batch without dropout falls; the same
+    steps at lr 5e-5 without the warm-up are recorded beside them; its
+    2-layer twin holds card against CPU at B = 4 the same way."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import bert
+    small = bert.bert_base_config(**{**cfg_overrides, "num_layers": 2,
+                                     "dropout": 0.0})
+    arrays, labels = squad_batch(small, batch, seq_len, seed=2)
+    runs, errs = finetune_parity(qa_head, small, arrays, labels, dev, steps,
+                                 SQUAD_OPT, "QA fine-tuning")
+    dead = np.arange(seq_len)[None] >= arrays[2][:, None]
+    for o in runs[0][0] + runs[1][0]:
+        check((o[dead] == -1e9).all() and (o[~dead] > -1e8).all(),
+              "QA logits past valid_length are not -1e9")
+    L, counts = small["num_layers"], runs[1][3]
+    want = expect(flash_attention_fwd=L * steps, flash_attention_dq=L * steps,
+                  flash_attention_dkv=L * steps, adam_update=steps)
+    check(counts == want, f"QA parity launches {counts} != {want}")
+    out = {"qa": {"batch": batch, "seq_len": seq_len, "steps": steps,
+                  "layers": L, **errs, "losses_card": runs[1][1],
+                  "losses_cpu": runs[0][1], "launches": counts}}
+    # the classifier at full width on the card
+    full = bert.bert_base_config(**cfg_overrides)
+    c_arrays, _ = squad_batch(full, cls_batch, cls_len, seed=4)
+    c_labels = [np.random.RandomState(5).randint(0, 2, cls_batch)
+                .astype(np.int32)]
+    lrs = glue_lrs(cls_steps)
+    _, closs, _, ccounts = finetune_run(classifier_head, full, c_arrays,
+                                        c_labels, dev, cls_steps, GLUE_OPT,
+                                        lrs=lrs)
+    check(np.isfinite(closs).all() and closs[-1] < closs[-2],
+          f"BERT-base classifier losses (the last two without dropout, "
+          f"before and after) {closs}")
+    # the same steps at lr 5e-5 without the warm-up: recorded, not held
+    _, rough, _, _ = finetune_run(classifier_head, full, c_arrays, c_labels,
+                                  dev, cls_steps, {**GLUE_OPT,
+                                                   "learning_rate": 5e-5})
+    check(np.isfinite(rough).all(), f"classifier at lr 5e-5: {rough}")
+    out["classifier"] = {"batch": cls_batch, "seq_len": cls_len,
+                         "lrs": lrs, "losses": closs, "launches": ccounts,
+                         "losses_lr_5e-5_no_warmup": rough}
+    c_arrays, _ = squad_batch(small, batch, cls_len, seed=6)
+    _, errs = finetune_parity(
+        lambda cfg, device: bert.BERTClassifier(cfg, num_classes=2,
+                                                dropout=0.0, device=device),
+        small, c_arrays, [c_labels[0][:batch]], dev, steps, GLUE_OPT,
+        "classifier", lrs=glue_lrs(steps))
+    out["classifier_parity"] = {"batch": batch, "seq_len": cls_len, **errs}
+    torch.cuda.empty_cache()
+    return out
+
+
+def control_flow_cases(where):
+    """nd.contrib's foreach (a body that captures a parameter), while_loop
+    (one that stops early and one that never runs) and cond (both
+    branches), each with gradients, on `where`: {name: [host arrays]}."""
+    import numpy as np
+    from mxnet_tpu_torch import autograd, gluon, nd
+    ctx = "cpu" if str(where) == "cpu" else None
+    rs = np.random.RandomState(0)
+    xs, wv = rs.randn(6, 2, 8).astype(np.float32), rs.randn(8, 8) * 0.3
+    out = {}
+    p = gluon.Parameter("w", shape=(8, 8))
+    p.initialize(ctx=ctx or nd.zeros((1,)).context)
+    p.set_data(wv.astype(np.float32))
+    x = nd.array(xs, ctx=ctx)
+    x.attach_grad()
+
+    def body(xt, s):
+        h = nd.tanh(nd.dot(xt + s, p.data()))
+        return h, h
+
+    with autograd.record():
+        outs, fin = nd.contrib.foreach(body, x, nd.zeros((2, 8), ctx=ctx))
+        loss = outs.sum() + (fin * fin).sum()
+    loss.backward()
+    out["foreach"] = [outs.asnumpy(), fin.asnumpy(), x.grad.asnumpy(),
+                      p.grad().asnumpy()]
+    v = nd.array(np.asarray([1.5, 0.5], np.float32), ctx=ctx)
+    v.attach_grad()
+    with autograd.record():
+        steps, (vf, acc) = nd.contrib.while_loop(
+            lambda a, b: b.sum() < 20, lambda a, b: (a * b, [a * 1.5, b + a]),
+            [v, nd.ones((2,), ctx=ctx)], max_iterations=12)
+        loss = steps.sum() + vf.sum() + acc.sum()
+    loss.backward()
+    never, _ = nd.contrib.while_loop(lambda a: a.sum() > 100,
+                                     lambda a: (nd.dot(a, a), [a + 1]),
+                                     [nd.ones((3,), ctx=ctx)],
+                                     max_iterations=5)
+    out["while_loop"] = [steps.asnumpy(), vf.asnumpy(), acc.asnumpy(),
+                         v.grad.asnumpy(), never.asnumpy()]
+    a = nd.array(np.asarray([3.0, -1.0], np.float32), ctx=ctx)
+    a.attach_grad()
+    rows = []
+    for flip in (1.0, -1.0):
+        with autograd.record():
+            y = nd.contrib.cond((a.sum() * flip) > 0, lambda t: t * t,
+                                lambda t: -t * 3, inputs=[a])
+        y.backward()
+        rows += [y.asnumpy(), a.grad.asnumpy()]
+    out["cond"] = rows
+    return out
+
+
+def sym_control_flow_module(where, epochs=2):
+    """A `sym.contrib.foreach` recurrence over batch-major data trained by
+    `Module.fit` (SGD) bound on `where`, plus `while_loop` and `cond`
+    graphs bound by `simple_bind` (forward and backward): {name: [host
+    arrays]}."""
+    import numpy as np
+    from mxnet_tpu_torch import context, io, module, nd, sym
+    ctx = context.cpu() if str(where) == "cpu" else context.gpu(0)
+    rs = np.random.RandomState(1)
+    T, H = 5, 8
+    x = rs.randn(32, T, H).astype(np.float32)
+    y = rs.randint(0, 2, 32).astype(np.float32)
+    w0 = (rs.randn(H, H) * 0.3).astype(np.float32)
+    data = sym.transpose(sym.var("data"), axes=(1, 0, 2))
+    w = sym.var("rnn_w", shape=(H, H))
+    _, fin = sym.contrib.foreach(
+        lambda xt, s: (sym.tanh(sym.dot(xt, w) + s),) * 2, data,
+        sym.var("s0"), name="scan")
+    net = sym.SoftmaxOutput(sym.FullyConnected(fin, num_hidden=2, name="fc"),
+                            name="softmax", normalization="batch")
+    it = io.NDArrayIter({"data": x, "s0": np.zeros((32, H), np.float32)},
+                        {"softmax_label": y}, batch_size=16)
+    mod = module.Module(net, data_names=("data", "s0"),
+                        label_names=("softmax_label",), context=ctx)
+    mod.fit(it, num_epoch=epochs, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1},
+            arg_params={"rnn_w": nd.array(w0, ctx="cpu"),
+                        "fc_weight": nd.array(rs.randn(2, H).astype(
+                            np.float32), ctx="cpu"),
+                        "fc_bias": nd.zeros((2,), ctx="cpu")})
+    arg, _ = mod.get_params()
+    out = {"sym_foreach_module_fit": [arg[k].asnumpy() for k in sorted(arg)]}
+    i0, acc0 = sym.var("i0"), sym.var("acc0")
+    outs, fins = sym.contrib.while_loop(
+        lambda i, acc: sym.sum(acc) < 6.0,
+        lambda i, acc: ([sym.dot(i, w)], [i + 1.0, acc + i]),
+        [i0, acc0], max_iterations=6, name="wl")
+    p, xv = sym.var("p"), sym.var("x")
+    cd = sym.contrib.cond(sym.sum(p) > 0.0, lambda v: sym.dot(v, w),
+                          lambda v: v - 1.0, xv, name="cd")
+    vals = {"i0": np.full((H,), 0.25, np.float32),
+            "acc0": np.zeros((H,), np.float32), "rnn_w": w0,
+            "x": x[:2, 0], "p": np.ones((1,), np.float32)}
+    for name, graph in (("sym_while_loop", sym.Group([outs[0], fins[1]])),
+                        ("sym_cond", cd)):
+        args = graph.list_arguments()
+        ex = graph.simple_bind(ctx=ctx, grad_req="write",
+                               **{k: vals[k].shape for k in args})
+        for k in args:
+            ex.arg_dict[k][:] = vals[k]
+        res = ex.forward(is_train=True)
+        ex.backward()
+        out[name] = [r.asnumpy() for r in res] + [
+            ex.grad_dict[k].asnumpy() for k in sorted(args)]
+    return out
+
+
+def control_flow_phase(dev):
+    """Phase 53: control flow and Parameter's accessors on the card.
+    nd.contrib's foreach, while_loop and cond with gradients, and
+    sym.contrib's through `Module.fit` and `simple_bind` bound on the
+    card, each against the same run on the CPU (1e-5); none launches a
+    kernel of the repo. `p.data()` of a parameter initialized on the
+    card reports a GPU context; `set_data` takes numpy, a CPU NDArray and
+    a card NDArray; `p.grad()` reads the card's gradient."""
+    import numpy as np
+    from mxnet_tpu_torch import autograd, context, gluon, nd
+    res = {}
+    with context.cpu():
+        want = control_flow_cases("cpu")
+    reset_counts()
+    got = control_flow_cases(dev)
+    want.update(sym_control_flow_module("cpu"))
+    got.update(sym_control_flow_module(dev))
+    counts = read_counts()
+    check(not any(counts.values()), f"control flow launched {counts}")
+    for name in want:
+        err = max(float(np.abs(g - w).max()) if g.size else 0.0
+                  for g, w in zip(got[name], want[name]))
+        check(err <= 1e-5, f"{name} card vs CPU: {err}")
+        res[name] = {"max_abs_err": err,
+                     "shapes": [list(g.shape) for g in got[name]]}
+    p = gluon.Parameter("w", shape=(4, 3))
+    p.initialize(init="zeros", ctx=context.gpu(0))
+    ctx = p.data().context
+    check(ctx.device_type == "gpu", f"p.data() on {ctx}")
+    src = np.arange(12, dtype=np.float32).reshape(4, 3)
+    seen = []
+    for value in (src, nd.array(src + 1, ctx="cpu"), nd.array(src + 2)):
+        p.set_data(value)
+        seen.append(p.data().asnumpy())
+    check(all((s == src + i).all() for i, s in enumerate(seen)),
+          "set_data from numpy, a CPU NDArray and a card NDArray")
+    x = nd.array(np.ones((2, 4), np.float32))
+    with autograd.record():
+        nd.dot(x, p.data()).sum().backward()
+    g = p.grad()
+    check(g.context.device_type == "gpu" and (g.asnumpy() == 2).all(),
+          f"p.grad() {g.context} {g.asnumpy()}")
+    res["accessors"] = {"data_context": str(ctx),
+                        "grad_context": str(g.context),
+                        "set_data_sources": ["numpy", "cpu NDArray",
+                                             "card NDArray"]}
+    return res
+
+
 # phase 46's processes: three files a process (each process's imports
 # and CUDA context cost more than most of these files' tests), the first
 # harness's files apart from the second's (those run with -m 'not slow')
@@ -7904,14 +8489,19 @@ UNIT_GROUPS = (("test_telemetry.py", "test_trace.py", "test_profiler.py"),
                ("test_memsafe.py", "test_resilience.py", "test_params_io.py"),
                ("test_gluon_rnn.py", "test_detection_ops.py",
                 "test_contrib_text.py"))
+# the third harness's files (control flow, BERT's fine-tuning heads, the
+# report tools), also with -m 'not slow'
+FLOW_GROUPS = (("test_control_flow.py", "test_symbol_control_flow.py"),
+               ("test_bert_finetune.py", "test_report_tools.py"))
 
 
 def jax_unittests_phase(width=8, timeout=300, device=None):
     """Phase 46: the JAX package's unit-test files of
-    `tests/test_torch_jax_unittests.py` and
-    `tests/test_torch_jax_unittests_more.py` (the latter's with "-m 'not
-    slow'" and its deselections, as on the CPU), three a process
-    (`BASE_GROUPS`, `UNIT_GROUPS`), through `run_example --pytest` on
+    `tests/test_torch_jax_unittests.py`,
+    `tests/test_torch_jax_unittests_more.py` and
+    `tests/test_torch_jax_unittests_flow.py` (the latter two's with "-m
+    'not slow'" and their deselections, as on the CPU), two or three a
+    process (`BASE_GROUPS`, `UNIT_GROUPS`, `FLOW_GROUPS`), through `run_example --pytest` on
     the card (no --device; `device="cpu"` rehearses it on the CPU),
     `width` processes at a time. Each file must fail exactly its CPU
     exclusions, and the second harness's on the card also its
@@ -7920,20 +8510,27 @@ def jax_unittests_phase(width=8, timeout=300, device=None):
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from test_torch_jax_unittests import FILES as BASE
     from test_torch_jax_unittests_more import FILES as MORE, ON_CARD
-    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    from test_torch_jax_unittests_flow import FILES as FLOW
+    # a test's own use of JAX (`jnp` helpers) stays on the CPU: a JAX that
+    # finds the card preallocates most of its memory and starves the
+    # other processes (CUBLAS_STATUS_ALLOC_FAILED in theirs)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
+               JAX_PLATFORMS="cpu")
     on_card = device is None
     FILES = {name: (total, list(excluded)) for name, (total, excluded)
              in BASE.items()}
     jobs = [(group, []) for group in BASE_GROUPS]
-    for name, (total, excluded, _) in MORE.items():
+    SLOW = {**MORE, **FLOW}
+    for name, (total, excluded, _) in SLOW.items():
         FILES[name] = (total, list(excluded)
                        + list(ON_CARD.get(name, ()) if on_card else ()))
-    for groups, files in ((BASE_GROUPS, BASE), (UNIT_GROUPS, MORE)):
+    for groups, files in ((BASE_GROUPS, BASE), (UNIT_GROUPS, MORE),
+                          (FLOW_GROUPS, FLOW)):
         check(sorted(n for g in groups for n in g) == sorted(files),
               f"phase 46's groups {groups} against {sorted(files)}")
-    for group in UNIT_GROUPS:
+    for group in UNIT_GROUPS + FLOW_GROUPS:
         jobs.append((group, ["-m", "not slow"] + [
-            a for name in group for t in MORE[name][2]
+            a for name in group for t in SLOW[name][2]
             for a in ("--deselect", f"tests/unittest/{name}::{t}")]))
 
     def run(job):
@@ -8008,10 +8605,12 @@ def main():
     if len(sys.argv) == 3 and sys.argv[1] in ("--flash-times",
                                               "--host-times",
                                               "--adam-times",
-                                              "--lamb-times"):
+                                              "--lamb-times",
+                                              "--accessor-times"):
         times = {"--flash-times": flash_times, "--host-times":
                  host_path_times, "--adam-times": adam_times,
-                 "--lamb-times": lamb_times}[sys.argv[1]]
+                 "--lamb-times": lamb_times,
+                 "--accessor-times": accessor_times}[sys.argv[1]]
         print(json.dumps(times(sys.argv[2])))
         return 0
     if sys.argv[1:] == ["--nms-phases"]:
@@ -8035,9 +8634,11 @@ def main():
             bert_repeat(int(sys.argv[2]))))
         return 0
     if len(sys.argv) == 3 and sys.argv[1] in ("--flash-ab", "--host-ab",
-                                              "--adam-ab", "--lamb-ab"):
+                                              "--adam-ab", "--lamb-ab",
+                                              "--accessor-ab"):
         {"--flash-ab": flash_ab, "--host-ab": host_ab,
-         "--adam-ab": adam_ab, "--lamb-ab": lamb_ab}[sys.argv[1]](sys.argv[2])
+         "--adam-ab": adam_ab, "--lamb-ab": lamb_ab,
+         "--accessor-ab": accessor_ab}[sys.argv[1]](sys.argv[2])
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -8152,6 +8753,11 @@ def main():
         kernels[row].update(extra)
         print(f"chip_smoke: {row} at the symbolic BERT encoder's shape "
               + json.dumps(extra["symbolic_bert_shape"]))
+    for row, extra in sym_flash_phase(dev, L=384, key="squad_shape",
+                                      path="a SQuAD-like").items():
+        kernels[row].update(extra)
+        print(f"chip_smoke: {row} at SQuAD fine-tuning's shape "
+              + json.dumps(extra["squad_shape"]))
     for k in kernels.values():
         lib = "none" if k["library_ms"] is None \
             else f"{k['library_ms']:.4f} ms"
@@ -8425,8 +9031,10 @@ def main():
 
     lap("26-29")
     # 26-29. the serving request lifecycle, the admission ladder,
-    # speculative decoding and beam search on phase 2's model
-    model = build_model(gpt.gpt2_117m_config(dtype="bfloat16"), seed=0)
+    # speculative decoding and beam search on phase 2's model, cut to
+    # SERVE_DEPTH
+    model = build_model(gpt.gpt2_117m_config(dtype="bfloat16",
+                                             **SERVE_DEPTH), seed=0)
     life, ref_stats = lifecycle_phase(model)
     print("chip_smoke: serving lifecycle " + json.dumps(life))
     ladder = ladder_phase(model, ref_stats)
@@ -8645,7 +9253,7 @@ def main():
     t49 = time.perf_counter()
     tmp_ops = tempfile.mkdtemp(prefix="chip_smoke_ops_")
     ops_serve = ops_serve_phase(build_model(gpt.gpt2_117m_config(
-        dtype="bfloat16"), seed=0), tmp_ops)
+        dtype="bfloat16", **SERVE_DEPTH), seed=0), tmp_ops)
     ops_serve["card"] = card
     print("chip_smoke: operations layer, serving " + json.dumps(ops_serve))
     torch.cuda.empty_cache()
@@ -8657,6 +9265,33 @@ def main():
         ops_serve["launches"]["paged_attention"]
     print(f"chip_smoke: operations phases 49-50 in "
           f"{time.perf_counter() - t49:.1f} s")
+    torch.cuda.empty_cache()
+
+    lap("51")
+    # 51-53. BERT-base SQuAD fine-tuning; the fine-tuning heads card vs
+    # CPU; control flow and Parameter's accessors on the card
+    t51 = time.perf_counter()
+    squad, counts = squad_phase(dev)
+    squad["card"] = card
+    print("chip_smoke: BERT-base SQuAD fine-tuning " + json.dumps(squad))
+    for row, counter in (("flash_attention_fwd_dropout",
+                          "flash_attention_fwd"),
+                         ("flash_attention_dq", "flash_attention_dq"),
+                         ("flash_attention_dkv", "flash_attention_dkv")):
+        kernels[row]["squad_shape"]["launches"] = counts[counter]
+        kernels[row]["squad_shape"]["steps"] = squad["steps"]
+    kernels["adam_update"]["squad_launches"] = counts["adam_update"]
+    lap("52")
+    fpar = finetune_parity_phase(dev)
+    fpar["card"] = card
+    print("chip_smoke: fine-tuning heads card vs CPU " + json.dumps(fpar))
+    lap("53")
+    cflow = control_flow_phase(dev)
+    cflow["card"] = card
+    print("chip_smoke: control flow and accessors card vs CPU "
+          + json.dumps(cflow))
+    print(f"chip_smoke: fine-tuning phases 51-53 in "
+          f"{time.perf_counter() - t51:.1f} s")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

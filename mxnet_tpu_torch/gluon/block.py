@@ -203,10 +203,15 @@ class Block(torch.nn.Module):
 
     def _attach_grads(self):
         """Let every trainable floating-point parameter of this subtree
-        record gradients (`autograd.record()`'s first forward)."""
+        record gradients (`autograd.record()`'s first forward), each
+        with a zeroed gradient buffer where it has none: MXNet's buffer,
+        so `p.grad()` of a parameter that no backward reaches reads
+        zeros, as in the JAX package."""
         for p in self.parameters():
             if p.grad_req != "null" and p.is_floating_point():
                 _autograd.attach_grad_req(p)
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p.detach())
         for m in self.modules():
             if isinstance(m, Block):
                 m._mx_recorded = True

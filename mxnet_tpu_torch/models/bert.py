@@ -1,6 +1,8 @@
 """BERT (counterpart of `mxnet_tpu/models/bert.py`): the encoder, the
-pretraining heads (MLM + NSP) and their loss, and the fused-QKV
-self-attention block the GPT family shares.
+pretraining heads (MLM + NSP) and their loss, GluonNLP's fine-tuning
+heads (`BERTForQuestionAnswering` with `bert_qa_loss` for SQuAD,
+`BERTClassifier` for GLUE), and the fused-QKV self-attention block the
+GPT family shares.
 
 Attention runs the hand-written flash kernels (forward and backward,
 attention-probability dropout in the kernels); the rest is plain
@@ -37,7 +39,7 @@ from .. import context
 from ..gluon import HybridBlock, nn
 from ..gluon.block import training
 from ..gluon.parameter import Parameter
-from ..ndarray.ndarray import _unwrap
+from ..ndarray.ndarray import NDArray, tensor_args
 from ..ops import nn_ops
 from .. import memsafe as _memsafe
 from ._remat import remat_policy, stack_call
@@ -226,16 +228,90 @@ class BERTForPretraining(HybridBlock):
         return scores, self.nsp(pooled)
 
 
+class BERTForQuestionAnswering(HybridBlock):
+    """SQuAD span extraction over `BERTModel` (reference: GluonNLP's
+    BertForQA, `scripts/bert/finetune_squad.py`): one Dense `span`
+    projects each token to (start, end) logits.
+
+    `device=None` builds the parameters on the card (raising when there
+    is none) or in the entered context; pass `device="cpu"` to build
+    them on the CPU."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.cfg = cfg
+        with context.resolve(device):
+            self.bert = BERTModel(**cfg)
+            self.span = nn.Dense(2, in_units=cfg["units"], flatten=False,
+                                 dtype=cfg["dtype"],
+                                 weight_initializer="xavier")
+
+    def forward(self, inputs, token_types, valid_length=None):
+        """Returns (start_logits (B, L), end_logits (B, L)); positions at
+        or past `valid_length` get -1e9, so a softmax ignores padding."""
+        seq, _ = self.bert(inputs, token_types, valid_length)
+        logits = self.span(seq)                       # (B, L, 2)
+        start, end = logits[..., 0], logits[..., 1]
+        if valid_length is not None:
+            L = logits.shape[1]
+            live = torch.arange(L, device=logits.device)[None, :] \
+                < valid_length.to(logits.device).long()[:, None]
+            start = torch.where(live, start, -1e9)
+            end = torch.where(live, end, -1e9)
+        return start, end
+
+
+def bert_qa_loss(start_logits, end_logits, start_positions, end_positions):
+    """The mean of the start and end cross-entropies of the gold
+    positions, in float32 (reference: `finetune_squad.py`'s loss).
+    Tensors, NDArrays or numpy arrays (`tensor_args`); an NDArray among
+    the logits gives an NDArray loss."""
+    nd_in = isinstance(start_logits, NDArray) or isinstance(end_logits,
+                                                            NDArray)
+    start_logits, end_logits, start_positions, end_positions = tensor_args(
+        start_logits, end_logits, start_positions, end_positions)
+
+    def one(lg, pos):
+        logp = tF.log_softmax(lg.float(), -1)
+        return -torch.gather(logp, 1, pos.long()[:, None]).mean()
+
+    loss = (one(start_logits, start_positions)
+            + one(end_logits, end_positions)) / 2
+    return NDArray(loss) if nd_in else loss
+
+
+class BERTClassifier(HybridBlock):
+    """Sentence (pair) classification over the pooled output (reference:
+    GluonNLP's BERTClassifier, `finetune_classifier.py`): dropout, then
+    the Dense `classifier`. `device` as `BERTForQuestionAnswering`'s."""
+
+    def __init__(self, cfg, num_classes=2, dropout=0.1, device=None):
+        super().__init__()
+        self.cfg = cfg
+        with context.resolve(device):
+            self.bert = BERTModel(**cfg)
+            self.dropout = nn.Dropout(dropout) if dropout else None
+            self.classifier = nn.Dense(num_classes, in_units=cfg["units"],
+                                       dtype=cfg["dtype"],
+                                       weight_initializer="xavier")
+
+    def forward(self, inputs, token_types, valid_length=None):
+        _, pooled = self.bert(inputs, token_types, valid_length)
+        if self.dropout is not None:
+            pooled = self.dropout(pooled)
+        return self.classifier(pooled)
+
+
 def bert_pretrain_loss(mlm_scores, nsp_scores, mlm_labels, mlm_weights,
                        nsp_labels):
     """Pretraining loss: the weighted mean MLM cross-entropy over the
     masked positions (weights 1 for real positions) plus the mean NSP
     cross-entropy, in float32. mlm_scores (B,P,V), mlm_labels (B,P),
-    mlm_weights (B,P), nsp_labels (B,): tensors, or NDArrays as
-    `ShardedTrainer` gives them."""
-    mlm_scores, nsp_scores, mlm_labels, mlm_weights, nsp_labels = map(
-        _unwrap, (mlm_scores, nsp_scores, mlm_labels, mlm_weights,
-                  nsp_labels))
+    mlm_weights (B,P), nsp_labels (B,): tensors, NDArrays (as
+    `ShardedTrainer` gives them) or numpy arrays (`tensor_args`)."""
+    mlm_scores, nsp_scores, mlm_labels, mlm_weights, nsp_labels = \
+        tensor_args(mlm_scores, nsp_scores, mlm_labels, mlm_weights,
+                    nsp_labels)
     logp = tF.log_softmax(mlm_scores.float(), -1)
     nll = -torch.gather(logp, -1, mlm_labels.long()[..., None])[..., 0]
     w = mlm_weights.float()

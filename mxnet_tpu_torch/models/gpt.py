@@ -32,7 +32,7 @@ from .. import context
 from ..cuda_ops.flash_attention import flash_attention
 from ..gluon import HybridBlock, nn
 from ..gluon.parameter import Parameter
-from ..ndarray.ndarray import _unwrap
+from ..ndarray.ndarray import tensor_args
 from ..ops import nn_ops
 from ._decode import (batched_cached_attention_step, beam_search_loop,
                       cached_self_attention_step, paged_attention_step)
@@ -489,9 +489,9 @@ def gpt_lm_loss(logits, labels, weights):
     """Next-token cross entropy: logits (B, L, V) at the input positions,
     labels (B, L) the NEXT token at each position (pre-shifted by the
     data pipeline), weights (B, L) 0/1. float32 log-softmax; the weighted
-    mean over max(sum of weights, 1). Tensors, or NDArrays as
-    `ShardedTrainer` gives them."""
-    logits, labels, weights = map(_unwrap, (logits, labels, weights))
+    mean over max(sum of weights, 1). Tensors, NDArrays (as
+    `ShardedTrainer` gives them) or numpy arrays (`tensor_args`)."""
+    logits, labels, weights = tensor_args(logits, labels, weights)
     logp = torch.log_softmax(logits.float(), -1)
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     w = weights.float()

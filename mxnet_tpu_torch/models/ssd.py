@@ -32,7 +32,7 @@ import torch
 from .. import context
 from ..cuda_ops.box_nms import box_nms_keep, pair_iou
 from ..gluon import HybridBlock, nn
-from ..ndarray.ndarray import NDArray, _unwrap
+from ..ndarray.ndarray import NDArray, _unwrap, tensor_args
 
 __all__ = ["SSD", "generate_anchors", "multibox_target", "non_max_suppression",
            "MultiBoxLoss"]
@@ -67,10 +67,11 @@ def multibox_target(anchors, gt_boxes, gt_labels, iou_thresh=0.5):
     """Match anchors to ground truth (reference: MultiBoxTarget).
 
     anchors (N,4) center-size; gt_boxes (B,M,4) corner, padded with -1;
-    gt_labels (B,M) padded with -1. Returns cls_targets (B,N) [0=bg],
-    box_targets (B,N,4), box_mask (B,N,1)."""
+    gt_labels (B,M) padded with -1: tensors, NDArrays or numpy arrays
+    (`tensor_args`). Returns cls_targets (B,N) [0=bg], box_targets
+    (B,N,4), box_mask (B,N,1)."""
     nd_in = isinstance(gt_boxes, NDArray)
-    gtb, gtl, anchors = (_unwrap(x) for x in (gt_boxes, gt_labels, anchors))
+    gtb, gtl, anchors = tensor_args(gt_boxes, gt_labels, anchors)
     anchors_c = _corner(anchors)
     N = anchors.shape[0]
     B, M = gtl.shape
@@ -111,10 +112,11 @@ def multibox_target(anchors, gt_boxes, gt_labels, iou_thresh=0.5):
 
 def non_max_suppression(boxes, scores, iou_thresh=0.45, topk=100):
     """Greedy NMS in which only the first topk score-sorted rows may
-    suppress, static shapes: boxes (N,4) corner, scores (N,). Returns
+    suppress, static shapes: boxes (N,4) corner, scores (N,) (tensors,
+    NDArrays or numpy arrays, `tensor_args`). Returns
     (topk indices, topk scores); suppressed entries get score -1."""
     nd_in = isinstance(boxes, NDArray)
-    boxes, scores = _unwrap(boxes).float(), _unwrap(scores).float()
+    boxes, scores = (t.float() for t in tensor_args(boxes, scores))
     N = boxes.shape[0]
     order = torch.argsort(-scores, stable=True)
     b = boxes[order]
@@ -128,7 +130,8 @@ def non_max_suppression(boxes, scores, iou_thresh=0.45, topk=100):
     k = min(topk, N)
     # lax.top_k: descending, the lower index first among ties
     top_i = torch.argsort(-s, stable=True)[:k]
-    out = (order[top_i], s[top_i])
+    # int32 indices, as `lax.top_k` gives them
+    out = (order[top_i].to(torch.int32), s[top_i])
     return tuple(NDArray(o) for o in out) if nd_in else out
 
 

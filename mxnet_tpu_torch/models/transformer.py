@@ -32,7 +32,7 @@ import torch
 from .. import context
 from ..gluon import HybridBlock, nn
 from ..gluon.parameter import Constant
-from ..ndarray.ndarray import NDArray
+from ..ndarray.ndarray import NDArray, tensor_args
 from ..ops import nn_ops
 from ._decode import _attend, beam_search_loop, cached_self_attention_step
 
@@ -323,12 +323,9 @@ class TransformerNMT(HybridBlock):
 def label_smoothing_loss(logits, labels, smoothing=0.1, pad_id=0):
     """Sockeye-style smoothed cross entropy in float32, the mean over the
     positions whose label is not `pad_id`. NDArray inputs give an
-    NDArray loss."""
+    NDArray loss; numpy inputs are taken as `tensor_args` takes them."""
     nd_in = isinstance(logits, NDArray)
-    if nd_in:
-        logits = logits._t
-    if isinstance(labels, NDArray):
-        labels = labels._t
+    logits, labels = tensor_args(logits, labels)
     logp = torch.log_softmax(logits.float(), -1)
     lbl = labels.to(torch.int64)
     nll = -torch.gather(logp, -1, lbl[..., None])[..., 0]

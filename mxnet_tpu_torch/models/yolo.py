@@ -27,7 +27,7 @@ import torch
 
 from .. import context
 from ..gluon import HybridBlock, nn
-from ..ndarray.ndarray import NDArray, _unwrap
+from ..ndarray.ndarray import NDArray, _unwrap, tensor_args
 from ..ops import detection_ops
 
 __all__ = ["YOLOv3Tiny", "yolo_targets", "yolo_loss", "decode_predictions",
@@ -108,10 +108,12 @@ def yolo_targets(model, gt_boxes, gt_labels):
     its best-IoU anchor (by wh overlap, upstream rule) at the cell holding
     the box center. Returns per scale: dict of obj (B,H,W,A),
     xy (B,H,W,A,2) in-cell offsets, wh (B,H,W,A,2) log-scales,
-    cls (B,H,W,A) int32; NDArrays when the boxes are one."""
+    cls (B,H,W,A) int32; NDArrays when the boxes are one. Numpy boxes
+    and labels go to the model's device (`tensor_args`)."""
     nd_in = isinstance(gt_boxes, NDArray)
-    boxes = _unwrap(gt_boxes).float()
-    labels = _unwrap(gt_labels).to(torch.int32)
+    boxes, labels = tensor_args(gt_boxes, gt_labels,
+                                device=next(model.parameters()).device)
+    boxes, labels = boxes.float(), labels.to(torch.int32)
     dev = boxes.device
     B, G, _ = boxes.shape
     sizes = [model.image_size // s for s in model.strides]

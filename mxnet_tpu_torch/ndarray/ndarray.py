@@ -197,12 +197,28 @@ class NDArray:
 
     # -- host interop ------------------------------------------------------
     def asnumpy(self):
-        """A host copy (waits for the card); bfloat16 comes back as
-        float32, which holds it exactly."""
+        """A host copy (waits for the card; on the CPU a copy too, so a
+        later in-place write to the array, a parameter's say, does not
+        show through); bfloat16 comes back as float32, which holds it
+        exactly."""
         t = self._t.detach()
         if t.dtype == torch.bfloat16:
-            t = t.float()
-        return t.cpu().numpy()
+            return t.float().cpu().numpy()
+        return t.cpu().numpy().copy() if t.device.type == "cpu" \
+            else t.cpu().numpy()
+
+    @property
+    def _data(self):
+        """The JAX package's name for the array an NDArray holds, which
+        its tests read and assign: a host copy (numpy) to read; an
+        assigned array-like's values become this array's (`_assign`)."""
+        return self.asnumpy()
+
+    @_data.setter
+    def _data(self, value):
+        t = self._t
+        self._assign(torch.as_tensor(np.asarray(value)).to(
+            device=t.device, dtype=t.dtype))
 
     def asscalar(self):
         if self._t.numel() != 1:
@@ -676,19 +692,20 @@ _JAX_NARROW = {np.dtype(np.float64): np.float32,
                np.dtype(np.complex128): np.complex64}
 
 
-def _array_args(args, kwargs):
+def _array_args(args, kwargs, device=None):
     """The op's arguments with every NDArray unwrapped and every numpy
     array made a tensor, as `jnp.asarray` would take it (float64 becomes
-    float32, int64 int32; other dtypes stay), on the device of the
-    NDArray (or tensor) arguments, else of the current context. Scalars,
-    tuples and strings stay attributes."""
+    float32, int64 int32; other dtypes stay), on `device`, else on the
+    device of the NDArray (or tensor) arguments, else of the current
+    context. Scalars, tuples and strings stay attributes."""
     args = [_unwrap(a) for a in args]
     kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
     vals = list(args) + list(kwargs.values())
     if not any(isinstance(v, np.ndarray) for v in vals):
         return args, kwargs
-    device = next((v.device for v in vals if isinstance(v, torch.Tensor)),
-                  None) or context.resolve(None)
+    device = device or next((v.device for v in vals
+                             if isinstance(v, torch.Tensor)), None) \
+        or context.resolve(None)
 
     def conv(v):
         if not isinstance(v, np.ndarray):
@@ -696,6 +713,15 @@ def _array_args(args, kwargs):
         v = v.astype(_JAX_NARROW.get(v.dtype, v.dtype), copy=False)
         return torch.from_numpy(np.ascontiguousarray(v)).to(device)
     return [conv(a) for a in args], {k: conv(v) for k, v in kwargs.items()}
+
+
+def tensor_args(*xs, device=None):
+    """The arguments of a model's loss or target helper as tensors, as
+    the JAX package's `jnp` ops take them: an NDArray's tensor, a numpy
+    array converted by `_array_args`' rule (on `device`, else on the
+    device of the tensor arguments, else of the current context), any
+    other value as it is."""
+    return _array_args(xs, {}, device)[0]
 
 
 def registry_op(name):

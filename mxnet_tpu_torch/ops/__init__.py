@@ -13,8 +13,9 @@ fully_connected`, `nn_ops.batch_norm`, ...) stay where their callers use
 them; a registry entry is a thin adapter over them. The shape ops, the
 detection ops, `RNN` and `ctc_loss` (modules ported before the registry)
 are registered below under the JAX registry's names, and so is
-`_getitem` (indexing as an op). `optimizer_ops`, `random_ops` and the
-rest of `misc_ops` register the JAX modules' names themselves.
+`_getitem` (indexing as an op). `optimizer_ops`, `random_ops`,
+`control_flow` (the subgraph ops `_foreach`, `_while_loop`, `_cond`)
+and the rest of `misc_ops` register the JAX modules' names themselves.
 
 An op that reads the training flag (`Dropout`, `BatchNorm`,
 `flash_attention`, `fused_self_attention`) takes `_training`, as the JAX
@@ -60,6 +61,7 @@ from . import rnn_ops        # noqa: E402
 from . import misc_ops       # noqa: E402
 from . import optimizer_ops  # noqa: E402,F401
 from . import random_ops     # noqa: E402,F401
+from . import control_flow   # noqa: E402,F401  (foreach/while_loop/cond)
 
 for _name, _fn in shape_ops.NAMES.items():
     register(_name)(getattr(shape_ops, _fn))

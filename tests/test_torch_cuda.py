@@ -1759,3 +1759,38 @@ def test_observability_layer_on_card(dev, tmp_path):
         assert on[3][key] == cpu[3][key], key
     assert on[3]["spans"] == {1: ["step.compile"],
                               2: ["step.dispatch", "step.fence"]}
+
+
+def test_squad_finetune_on_card(dev):
+    """chip_smoke's phase 51 at a smaller size (BERT-base widths, 2
+    layers, 4 x 128): `span.weight.grad()` equals torch's gradient, the
+    loss falls, and each step launches 2 flash forwards, dq and dkv and
+    one Adam update."""
+    import chip_smoke
+    res, counts = chip_smoke.squad_phase(dev, batch=4, seq_len=128,
+                                         warmup=2, steps=3, num_layers=2)
+    assert counts["flash_attention_fwd"] == counts["flash_attention_dq"] \
+        == counts["flash_attention_dkv"] == 6
+    assert counts["adam_update"] == 3
+    assert res["span_grad_max_abs_err_vs_torch"] <= 1e-6
+
+
+def test_finetune_heads_card_matches_cpu(dev):
+    """chip_smoke's phase 52 at a smaller size: the QA and classifier
+    heads (2 layers at BERT-base's widths) card against CPU within 1e-5,
+    and a falling classifier loss."""
+    import chip_smoke
+    res = chip_smoke.finetune_parity_phase(dev, batch=2, seq_len=128,
+                                           cls_batch=4, cls_len=64,
+                                           num_layers=2)
+    assert res["qa"]["max_grad_err"] <= 1e-5
+
+
+def test_control_flow_and_accessors_on_card(dev):
+    """chip_smoke's phase 53: nd.contrib and sym.contrib control flow
+    (with gradients, `Module.fit` over a foreach graph) card against CPU
+    within 1e-5, no kernel launched; `p.data()` and `p.grad()` on the
+    card; `set_data` from numpy, a CPU NDArray and a card NDArray."""
+    import chip_smoke
+    res = chip_smoke.control_flow_phase(dev)
+    assert res["accessors"]["data_context"] == "gpu(0)"

@@ -608,3 +608,92 @@ def test_libsvmiter_message_names_its_queue_item():
     section = roadmap[roadmap.index(title + ", in this order"):]
     section = section[:section.index("\n\n1. ")]
     assert "io.LibSVMIter" in section
+
+
+# -- fault 20: the models' loss and target helpers take numpy arrays ------
+
+_BOXES20 = np.asarray([[[0.1, 0.1, 0.4, 0.4], [0.5, 0.5, 0.9, 0.9]],
+                       [[0.2, 0.2, 0.6, 0.6], [-1, -1, -1, -1]]], np.float32)
+_LABELS20 = np.asarray([[0, 2], [1, -1]], np.int32)
+
+
+def _fault20_call(name, pkg):
+    """`name` of the package `pkg` ("jax" or "port") on numpy inputs from
+    RandomState(0): a list of numpy arrays."""
+    import importlib
+    root = "mxnet_tpu" if pkg == "jax" else "mxnet_tpu_torch"
+    mod = lambda m: importlib.import_module(f"{root}.models.{m}")  # noqa
+    rs = np.random.RandomState(0)
+    if name == "gpt_lm_loss":
+        out = mod("gpt").gpt_lm_loss(
+            rs.randn(2, 4, 11).astype(np.float32),
+            rs.randint(0, 11, (2, 4)).astype(np.int32),
+            (rs.rand(2, 4) > 0.3).astype(np.float32))
+    elif name == "bert_pretrain_loss":
+        out = mod("bert").bert_pretrain_loss(
+            rs.randn(2, 3, 13).astype(np.float32),
+            rs.randn(2, 2).astype(np.float32),
+            rs.randint(0, 13, (2, 3)).astype(np.int32),
+            np.asarray([[1, 1, 0], [1, 0, 0]], np.float32),
+            np.asarray([0, 1], np.int32))
+    elif name == "label_smoothing_loss":
+        out = mod("transformer").label_smoothing_loss(
+            rs.randn(2, 5, 9).astype(np.float32),
+            np.asarray([[3, 1, 4, 0, 0], [2, 7, 1, 8, 0]], np.int32))
+    elif name == "multibox_target":
+        ssd = mod("ssd")
+        anchors = ssd.generate_anchors([(4, 4), (2, 2)],
+                                       sizes=((0.2, 0.3), (0.4, 0.5)),
+                                       ratios=((1, 2, 0.5),) * 2)
+        out = ssd.multibox_target(anchors, _BOXES20, _LABELS20)
+    elif name == "non_max_suppression":
+        out = mod("ssd").non_max_suppression(
+            np.asarray([[0, 0, 1, 1], [0.02, 0, 1.02, 1],
+                        [0.5, 0.5, 1.5, 1.5], [2, 2, 3, 3]], np.float32),
+            np.asarray([0.9, 0.85, 0.6, 0.7], np.float32),
+            iou_thresh=0.5, topk=4)
+    else:
+        yolo = mod("yolo")
+        model = yolo.YOLOv3Tiny(3, 64) if pkg == "jax" \
+            else yolo.YOLOv3Tiny(3, 64, device="cpu")
+        out = [t for scale in yolo.yolo_targets(model, _BOXES20 * 64,
+                                                _LABELS20)
+               for t in (scale["obj"], scale["xy"], scale["wh"],
+                         scale["cls"])]
+    return [np.asarray(getattr(o, "asnumpy", lambda o=o: o)())
+            for o in (out if isinstance(out, (list, tuple)) else [out])]
+
+
+@pytest.mark.parametrize("name", [
+    "gpt_lm_loss", "bert_pretrain_loss", "label_smoothing_loss",
+    "multibox_target", "non_max_suppression", "yolo_targets"])
+def test_fault20_helpers_take_numpy_as_jax(name):
+    """Each model helper on numpy arrays equals the JAX package's on the
+    same arrays: float outputs within 1e-6, selections, class ids and
+    masks equal, in the same dtypes."""
+    want = _fault20_call(name, "jax")
+    with mxt.cpu():
+        got = _fault20_call(name, "port")
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (g, w)
+        if np.issubdtype(w.dtype, np.floating):
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(g, w)
+
+
+def test_fault20_port_anchors_feed_its_own_multibox_target():
+    """`generate_anchors` returns numpy, as the JAX one does; the port's
+    `multibox_target` takes it beside NDArray boxes, on their device."""
+    from mxnet_tpu_torch.models import ssd as ssd_t
+    anchors = ssd_t.generate_anchors([(4, 4), (2, 2)],
+                                     sizes=((0.2, 0.3), (0.4, 0.5)),
+                                     ratios=((1, 2, 0.5),) * 2)
+    assert isinstance(anchors, np.ndarray)
+    cls_t, box_t, mask = ssd_t.multibox_target(
+        anchors, nd_t.array(_BOXES20, ctx=mxt.cpu()),
+        nd_t.array(_LABELS20, ctx=mxt.cpu()))
+    assert cls_t.context == mxt.cpu()
+    assert int((cls_t.asnumpy() > 0).sum()) >= 3
+    assert mask.shape == (2, anchors.shape[0], 1)

@@ -7,9 +7,6 @@ One case a file: its failures must be exactly the named exclusions, and
 its pass count the file's test count less those.
 
 The exclusions, each waiting for a ROADMAP.md queue 1 item:
-  * test_gluon.py: the six tests that need Parameter's MXNet accessors
-    (`p.data()`, `p.grad()`, `set_data`, `Parameter.initialize`), a
-    design change of its own ("Parameter's MXNet accessors");
   * test_sparse_ndarray.py: the three lazy row-sparse optimizer updates
     ("What the GPT-2 lifecycle left out": row-sparse gradients and
     `lazy_update`) and the two kvstore tests ("Multi-device": the
@@ -32,11 +29,6 @@ TIMEOUT = 300
 ENV = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
            MKL_NUM_THREADS="1")
 
-_PARAMETER_ACCESSORS = [
-    "test_parameter", "test_hybridize_grad_matches_eager",
-    "test_batchnorm_running_stats", "test_batchnorm_hybridized_aux_update",
-    "test_trainer_sgd_step", "test_save_load_parameters"]
-
 # file -> (tests in the file, the tests expected to fail)
 FILES = {
     "test_optimizer.py": (20, []),
@@ -49,7 +41,7 @@ FILES = {
     "test_monitor.py": (5, []),
     "test_gluon_data.py": (10, []),
     "test_model_zoo.py": (15, []),
-    "test_gluon.py": (18, _PARAMETER_ACCESSORS),
+    "test_gluon.py": (18, []),
     "test_sparse_ndarray.py": (14, [
         "test_lazy_sgd_update_touches_only_grad_rows",
         "test_lazy_adam_update", "test_sgd_lazy_update_false_decays_all_rows",

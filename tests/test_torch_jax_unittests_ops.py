@@ -83,7 +83,6 @@ FILES = {
         "test_large_constant_fires_and_names_block": _JNP,
         "test_dtype_promotion_fires_on_nonweak_scalar_only": _JNP,
         "test_check_error_raises_and_evicts": _JNP,
-        "test_suppress_context_manager": _JNP,
         "test_findings_surface_in_telemetry": _JNP,
         "test_dump_and_check_graph_report": _JNP,
     }, ["test_check_graph_zoo_error_mode_reports_per_model"]),
