@@ -393,6 +393,10 @@ TOL_TRAIN = 1e-4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                # dense tensor-core bf16 peak
 F32_FLOPS = 67e12                  # float32 outside the tensor cores
+TF32_FLOPS = 495e12                # dense tensor-core TF32 peak
+# float32 products in split TF32 (the float32 flash dq and dkv): three
+# TF32 products each, so float32 work at a third of the TF32 rate
+SPLIT_TF32_FLOPS = TF32_FLOPS / 3
 INT8_OPS = 1979e12                 # dense tensor-core int8 peak
 TOL_INT8_FWD = 2e-2
 
@@ -520,7 +524,9 @@ def sass_mix(lib, kernels=("flash_fwd_wgmma_kernel", "dq_wgmma_kernel",
     """{kernel symbol: {op: count}} of the SASS that `cuobjdump -sass`
     shows for the kernels of the built library whose names hold one of
     `kernels` (None where the toolkit has no cuobjdump): HGMMA is wgmma,
-    UTMALDG / UTMASTG are TMA loads / stores, HMMA is mma.sync."""
+    UTMALDG / UTMASTG are TMA loads / stores, HMMA is mma.sync. An op
+    written with modifiers, "HMMA.TF32", counts the instructions of that
+    op that carry each of them ("HMMA.1688.F32.TF32")."""
     import shutil
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(exe):
@@ -538,9 +544,11 @@ def sass_mix(lib, kernels=("flash_fwd_wgmma_kernel", "dq_wgmma_kernel",
             # "/*0090*/  @P0 HGMMA.64x128x16.F32.BF16 R24, ... ; /* 0x.. */"
             body = line.split("*/", 1)[1].split("/*", 1)[0].split()
             for tok in body[:2]:
-                op = tok.split(".")[0]
-                if op in mix[cur]:
-                    mix[cur][op] += 1
+                op, *mods = tok.split(".")
+                for key in mix[cur]:
+                    want, *need = key.split(".")
+                    if want == op and all(m in mods for m in need):
+                        mix[cur][key] += 1
     return mix
 
 
@@ -1045,7 +1053,10 @@ def flash_times(root):
     there) at the main-path shapes: the serving prefill (8,12,512,64)
     causal (forward only), BERT's (32,12,512,64) with dropout 0.1 (and
     without, which shows what the keep bits cost) and GPT-2's
-    (16,12,1024,64) causal, bf16; paged attention at phase 1's shape and
+    (16,12,1024,64) causal, bf16; the float32 dq and dkv at SQuAD
+    fine-tuning's (32,12,384,64) and the symbolic BERT-base's
+    (32,12,128,64), each with its batch's padding mask and dropout 0.1
+    (`sym_flash_phase`'s inputs); paged attention at phase 1's shape and
     at the steady-decode round's, bf16; the int8 GEMM at GPT-2's four
     layer shapes for M = 8 (the decode route), 512 and 1024 (the wgmma
     route, and, where the wrapper takes the K-major weight, the same
@@ -1076,6 +1087,20 @@ def flash_times(root):
             fns["dkv"] = lambda: fa.flash_bwd_dkv(*bw)
         out[name] = {}
         for kern, fn in fns.items():
+            out[name][f"{kern}_ms"] = time_ms(fn)
+            out[name][f"{kern}_device_ms"] = device_ms(fn, match="mxt::")
+        del q, k, v, g, bias, o, lse, delta, bw
+    for name, L in (("squad_f32", 384), ("bert_base_f32", 128)):
+        q, k, v, g, _ = train_flash_case(dev, torch.float32, 32, L=L, seed=4)
+        valid = torch.tensor(sym_bert_batch(32, L, 4, 100)["valid_mask"],
+                             device=dev).bool()
+        bias = torch.where(valid, 0.0, fa._NEG).float().contiguous()
+        o, lse = fa.flash_fwd(q, k, v, bias, False, dropout=0.1, seed=5)
+        delta = (g * o).sum(-1).reshape(lse.shape)
+        bw = (q, k, v, bias, g, lse, delta, False, None, 0.1, 5)
+        out[name] = {}
+        for kern, fn in (("dq", lambda: fa.flash_bwd_dq(*bw)),
+                         ("dkv", lambda: fa.flash_bwd_dkv(*bw))):
             out[name][f"{kern}_ms"] = time_ms(fn)
             out[name][f"{kern}_device_ms"] = device_ms(fn, match="mxt::")
         del q, k, v, g, bias, o, lse, delta, bw
@@ -6878,10 +6903,13 @@ def sym_flash_phase(dev, B=32, H=12, L=128, D=64, p=0.1,
     (phase 51's): (B,H,L,64) float32 with a padding mask (lengths drawn
     in [L/2, L]) and dropout p: forward (its keep mask bit for bit), dq
     and dkv against their plain versions, then timed beside SDPA with the
-    same mask (its own dropout mask: times only) and the bound at the
-    float32 rate, its operations counted over the valid keys only (a
-    masked key adds exactly 0: L x the sum of the lengths score pairs a
-    head, not B x L^2). Returns {row: {key: extra fields}}."""
+    same mask (its own dropout mask: times only) and the bound, its
+    operations counted over the valid keys only (a masked key adds
+    exactly 0: L x the sum of the lengths score pairs a head, not B x
+    L^2): the forward's at the float32 rate of the CUDA cores, dq's and
+    dkv's at the split-TF32 rate of the tensor cores they run on, with
+    the CUDA-core bound beside it (`bound_ms_f32_cores`, the rule of
+    earlier rows). Returns {row: {key: extra fields}}."""
     import torch
     import torch.nn.functional as tF
     from mxnet_tpu_torch.cuda_ops import flash_attention as fa
@@ -6927,25 +6955,28 @@ def sym_flash_phase(dev, B=32, H=12, L=128, D=64, p=0.1,
                f"SDPA backward alone, the same mask, dropout_p {p} (dq, dk "
                "and dv together)")
     out = {}
-    for row, err, nbytes, flops, fn, plain, lib in (
+    for row, err, nbytes, flops, fn, plain, lib, rate in (
             ("flash_attention_fwd_dropout", e_fwd,
              4 * io_b + 4 * BH * L + 4 * B * L, 4 * pairs * D,
              lambda: fa.flash_fwd(q, k, v, bias, False, dropout=p,
                                   seed=seed),
              lambda: fa.flash_fwd_reference(q, k, v, bias, False, dropout=p,
-                                            seed=seed), lib_fwd),
+                                            seed=seed), lib_fwd, F32_FLOPS),
             ("flash_attention_dq", e_dq, 5 * io_b + 8 * BH * L + 4 * B * L,
              6 * pairs * D, lambda: fa.flash_bwd_dq(*bw),
-             lambda: fa.flash_dq_reference(*bw), lib_bwd),
+             lambda: fa.flash_dq_reference(*bw), lib_bwd, SPLIT_TF32_FLOPS),
             ("flash_attention_dkv", e_dkv, 6 * io_b + 8 * BH * L + 4 * B * L,
              8 * pairs * D, lambda: fa.flash_bwd_dkv(*bw),
-             lambda: fa.flash_dkv_reference(*bw), lib_bwd)):
-        b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+             lambda: fa.flash_dkv_reference(*bw), lib_bwd,
+             SPLIT_TF32_FLOPS)):
+        b_ms, b_by = bound(nbytes, flops, rate)
+        dms = device_ms(fn, match="mxt::")
         out[row] = {key: dict(
             shapes=shape, valid_key_share=pairs / (BH * L * L),
-            max_abs_err=err, ms=time_ms(fn),
-            device_ms=device_ms(fn, match="mxt::"),
+            max_abs_err=err, ms=time_ms(fn), device_ms=dms,
             plain_ms=time_ms(plain, iters=5), bound_ms=b_ms, bound_by=b_by,
+            bound_rate_tflops=rate / 1e12, bound_share_device=b_ms / dms,
+            bound_ms_f32_cores=bound(nbytes, flops, F32_FLOPS)[0],
             library_ms=lib[0], library_device_ms=lib[1], library=lib[2])}
     return out
 
@@ -8678,6 +8709,18 @@ def main():
         check(len(mix) == 6 and all(
             m["HGMMA"] > 0 and m["UTMALDG"] > 0 and m["HMMA"] == 0
             for m in mix.values()), f"wgmma kernels' SASS {mix}")
+    # the float32 dq and dkv (two instantiations each): split TF32 on the
+    # tensor cores, mma.sync in TF32 (HMMA.1688.F32.TF32) or wgmma
+    mix32 = sass_mix(os.path.join(_build.BUILD_DIR, _build.LIB_NAME),
+                     kernels=("dq_split_tf32_kernel",
+                              "dkv_split_tf32_kernel"),
+                     ops=("HMMA", "HMMA.TF32", "HGMMA"))
+    print("chip_smoke: SASS of the float32 dq and dkv (HMMA.TF32 = TF32 "
+          "mma.sync, HGMMA = wgmma) " + json.dumps(mix32))
+    if mix32 is not None:
+        check(len(mix32) == 4 and all(
+            m["HMMA.TF32"] > 0 or m["HGMMA"] > 0 for m in mix32.values()),
+            f"float32 dq / dkv kernels' SASS: no tensor-core MMA {mix32}")
     # the int8 GEMM's M > 16 route (two instantiations): int8 wgmma (IGMMA)
     # fed by TMA, no mma.sync (IMMA); paged attention (four): bulk copies
     mix8 = sass_mix(os.path.join(_build.BUILD_DIR, _build.LIB_NAME),
@@ -8713,6 +8756,10 @@ def main():
                       ("flash_attention_dkv", "dkv_wgmma")):
         kernels[row]["sass"] = None if mix is None else {
             name: m for name, m in mix.items() if want in name}
+    for row, want in (("flash_attention_dq", "dq_split_tf32"),
+                      ("flash_attention_dkv", "dkv_split_tf32")):
+        kernels[row]["sass_f32"] = None if mix32 is None else {
+            name: m for name, m in mix32.items() if want in name}
     kernels.update(lamb_phase(dev))
     torch.cuda.empty_cache()
     for row, extra in lamb_phase(dev, "bert_large_config").items():

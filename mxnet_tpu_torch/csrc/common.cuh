@@ -1,6 +1,6 @@
 // Shared helpers of the port's kernels: float/bf16 conversion, the 16-byte
-// vector width of each element type, and the opt-in to more than 48 KB of
-// dynamic shared memory.
+// vector width of each element type, cp.async copies, and the opt-in to
+// more than 48 KB of dynamic shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,6 +50,35 @@ __device__ __forceinline__ void load_vec_f32(float* dst, const T* src) {
   const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
   for (int i = 0; i < Vec<T>::n; ++i) dst[i] = to_f<T>(e[i]);
+}
+
+// cp.async: copy src_bytes (16 or 0) global bytes into 16 shared bytes,
+// zero-filling the rest
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// the same for 4 bytes (src_bytes 4 or 0)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight;
+// what landed is visible to this thread
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // opt a kernel into more than 48 KB of dynamic shared memory, once

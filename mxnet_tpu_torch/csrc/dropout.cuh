@@ -16,14 +16,15 @@
 // and the plain version (`dropout_keep_mask` in cuda_ops/flash_attention.py)
 // reproduces it bit for bit.
 //
-// The float32 bodies (CUDA cores) fill a tile's mask into shared memory
+// The float32 forward (CUDA cores) fills a tile's mask into shared memory
 // once per (64-row, 64-column) tile with every thread of the block -- one
 // byte per (row, 4-column group), bit j for column 4g + j -- so each Philox
 // call is made once, whatever fragment layout later reads the bits. The
-// bf16 wgmma kernels compute the bits in registers instead, in their
-// accumulator layout, with no shared memory and no block barrier: the
-// forward and dq hold (query rows, key columns) tiles (`keep_quad`), dkv
-// holds the transpose, (key rows, query columns) (`keep_quad_t`). Either
+// tensor-core kernels (the bf16 wgmma kernels, the float32 dq and dkv on
+// mma.sync) compute the bits in registers instead, in their accumulator
+// layout, with no shared memory and no block barrier: the forward and dq
+// hold (query rows, key columns) tiles (`keep_quad`), dkv holds the
+// transpose, (key rows, query columns) (`keep_quad_t`). Either
 // way a lane makes one Philox call per 8-column block of its tile, and the
 // lanes that share the call's four words swap bits with shuffles.
 #pragma once

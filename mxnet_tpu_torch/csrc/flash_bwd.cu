@@ -9,11 +9,11 @@
 //   p  = exp(q.k^T * sm_scale + bias - lse)      (causal: masked -> -1e30)
 //   dp = dO.v^T, dropped and scaled by 1/(1-p) where the keep mask drops
 //   ds = p * (dp - delta) * sm_scale, rounded to the input dtype
-//   dq = sum_k ds.k            (dq kernel: a block per 64-row q tile (f32),
-//                               a warpgroup per 64 rows (bf16))
+//   dq = sum_k ds.k            (dq kernel: a block per 128 query rows at
+//                               D <= 64, 64 at D <= 128 (f32); a
+//                               warpgroup per 64 rows (bf16))
 //   dv = sum_q p~^T.dO, dk = sum_q ds^T.q
-//                              (dkv kernel: a block per 64-key tile (f32),
-//                               a warpgroup per 64 keys (bf16))
+//                              (dkv kernel: the same in keys)
 // where p~ is p dropped and scaled, rounded to the input dtype. The split
 // into two kernels is the TPU design: each output tile is owned by one
 // block, so there are no atomics and the result is deterministic. Keep bits
@@ -26,12 +26,14 @@
 // What bounds it: about 4*Lq*Lk*D operations per kernel per (b, h) (dq: two
 // products to rebuild p and dp, one for dq; dkv: two plus two) for
 // ~6*L*D elements moved, so at BERT-base (L = 512, D = 64) both are bound by
-// operations on the bf16 tensor cores. Both bf16 bodies are built as the
-// forward (flash_fwd.cu): persistent, one TMA producer thread feeding a
-// ring of stages on mbarriers, three (D <= 64) or two (D <= 128) consumer
-// warpgroups issuing wgmma, the two score-shaped products back to back
-// from shared memory so the tensor cores get both at once, the keep bits
-// made in registers while products run, p = exp2 of one FMA less
+// operations on the tensor cores: bf16, or split TF32 for float32, whose
+// three TF32 products a float32 product leave at most 165 TFLOP/s of
+// float32 work (chip_smoke.py `SPLIT_TF32_FLOPS`). Both bf16 bodies are
+// built as the forward (flash_fwd.cu): persistent, one TMA producer thread
+// feeding a ring of stages on mbarriers, three (D <= 64) or two (D <= 128)
+// consumer warpgroups issuing wgmma, the two score-shaped products back to
+// back from shared memory so the tensor cores get both at once, the keep
+// bits made in registers while products run, p = exp2 of one FMA less
 // lse * log2 e, and the gradient products with their A operand in
 // registers:
 //  * bfloat16 dq: `dq_wgmma_kernel`. A work item is 64 query rows per
@@ -53,8 +55,44 @@
 //    at D <= 64 and 168 at D <= 128, 0 bytes spilled; setmaxnreg then
 //    gives the consumers 160 (three warpgroups) or 240 (two) and the
 //    producer 24.
-//  * float32: FMAs on the CUDA cores (TF32 would break the float32
-//    tolerance).
+//  * float32: `dq_split_tf32_kernel` and `dkv_split_tf32_kernel`, every
+//    product on the tensor cores in split TF32 (flash_common.cuh): each
+//    operand is big = tf32(x) plus small = tf32(x - big), and a product is
+//    three m16n8k8 mma.sync (HMMA.1688.F32.TF32), small terms first, which
+//    holds float32's accuracy where TF32 alone (10 mantissa bits) misses
+//    the 1e-4 gate (7.6e-4 on dq in tests/test_torch_flash_split_tf32.py's
+//    emulation at SQuAD's L = 384). The tensor cores round each
+//    accumulation toward zero, so a product sums two k-steps (six mma)
+//    into a fresh partial and adds it to its accumulator in float32: one
+//    chain per product drifted to 1.6e-4 on a dq of |80| summed over 257
+//    keys. Two output tiles' chains run interleaved, so an mma waits on
+//    the one two back. A block owns ROWS rows (8 warps x 16 at D <= 64,
+//    4 x 16 at D <= 128): query rows in dq, keys in dkv, raw in shared
+//    memory, their A fragments split as they load. It walks the other
+//    side (K/V in dq, Q/dO with lse and delta in dkv) in tiles of TR = 64
+//    rows (32 at D <= 128), two stages:
+//    cp.async puts tile i + 1 in flight while tile i's products run; each
+//    thread splits in place the 16-byte chunks it copied (big parts beside
+//    them), then one barrier a tile. Tiles are unpadded rows with an XOR
+//    swizzle of 8-float groups, conflict-free for the 8-byte fragment
+//    loads of S = Q.K^T and dP = dO.V^T (dkv: S^T = K.Q^T, dP^T = V.dO^T),
+//    whose head-dim slots are permuted in pairs, and for the 4-byte loads
+//    of dq += ds.K (dkv: dv += p~^T.dO, dk += ds^T.Q), whose contraction
+//    runs over the tile's rows in the order of a score accumulator's
+//    columns, so ds and p~ are A fragments where they stand, with no
+//    shuffle and no trip through shared memory. The keep bits are made in
+//    registers as the bf16 bodies make them (`keep_quad`, `keep_quad_t`).
+//    What bounds it now: at SQuAD's (32,12,384,64) with a padding mask
+//    dq and dkv take 0.505 and 0.659 ms on an H100 (chip_smoke.py), 20%
+//    of the split-TF32 bound and 48-49% of the CUDA cores' float32
+//    bound. The tensor cores wait on the rest of each tile's instruction
+//    stream: a product of a 16-row warp tile by 8 columns and 8 k reads
+//    its B fragment (big and small) for three mma, each A value is split
+//    by four integer and float operations (ptxas drops the small part's
+//    mask: HMMA reads a TF32 operand's top 19 bits), the keep bits cost
+//    a Philox call per lane and 8 columns, and the partials' adds one
+//    FADD per three mma; with 213-254 registers a thread, one block of 8
+//    warps (4 at D <= 128) holds an SM, too few to hide a six-mma chain.
 #include "dropout.cuh"
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -62,204 +100,285 @@
 namespace mxt {
 namespace {
 
-constexpr int THREADS = 256;      // float32 bodies: 4 threads per row
-constexpr int PS = 64 + 4;        // padded row stride of a 64-wide f32 tile
+// ---- float32: split TF32 on mma.sync (flash_common.cuh) -------------------
 
-__device__ __forceinline__ float rowdot4(const float* a, const float* b,
-                                         int dmax, float acc) {
-  for (int d = 0; d < dmax; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(a + d);
-    const float4 y = *reinterpret_cast<const float4*>(b + d);
-    acc = fmaf(x.x, y.x, acc);
-    acc = fmaf(x.y, y.y, acc);
-    acc = fmaf(x.z, y.z, acc);
-    acc = fmaf(x.w, y.w, acc);
-  }
-  return acc;
-}
-
-// acc[4 * i + e] += w * row[4 * (g + 4 * i) + e]: a thread's float4 groups
-template <int NG>
-__device__ __forceinline__ void axpy_groups(float* acc, float w,
-                                            const float* row, int g) {
-#pragma unroll
-  for (int i = 0; i < NG; ++i) {
-    const float4 x = *reinterpret_cast<const float4*>(row + 4 * (g + 4 * i));
-    acc[4 * i + 0] = fmaf(w, x.x, acc[4 * i + 0]);
-    acc[4 * i + 1] = fmaf(w, x.y, acc[4 * i + 1]);
-    acc[4 * i + 2] = fmaf(w, x.z, acc[4 * i + 2]);
-    acc[4 * i + 3] = fmaf(w, x.w, acc[4 * i + 3]);
-  }
-}
-
-template <int NG, typename T>
-__device__ __forceinline__ void store_groups(T* dst, const float* acc, int g,
-                                             int D) {
-#pragma unroll
-  for (int i = 0; i < NG; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = 4 * (g + 4 * i) + e;
-      if (d < D) dst[d] = from_f<T>(acc[4 * i + e]);
-    }
-}
-
-// ---- float32 dq -------------------------------------------------------------
-
-template <int DMAX> struct DqSmem {
-  static constexpr int SD = F32Rows<DMAX>::SD;
-  static constexpr int bytes = (4 * 64 * SD + 64 * PS) * 4 + 64 * kMaskGroups;
+// A block owns ROWS rows (query rows in dq, keys in dkv), 16 a warp, kept
+// raw in shared memory and split as their A fragments load; it walks the
+// other side in tiles of TR rows (keys in dq, queries in dkv), each copied
+// by cp.async into the "small" half of a stage, split in place by the
+// threads that copied it, and read by every warp. Two stages: tile i + 1
+// is in flight while tile i's products run. A stage also carries its
+// tile's bias (dq) or lse and delta (dkv), 4-byte copies.
+template <int DMAX> struct F32Plan {
+  static constexpr int WARPS = DMAX == 64 ? 8 : 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int ROWS = 16 * WARPS;
+  static constexpr int TR = DMAX == 64 ? 64 : 32;
+  static constexpr int NT = TR / 8;          // n-tiles of a score tile
+  static constexpr int ND = DMAX / 8;        // n-tiles of a gradient row
+  static constexpr int FIXED = ROWS * DMAX;  // floats of one own tensor
+  static constexpr int TILE = TR * DMAX;     // floats of one walked part
+  // [A big, A small, B big, B small, 2 x TR row values]
+  static constexpr int STAGE = 4 * TILE + 2 * TR;
+  static constexpr int bytes = (2 * FIXED + 2 * STAGE) * 4;
 };
 
 template <int DMAX>
-__global__ void __launch_bounds__(THREADS)
-dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ bias,
-              const float* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ delta, float* __restrict__ dq, int H,
-              int Lq, int Lk, int D, float sm_scale, int causal,
-              DropoutArgs drop) {
-  constexpr int SD = DqSmem<DMAX>::SD;
-  constexpr int NG = DMAX / 16;
+__global__ void __launch_bounds__(F32Plan<DMAX>::THREADS, 1)
+dq_split_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ bias,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq,
+                     int H, int Lq, int Lk, int D, float sm_scale, int causal,
+                     DropoutArgs drop) {
+  using P = F32Plan<DMAX>;
+  constexpr int T = P::TILE;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Gs = Qs + 64 * SD;             // dO tile
-  float* Ks = Gs + 64 * SD;
-  float* Vs = Ks + 64 * SD;
-  float* DSs = Vs + 64 * SD;
-  uint8_t* Mk = reinterpret_cast<uint8_t*>(DSs + 64 * PS);
+  float* Qs = smem;                      // own rows: Q, then dO, raw
+  float* Gs = Qs + P::FIXED;
+  float* walk = Gs + P::FIXED;           // stages: K, V split; key bias
 
-  const int bh = blockIdx.x, b = bh / H, q0 = blockIdx.y * BM;
-  const int tid = threadIdx.x, row = tid >> 2, g = tid & 3;
-  const int qrow = q0 + row;
+  const int bh = blockIdx.x, b = bh / H, q0 = blockIdx.y * P::ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = 16 * warp, r0 = q0 + wr + g, r1 = r0 + 8;
   const int off = Lk - Lq;
+  const float* kh = k + (size_t)bh * Lk * D;
+  const float* vh = v + (size_t)bh * Lk * D;
   const float* brow = bias + (size_t)b * Lk;
-  const int nq = min(BM, Lq - q0);
-  load_tile_f32<DMAX, THREADS>(Qs, q + ((size_t)bh * Lq + q0) * D, nq, D);
-  load_tile_f32<DMAX, THREADS>(Gs, dout + ((size_t)bh * Lq + q0) * D, nq, D);
-  const float lse_r = qrow < Lq ? lse[(size_t)bh * Lq + qrow] : 0.f;
-  const float delta_r = qrow < Lq ? delta[(size_t)bh * Lq + qrow] : 0.f;
+  const int nq = min(P::ROWS, Lq - q0);
+  copy_tile_async<DMAX, P::THREADS, P::ROWS>(
+      Qs, q + ((size_t)bh * Lq + q0) * D, nq, D);
+  copy_tile_async<DMAX, P::THREADS, P::ROWS>(
+      Gs, dout + ((size_t)bh * Lq + q0) * D, nq, D);
+  auto load = [&](int i) {
+    float* st = walk + (i & 1) * P::STAGE;
+    const int k0 = i * P::TR, nk = min(P::TR, Lk - k0);
+    copy_tile_async<DMAX, P::THREADS, P::TR>(st + T, kh + (size_t)k0 * D,
+                                             nk, D);
+    copy_tile_async<DMAX, P::THREADS, P::TR>(st + 3 * T,
+                                             vh + (size_t)k0 * D, nk, D);
+    if ((int)threadIdx.x < P::TR)
+      cp_async4(st + 4 * T + threadIdx.x,
+                brow + min(k0 + (int)threadIdx.x, Lk - 1),
+                k0 + (int)threadIdx.x < Lk ? 4 : 0);
+    cp_async_commit();
+  };
+  // the keys the block's rows see (causal: up to the last row's diagonal)
   int hi = Lk;
-  if (causal && off >= 0) hi = min(Lk, min(q0 + BM, Lq) + off);
-
-  float acc[4 * NG];
-#pragma unroll
-  for (int i = 0; i < 4 * NG; ++i) acc[i] = 0.f;
-
-  for (int k0 = 0; k0 < hi; k0 += BN) {
-    __syncthreads();                     // last tile's readers are done
-    const int nk = min(BN, Lk - k0);
-    load_tile_f32<DMAX, THREADS>(Ks, k + ((size_t)bh * Lk + k0) * D, nk, D);
-    load_tile_f32<DMAX, THREADS>(Vs, v + ((size_t)bh * Lk + k0) * D, nk, D);
-    if (drop.on) fill_tile_mask(Mk, drop, bh, q0, k0, THREADS);
-    __syncthreads();
-
-    float* dsrow = DSs + row * PS;
-#pragma unroll 4
-    for (int j = 0; j < 16; ++j) {
-      const int cl = g + 4 * j, c = k0 + cl;
-      float ds = 0.f;
-      if (c < Lk) {
-        float x = rowdot4(Qs + row * SD, Ks + cl * SD, DMAX, 0.f) * sm_scale +
-                  brow[c];
-        if (causal && c > qrow + off) x = kNeg;
-        const float p = expf(x - lse_r);
-        float dp = rowdot4(Gs + row * SD, Vs + cl * SD, DMAX, 0.f);
-        if (drop.on) dp = tile_keep(Mk, row, cl) ? dp * drop.inv_keep : 0.f;
-        ds = p * (dp - delta_r) * sm_scale;
-      }
-      dsrow[cl] = ds;
-    }
-    __syncwarp();                        // a row's ds is written by its warp
-    for (int c = 0; c < nk; ++c) axpy_groups<NG>(acc, dsrow[c], Ks + c * SD, g);
+  if (causal && off >= 0) hi = min(Lk, min(q0 + P::ROWS, Lq) + off);
+  const int ntiles = (hi + P::TR - 1) / P::TR;
+  load(0);
+  int hi_w = 0;                          // the same for this warp's rows
+  if (q0 + wr < Lq) {
+    hi_w = Lk;
+    if (causal && off >= 0) hi_w = min(Lk, min(q0 + wr + 16, Lq) + off);
   }
-  if (qrow < Lq) store_groups<NG>(dq + ((size_t)bh * Lq + qrow) * D, acc, g, D);
+  // lse in the exp2 domain, rounded once: a fully masked row (lse =
+  // -1e30) gets exp2(kNeg2 - kNeg2) = 1, as the plain version's exp(0)
+  const float ls0 =
+      __fmul_rn(r0 < Lq ? lse[(size_t)bh * Lq + r0] : 0.f, kLog2e);
+  const float ls1 =
+      __fmul_rn(r1 < Lq ? lse[(size_t)bh * Lq + r1] : 0.f, kLog2e);
+  const float dl0 = r0 < Lq ? delta[(size_t)bh * Lq + r0] : 0.f;
+  const float dl1 = r1 < Lq ? delta[(size_t)bh * Lq + r1] : 0.f;
+  const float scale2 = sm_scale * kLog2e;
+  const FragOffsets<DMAX> fo(g, t);
+  float acc[P::ND][4];
+#pragma unroll
+  for (int i = 0; i < P::ND; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    float* st = walk + (i & 1) * P::STAGE;
+    cp_async_wait<0>();
+    split_tile<DMAX, P::THREADS, P::TR>(st, st + T);
+    split_tile<DMAX, P::THREADS, P::TR>(st + 2 * T, st + 3 * T);
+    __syncthreads();                     // tile i is whole; tile i - 1 done
+    if (i + 1 < ntiles) load(i + 1);
+    const int k0 = i * P::TR;
+    if (k0 >= hi_w) continue;
+
+    float sc[P::NT][4], dp[P::NT][4];    // S = Q.K^T, dP = dO.V^T
+    score_tile<DMAX, P::NT>(sc, Qs + wr * DMAX, st, st + T, D, fo);
+    score_tile<DMAX, P::NT>(dp, Gs + wr * DMAX, st + 2 * T, st + 3 * T, D,
+                            fo);
+    uint32_t keep = 0u;
+    if (drop.on) {
+#pragma unroll
+      for (int j = 0; j < P::NT; ++j)
+        keep |= keep_quad(drop, bh, r0, r1, k0 + 8 * j + 2 * t, t) << (4 * j);
+    }
+    // sc[j][e]: row e < 2 ? r0 : r1, key k0 + 8j + 2t + (e & 1); ds in place
+    const float* bsm = st + 4 * T;
+#pragma unroll
+    for (int j = 0; j < P::NT; ++j) {
+      const int cl = 8 * j + 2 * t;
+      const float b0 = __fmul_rn(bsm[cl], kLog2e);
+      const float b1 = __fmul_rn(bsm[cl + 1], kLog2e);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = k0 + cl + (e & 1);
+        float x = fmaf(sc[j][e], scale2, (e & 1) ? b1 : b0);
+        if (causal && c > (e < 2 ? r0 : r1) + off) x = kNeg2;
+        if (c >= Lk) x = -INFINITY;      // past the keys: p = 0
+        const float p = ex2(x - (e < 2 ? ls0 : ls1));
+        float d = dp[j][e];
+        if (drop.on) d = (keep >> (4 * j + e)) & 1u ? d * drop.inv_keep : 0.f;
+        sc[j][e] = p * (d - (e < 2 ? dl0 : dl1)) * sm_scale;
+      }
+    }
+    grad_tile<DMAX, P::NT>(acc, sc, st, st + T, D, fo);   // dq += ds.K
+  }
+#pragma unroll
+  for (int i = 0; i < P::ND; ++i) {
+    const int d = 8 * i + 2 * t;
+    if (d >= D) break;
+    if (r0 < Lq)
+      *reinterpret_cast<float2*>(dq + ((size_t)bh * Lq + r0) * D + d) =
+          make_float2(acc[i][0], acc[i][1]);
+    if (r1 < Lq)
+      *reinterpret_cast<float2*>(dq + ((size_t)bh * Lq + r1) * D + d) =
+          make_float2(acc[i][2], acc[i][3]);
+  }
 }
 
-// ---- float32 dk, dv ---------------------------------------------------------
-
-template <int DMAX> struct DkvSmem {
-  static constexpr int SD = F32Rows<DMAX>::SD;
-  static constexpr int bytes =
-      (4 * 64 * SD + 2 * 64 * PS + 2 * 64) * 4 + 64 * kMaskGroups;
-};
-
 template <int DMAX>
-__global__ void __launch_bounds__(THREADS)
-dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ bias,
-               const float* __restrict__ dout, const float* __restrict__ lse,
-               const float* __restrict__ delta, float* __restrict__ dk,
-               float* __restrict__ dv, int H, int Lq, int Lk, int D,
-               float sm_scale, int causal, DropoutArgs drop) {
-  constexpr int SD = DkvSmem<DMAX>::SD;
-  constexpr int NG = DMAX / 16;
+__global__ void __launch_bounds__(F32Plan<DMAX>::THREADS, 1)
+dkv_split_tf32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, int H,
+                      int Lq, int Lk, int D, float sm_scale, int causal,
+                      DropoutArgs drop) {
+  using P = F32Plan<DMAX>;
+  constexpr int T = P::TILE;
   extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + 64 * SD;
-  float* Qs = Vs + 64 * SD;
-  float* Gs = Qs + 64 * SD;              // dO tile
-  float* PTs = Gs + 64 * SD;             // p~^T (keys x queries)
-  float* DSTs = PTs + 64 * PS;           // ds^T
-  float* Ls = DSTs + 64 * PS;            // lse of the q tile
-  float* Es = Ls + 64;                   // delta of the q tile
-  uint8_t* Mk = reinterpret_cast<uint8_t*>(Es + 64);
+  float* Ks = smem;                      // own keys: K, then V, raw
+  float* Vs = Ks + P::FIXED;
+  float* walk = Vs + P::FIXED;           // stages: Q, dO split; lse, delta
 
-  const int bh = blockIdx.x, b = bh / H, k0 = blockIdx.y * BN;
-  const int tid = threadIdx.x, kr = tid >> 2, g = tid & 3;
-  const int kcol = k0 + kr;
+  const int bh = blockIdx.x, b = bh / H, k0 = blockIdx.y * P::ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = 16 * warp, c0 = k0 + wr + g, c1 = c0 + 8;
   const int off = Lk - Lq;
-  const int nk = min(BN, Lk - k0);
-  load_tile_f32<DMAX, THREADS>(Ks, k + ((size_t)bh * Lk + k0) * D, nk, D);
-  load_tile_f32<DMAX, THREADS>(Vs, v + ((size_t)bh * Lk + k0) * D, nk, D);
-  const float bias_k = kcol < Lk ? bias[(size_t)b * Lk + kcol] : 0.f;
+  const float* qh = q + (size_t)bh * Lq * D;
+  const float* gh = dout + (size_t)bh * Lq * D;
+  const int nk = min(P::ROWS, Lk - k0);
+  copy_tile_async<DMAX, P::THREADS, P::ROWS>(
+      Ks, k + ((size_t)bh * Lk + k0) * D, nk, D);
+  copy_tile_async<DMAX, P::THREADS, P::ROWS>(
+      Vs, v + ((size_t)bh * Lk + k0) * D, nk, D);
+  auto load = [&](int i) {
+    float* st = walk + (i & 1) * P::STAGE;
+    const int q0 = i * P::TR, nq = min(P::TR, Lq - q0);
+    copy_tile_async<DMAX, P::THREADS, P::TR>(st + T, qh + (size_t)q0 * D,
+                                             nq, D);
+    copy_tile_async<DMAX, P::THREADS, P::TR>(st + 3 * T,
+                                             gh + (size_t)q0 * D, nq, D);
+    if ((int)threadIdx.x < 2 * P::TR) {       // lse, then delta, of the tile
+      const int r = threadIdx.x % P::TR;
+      const float* src = (int)threadIdx.x < P::TR ? lse : delta;
+      cp_async4(st + 4 * T + threadIdx.x,
+                src + (size_t)bh * Lq + min(q0 + r, Lq - 1),
+                q0 + r < Lq ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  // the first q tile that sees the block's keys (causal)
   int lo = 0;
-  if (causal && off >= 0) lo = max(0, k0 - off) / BM * BM;
-
-  float dka[4 * NG], dva[4 * NG];
-#pragma unroll
-  for (int i = 0; i < 4 * NG; ++i) dka[i] = dva[i] = 0.f;
-
-  for (int q0 = lo; q0 < Lq; q0 += BM) {
-    __syncthreads();                     // last tile's readers are done
-    const int nq = min(BM, Lq - q0);
-    load_tile_f32<DMAX, THREADS>(Qs, q + ((size_t)bh * Lq + q0) * D, nq, D);
-    load_tile_f32<DMAX, THREADS>(Gs, dout + ((size_t)bh * Lq + q0) * D, nq, D);
-    if (tid < 64) {                      // rows past Lq get p = 0
-      Ls[tid] = tid < nq ? lse[(size_t)bh * Lq + q0 + tid] : INFINITY;
-      Es[tid] = tid < nq ? delta[(size_t)bh * Lq + q0 + tid] : 0.f;
-    }
-    if (drop.on) fill_tile_mask(Mk, drop, bh, q0, k0, THREADS);
-    __syncthreads();
-
-    float* ptrow = PTs + kr * PS;
-    float* dsrow = DSTs + kr * PS;
-#pragma unroll 4
-    for (int j = 0; j < 16; ++j) {
-      const int ql = g + 4 * j, qi = q0 + ql;
-      float x = rowdot4(Ks + kr * SD, Qs + ql * SD, DMAX, 0.f) * sm_scale +
-                bias_k;
-      if (causal && kcol > qi + off) x = kNeg;
-      const float p = expf(x - Ls[ql]);
-      float dp = rowdot4(Vs + kr * SD, Gs + ql * SD, DMAX, 0.f);
-      float pv = p;
-      if (drop.on) {
-        const bool keep = tile_keep(Mk, ql, kr);
-        pv = keep ? p * drop.inv_keep : 0.f;
-        dp = keep ? dp * drop.inv_keep : 0.f;
-      }
-      ptrow[ql] = pv;
-      dsrow[ql] = p * (dp - Es[ql]) * sm_scale;
-    }
-    __syncwarp();                        // a key's row is written by its warp
-    for (int c = 0; c < nq; ++c) {
-      axpy_groups<NG>(dva, ptrow[c], Gs + c * SD, g);
-      axpy_groups<NG>(dka, dsrow[c], Qs + c * SD, g);
-    }
+  if (causal && off >= 0) lo = max(0, k0 - off) / P::TR;
+  const int ntiles = (Lq + P::TR - 1) / P::TR;
+  load(lo);
+  int lo_w = ntiles;                     // the same for this warp's keys
+  if (k0 + wr < Lk) {
+    lo_w = 0;
+    if (causal && off >= 0) lo_w = max(0, k0 + wr - off) / P::TR;
   }
-  if (kcol < Lk) {
-    store_groups<NG>(dk + ((size_t)bh * Lk + kcol) * D, dka, g, D);
-    store_groups<NG>(dv + ((size_t)bh * Lk + kcol) * D, dva, g, D);
+  // the key bias in the exp2 domain; keys past Lk get p = 0 below
+  const float b0 = c0 < Lk ? __fmul_rn(bias[(size_t)b * Lk + c0], kLog2e) : 0.f;
+  const float b1 = c1 < Lk ? __fmul_rn(bias[(size_t)b * Lk + c1], kLog2e) : 0.f;
+  const float scale2 = sm_scale * kLog2e;
+  const FragOffsets<DMAX> fo(g, t);
+  float dka[P::ND][4], dva[P::ND][4];
+#pragma unroll
+  for (int i = 0; i < P::ND; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+
+  for (int i = lo; i < ntiles; ++i) {
+    float* st = walk + (i & 1) * P::STAGE;
+    cp_async_wait<0>();
+    split_tile<DMAX, P::THREADS, P::TR>(st, st + T);
+    split_tile<DMAX, P::THREADS, P::TR>(st + 2 * T, st + 3 * T);
+    __syncthreads();                     // tile i is whole; tile i - 1 done
+    if (i + 1 < ntiles) load(i + 1);
+    if (i < lo_w) continue;
+    const int q0 = i * P::TR;
+
+    float sc[P::NT][4], dp[P::NT][4];    // S^T = K.Q^T, dP^T = V.dO^T
+    score_tile<DMAX, P::NT>(sc, Ks + wr * DMAX, st, st + T, D, fo);
+    score_tile<DMAX, P::NT>(dp, Vs + wr * DMAX, st + 2 * T, st + 3 * T, D,
+                            fo);
+    uint32_t keep = 0u;
+    if (drop.on) {
+#pragma unroll
+      for (int j = 0; j < P::NT; ++j)
+        keep |= keep_quad_t(drop, bh, q0 + 8 * j + 2 * t, c0 >> 2, g & 3)
+                << (4 * j);
+    }
+    // sc[j][e]: key e < 2 ? c0 : c1, query q0 + 8j + 2t + (e & 1);
+    // p~^T in sc, ds^T in dp
+    const float* lsm = st + 4 * T;
+    const float* dsm = lsm + P::TR;
+#pragma unroll
+    for (int j = 0; j < P::NT; ++j) {
+      const int ql = 8 * j + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + ql + (e & 1), key = e < 2 ? c0 : c1;
+        // queries past Lq: p = 0
+        const float ls =
+            qi < Lq ? __fmul_rn(lsm[ql + (e & 1)], kLog2e) : INFINITY;
+        float x = fmaf(sc[j][e], scale2, e < 2 ? b0 : b1);
+        if (causal && key > qi + off) x = kNeg2;
+        if (key >= Lk) x = -INFINITY;
+        const float p = ex2(x - ls);
+        float d = dp[j][e], pv = p;
+        if (drop.on) {
+          const bool kept = (keep >> (4 * j + e)) & 1u;
+          pv = kept ? p * drop.inv_keep : 0.f;
+          d = kept ? d * drop.inv_keep : 0.f;
+        }
+        sc[j][e] = pv;
+        dp[j][e] = p * (d - dsm[ql + (e & 1)]) * sm_scale;
+      }
+    }
+    grad_tile<DMAX, P::NT>(dva, sc, st + 2 * T, st + 3 * T, D, fo);  // p~^T.dO
+    grad_tile<DMAX, P::NT>(dka, dp, st, st + T, D, fo);              // ds^T.Q
+  }
+#pragma unroll
+  for (int i = 0; i < P::ND; ++i) {
+    const int d = 8 * i + 2 * t;
+    if (d >= D) break;
+    if (c0 < Lk) {
+      const size_t o = ((size_t)bh * Lk + c0) * D + d;
+      *reinterpret_cast<float2*>(dk + o) = make_float2(dka[i][0], dka[i][1]);
+      *reinterpret_cast<float2*>(dv + o) = make_float2(dva[i][0], dva[i][1]);
+    }
+    if (c1 < Lk) {
+      const size_t o = ((size_t)bh * Lk + c1) * D + d;
+      *reinterpret_cast<float2*>(dk + o) = make_float2(dka[i][2], dka[i][3]);
+      *reinterpret_cast<float2*>(dv + o) = make_float2(dva[i][2], dva[i][3]);
+    }
   }
 }
 
@@ -913,13 +1032,14 @@ struct BwdArgs {
 
 template <int DMAX>
 cudaError_t launch_dq(const BwdArgs& a, int dtype, void* dq) {
-  dim3 grid(a.B * a.H, (a.Lq + BM - 1) / BM);
   cudaError_t e;
   if (dtype == kF32) {
+    using P = F32Plan<DMAX>;
+    const dim3 grid(a.B * a.H, (a.Lq + P::ROWS - 1) / P::ROWS);
     static bool configured = false;
-    constexpr int bytes = DqSmem<DMAX>::bytes;
-    if ((e = allow_smem(dq_f32_kernel<DMAX>, bytes, configured))) return e;
-    dq_f32_kernel<DMAX><<<grid, THREADS, bytes, a.stream>>>(
+    if ((e = allow_smem(dq_split_tf32_kernel<DMAX>, P::bytes, configured)))
+      return e;
+    dq_split_tf32_kernel<DMAX><<<grid, P::THREADS, P::bytes, a.stream>>>(
         (const float*)a.q, (const float*)a.k, (const float*)a.v,
         (const float*)a.bias, (const float*)a.dout, (const float*)a.lse,
         (const float*)a.delta, (float*)dq, a.H, a.Lq, a.Lk, a.D, a.sm_scale,
@@ -948,13 +1068,14 @@ cudaError_t launch_dq(const BwdArgs& a, int dtype, void* dq) {
 
 template <int DMAX>
 cudaError_t launch_dkv(const BwdArgs& a, int dtype, void* dk, void* dv) {
-  dim3 grid(a.B * a.H, (a.Lk + BN - 1) / BN);
   cudaError_t e;
   if (dtype == kF32) {
+    using P = F32Plan<DMAX>;
+    const dim3 grid(a.B * a.H, (a.Lk + P::ROWS - 1) / P::ROWS);
     static bool configured = false;
-    constexpr int bytes = DkvSmem<DMAX>::bytes;
-    if ((e = allow_smem(dkv_f32_kernel<DMAX>, bytes, configured))) return e;
-    dkv_f32_kernel<DMAX><<<grid, THREADS, bytes, a.stream>>>(
+    if ((e = allow_smem(dkv_split_tf32_kernel<DMAX>, P::bytes, configured)))
+      return e;
+    dkv_split_tf32_kernel<DMAX><<<grid, P::THREADS, P::bytes, a.stream>>>(
         (const float*)a.q, (const float*)a.k, (const float*)a.v,
         (const float*)a.bias, (const float*)a.dout, (const float*)a.lse,
         (const float*)a.delta, (float*)dk, (float*)dv, a.H, a.Lq, a.Lk, a.D,

@@ -40,8 +40,10 @@
 //    ptxas (CUDA 12.9, -Xptxas -v): 128 registers at entry at D <= 64 and
 //    168 at D <= 128, 0 bytes spilled; setmaxnreg then gives the consumers
 //    160 (three warpgroups) or 240 (two) and the producer 24.
-//  * float32 has no tensor-core path of float32 precision (TF32 keeps 10
-//    mantissa bits), so it runs float32 FMAs on the CUDA cores: 256 threads,
+//  * float32 runs float32 FMAs on the CUDA cores until its own redesign
+//    (TF32 alone keeps 10 mantissa bits; split TF32, three TF32 products a
+//    float32 product, holds float32's accuracy on the tensor cores, as the
+//    backward's float32 bodies in flash_bwd.cu do): 256 threads,
 //    thread (row = tid/4, g = tid%4) owns score columns g + 4j of its row
 //    and the output float4 groups g + 4i; the threads that share a row are
 //    neighbouring lanes, so row max and row sum are two shuffles.

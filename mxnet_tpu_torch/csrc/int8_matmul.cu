@@ -254,23 +254,6 @@ constexpr int DEC_THREADS = 128;    // 4 warps, one 8-column slice each
 constexpr int DEC_XS = DEC_BK + 16; // bytes of an x row in shared memory
 constexpr int DEC_MAX_SPLIT = 8;    // the portable cluster size
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  // copies src_bytes (16 or 0) and zero-fills the rest of the 16
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // the shared-memory row of w's k row r (rows of DEC_BN bytes): within each
 // group of 4 rows, row r sits at slot (r ^ (r >> 2)) & 3, so the rows
 // kk + 4t + i (t = 0..3) that one B-fragment read spans fall on 4

@@ -253,6 +253,50 @@ def test_flash_fwd_bwd_kernels_match_plain(dev, dtype, dropout, Lq, Lk, D,
         _close(a, b, dtype, name)
 
 
+def _lengths_bias(dev, lengths, Lk):
+    """(B, Lk) padding bias: batch row b keeps its first lengths[b] keys."""
+    bias = torch.zeros((len(lengths), Lk), dtype=torch.float32, device=dev)
+    for b, n in enumerate(lengths):
+        bias[b, n:] = -1e30
+    return bias
+
+
+@pytest.mark.parametrize("Lq,Lk,D,lengths,dropout", [
+    # SQuAD-like: 384 keys padded to lengths off the 64-row tiles
+    (384, 384, 64, (200, 384), 0.1),
+    # D = 72: a head dim between 64 and 96, padded, Lq != Lk
+    (130, 200, 72, (200, 131), 0.0),
+    (130, 200, 72, (117, 200), 0.1),
+    # D = 128 (the other tiling: 64 rows a block, 32-row walked tiles)
+    (384, 384, 128, (384, 251), 0.1),
+])
+def test_flash_bwd_float32_split_tf32_tile_edges(dev, Lq, Lk, D, lengths,
+                                                  dropout):
+    """The float32 dq and dkv (split TF32 on the tensor cores) at the
+    edges of their tiling: padded lengths off the tile grid, a head dim
+    that is not a power of two, Lq != Lk, dropout; each within 1e-4 of
+    the plain version."""
+    B, H = 2, 3
+    q, k, v = _qkv(dev, torch.float32, B, H, Lq, Lk, D, seed=Lq + D)
+    g = torch.tensor(np.random.RandomState(D).randn(B, H, Lq, D),
+                     dtype=torch.float32, device=dev)
+    bias = _lengths_bias(dev, lengths, Lk)
+    seed = 0x5EED_1234_ABCD
+    ro, rlse = fa.flash_fwd_reference(q, k, v, bias, dropout=dropout,
+                                      seed=seed)
+    delta = (g * ro).sum(-1).reshape(B * H, Lq)
+    args = (q, k, v, bias, g, rlse, delta, False, None, dropout, seed)
+    n = (fa.launches_dq, fa.launches_dkv)
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert (fa.launches_dq, fa.launches_dkv) == (n[0] + 1, n[1] + 1)
+    ref = fa.flash_bwd_reference(*args)
+    for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert a.shape == r.shape and torch.isfinite(a).all()
+        _close(a, r, torch.float32, name)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_raises_on_misaligned_view(dev, dtype):
     """The kernels load through TMA (bf16) or 16-byte vectors (float32):
