@@ -394,8 +394,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                # dense tensor-core bf16 peak
 F32_FLOPS = 67e12                  # float32 outside the tensor cores
 TF32_FLOPS = 495e12                # dense tensor-core TF32 peak
-# float32 products in split TF32 (the float32 flash dq and dkv): three
-# TF32 products each, so float32 work at a third of the TF32 rate
+# float32 products in split TF32 (the float32 flash forward, dq and dkv):
+# three TF32 products each, so float32 work at a third of the TF32 rate
 SPLIT_TF32_FLOPS = TF32_FLOPS / 3
 INT8_OPS = 1979e12                 # dense tensor-core int8 peak
 TOL_INT8_FWD = 2e-2
@@ -1053,8 +1053,8 @@ def flash_times(root):
     there) at the main-path shapes: the serving prefill (8,12,512,64)
     causal (forward only), BERT's (32,12,512,64) with dropout 0.1 (and
     without, which shows what the keep bits cost) and GPT-2's
-    (16,12,1024,64) causal, bf16; the float32 dq and dkv at SQuAD
-    fine-tuning's (32,12,384,64) and the symbolic BERT-base's
+    (16,12,1024,64) causal, bf16; the float32 forward, dq and dkv at
+    SQuAD fine-tuning's (32,12,384,64) and the symbolic BERT-base's
     (32,12,128,64), each with its batch's padding mask and dropout 0.1
     (`sym_flash_phase`'s inputs); paged attention at phase 1's shape and
     at the steady-decode round's, bf16; the int8 GEMM at GPT-2's four
@@ -1099,7 +1099,9 @@ def flash_times(root):
         delta = (g * o).sum(-1).reshape(lse.shape)
         bw = (q, k, v, bias, g, lse, delta, False, None, 0.1, 5)
         out[name] = {}
-        for kern, fn in (("dq", lambda: fa.flash_bwd_dq(*bw)),
+        for kern, fn in (("fwd", lambda: fa.flash_fwd(
+                             q, k, v, bias, False, dropout=0.1, seed=5)),
+                         ("dq", lambda: fa.flash_bwd_dq(*bw)),
                          ("dkv", lambda: fa.flash_bwd_dkv(*bw))):
             out[name][f"{kern}_ms"] = time_ms(fn)
             out[name][f"{kern}_device_ms"] = device_ms(fn, match="mxt::")
@@ -6906,10 +6908,9 @@ def sym_flash_phase(dev, B=32, H=12, L=128, D=64, p=0.1,
     same mask (its own dropout mask: times only) and the bound, its
     operations counted over the valid keys only (a masked key adds
     exactly 0: L x the sum of the lengths score pairs a head, not B x
-    L^2): the forward's at the float32 rate of the CUDA cores, dq's and
-    dkv's at the split-TF32 rate of the tensor cores they run on, with
-    the CUDA-core bound beside it (`bound_ms_f32_cores`, the rule of
-    earlier rows). Returns {row: {key: extra fields}}."""
+    L^2), at the split-TF32 rate of the tensor cores the three kernels
+    run on, with the CUDA-core bound beside it (`bound_ms_f32_cores`,
+    the rule of earlier rows). Returns {row: {key: extra fields}}."""
     import torch
     import torch.nn.functional as tF
     from mxnet_tpu_torch.cuda_ops import flash_attention as fa
@@ -6961,7 +6962,8 @@ def sym_flash_phase(dev, B=32, H=12, L=128, D=64, p=0.1,
              lambda: fa.flash_fwd(q, k, v, bias, False, dropout=p,
                                   seed=seed),
              lambda: fa.flash_fwd_reference(q, k, v, bias, False, dropout=p,
-                                            seed=seed), lib_fwd, F32_FLOPS),
+                                            seed=seed), lib_fwd,
+             SPLIT_TF32_FLOPS),
             ("flash_attention_dq", e_dq, 5 * io_b + 8 * BH * L + 4 * B * L,
              6 * pairs * D, lambda: fa.flash_bwd_dq(*bw),
              lambda: fa.flash_dq_reference(*bw), lib_bwd, SPLIT_TF32_FLOPS),
@@ -8709,18 +8711,19 @@ def main():
         check(len(mix) == 6 and all(
             m["HGMMA"] > 0 and m["UTMALDG"] > 0 and m["HMMA"] == 0
             for m in mix.values()), f"wgmma kernels' SASS {mix}")
-    # the float32 dq and dkv (two instantiations each): split TF32 on the
-    # tensor cores, mma.sync in TF32 (HMMA.1688.F32.TF32) or wgmma
+    # the float32 forward, dq and dkv (two instantiations each): split TF32
+    # on the tensor cores, mma.sync in TF32 (HMMA.1688.F32.TF32) or wgmma
     mix32 = sass_mix(os.path.join(_build.BUILD_DIR, _build.LIB_NAME),
-                     kernels=("dq_split_tf32_kernel",
+                     kernels=("flash_fwd_split_tf32_kernel",
+                              "dq_split_tf32_kernel",
                               "dkv_split_tf32_kernel"),
                      ops=("HMMA", "HMMA.TF32", "HGMMA"))
-    print("chip_smoke: SASS of the float32 dq and dkv (HMMA.TF32 = TF32 "
-          "mma.sync, HGMMA = wgmma) " + json.dumps(mix32))
+    print("chip_smoke: SASS of the float32 forward, dq and dkv (HMMA.TF32 "
+          "= TF32 mma.sync, HGMMA = wgmma) " + json.dumps(mix32))
     if mix32 is not None:
-        check(len(mix32) == 4 and all(
+        check(len(mix32) == 6 and all(
             m["HMMA.TF32"] > 0 or m["HGMMA"] > 0 for m in mix32.values()),
-            f"float32 dq / dkv kernels' SASS: no tensor-core MMA {mix32}")
+            f"float32 flash kernels' SASS: no tensor-core MMA {mix32}")
     # the int8 GEMM's M > 16 route (two instantiations): int8 wgmma (IGMMA)
     # fed by TMA, no mma.sync (IMMA); paged attention (four): bulk copies
     mix8 = sass_mix(os.path.join(_build.BUILD_DIR, _build.LIB_NAME),
@@ -8756,7 +8759,8 @@ def main():
                       ("flash_attention_dkv", "dkv_wgmma")):
         kernels[row]["sass"] = None if mix is None else {
             name: m for name, m in mix.items() if want in name}
-    for row, want in (("flash_attention_dq", "dq_split_tf32"),
+    for row, want in (("flash_attention_fwd_dropout", "flash_fwd_split_tf32"),
+                      ("flash_attention_dq", "dq_split_tf32"),
                       ("flash_attention_dkv", "dkv_split_tf32")):
         kernels[row]["sass_f32"] = None if mix32 is None else {
             name: m for name, m in mix32.items() if want in name}

@@ -16,17 +16,13 @@
 // and the plain version (`dropout_keep_mask` in cuda_ops/flash_attention.py)
 // reproduces it bit for bit.
 //
-// The float32 forward (CUDA cores) fills a tile's mask into shared memory
-// once per (64-row, 64-column) tile with every thread of the block -- one
-// byte per (row, 4-column group), bit j for column 4g + j -- so each Philox
-// call is made once, whatever fragment layout later reads the bits. The
-// tensor-core kernels (the bf16 wgmma kernels, the float32 dq and dkv on
-// mma.sync) compute the bits in registers instead, in their accumulator
-// layout, with no shared memory and no block barrier: the forward and dq
-// hold (query rows, key columns) tiles (`keep_quad`), dkv holds the
-// transpose, (key rows, query columns) (`keep_quad_t`). Either
-// way a lane makes one Philox call per 8-column block of its tile, and the
-// lanes that share the call's four words swap bits with shuffles.
+// Every kernel computes the bits in registers, in its accumulator layout,
+// with no shared memory and no block barrier: the forwards and dq (the
+// bf16 wgmma kernels and the float32 split-TF32 kernels on mma.sync) hold
+// (query rows, key columns) tiles (`keep_quad`), dkv holds the transpose,
+// (key rows, query columns) (`keep_quad_t`). Either way a lane makes one
+// Philox call per 8-column block of its tile, and the lanes that share the
+// call's four words swap bits with shuffles.
 #pragma once
 
 #include <stdint.h>
@@ -77,26 +73,6 @@ __device__ __forceinline__ uint32_t keep_nibble(const DropoutArgs& d, int bh,
          ((uint32_t)(c[1] >= d.threshold) << 1) |
          ((uint32_t)(c[2] >= d.threshold) << 2) |
          ((uint32_t)(c[3] >= d.threshold) << 3);
-}
-
-constexpr int kMaskGroups = 16;   // 4-column groups of a 64-column tile
-
-// Fill mask[r * 16 + g] for the 64 x 64 tile at (row0, col0) with the
-// block's `nthreads` threads. Rows and columns past the tensor get
-// arbitrary bits: their scores carry zero weight either way.
-__device__ __forceinline__ void fill_tile_mask(uint8_t* mask,
-                                               const DropoutArgs& d, int bh,
-                                               int row0, int col0,
-                                               int nthreads) {
-  for (int i = threadIdx.x; i < 64 * kMaskGroups; i += nthreads) {
-    const int r = i / kMaskGroups, g = i % kMaskGroups;
-    mask[i] = (uint8_t)keep_nibble(d, bh, row0 + r, (col0 >> 2) + g);
-  }
-}
-
-// keep bit of (row0 + r, col0 + c) from a filled tile mask
-__device__ __forceinline__ bool tile_keep(const uint8_t* mask, int r, int c) {
-  return (mask[r * kMaskGroups + (c >> 2)] >> (c & 3)) & 1;
 }
 
 // Keep bits of the four accumulator entries a thread holds in one 8-column

@@ -102,29 +102,12 @@ namespace {
 
 // ---- float32: split TF32 on mma.sync (flash_common.cuh) -------------------
 
-// A block owns ROWS rows (query rows in dq, keys in dkv), 16 a warp, kept
-// raw in shared memory and split as their A fragments load; it walks the
-// other side in tiles of TR rows (keys in dq, queries in dkv), each copied
-// by cp.async into the "small" half of a stage, split in place by the
-// threads that copied it, and read by every warp. Two stages: tile i + 1
-// is in flight while tile i's products run. A stage also carries its
-// tile's bias (dq) or lse and delta (dkv), 4-byte copies.
-template <int DMAX> struct F32Plan {
-  static constexpr int WARPS = DMAX == 64 ? 8 : 4;
-  static constexpr int THREADS = 32 * WARPS;
-  static constexpr int ROWS = 16 * WARPS;
-  static constexpr int TR = DMAX == 64 ? 64 : 32;
-  static constexpr int NT = TR / 8;          // n-tiles of a score tile
-  static constexpr int ND = DMAX / 8;        // n-tiles of a gradient row
-  static constexpr int FIXED = ROWS * DMAX;  // floats of one own tensor
-  static constexpr int TILE = TR * DMAX;     // floats of one walked part
-  // [A big, A small, B big, B small, 2 x TR row values]
-  static constexpr int STAGE = 4 * TILE + 2 * TR;
-  static constexpr int bytes = (2 * FIXED + 2 * STAGE) * 4;
-};
+// dq and dkv own two tensors (Q and dO; K and V) and walk two (K and V
+// with the key bias; Q and dO with lse and delta): F32Plan's tiling
+template <int DMAX> using BwdPlan = F32Plan<DMAX, 2, 2>;
 
 template <int DMAX>
-__global__ void __launch_bounds__(F32Plan<DMAX>::THREADS, 1)
+__global__ void __launch_bounds__(BwdPlan<DMAX>::THREADS, 1)
 dq_split_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ bias,
@@ -133,7 +116,7 @@ dq_split_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ delta, float* __restrict__ dq,
                      int H, int Lq, int Lk, int D, float sm_scale, int causal,
                      DropoutArgs drop) {
-  using P = F32Plan<DMAX>;
+  using P = BwdPlan<DMAX>;
   constexpr int T = P::TILE;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                      // own rows: Q, then dO, raw
@@ -247,7 +230,7 @@ dq_split_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DMAX>
-__global__ void __launch_bounds__(F32Plan<DMAX>::THREADS, 1)
+__global__ void __launch_bounds__(BwdPlan<DMAX>::THREADS, 1)
 dkv_split_tf32_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v,
@@ -258,7 +241,7 @@ dkv_split_tf32_kernel(const float* __restrict__ q,
                       float* __restrict__ dk, float* __restrict__ dv, int H,
                       int Lq, int Lk, int D, float sm_scale, int causal,
                       DropoutArgs drop) {
-  using P = F32Plan<DMAX>;
+  using P = BwdPlan<DMAX>;
   constexpr int T = P::TILE;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;                      // own keys: K, then V, raw
@@ -1034,7 +1017,7 @@ template <int DMAX>
 cudaError_t launch_dq(const BwdArgs& a, int dtype, void* dq) {
   cudaError_t e;
   if (dtype == kF32) {
-    using P = F32Plan<DMAX>;
+    using P = BwdPlan<DMAX>;
     const dim3 grid(a.B * a.H, (a.Lq + P::ROWS - 1) / P::ROWS);
     static bool configured = false;
     if ((e = allow_smem(dq_split_tf32_kernel<DMAX>, P::bytes, configured)))
@@ -1070,7 +1053,7 @@ template <int DMAX>
 cudaError_t launch_dkv(const BwdArgs& a, int dtype, void* dk, void* dv) {
   cudaError_t e;
   if (dtype == kF32) {
-    using P = F32Plan<DMAX>;
+    using P = BwdPlan<DMAX>;
     const dim3 grid(a.B * a.H, (a.Lk + P::ROWS - 1) / P::ROWS);
     static bool configured = false;
     if ((e = allow_smem(dkv_split_tf32_kernel<DMAX>, P::bytes, configured)))

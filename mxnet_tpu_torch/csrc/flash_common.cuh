@@ -1,7 +1,6 @@
-// Tiles shared by the float32 flash attention bodies (flash_fwd.cu,
-// flash_bwd.cu): 64-row tiles staged in shared memory with 16-byte loads
-// (the forward's CUDA-core body), and the split-TF32 building blocks of
-// the backward's tensor-core bodies: cp.async tile copies into swizzled
+// The split-TF32 building blocks of the float32 flash attention bodies
+// (flash_fwd.cu's forward, flash_bwd.cu's dq and dkv), all on the tensor
+// cores: the tiling a block follows, cp.async tile copies into swizzled
 // rows, the big/small split, and m16n8k8 TF32 mma.sync with its fragment
 // offsets. (The bf16 bodies build on hopper.cuh: TMA and wgmma.)
 #pragma once
@@ -10,28 +9,31 @@
 
 namespace mxt {
 
-constexpr int BM = 64;        // query rows per tile
-constexpr int BN = 64;        // keys per tile
-
-// padded shared-memory row stride of a float32 tile: rows of DMAX + 4
-// floats keep float4 rows 16-byte aligned
-template <int DMAX> struct F32Rows { static constexpr int SD = DMAX + 4; };
-
-// rows [0, nvalid) of a (rows, D) float tile into 64 smem rows of stride
-// SD, zero-filled past D (up to DMAX) and past nvalid
-template <int DMAX, int NTHREADS>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              int nvalid, int D) {
-  constexpr int VPR = DMAX / 4;
-  constexpr int SD = F32Rows<DMAX>::SD;
-  for (int i = threadIdx.x; i < 64 * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < nvalid && c < D)
-      val = *reinterpret_cast<const float4*>(src + (size_t)r * D + c);
-    *reinterpret_cast<float4*>(dst + r * SD + c) = val;
-  }
-}
+// The tiling of a split-TF32 body. A block owns ROWS rows, 16 a warp (8
+// warps at D <= 64, 4 at D <= 128): query rows in the forward and dq,
+// keys in dkv. Its OWN own tensors (Q; Q and dO; K and V) stay raw in
+// shared memory and are split as their A fragments load. It walks the
+// other side in tiles of TR rows (keys in the forward and dq, queries in
+// dkv; 64 at D <= 64 and 32 at D <= 128 unless the body asks for fewer),
+// each tensor of a tile copied by cp.async into the "small" half of a
+// stage, split in place by the threads that copied it, and read by every
+// warp. Two stages: tile i + 1 is in flight while tile i's products run.
+// A stage also carries VALS values a tile row, 4-byte copies: the key
+// bias (forward, dq) or lse and delta (dkv).
+template <int DMAX, int OWN, int VALS, int TR_ = DMAX == 64 ? 64 : 32>
+struct F32Plan {
+  static constexpr int WARPS = DMAX == 64 ? 8 : 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int ROWS = 16 * WARPS;
+  static constexpr int TR = TR_;
+  static constexpr int NT = TR / 8;          // n-tiles of a score tile
+  static constexpr int ND = DMAX / 8;        // n-tiles of an output row
+  static constexpr int FIXED = ROWS * DMAX;  // floats of one own tensor
+  static constexpr int TILE = TR * DMAX;     // floats of one walked part
+  // [first walked tensor big, small, second big, small, VALS x TR]
+  static constexpr int STAGE = 4 * TILE + VALS * TR;
+  static constexpr int bytes = (OWN * FIXED + 2 * STAGE) * 4;
+};
 
 // ---- split TF32 on the tensor cores ---------------------------------------
 //
@@ -175,8 +177,9 @@ __device__ __forceinline__ void split_tile(float* big, float* small) {
   }
 }
 
-// The products below run two output tiles side by side (u = 0, 1): their
-// six-mma chains interleave, so each mma waits on the one two back.
+// The products below run U output tiles side by side (u = 0 .. U - 1,
+// two unless a caller asks for more): their six-mma chains interleave, so
+// each mma waits on the one U back.
 
 // acc[j] = A.B^T over the head dim for 16 rows of a raw tile, from `a`
 // (the tile plus 16 R rows: the swizzle repeats every 16 rows) and split
@@ -184,12 +187,12 @@ __device__ __forceinline__ void split_tile(float* big, float* small) {
 // score columns 8j + 2t + (e & 1) in acc[j][e]. Partial sums of two
 // k-steps; k-steps past D hold zeros on both sides, and pairs of them are
 // skipped.
-template <int DMAX, int NT>
+template <int DMAX, int NT, int U = 2>
 __device__ __forceinline__ void score_tile(float (&acc)[NT][4], const float* a,
                                            const float* bb, const float* bs,
                                            int D,
                                            const FragOffsets<DMAX>& fo) {
-  static_assert(NT % 2 == 0, "n-tiles go in pairs");
+  static_assert(NT % U == 0, "n-tiles go in groups of U");
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -210,35 +213,35 @@ __device__ __forceinline__ void score_tile(float (&acc)[NT][4], const float* a,
       split_tf32(x1.y, ab[h][3], as[h][3]);
     }
 #pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      uint2 xb[2][2], xs[2][2];              // [u][h]
+    for (int j = 0; j < NT; j += U) {
+      uint2 xb[U][2], xs[U][2];              // [u][h]
 #pragma unroll
-      for (int u = 0; u < 2; ++u)
+      for (int u = 0; u < U; ++u)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int o = fo.a_off(8 * (j + u), s + h);
           xb[u][h] = *reinterpret_cast<const uint2*>(bb + o);
           xs[u][h] = *reinterpret_cast<const uint2*>(bs + o);
         }
-      float part[2][4];
+      float part[U][4];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
+        for (int u = 0; u < U; ++u) {
           if (h == 0)
             mma_tf32_first(part[u], as[h], xb[u][h].x, xb[u][h].y);
           else
             mma_tf32(part[u], as[h], xb[u][h].x, xb[u][h].y);
         }
 #pragma unroll
-        for (int u = 0; u < 2; ++u)
+        for (int u = 0; u < U; ++u)
           mma_tf32(part[u], ab[h], xs[u][h].x, xs[u][h].y);
 #pragma unroll
-        for (int u = 0; u < 2; ++u)
+        for (int u = 0; u < U; ++u)
           mma_tf32(part[u], ab[h], xb[u][h].x, xb[u][h].y);
       }
 #pragma unroll
-      for (int u = 0; u < 2; ++u) add4(acc[j + u], part[u]);
+      for (int u = 0; u < U; ++u) add4(acc[j + u], part[u]);
     }
   }
 }
@@ -246,9 +249,9 @@ __device__ __forceinline__ void score_tile(float (&acc)[NT][4], const float* a,
 // acc[i] += P.B: P the 16 x 8 NT score tile p (as score_tile leaves it),
 // B the split tile (bb, bs) of 8 NT rows, whose rows are the contraction;
 // head-dim columns 8i + 2t + (e & 1) of acc[i][e]. Partial sums of two
-// k-steps (16 rows); pairs of n-tiles past D are skipped (a lone one past
-// D reads the tile's zeros).
-template <int DMAX, int NT>
+// k-steps (16 rows); groups of U n-tiles past D are skipped (the rest of
+// a group that starts below D reads the tile's zeros).
+template <int DMAX, int NT, int U = 2>
 __device__ __forceinline__ void grad_tile(float (&acc)[DMAX / 8][4],
                                           const float (&p)[NT][4],
                                           const float* bb, const float* bs,
@@ -267,11 +270,11 @@ __device__ __forceinline__ void grad_tile(float (&acc)[DMAX / 8][4],
       split_tf32(p[j + h][3], ab[h][3], as[h][3]);   // (g + 8, row 2t + 1)
     }
 #pragma unroll
-    for (int i = 0; i < DMAX / 8; i += 2) {
+    for (int i = 0; i < DMAX / 8; i += U) {
       if (8 * i >= D) break;
-      uint32_t xb[2][2][2], xs[2][2][2];     // [u][h][row 2t, 2t + 1]
+      uint32_t xb[U][2][2], xs[U][2][2];     // [u][h][row 2t, 2t + 1]
 #pragma unroll
-      for (int u = 0; u < 2; ++u)
+      for (int u = 0; u < U; ++u)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -280,25 +283,25 @@ __device__ __forceinline__ void grad_tile(float (&acc)[DMAX / 8][4],
             xb[u][h][e] = ub[o];
             xs[u][h][e] = us[o];
           }
-      float part[2][4];
+      float part[U][4];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
+        for (int u = 0; u < U; ++u) {
           if (h == 0)
             mma_tf32_first(part[u], as[h], xb[u][h][0], xb[u][h][1]);
           else
             mma_tf32(part[u], as[h], xb[u][h][0], xb[u][h][1]);
         }
 #pragma unroll
-        for (int u = 0; u < 2; ++u)
+        for (int u = 0; u < U; ++u)
           mma_tf32(part[u], ab[h], xs[u][h][0], xs[u][h][1]);
 #pragma unroll
-        for (int u = 0; u < 2; ++u)
+        for (int u = 0; u < U; ++u)
           mma_tf32(part[u], ab[h], xb[u][h][0], xb[u][h][1]);
       }
 #pragma unroll
-      for (int u = 0; u < 2; ++u) add4(acc[i + u], part[u]);
+      for (int u = 0; u < U; ++u) add4(acc[i + u], part[u]);
     }
   }
 }

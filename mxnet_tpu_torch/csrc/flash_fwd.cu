@@ -22,7 +22,11 @@
 // Against the byte bound the bf16 body keeps TMA loads in flight ahead of
 // the math, and reads a head's K and V from device memory about once (its
 // q tiles are neighbours in the work order; causal work runs longest
-// first instead, and reads them again from L2 or device memory).
+// first instead, and reads them again from L2 or device memory). In
+// float32 both products run in split TF32, three TF32 products a float32
+// product, so its operations count at a third of the TF32 rate (165
+// TFLOP/s, chip_smoke.py `SPLIT_TF32_FLOPS`): at SQuAD fine-tuning's L =
+// 384 with a padding mask that bound is operations, at L = 128 bytes.
 //
 // Two bodies, chosen by dtype:
 //  * bfloat16 (the serving and training dtype): `flash_fwd_wgmma_kernel`,
@@ -40,13 +44,33 @@
 //    ptxas (CUDA 12.9, -Xptxas -v): 128 registers at entry at D <= 64 and
 //    168 at D <= 128, 0 bytes spilled; setmaxnreg then gives the consumers
 //    160 (three warpgroups) or 240 (two) and the producer 24.
-//  * float32 runs float32 FMAs on the CUDA cores until its own redesign
-//    (TF32 alone keeps 10 mantissa bits; split TF32, three TF32 products a
-//    float32 product, holds float32's accuracy on the tensor cores, as the
-//    backward's float32 bodies in flash_bwd.cu do): 256 threads,
-//    thread (row = tid/4, g = tid%4) owns score columns g + 4j of its row
-//    and the output float4 groups g + 4i; the threads that share a row are
-//    neighbouring lanes, so row max and row sum are two shuffles.
+//  * float32: `flash_fwd_split_tf32_kernel`, both products on the tensor
+//    cores in split TF32 (flash_common.cuh, the blocks of the backward's
+//    float32 bodies in flash_bwd.cu): each operand is big = tf32(x) plus
+//    small = tf32(x - big), and a product is three m16n8k8 mma.sync
+//    (HMMA.1688.F32.TF32), small terms first, summed two k-steps at a
+//    time into a fresh partial added in float32 (the tensor cores
+//    truncate each accumulation). That holds float32's accuracy where
+//    TF32 alone (10 mantissa bits) misses the 1e-4 gate (3.4e-4 on O in
+//    tests/test_torch_flash_split_tf32.py's emulation at SQuAD's L =
+//    384). A block owns ROWS query rows (8 warps x 16 at D <= 64, 4 x 16
+//    at D <= 128), raw in shared memory, their A fragments split as they
+//    load; it walks K and V in tiles of 32 keys, two cp.async stages,
+//    each with its keys' bias: tile i + 1 is in flight while tile i's
+//    products run, each thread splits in place the 16-byte chunks it
+//    copied, then one barrier a tile. S = Q.K^T reads K's split tile as B
+//    (`score_tile`); the online softmax runs in the exp2 domain in
+//    registers, the keep bits made there too (`keep_quad`); the kept,
+//    scaled p is the A operand of O += P.V where it stands in the score
+//    accumulators, V's split tile B with the contraction over its rows
+//    (`grad_tile`). Both products interleave four output tiles' chains.
+//    Every key tile is computed, padded or not: a row whose every key is
+//    masked has p = 1 for each, not 0.
+//    What bounds it: the warps of a block run the same phase at once
+//    (split, products, softmax and keep bits), so with one block an SM
+//    the tensor cores wait through the others. At D <= 64 the 32-key
+//    tiles keep a block to 96 KB of shared memory and 128 registers a
+//    thread, and two blocks share an SM, out of step.
 #include "dropout.cuh"
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -54,164 +78,200 @@
 namespace mxt {
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int PS = BN + 4;    // padded row stride of the P tile
+// ---- float32: split TF32 on mma.sync (flash_common.cuh) -------------------
 
-// ---- float32 on the CUDA cores ----------------------------------------------
+// The forward owns one tensor (Q) and walks two (K and V, with the key
+// bias), in tiles of 32 keys: at D <= 64 a block then takes 96 KB of
+// shared memory and at most 128 registers a thread, so two blocks (16
+// warps) share an SM and one block's softmax runs beside the other's
+// products (one block an SM with 64-key tiles took 12-19% longer at
+// SQuAD's and BERT-base's shapes on an H100, chip_smoke.py --flash-times)
+template <int DMAX> using FwdF32Plan = F32Plan<DMAX, 1, 1, 32>;
 
-template <int DMAX> struct Smem {
-  static constexpr int SD = F32Rows<DMAX>::SD;
-  static constexpr int floats = BM * SD + 2 * BN * SD + BM * PS;
-  static constexpr int bytes = floats * 4 + BM * kMaskGroups;  // + keep mask
-};
-
+// A block: ROWS query rows of one (b, h), 16 a warp. Thread (g, t) of a
+// warp holds rows r0 = g and r1 = g + 8 of the warp's 16: score columns
+// 8j + 2t + (e & 1) of sc[j][e] and output columns 8i + 2t + (e & 1) of
+// acc[i][e], row r0 for e < 2, else r1. Its running max m and its share
+// of the denominator l are per row; the four lanes of a row (one g) agree
+// on m by two shuffles a tile and sum l at the end.
 template <int DMAX>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ bias,
-                 float* __restrict__ o, float* __restrict__ lse, int H, int Lq,
-                 int Lk, int D, float sm_scale, int causal, DropoutArgs drop) {
-  constexpr int SD = Smem<DMAX>::SD;
-  constexpr int NJ = BN / 4;       // score columns per thread
-  constexpr int NG = DMAX / 16;    // output float4 groups per thread
+__global__ void __launch_bounds__(FwdF32Plan<DMAX>::THREADS, DMAX == 64 ? 2 : 1)
+flash_fwd_split_tf32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ bias,
+                            float* __restrict__ o, float* __restrict__ lse,
+                            int H, int Lq, int Lk, int D, float sm_scale,
+                            int causal, DropoutArgs drop) {
+  using P = FwdF32Plan<DMAX>;
+  constexpr int T = P::TILE;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BM * SD;
-  float* Vs = Ks + BN * SD;
-  float* Ps = Vs + BN * SD;
-  uint8_t* Mk = reinterpret_cast<uint8_t*>(Ps + BM * PS);
+  float* Qs = smem;                      // own rows: Q, raw
+  float* walk = Qs + P::FIXED;           // stages: K, V split; key bias
 
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int q0 = blockIdx.y * BM;
-  const int tid = threadIdx.x;
-  const int row = tid >> 2, g = tid & 3;
-  const int qrow = q0 + row;
-  const int off = Lk - Lq;                 // causal alignment offset
-  const float* kb = k + (size_t)bh * Lk * D;
-  const float* vb = v + (size_t)bh * Lk * D;
+  const int bh = blockIdx.x, b = bh / H, q0 = blockIdx.y * P::ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = 16 * warp, r0 = q0 + wr + g, r1 = r0 + 8;
+  const int off = Lk - Lq;               // causal alignment offset
+  const float* kh = k + (size_t)bh * Lk * D;
+  const float* vh = v + (size_t)bh * Lk * D;
   const float* brow = bias + (size_t)b * Lk;
-
-  load_tile_f32<DMAX, THREADS>(Qs, q + ((size_t)bh * Lq + q0) * D,
-                               min(BM, Lq - q0), D);
-
-  // a causal tile stops at the last key its last real row sees; with
-  // Lq > Lk some rows see no key and average over all of them (the
-  // reference's fully-masked-row semantics), so the loop then runs full
+  copy_tile_async<DMAX, P::THREADS, P::ROWS>(
+      Qs, q + ((size_t)bh * Lq + q0) * D, min(P::ROWS, Lq - q0), D);
+  auto load = [&](int i) {
+    float* st = walk + (i & 1) * P::STAGE;
+    const int k0 = i * P::TR, nk = min(P::TR, Lk - k0);
+    copy_tile_async<DMAX, P::THREADS, P::TR>(st + T, kh + (size_t)k0 * D,
+                                             nk, D);
+    copy_tile_async<DMAX, P::THREADS, P::TR>(st + 3 * T,
+                                             vh + (size_t)k0 * D, nk, D);
+    if ((int)threadIdx.x < P::TR)
+      cp_async4(st + 4 * T + threadIdx.x,
+                brow + min(k0 + (int)threadIdx.x, Lk - 1),
+                k0 + (int)threadIdx.x < Lk ? 4 : 0);
+    cp_async_commit();
+  };
+  // the keys the block's rows see: a causal block stops at its last row's
+  // diagonal; with Lq > Lk some rows see no key and average over all of
+  // them (the reference's fully-masked-row semantics), so it runs full
   int hi = Lk;
-  if (causal && off >= 0) hi = min(Lk, min(q0 + BM, Lq) + off);
-
-  float acc[4 * NG];
-#pragma unroll
-  for (int i = 0; i < 4 * NG; ++i) acc[i] = 0.f;
-  float m = kNeg, l = 0.f;
-
-  for (int k0 = 0; k0 < hi; k0 += BN) {
-    __syncthreads();                       // last tile's readers are done
-    const int nk = min(BN, Lk - k0);
-    load_tile_f32<DMAX, THREADS>(Ks, kb + (size_t)k0 * D, nk, D);
-    load_tile_f32<DMAX, THREADS>(Vs, vb + (size_t)k0 * D, nk, D);
-    if (drop.on) fill_tile_mask(Mk, drop, bh, q0, k0, THREADS);
-    __syncthreads();
-
-    float s[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[j] = 0.f;
-    const float* qr = Qs + row * SD;
-#pragma unroll 2
-    for (int d = 0; d < DMAX; d += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(qr + d);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(Ks + (g + 4 * j) * SD + d);
-        s[j] = fmaf(qv.x, kv.x, s[j]);
-        s[j] = fmaf(qv.y, kv.y, s[j]);
-        s[j] = fmaf(qv.z, kv.z, s[j]);
-        s[j] = fmaf(qv.w, kv.w, s[j]);
-      }
-    }
-
-    float mt = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = k0 + g + 4 * j;
-      float x;
-      if (c >= Lk) {
-        x = -INFINITY;                     // past the keys: zero weight
-      } else {
-        x = s[j] * sm_scale + brow[c];
-        if (causal && c > qrow + off) x = kNeg;
-      }
-      s[j] = x;
-      mt = fmaxf(mt, x);
-    }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    const float m_new = fmaxf(m, mt);
-    const float alpha = expf(m - m_new);
-    float ls = 0.f;
-    float* prow = Ps + row * PS;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float p = expf(s[j] - m_new);
-      ls += p;                             // the denominator sums unrounded p
-      prow[g + 4 * j] =                    // P.V sees the kept, scaled p
-          drop.on ? (tile_keep(Mk, row, g + 4 * j) ? p * drop.inv_keep : 0.f)
-                  : p;
-    }
-    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
-    l = l * alpha + ls;
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < 4 * NG; ++i) acc[i] *= alpha;
-    __syncwarp();                          // a row's P is written by its warp
-
-    for (int c = 0; c < nk; ++c) {
-      const float p = prow[c];
-      const float* vr = Vs + c * SD;
-#pragma unroll
-      for (int i = 0; i < NG; ++i) {
-        const float4 vv = *reinterpret_cast<const float4*>(vr + 4 * (g + 4 * i));
-        acc[4 * i + 0] = fmaf(p, vv.x, acc[4 * i + 0]);
-        acc[4 * i + 1] = fmaf(p, vv.y, acc[4 * i + 1]);
-        acc[4 * i + 2] = fmaf(p, vv.z, acc[4 * i + 2]);
-        acc[4 * i + 3] = fmaf(p, vv.w, acc[4 * i + 3]);
-      }
-    }
+  if (causal && off >= 0) hi = min(Lk, min(q0 + P::ROWS, Lq) + off);
+  const int ntiles = (hi + P::TR - 1) / P::TR;
+  load(0);
+  int hi_w = 0;                          // the same for this warp's rows
+  if (q0 + wr < Lq) {
+    hi_w = Lk;
+    if (causal && off >= 0) hi_w = min(Lk, min(q0 + wr + 16, Lq) + off);
   }
-
-  if (qrow < Lq) {
-    l = fmaxf(l, 1e-30f);
-    float* orow = o + ((size_t)bh * Lq + qrow) * D;
+  const float scale2 = sm_scale * kLog2e;
+  const FragOffsets<DMAX> fo(g, t);
+  float acc[P::ND][4];
 #pragma unroll
-    for (int i = 0; i < NG; ++i) {
+  for (int i = 0; i < P::ND; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  // the reference's running max starts at -1e30: a row whose every key is
+  // masked keeps it, and each of its keys then has p = 1
+  float m0 = kNeg2, m1 = kNeg2, l0 = 0.f, l1 = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    float* st = walk + (i & 1) * P::STAGE;
+    cp_async_wait<0>();
+    split_tile<DMAX, P::THREADS, P::TR>(st, st + T);
+    split_tile<DMAX, P::THREADS, P::TR>(st + 2 * T, st + 3 * T);
+    __syncthreads();                     // tile i is whole; tile i - 1 done
+    if (i + 1 < ntiles) load(i + 1);
+    const int k0 = i * P::TR;
+    if (k0 >= hi_w) continue;
+
+    float sc[P::NT][4];                  // S = Q.K^T
+    score_tile<DMAX, P::NT, 4>(sc, Qs + wr * DMAX, st, st + T, D, fo);
+    uint32_t keep = 0u;
+    if (drop.on) {
+#pragma unroll
+      for (int j = 0; j < P::NT; ++j)
+        keep |= keep_quad(drop, bh, r0, r1, k0 + 8 * j + 2 * t, t) << (4 * j);
+    }
+    // x = log2 e * (s * sm_scale + bias); causal-masked scores replaced by
+    // the reference's -1e30, keys past Lk get zero weight
+    const float* bsm = st + 4 * T;
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < P::NT; ++j) {
+      const int cl = 8 * j + 2 * t;
+      const float b0 = __fmul_rn(bsm[cl], kLog2e);
+      const float b1 = __fmul_rn(bsm[cl + 1], kLog2e);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int d = 4 * (g + 4 * i) + e;
-        if (d < D) orow[d] = acc[4 * i + e] / l;
+        const int c = k0 + cl + (e & 1);
+        float x = fmaf(sc[j][e], scale2, (e & 1) ? b1 : b0);
+        if (causal && c > (e < 2 ? r0 : r1) + off) x = kNeg2;
+        if (c >= Lk) x = -INFINITY;
+        sc[j][e] = x;
       }
+      mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
     }
-    if (g == 0) lse[(size_t)bh * Lq + qrow] = m + logf(l);
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float a0 = ex2(m0 - mx0), a1 = ex2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= a0;
+    l1 *= a1;
+    // p: the denominator sums it undropped; P.V sees the kept p scaled
+#pragma unroll
+    for (int j = 0; j < P::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(sc[j][e] - (e < 2 ? m0 : m1));
+        if (e < 2)
+          l0 += p;
+        else
+          l1 += p;
+        if (drop.on) p = (keep >> (4 * j + e)) & 1u ? p * drop.inv_keep : 0.f;
+        sc[j][e] = p;
+      }
+#pragma unroll
+    for (int d = 0; d < P::ND; ++d) {
+      acc[d][0] *= a0;
+      acc[d][1] *= a0;
+      acc[d][2] *= a1;
+      acc[d][3] *= a1;
+    }
+    grad_tile<DMAX, P::NT, 4>(acc, sc, st + 2 * T, st + 3 * T, D, fo);
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  l0 = fmaxf(l0, 1e-30f);
+  l1 = fmaxf(l1, 1e-30f);
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+#pragma unroll
+  for (int i = 0; i < P::ND; ++i) {
+    const int d = 8 * i + 2 * t;
+    if (d >= D) break;
+    if (r0 < Lq)
+      *reinterpret_cast<float2*>(o + ((size_t)bh * Lq + r0) * D + d) =
+          make_float2(acc[i][0] * i0, acc[i][1] * i0);
+    if (r1 < Lq)
+      *reinterpret_cast<float2*>(o + ((size_t)bh * Lq + r1) * D + d) =
+          make_float2(acc[i][2] * i1, acc[i][3] * i1);
+  }
+  // a row whose every key is masked has max kNeg2: its LSE is the
+  // reference's -1e30 exactly, so the backward's exp(x - lse) is 1
+  if (t == 0) {
+    if (r0 < Lq)
+      lse[(size_t)bh * Lq + r0] =
+          m0 == kNeg2 ? kNeg : (m0 + log2f(l0)) * kLn2;
+    if (r1 < Lq)
+      lse[(size_t)bh * Lq + r1] =
+          m1 == kNeg2 ? kNeg : (m1 + log2f(l1)) * kLn2;
   }
 }
 
 template <int DMAX>
-cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const void* bias, void* o, void* lse, int B, int H,
-                       int Lq, int Lk, int D, float sm_scale, int causal,
-                       const DropoutArgs& drop, cudaStream_t stream) {
-  constexpr int bytes = Smem<DMAX>::bytes;
+cudaError_t launch_split_tf32(const void* q, const void* k, const void* v,
+                              const void* bias, void* o, void* lse, int B,
+                              int H, int Lq, int Lk, int D, float sm_scale,
+                              int causal, const DropoutArgs& drop,
+                              cudaStream_t stream) {
+  using P = FwdF32Plan<DMAX>;
   static bool configured = false;          // above 48 KB needs an opt-in
-  cudaError_t e = allow_smem(flash_fwd_kernel<DMAX>, bytes, configured);
+  cudaError_t e =
+      allow_smem(flash_fwd_split_tf32_kernel<DMAX>, P::bytes, configured);
   if (e != cudaSuccess) return e;
-  dim3 grid(B * H, (Lq + BM - 1) / BM);
-  flash_fwd_kernel<DMAX><<<grid, THREADS, bytes, stream>>>(
+  const dim3 grid(B * H, (Lq + P::ROWS - 1) / P::ROWS);
+  flash_fwd_split_tf32_kernel<DMAX><<<grid, P::THREADS, P::bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias),
-      static_cast<float*>(o), static_cast<float*>(lse), H, Lq, Lk, D, sm_scale,
-      causal, drop);
+      static_cast<float*>(o), static_cast<float*>(lse), H, Lq, Lk, D,
+      sm_scale, causal, drop);
   return cudaGetLastError();
 }
 
@@ -591,10 +651,10 @@ extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   const DropoutArgs drop{seed_lo, seed_hi, threshold, inv_keep, dropout_on};
   if (dtype == kF32) {
-    return D <= 64 ? launch_f32<64>(q, k, v, bias, o, lse, B, H, Lq, Lk, D,
-                                    sm_scale, causal, drop, s)
-                   : launch_f32<128>(q, k, v, bias, o, lse, B, H, Lq, Lk, D,
-                                     sm_scale, causal, drop, s);
+    return D <= 64 ? launch_split_tf32<64>(q, k, v, bias, o, lse, B, H, Lq,
+                                           Lk, D, sm_scale, causal, drop, s)
+                   : launch_split_tf32<128>(q, k, v, bias, o, lse, B, H, Lq,
+                                            Lk, D, sm_scale, causal, drop, s);
   }
   if (dtype == kBF16) {
     return D <= 64 ? launch_wgmma<64>(q, k, v, bias, o, lse, B, H, Lq, Lk, D,

@@ -261,7 +261,7 @@ def _lengths_bias(dev, lengths, Lk):
     return bias
 
 
-@pytest.mark.parametrize("Lq,Lk,D,lengths,dropout", [
+_SPLIT_TF32_EDGES = [
     # SQuAD-like: 384 keys padded to lengths off the 64-row tiles
     (384, 384, 64, (200, 384), 0.1),
     # D = 72: a head dim between 64 and 96, padded, Lq != Lk
@@ -269,7 +269,32 @@ def _lengths_bias(dev, lengths, Lk):
     (130, 200, 72, (117, 200), 0.1),
     # D = 128 (the other tiling: 64 rows a block, 32-row walked tiles)
     (384, 384, 128, (384, 251), 0.1),
-])
+]
+
+
+@pytest.mark.parametrize("Lq,Lk,D,lengths,dropout", _SPLIT_TF32_EDGES)
+def test_flash_fwd_float32_split_tf32_tile_edges(dev, Lq, Lk, D, lengths,
+                                                 dropout):
+    """The float32 forward (split TF32 on the tensor cores) at the edges
+    of its tiling, the backward's grid: padded lengths off the tile grid,
+    a head dim that is not a power of two, Lq != Lk, dropout; O and lse
+    within 1e-4 of the plain version, one launch."""
+    B, H = 2, 3
+    q, k, v = _qkv(dev, torch.float32, B, H, Lq, Lk, D, seed=Lq + D)
+    bias = _lengths_bias(dev, lengths, Lk)
+    seed = 0x5EED_1234_ABCD
+    n = fa.launches
+    out, lse = fa.flash_fwd(q, k, v, bias, dropout=dropout, seed=seed)
+    torch.cuda.synchronize()
+    assert fa.launches == n + 1
+    ro, rlse = fa.flash_fwd_reference(q, k, v, bias, dropout=dropout,
+                                      seed=seed)
+    assert out.shape == ro.shape and torch.isfinite(out).all()
+    _close(out, ro, torch.float32, "O")
+    _close(lse, rlse, torch.float32, "lse")
+
+
+@pytest.mark.parametrize("Lq,Lk,D,lengths,dropout", _SPLIT_TF32_EDGES)
 def test_flash_bwd_float32_split_tf32_tile_edges(dev, Lq, Lk, D, lengths,
                                                   dropout):
     """The float32 dq and dkv (split TF32 on the tensor cores) at the

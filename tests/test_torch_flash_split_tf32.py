@@ -1,7 +1,8 @@
-"""Why the float32 flash backward may run on the tensor cores at all.
+"""Why the float32 flash kernels may run on the tensor cores at all.
 
-`csrc/flash_bwd.cu` computes the float32 dq and dkv products in split
-TF32 (`flash_common.cuh`): each float32 operand x is big = tf32(x) plus
+`csrc/flash_fwd.cu` computes the float32 forward's products (S = Q.K^T,
+O += P.V) and `csrc/flash_bwd.cu` the float32 dq and dkv products in
+split TF32 (`flash_common.cuh`): each float32 operand x is big = tf32(x) plus
 small = tf32(x - big), both rounded to 10 mantissa bits, nearest, ties
 away (the integer form of cvt.rna.tf32.f32), and each product a.b is
 a_small.b_big + a_big.b_small + a_big.b_big on the tensor cores, a
@@ -11,7 +12,9 @@ partial and add the partials in float32, rounded to nearest.
 
 This file emulates that in numpy (products of two TF32 values are exact
 in float64; each product's sum is cut to float32 toward zero) and holds
-the gradients against float64: at SQuAD fine-tuning's sequence length
+the forward's O and lse (the kernel's 32-key tiles and online softmax in
+the exp2 domain) and the gradients against float64: at SQuAD
+fine-tuning's sequence length
 with a padding mask split TF32 stays within 1e-5 where plain TF32
 misses the 1e-4 float32 gate of the card tests; and on a row whose every
 key is masked (p = 1 for every key: dq sums 257 large terms) the
@@ -51,12 +54,14 @@ def toward_zero(x):
     return y
 
 
-def matmul(a, b, mode):
-    """a @ b for float32 a (..., m, k) and b (..., k, n), one k-step of 8
-    a tensor-core product: "split" as the kernels (split TF32, partials
-    of two k-steps added in float32), "split_chain" (split TF32, one
-    accumulator chain), "tf32" (plain TF32, one chain)."""
-    acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+def matmul(a, b, mode, acc=None):
+    """acc + a @ b for float32 a (..., m, k) and b (..., k, n) (acc zeros
+    if None), one k-step of 8 a tensor-core product: "split" as the
+    kernels (split TF32, partials of two k-steps added to acc in
+    float32), "split_chain" (split TF32, one accumulator chain), "tf32"
+    (plain TF32, one chain)."""
+    if acc is None:
+        acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
     part = acc
     for s in range(0, a.shape[-1], 8):
         x, y = a[..., s:s + 8], b[..., s:s + 8, :]
@@ -120,6 +125,96 @@ def _gradients(q, k, v, g, bias, mode):
             matmul(p.astype(np.float32).swapaxes(-1, -2), g, mode))
 
 
+_LOG2E = np.float32(1.4426950408889634)
+_LN2 = np.float32(0.6931471805599453)
+_NEG2 = np.float32(-1e30) * _LOG2E          # the kernels' kNeg2
+
+
+def _forward(q, k, v, bias, mode):
+    """(O, lse (B, H, L)) of softmax(q.k^T / sqrt(D) + bias).v: in float64
+    for mode None, else as the float32 forward kernel computes them: keys
+    in the kernel's tiles of 32, S and P.V by `matmul` in `mode`, the online
+    softmax in float32 in the exp2 domain (x = fma(s, sm_scale log2 e,
+    bias log2 e), a running max from -1e30 log2 e, the tile's p scaling
+    the running sum and O), O = acc / max(l, 1e-30) and lse = (m +
+    log2 l) ln 2, or -1e30 for a row whose every key is masked."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    if mode is None:
+        s64 = (q.astype(np.float64) @ k.swapaxes(-1, -2).astype(np.float64)) \
+            * scale + bias[:, None, None, :]
+        top = s64.max(-1, keepdims=True)
+        e = np.exp(s64 - top)
+        return ((e / e.sum(-1, keepdims=True)) @ v.astype(np.float64),
+                (np.log(e.sum(-1, keepdims=True)) + top)[..., 0])
+    tile = 32
+    scale2 = np.float32(scale) * _LOG2E
+    b2 = (bias * _LOG2E).astype(np.float32)[:, None, None, :]
+    m = np.full(q.shape[:-1] + (1,), _NEG2, np.float32)
+    l = np.zeros_like(m)
+    acc = np.zeros(q.shape, np.float32)
+    for k0 in range(0, k.shape[-2], tile):
+        kt = k[..., k0:k0 + tile, :].swapaxes(-1, -2)
+        sc = matmul(q, kt, mode)
+        x = (sc.astype(np.float64) * scale2
+             + b2[..., k0:k0 + tile]).astype(np.float32)     # one rounding
+        mx = np.maximum(m, x.max(-1, keepdims=True))
+        alpha = np.exp2(m - mx)
+        m = mx
+        p = np.exp2(x - m)
+        l = l * alpha + p.sum(-1, keepdims=True, dtype=np.float32)
+        acc = matmul(p, v[..., k0:k0 + tile, :], mode, acc * alpha)
+    l = np.maximum(l, np.float32(1e-30))
+    lse = np.where(m == _NEG2, np.float32(-1e30),
+                   (m + np.log2(l)) * _LN2)[..., 0]
+    return acc * (np.float32(1.0) / l), lse
+
+
+_FWD_CASES = {
+    # SQuAD fine-tuning's length with a padding mask off the 64-key tiles
+    "squad_like": dict(),
+    # the card grid's edge: 257 keys, D = 96, batch row 1 fully masked
+    "fully_masked_row": dict(seed=3, L=257, D=96, lengths=(170, 0)),
+}
+_fwd_cache = {}
+
+
+def _forward_errors(name):
+    """{mode: (max abs err of O, of lse)} against float64 for a case of
+    `_FWD_CASES`, computed once."""
+    if name not in _fwd_cache:
+        q, k, v, _, bias = _case(**_FWD_CASES[name])
+        ref_o, ref_lse = _forward(q, k, v, bias, None)
+        _fwd_cache[name] = {}
+        for mode in ("split", "split_chain", "tf32"):
+            o, lse = _forward(q, k, v, bias, mode)
+            _fwd_cache[name][mode] = (float(np.abs(o - ref_o).max()),
+                                      float(np.abs(lse - ref_lse).max()))
+    return _fwd_cache[name]
+
+
+@pytest.mark.parametrize("name", sorted(_FWD_CASES))
+def test_split_tf32_forward_holds_float32_accuracy(name):
+    """The float32 forward's O and lse in split TF32 stay within 1e-5 of
+    float64, where plain TF32 misses the 1e-4 gate of the card tests,
+    also on a row whose every key is masked (O the mean of V, lse
+    -1e30)."""
+    err = _forward_errors(name)
+    assert max(err["split"]) <= 1e-5, err
+    assert max(err["tf32"]) > 1e-4, err
+
+
+def test_port_plain_float32_forward_is_the_yardstick():
+    """The forward's plain version, which the card tests hold the kernel
+    to, is itself within 1e-5 of float64 at SQuAD's length with a padding
+    mask, so the 1e-4 gate measures the kernel."""
+    case = _case()
+    q, k, v, _, bias = (torch.from_numpy(x) for x in case)
+    o, lse = fa.flash_fwd_reference(q, k, v, bias)
+    ref_o, ref_lse = _forward(*case[:3], case[4], None)
+    assert np.abs(o.numpy().astype(np.float64) - ref_o).max() <= 1e-5
+    assert np.abs(lse.numpy().reshape(ref_lse.shape) - ref_lse).max() <= 1e-5
+
+
 @pytest.fixture(scope="module")
 def grads():
     case = _case()
@@ -181,7 +276,11 @@ def test_port_plain_float32_backward_is_the_yardstick(grads):
 
 
 if __name__ == "__main__":
-    # the emulated errors against float64, by mode
+    # the emulated errors against float64, by mode: the forward's O and
+    # lse, then the gradients
+    for name in sorted(_FWD_CASES):
+        for mode, (e_o, e_lse) in _forward_errors(name).items():
+            print("forward", name, mode, {"O": e_o, "lse": e_lse})
     for label, case in (("SQuAD-like (2,3,384,64)", _case()),
                         ("fully masked row (2,3,257,96)",
                          _case(seed=3, L=257, D=96, lengths=(170, 0)))):
