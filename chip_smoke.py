@@ -310,7 +310,21 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      cond with gradients, and `sym.contrib`'s through `Module.fit` and
      `simple_bind` bound on the card, against the CPU (1e-5), no kernel
      launched; a parameter's `data()` and `grad()` on the card,
-     `set_data` from numpy, a CPU NDArray and a card NDArray.
+     `set_data` from numpy, a CPU NDArray and a card NDArray;
+ 54. a fleet of two GPT-2 117M replicas (float32, full width and depth,
+     phase 2's paged server) sharing the card through `python
+     mxnet_tpu_torch/launch.py --serve-replicas 2` (the launcher maps no
+     torch library): phase 2's traffic on replica 0 alone (the reference
+     and the single tokens/s), then twice over through the front door
+     (32 requests `done`, tokens equal), then twice over with shifted
+     token ids, which no prefix tree holds (fleet tokens/s, scaling
+     efficiency, TTFT), a pass with replica 0 SIGKILLed
+     mid-stream (nothing dropped, tokens equal, `replica_exit` and
+     `replica_relaunch`, the relaunch's seconds), a rolling update to
+     v1 under traffic, SIGTERM (rc 143, each replica drained); each
+     replica's launch counters (paged attention in every one that
+     served); the phase's row recorded with `ledger.record_run` and
+     read back as `platform=gpu|devices=1`.
 
 Phase 1 also holds the training kernels against their plain versions at
 the training shapes: the flash forward with dropout 0.1 (its keep mask
@@ -354,7 +368,8 @@ not run wgmma fed by TMA or if they run mma.sync; likewise int8 wgmma
 (IGMMA) fed by TMA and no int8 mma.sync (IMMA) in the int8 GEMM's M > 16
 kernel, and bulk copies (UBLKCP) in the paged kernel. Phase 1 holds paged
 attention at two shapes: 64-page tables with random positions, and the
-steady-decode round's 7-page tables with contexts of 64-104.
+steady-decode round's 7-page tables with contexts of 64-104; and times it
+in float32 at the first (the dtype of phase 54's replicas).
 
 Each path runs with the kernels' launch counters set to 0 just before
 it and read just after; a kernel of the path that never launched fails
@@ -634,6 +649,8 @@ def paged_phase(dev, timed=True, **shape):
             errs[where, name] = err = max_err(got, ref)
             check(err <= TOL["paged"][name],
                   f"paged_attention {where} {name} max_abs_err {err}")
+            if (where, name) == ("phase1", "float32"):
+                case32 = case           # the fleet replicas' dtype (54)
         cases[where] = case                           # bfloat16
     out = {"name": "paged_attention", "route": "cuda",
            "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
@@ -668,6 +685,28 @@ def paged_phase(dev, timed=True, **shape):
             out["steady_decode"] = dict(
                 row, max_abs_err=errs[where, "bfloat16"],
                 max_abs_err_f32=errs[where, "float32"])
+    # float32 at phase 1's shape: the dtype phase 54's GPT-2 replicas
+    # serve in (pages (520, 12, 16, 64), their pool's size)
+    b_ms, b_by, need = paged_bound(case32)
+    f32 = {"max_abs_err": errs["phase1", "float32"], "bound_ms": b_ms,
+           "bound_by": b_by,
+           "shapes": f"q {tuple(case32[0].shape)} float32, pages "
+                     f"{tuple(case32[1].shape)}, tables "
+                     f"{tuple(case32[3].shape)}, random t (sum t+1 = "
+                     f"{need})"}
+    if timed:
+        library = paged_library(case32)
+        lib_err = max_err(library(), pa.paged_attention_reference(*case32))
+        check(lib_err <= TOL["paged"]["float32"],
+              f"paged library yardstick disagrees in float32 ({lib_err})")
+        f32.update(ms=device_ms(lambda: pa.paged_attention(*case32),
+                                match="paged_attention"),
+                   event_ms=time_ms(lambda: pa.paged_attention(*case32)),
+                   plain_ms=time_ms(lambda:
+                                    pa.paged_attention_reference(*case32)),
+                   library_ms=time_ms(library),
+                   library_device_ms=device_ms(library, skip=FLUSH_ONLY))
+    out["float32"] = f32
     if timed:
         out["times_are"] = ("ms: device time of the kernel (torch.profiler, "
                             "L2 flushed); event_ms: CUDA events around the "
@@ -8608,6 +8647,602 @@ def jax_unittests_phase(width=8, timeout=300, device=None):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 54: a fleet of GPT-2 117M replicas on the one card
+# ---------------------------------------------------------------------------
+
+# phase 2's server through the knobs' environment variables
+FLEET_KNOBS = {"MXNET_TPU_PAGES": PAGED_KW["pages"],
+               "MXNET_TPU_SERVE_SLOTS": str(PAGED_KW["slots"]),
+               "MXNET_TPU_PAGES_PAGE_SIZE": str(PAGED_KW["page_size"]),
+               "MXNET_TPU_PAGES_PREFILL_CHUNK": str(PAGED_KW["prefill_chunk"])}
+
+
+def maps_torch(pid):
+    """The torch and CUDA driver libraries that process `pid` has mapped
+    (`/proc/<pid>/maps`): none for a process that never imported torch."""
+    libs = set()
+    with open(f"/proc/{pid}/maps") as fh:
+        for ln in fh:
+            parts = ln.split(None, 5)
+            name = os.path.basename(parts[5].strip()) if len(parts) == 6 \
+                else ""
+            if name.startswith(("libtorch", "libc10", "libcuda.")):
+                libs.add(name)
+    return sorted(libs)
+
+
+def compute_app_pids():
+    """The pids `nvidia-smi` lists as compute processes on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    return sorted(int(x) for x in out.split() if x.isdigit())
+
+
+def free_base_port(n):
+    """A port P with P..P+n free on 127.0.0.1, picked at run time."""
+    import socket
+    for _ in range(100):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            base = sk.getsockname()[1]
+        if base + n >= 65535:
+            continue
+        try:
+            for k in range(1, n + 1):
+                with socket.socket() as sk:
+                    sk.bind(("127.0.0.1", base + k))
+            return base
+        except OSError:
+            continue
+    raise RuntimeError("no free ports")
+
+
+def http_json(port, path, body=None, timeout=10):
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method="GET" if body is None
+        else "POST", data=None if body is None else json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def front_stream(port, prompt, kw, out, timeout=600):
+    """One request through the fleet's front door; appends {"tokens",
+    "final", "ttft_s", "seconds"} to `out` (the client's view)."""
+    import http.client
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    toks, final, first = [], None, None
+    try:
+        conn.request("POST", "/submit", json.dumps(
+            dict(kw, prompt=[int(t) for t in prompt])).encode())
+        resp = conn.getresponse()
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            rec = json.loads(line)
+            if "t" in rec:
+                if first is None:
+                    first = time.perf_counter() - t0
+                toks.append(int(rec["t"]))
+            if rec.get("done"):
+                final = rec
+                break
+    except OSError as e:
+        final = {"state": "client error", "verdict": repr(e)}
+    finally:
+        conn.close()
+    out.append({"tokens": toks, "final": final, "ttft_s": first,
+                "seconds": time.perf_counter() - t0})
+
+
+def front_pass(port, specs, wait=True):
+    """Every spec at once through the front door, one client thread each
+    (results in spec order once `join()`ed); returns (threads, results,
+    t0)."""
+    import threading
+    results = [[] for _ in specs]
+    threads = [threading.Thread(target=front_stream,
+                                args=(port, p, kw, results[i]), daemon=True)
+               for i, (p, kw) in enumerate(specs)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    if wait:
+        for th in threads:
+            th.join(900)
+    return threads, results, t0
+
+
+def pass_summary(results, seconds, ref):
+    """Tokens/s, TTFT percentiles, states, the replica each request was
+    first placed on and, when `ref` is given, the requests whose tokens
+    differ from `ref` (the solo tokens of spec i % len(ref)) of one
+    pass."""
+    import collections
+
+    import numpy as np
+    rows = [r[0] if r else {"tokens": [], "final": None, "ttft_s": None}
+            for r in results]
+    n_tok = sum(len(r["tokens"]) for r in rows)
+    ttft = [r["ttft_s"] * 1e3 for r in rows if r["ttft_s"] is not None]
+    states = [(r["final"] or {}).get("state") for r in rows]
+    unequal = []
+    for i, r in enumerate(rows if ref else ()):
+        want = ref[i % len(ref)]
+        if r["tokens"] != want:
+            at = next((k for k, (a, b) in enumerate(zip(r["tokens"], want))
+                       if a != b), min(len(r["tokens"]), len(want)))
+            unequal.append({"request": i, "first_difference": at,
+                            "length": len(r["tokens"]),
+                            "final": r["final"]})
+    return {"requests": len(rows), "done": states.count("done"),
+            "tokens": n_tok, "seconds": seconds,
+            "tokens_per_sec": n_tok / seconds,
+            "ttft_ms_p50": float(np.percentile(ttft, 50)) if ttft else None,
+            "ttft_ms_p99": float(np.percentile(ttft, 99)) if ttft else None,
+            "failovers": sum((r["final"] or {}).get("failovers", 0)
+                             for r in rows),
+            "unequal": unequal,
+            "states": sorted(set(s or "none" for s in states)),
+            "first_replica": {str(k): v for k, v in sorted(
+                collections.Counter(
+                    ((r["final"] or {}).get("replicas_tried") or [None])[0]
+                    for r in rows).items(), key=str)},
+            "verdicts": sorted(set(str((r["final"] or {}).get("verdict"))
+                                   for r in rows
+                                   if (r["final"] or {}).get("state")
+                                   != "done"))}
+
+
+class PassProbe:
+    """What the card and the replicas' host threads did during one pass:
+    the mean of `nvidia-smi`'s utilization.gpu sampled every 0.5 s (the
+    share of time a kernel of any process ran), and each replica
+    process's CPU seconds (`/proc/<pid>/stat` utime + stime) over the
+    pass's wall, i.e. the cores it kept busy."""
+
+    def __init__(self, pids):
+        import threading
+        self.pids = dict(pids)
+        self.samples = []
+        self._stop = threading.Event()
+        self._cpu0 = {r: self._cpu(p) for r, p in self.pids.items()}
+        self._t0 = time.perf_counter()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def _cpu(pid):
+        try:
+            with open(f"/proc/{pid}/stat") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+            return (int(fields[11]) + int(fields[12])) \
+                / os.sysconf("SC_CLK_TCK")
+        except (OSError, ValueError, IndexError):
+            return None
+
+    def _sample(self):
+        while not self._stop.is_set():
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=utilization.gpu",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=10).stdout.split()
+                self.samples.append(float(out[0]))
+            except (OSError, ValueError, IndexError,
+                    subprocess.TimeoutExpired):
+                pass
+            self._stop.wait(0.5)
+
+    def done(self):
+        self._stop.set()
+        self._thread.join(15)
+        wall = time.perf_counter() - self._t0
+        cores = {}
+        for r, pid in self.pids.items():
+            c0, c1 = self._cpu0[r], self._cpu(pid)
+            cores[r] = None if c0 is None or c1 is None else (c1 - c0) / wall
+        return {"gpu_util_mean": (sum(self.samples) / len(self.samples)
+                                  if self.samples else None),
+                "gpu_util_samples": len(self.samples),
+                "replica_cores_busy": cores}
+
+
+def replica_lines(lines, what):
+    """(rid, version, payload) of every `mx.fleet: replica R (v) <what>
+    {json}` line the launcher relayed."""
+    out = []
+    for ln in lines:
+        tag = ln.find(f") {what} ")
+        if "mx.fleet: replica " not in ln or tag < 0:
+            continue
+        head = ln[ln.index("mx.fleet: replica ") + 18:tag]
+        rid, _, ver = head.partition(" (")
+        out.append((int(rid), ver, json.loads(ln[tag + len(what) + 3:])))
+    return out
+
+
+def fleet_phase(model="gpt2_117m", replicas=2, startup_timeout=300,
+                device=None, traffic=None):
+    """Phase 54: `python mxnet_tpu_torch/launch.py --serve-replicas 2`
+    with two `--model gpt2_117m` replicas (float32, full width and depth,
+    seeded weights, phase 2's paged server through the knobs'
+    environment variables) sharing the card, each budgeted half of its
+    memory; the launcher maps no torch library and is no compute process
+    of the card. A solo reference of phase 2's traffic on replica 0
+    through a `Router({0: url})` (the single side of the scaling
+    measure: no tree holds its prompts); the traffic twice over through
+    the front door (tokens equal the solo run's; half its prompts are in
+    replica 0's tree by then, so its tokens/s is prefix-assisted and
+    not a scaling measure); the traffic twice over again with every
+    token id shifted (1 and 2, mod the vocabulary): the same lengths and
+    shared prefixes as the solo run, in no tree (the fleet side: tokens/s,
+    scaling efficiency, TTFT); a pass of the first traffic with replica
+    0 SIGKILLed mid-stream (nothing
+    dropped, tokens equal, `replica_exit`/`replica_relaunch`, relaunch
+    seconds); a rolling update to v1 under traffic; SIGTERM (rc 143,
+    every replica drained). Each replica incarnation that drained prints
+    its launch counters; paged attention must have launched in each that
+    served. The phase's row goes through `ledger.record_run` into a
+    temporary ledger and is read back. `device="cpu"` and a smaller
+    `traffic` (serving_specs' keywords) rehearse it on the CPU."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import fleet, ledger
+    from mxnet_tpu_torch.models import gpt
+    t_phase = time.perf_counter()
+    diag = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    port = free_base_port(replicas + 1)
+    env = dict(os.environ, PYTHONPATH=ROOT, **FLEET_KNOBS)
+    limit = None
+    if device is None:
+        # each replica's memsafe budget: its share of the card, so the
+        # admission hints the router predicts 429s from are true
+        limit = torch.cuda.mem_get_info()[1] // replicas
+        env["MXNET_TPU_DEVICE_BYTES_LIMIT"] = str(limit)
+    # by file path: the supervisor imports the standard library alone
+    cmd = [sys.executable, os.path.join("mxnet_tpu_torch", "launch.py"),
+           "--serve-replicas", str(replicas), "--fleet-port", str(port),
+           "--diagnostics-dir", diag, "--max-restarts", "2", "--",
+           sys.executable, "-m", "mxnet_tpu_torch.fleet", "--model", model]
+    if device is not None:
+        cmd += ["--device", device]
+    # its own session: a launcher that will not stop is killed with its
+    # replicas
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    lines = []
+    pump = threading.Thread(target=lambda: lines.extend(proc.stdout),
+                            daemon=True)
+    pump.start()
+    row = {"model": model, "replicas": replicas, "dtype": "float32",
+           "port": port, "device_bytes_limit": limit}
+
+    def healthy(rids=range(replicas), version=None):
+        try:
+            st = http_json(port, "/statusz")["replicas"]
+        except OSError:
+            return False
+        return all(str(r) in st and st[str(r)]["healthy"]
+                   and not st[str(r)]["draining"]
+                   and (version is None or st[str(r)]["version"] == version)
+                   for r in rids)
+
+    def wait_for(cond, timeout, what):
+        end = time.perf_counter() + timeout
+        while not cond():
+            check(proc.poll() is None and time.perf_counter() < end,
+                  f"fleet: {what} (launcher rc {proc.poll()}); its output "
+                  f"ends:\n" + "".join(lines[-40:]))
+            time.sleep(0.1)
+
+    # serving_specs reads the model's config alone: no model is built here
+    shape = type("Shape", (), {"cfg": getattr(gpt, f"{model}_config")()})
+    V = shape.cfg["vocab_size"]
+    specs = serving_specs(shape, **(traffic or {}))
+    try:
+        t0 = time.perf_counter()
+        wait_for(healthy, startup_timeout, "replicas never became healthy")
+        row["startup_s"] = time.perf_counter() - t0
+        urls = {r: f"http://127.0.0.1:{port + 1 + r}"
+                for r in range(replicas)}
+        # warm each replica's three buckets (the first dispatch of a
+        # bucket measures its execution peak) outside the timed passes
+        rng = np.random.RandomState(54)
+        lens = sorted(len(p) for p, _ in specs)
+        for r, url in urls.items():
+            # a replica's first dispatches load cuBLAS's kernels and
+            # measure each bucket's execution peak under its scheduler's
+            # lock: the health checks wait, so this router waits longer
+            solo = fleet.Router({r: url}, connect_timeout_s=60.0)
+            solo.poll_once()
+            warm = [solo.submit(rng.randint(0, V, (n,)), max_new_tokens=2)
+                    for n in (lens[0], lens[len(lens) // 2], lens[-1])]
+            check(all(w.result(timeout=300) is not None
+                      and w.state == "done" for w in warm),
+                  f"fleet warm-up of replica {r}: "
+                  f"{[(w.state, w.verdict) for w in warm]}")
+
+        def prefix_tokens():
+            """(prompt tokens, of them served from prefix trees) summed
+            over the replicas so far."""
+            tot = [0, 0]
+            for r in range(replicas):
+                st = http_json(port + 1 + r, "/statusz")["stats"]
+                tot[0] += st.get("prompt_tokens", 0)
+                tot[1] += st.get("prefix_tokens", 0)
+            return tot
+
+        def replica_pids():
+            return {r: http_json(port + 1 + r, "/statusz")["pid"]
+                    for r in range(replicas)}
+
+        def solo_pass(specs):
+            """`specs` at once on replica 0 alone through a Router of its
+            own: (requests, summary)."""
+            solo = fleet.Router({0: urls[0]})
+            solo.poll_once()
+            before = prefix_tokens()
+            probe = PassProbe(replica_pids())
+            t0 = time.perf_counter()
+            firsts = [None] * len(specs)
+            reqs = [solo.submit(p, **kw) for p, kw in specs]
+
+            def watch(i, fr):
+                for _ in fr.stream():
+                    if firsts[i] is None:
+                        firsts[i] = time.perf_counter() - t0
+            watchers = [threading.Thread(target=watch, args=(i, fr),
+                                         daemon=True)
+                        for i, fr in enumerate(reqs)]
+            for w in watchers:
+                w.start()
+            for fr in reqs:
+                fr.result(timeout=900)
+            secs = time.perf_counter() - t0
+            for w in watchers:
+                w.join(10)
+            check(all(fr.state == "done" for fr in reqs),
+                  f"solo verdicts {[fr.verdict for fr in reqs]}")
+            n_tok = sum(len(fr.tokens) for fr in reqs)
+            n_prompt = sum(len(p) for p, _ in specs)
+            return reqs, {"requests": len(reqs), "tokens": n_tok,
+                          "prompt_tokens": n_prompt, "seconds": secs,
+                          "tokens_per_sec": n_tok / secs,
+                          "work_tokens_per_sec": (n_tok + n_prompt) / secs,
+                          "ttft_ms_p50": float(np.percentile(firsts, 50)) * 1e3,
+                          "ttft_ms_p99": float(np.percentile(firsts, 99)) * 1e3,
+                          "prefix_share": share(before),
+                          "failovers": sum(fr.failovers for fr in reqs),
+                          "probe": probe.done()}
+
+        def share(before):
+            after = prefix_tokens()
+            n = after[0] - before[0]
+            return (after[1] - before[1]) / n if n > 0 else None
+
+        def fleet_pass(specs, ref, probed):
+            before = prefix_tokens()
+            probe = PassProbe(replica_pids()) if probed else None
+            threads, results, t0 = front_pass(port, specs)
+            out = pass_summary(results, time.perf_counter() - t0, ref)
+            out["prefix_share"] = share(before)
+            if probe is not None:
+                out["probe"] = probe.done()
+            out["prompt_tokens"] = sum(len(p) for p, _ in specs)
+            out["work_tokens_per_sec"] = \
+                (out["tokens"] + out["prompt_tokens"]) / out["seconds"]
+            check(out["done"] == out["requests"] == len(specs),
+                  f"fleet pass states {out['states']}")
+            return out
+
+        # the supervisor holds no CUDA context: it maps no torch library,
+        # and the card lists it as no compute process (the replicas'
+        # pids are listed where the card sees this pid namespace)
+        apps = compute_app_pids() if device is None else []
+        row["launcher"] = {
+            "pid": proc.pid, "torch_libraries": maps_torch(proc.pid),
+            "compute_app": proc.pid in apps,
+            "replicas_listed": sorted(r for r, pid in replica_pids().items()
+                                      if pid in apps)}
+        check(not row["launcher"]["torch_libraries"]
+              and not row["launcher"]["compute_app"],
+              f"the launcher touches the card: {row['launcher']}")
+        # solo reference, and the single side of the scaling measure:
+        # phase 2's traffic on replica 0 alone
+        reqs, row["single"] = solo_pass(specs)
+        ref = [list(fr.tokens) for fr in reqs]
+        # the fleet pass: the traffic twice over through the front door,
+        # tokens equal to the solo run's (its prompts are in replica 0's
+        # prefix tree since the solo run: prefix-assisted, no probe)
+        fl = fleet_pass(specs * replicas, ref, probed=False)
+        row["fleet"] = fl
+        check(not fl["unequal"], f"fleet tokens differ from the solo "
+              f"reference for requests {fl['unequal']}")
+        row["fleet_prefix_assisted_tokens_per_sec"] = fl["tokens_per_sec"]
+        # the fleet side of the scaling measure: the solo traffic once a
+        # replica, each copy's token ids shifted by its number (mod the
+        # vocabulary), so lengths, shared prefixes and decode lengths are
+        # the solo run's and no tree holds a prompt
+        cold_specs = [((p + k) % V, kw) for k in range(1, replicas + 1)
+                      for p, kw in specs]
+        cold = fleet_pass(cold_specs, None, probed=True)
+        row["fleet_cold"] = cold
+        check(cold["tokens"] == row["single"]["tokens"] * replicas,
+              f"cold fleet pass: {cold['tokens']} tokens")
+        check(cold["failovers"] == 0 and row["single"]["failovers"] == 0,
+              f"failovers without a fault: solo {row['single']['failovers']}"
+              f", cold fleet {cold['failovers']}")
+        row["single_tokens_per_sec"] = row["single"]["tokens_per_sec"]
+        row["fleet_tokens_per_sec_cold"] = cold["tokens_per_sec"]
+        row["fleet_scaling_efficiency_cold"] = cold["tokens_per_sec"] / (
+            replicas * row["single_tokens_per_sec"])
+        row["work_scaling_efficiency_cold"] = cold["work_tokens_per_sec"] / (
+            replicas * row["single"]["work_tokens_per_sec"])
+        # failover: SIGKILL replica 0 mid-stream under a second pass
+        pids = replica_pids()
+        threads, results, t0 = front_pass(port, specs * replicas, wait=False)
+        wait_for(lambda: sum(len(r[0]["tokens"]) if r else 0
+                             for r in results) >= 64
+                 or http_json(port + 1, "/statusz")["served"] > 0,
+                 120, "the failover pass never streamed")
+        wait_for(lambda: http_json(port + 1, "/statusz")["stats"]["running"],
+                 120, "replica 0 never ran a request of the failover pass")
+        time.sleep(0.5)
+        t_kill = time.time()
+        os.kill(pids[0], signal.SIGKILL)
+        for th in threads:
+            th.join(900)
+        fo = pass_summary(results, time.perf_counter() - t0, ref)
+        row["failover"] = fo
+        dropped = fo["requests"] - fo["done"]
+        row["failover_dropped_requests"] = dropped
+        check(dropped == 0, f"failover dropped {dropped}: {fo['verdicts']}; "
+              f"router {http_json(port, '/statusz')['counters']}")
+        check(not fo["unequal"], f"failover tokens differ from the solo "
+              f"reference for requests {fo['unequal']}")
+        check(fo["failovers"] > 0, "the kill moved no request")
+
+        def relaunched():
+            try:
+                st = http_json(port + 1, "/statusz")
+            except OSError:
+                return False
+            return st["pid"] != pids[0] and healthy()
+        wait_for(relaunched, startup_timeout, "replica 0 never came back")
+        t_back = time.time()
+        events = [json.loads(ln) for ln in
+                  open(os.path.join(diag, "restarts.jsonl"))]
+        kinds = [e["kind"] for e in events]
+        check(kinds[:2] == ["replica_exit", "replica_relaunch"]
+              and events[0]["exit_code"] == -signal.SIGKILL,
+              f"restarts.jsonl {events}")
+        row["relaunch_s"] = t_back - t_kill
+        row["relaunch_startup_s"] = t_back - events[1]["ts"]
+        # rolling update to v1 under traffic (one request at a time)
+        stop = threading.Event()
+        roll_out = []
+
+        def traffic():
+            i = 0
+            while not stop.is_set():
+                p, kw = specs[i % len(specs)]
+                front_stream(port, p, kw, roll_out)
+                roll_out[-1]["spec"] = i % len(specs)
+                i += 1
+        client = threading.Thread(target=traffic, daemon=True)
+        client.start()
+        t0 = time.perf_counter()
+        check(http_json(port, "/roll", {"version": "v1"}).get("rolling"),
+              "the front door refused the roll")
+        wait_for(lambda: healthy(version="v1"), 2 * startup_timeout + 120,
+                 "the roll to v1 never completed")
+        row["roll_s"] = time.perf_counter() - t0
+        stop.set()
+        client.join(600)
+        roll_bad = [r for r in roll_out
+                    if (r["final"] or {}).get("state") != "done"
+                    or r["tokens"] != ref[r["spec"]]]
+        row["roll"] = {"requests": len(roll_out), "dropped_or_unequal":
+                       len(roll_bad)}
+        check(roll_out and not roll_bad,
+              f"rolling update: {len(roll_bad)} of {len(roll_out)} "
+              f"requests dropped or unequal")
+        st = http_json(port, "/statusz")["replicas"]
+        row["versions"] = {r: v["version"] for r, v in st.items()}
+        check(set(row["versions"].values()) == {"v1"},
+              f"versions after the roll {row['versions']}")
+        row["router_counters"] = http_json(port, "/statusz")["counters"]
+    except BaseException:
+        print("chip_smoke: fleet launcher's output ends:\n"
+              + "".join(lines[-60:]), flush=True)
+        raise
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=180)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        pump.join(30)
+    out = "".join(lines)
+    row["launcher_rc"] = proc.returncode
+    check(proc.returncode == 128 + signal.SIGTERM,
+          f"launcher rc {proc.returncode}; its output ends:\n"
+          + "".join(lines[-40:]))
+    drained = [ln for ln in lines if "drained" in ln
+               and "preemption path" in ln]
+    row["drained_lines"] = len(drained)
+    for r in range(replicas):
+        check(any(f"[rank {r}] mx.fleet: replica {r} drained" in ln
+                  for ln in drained[-replicas:]),
+              f"replica {r} did not drain at SIGTERM")
+    reports = replica_lines(lines, "launches")
+    incarnations = []
+    for r, ver, rep in reports:
+        paged = rep["launches"]["paged_attention.launches"]
+        incarnations.append({"replica": r, "version": ver,
+                             "served": rep["served"],
+                             "paged_attention": paged,
+                             "flash_attention_fwd":
+                                 rep["launches"]["flash_attention.launches"]})
+        check(rep["served"] == 0 or paged > 0,
+              f"replica {r} ({ver}) served {rep['served']} requests with "
+              f"no paged-attention launch")
+    row["incarnations"] = incarnations
+    check(sum(i["served"] > 0 for i in incarnations) >= replicas,
+          f"launch counters of the serving replicas missing: {incarnations}")
+    row["fleet_launches"] = {
+        k: sum(i[k] for i in incarnations)
+        for k in ("paged_attention", "flash_attention_fwd")}
+    row["seconds"] = time.perf_counter() - t_phase
+    # the phase's row through the port's ledger, read back
+    ldir = tempfile.mkdtemp(prefix="chip_smoke_ledger_")
+    try:
+        ledger.enable(ldir)
+        # bench_serve's names (the ledger keeps only the fields its
+        # direction tables name), valued from the cold pair
+        fields = {
+            "fleet_tokens_per_sec": row["fleet_tokens_per_sec_cold"],
+            "single_tokens_per_sec": row["single_tokens_per_sec"],
+            "fleet_scaling_efficiency": row["fleet_scaling_efficiency_cold"],
+            "failover_dropped_requests": row["failover_dropped_requests"],
+            "ttft_p50_ms": row["fleet_cold"]["ttft_ms_p50"],
+            "ttft_p99_ms": row["fleet_cold"]["ttft_ms_p99"],
+            "fleet_completed": row["fleet"]["done"]}
+        rec = ledger.record_run("chip_smoke_fleet",
+                                [dict(fields, metric="fleet")])
+        check(sorted(rec["metrics"]) == sorted(f"fleet.{k}" for k in fields),
+              f"ledger record's metrics {sorted(rec['metrics'])}")
+        back = [r for r in ledger.read_records(ldir) if r["kind"] == "run"]
+        keys = [k for k, _ in ledger.series(back)]
+        rc, findings = ledger.gate(back)
+        row["ledger"] = {"records": len(back), "key": keys[0] if keys
+                         else None, "gate": rc, "metrics": len(keys)}
+        check(len(back) == 1 and back[0]["metrics"] == rec["metrics"],
+              f"ledger read back {back}")
+        check(all("|platform=gpu|devices=1|" in k for k in keys),
+              f"ledger series keys {keys}")
+        check(rc == 2 and not findings,
+              f"ledger gate over one record: {rc} {findings}")
+    finally:
+        ledger.reset()
+        shutil.rmtree(ldir, ignore_errors=True)
+        shutil.rmtree(diag, ignore_errors=True)
+    row["tracebacks_in_output"] = out.count("Traceback")
+    return row
+
+
 def main():
     try:
         import torch
@@ -9343,6 +9978,19 @@ def main():
           + json.dumps(cflow))
     print(f"chip_smoke: fine-tuning phases 51-53 in "
           f"{time.perf_counter() - t51:.1f} s")
+
+    lap("54")
+    # 54. a fleet of two GPT-2 117M replicas on the one card, through the
+    # port's launcher: routing, failover, rolling update, drain, ledger
+    torch.cuda.empty_cache()
+    flt = fleet_phase()
+    flt["card"] = card
+    print("chip_smoke: fleet " + json.dumps(flt))
+    kernels["paged_attention"]["fleet_launches"] = \
+        flt["fleet_launches"]["paged_attention"]
+    kernels["flash_attention_fwd"]["fleet_launches"] = \
+        flt["fleet_launches"]["flash_attention_fwd"]
+    print(f"chip_smoke: fleet phase 54 in {flt['seconds']:.1f} s")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

@@ -536,3 +536,97 @@ _register(
     "scope_port", 8917,
     "TCP port the mx.scope server binds (127.0.0.1). 0 picks an "
     "ephemeral port (read back with mx.scope.port()).")
+_register(
+    "serve", False,
+    "Arm mx.serve instrumentation at import: `serve.note_dispatch` counts "
+    "every batched dispatch of the serving scheduler. Off by default: the "
+    "hook reduces to a single module-bool check. Constructing a "
+    "serve.Server arms it regardless.")
+# the fleet knobs' defaults: one table, which fleet.py's router half
+# also reads when the launcher loads it without this package
+from ._fleet_defaults import DEFAULTS as _FLEET  # noqa: E402
+
+_register(
+    "fleet", _FLEET["fleet"], choices=("off", "on"),
+    doc="mx.fleet replicated serving. 'off' (default) is the zero-"
+        "overhead fast path: no replica endpoint, no router, no fleet "
+        "section in mx.scope statusz — every hook site reduces to one "
+        "module-bool check. 'on' arms mx.fleet at import (read from the "
+        "environment), as constructing a fleet.ReplicaEndpoint or "
+        "running `python -m mxnet_tpu_torch.fleet` does: its section "
+        "appears in mx.scope statusz. The router itself is stdlib-only "
+        "and run by `python mxnet_tpu_torch/launch.py --serve-replicas "
+        "N`.")
+_register(
+    "fleet_port", _FLEET["fleet_port"],
+    "Base port for mx.fleet: the router's front door listens here and "
+    "replica R serves its generation endpoint on port+1+R (the same "
+    "base+1+rank layout as scope_port, on a separate base so the two "
+    "gangs of listeners never collide).")
+_register(
+    "fleet_retry_max", _FLEET["fleet_retry_max"],
+    "Per-request failover budget in the mx.fleet router: a request "
+    "whose replica dies mid-stream (or answers a retriable overload "
+    "verdict) is re-submitted to a surviving replica at most this many "
+    "times — with a `skip` high-water mark so tokens already delivered "
+    "are never re-sent — before the router returns a 503.")
+_register(
+    "fleet_health_interval_ms", _FLEET["fleet_health_interval_ms"],
+    "mx.fleet router health-poll cadence: every interval the router "
+    "fetches each replica's /healthz liveness and /statusz placement "
+    "payload (queue depth, slot occupancy, TTFT percentiles, memsafe "
+    "admission hints) with a hard per-fetch timeout, so routing "
+    "decisions ride data no staler than one interval.")
+_register(
+    "fleet_stall_timeout_ms", _FLEET["fleet_stall_timeout_ms"],
+    "mx.fleet router per-read stall bound on an in-flight generation "
+    "stream: a replica that stops producing tokens for this long "
+    "(wedged-but-alive — the wedge_replica drill) is treated as dead and "
+    "the request fails over to a survivor. 0 disables. A replica "
+    "sends a keep-alive line every quarter of this bound while its "
+    "scheduler steps and the request has no new token, so a request "
+    "that waits in a busy replica's queue is not taken for a wedge.")
+_register(
+    "fleet_drain_grace_s", _FLEET["fleet_drain_grace_s"],
+    "Zero-drop drain budget: a SIGTERMed replica stops admitting, then "
+    "finishes in-flight requests for up to this many seconds; whatever "
+    "is still running at expiry is cancelled with a retriable verdict so "
+    "the router requeues it on a survivor (replay skips already-streamed "
+    "tokens). Then the process exits via the resilience preemption path "
+    "(exit code 83).")
+_register(
+    "fleet_autoscale", _FLEET["fleet_autoscale"], choices=("off", "on"),
+    doc="mx.fleet queue-wait autoscaling. 'on' grows the replica count "
+        "when every healthy replica's published p99 queue wait stays "
+        "above fleet_autoscale_p99_ms for a full fleet_autoscale_window_s, "
+        "and shrinks when the fleet sits idle (zero queued, negligible "
+        "queue wait) for the same window — clamped to [--min-workers, "
+        "--max-replicas] by the launcher.")
+_register(
+    "fleet_autoscale_p99_ms", _FLEET["fleet_autoscale_p99_ms"],
+    "Sustained p99 queue-wait threshold (milliseconds) above which the "
+    "mx.fleet router asks the supervisor for one more replica; "
+    "scale-down arms below one quarter of this value.")
+_register(
+    "fleet_autoscale_window_s", _FLEET["fleet_autoscale_window_s"],
+    "How long the mx.fleet autoscale pressure signal must persist before "
+    "a scale event fires — hysteresis so one burst or one idle poll "
+    "cannot flap the replica count.")
+_register(
+    "ledger_dir", "",
+    "Base directory for the mx.ledger cross-run performance ledger: "
+    "`ledger.record_run` and `ledger.record_tier1` append one "
+    "provenance-keyed record per run to <dir>/ledger.jsonl (append-only, "
+    "torn-line tolerant). Empty (default) is the zero-overhead fast path "
+    "— every hook site reduces to one module-bool check and makes zero "
+    "record calls. Render, backfill and gate the history with "
+    "tools/ledger_report.py, which reads the port's records unchanged.")
+_register(
+    "ledger_gate", "error", choices=("warn", "error"),
+    doc="mx.ledger trend-gate severity: 'error' (default) exits nonzero "
+        "when the drift detector CONFIRMS a regression in a "
+        "like-provenance metric series (same platform, device count, "
+        "smoke flag and config fingerprint — a CPU number never gates a "
+        "GPU number); 'warn' reports the same verdicts but always exits "
+        "zero. Smoke-mode series and unconfirmed 'suspect' drifts only "
+        "ever warn, whatever this knob says.")

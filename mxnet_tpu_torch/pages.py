@@ -214,6 +214,12 @@ class PrefixTree:
     def __len__(self):
         return len(self.nodes)
 
+    def reclaimable(self):
+        """Pages that only this tree holds (refcount 1): what `evict` can
+        return to the pool's free list, leaf by leaf, for an admission."""
+        return sum(1 for n in self.nodes.values()
+                   if self.pool.refcount[n.page] == 1)
+
     def _blocks(self, prompt):
         ps = self.pool.page_size
         prompt = np.asarray(prompt, np.int32)

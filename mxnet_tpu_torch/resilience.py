@@ -39,11 +39,13 @@
     flipped in the first parameter, `FaultInjector.corrupt_gradient`:
     the silent corruption mx.guard's digest vote catches); mx.guard's
     heartbeat consumes `stall_heartbeat:ms`; serving consumes
-    `slow_client:ms`, `burst:N@step:K` and `cancel@req:N`
-    (`Server._fire_faults`). The other kinds of the grammar parse, but
-    no port code fires them: `stall_input` needs the prefetch stager,
-    `shrink`/`grow` the elastic resize (queue 1's "Multi-device"), and
-    `kill_replica`, `wedge_replica` and `slow_replica` the fleet.
+    `slow_client:ms`, `burst:N@step:K` and `cancel@req:N`, and fires the
+    fleet's `kill_replica` and `wedge_replica` (`Server._fire_faults`);
+    the fleet's replica endpoint consumes `slow_replica:ms`
+    (`fleet.ReplicaEndpoint._maybe_slow_ms`). The other kinds of the
+    grammar parse, but no port code fires them: `stall_input` needs the
+    prefetch stager, and `shrink`/`grow` the elastic resize (queue 1's
+    "Multi-device").
 
 Disabled (the default) the trainer hook is one module-bool check, no
 signal handler is installed, and `ShardedTrainer.save_states` writes
@@ -871,10 +873,19 @@ class FaultInjector:
                               the boundary of step 4
       stall_heartbeat:250   — mx.guard's heartbeat file writes stop for
                               250 ms (the process stays healthy)
-      stall_input, shrink, grow, kill_replica, wedge_replica,
-      slow_replica          — parsed; no port code fires them (the
-                              prefetch stager, elastic resize and the
-                              fleet are not ported)
+      kill_replica@step:6   — SIGKILL this process at serving
+                              scheduler step 6 (the fleet's failover
+                              drill; Server._fire_faults)
+      wedge_replica@step:6  — park the serving scheduler at step 6,
+                              lock released, process alive, until the
+                              server stops (the router's stall drill)
+      slow_replica:30       — every token a fleet replica endpoint
+                              streams leaves 30 ms late
+                              (fleet.ReplicaEndpoint)
+      stall_input, shrink, grow
+                            — parsed; no port code fires them (the
+                              prefetch stager and elastic resize are
+                              not ported)
     Any spec may append @rank:N to fire on that rank only. Specs fire at
     most once, and only on the FIRST launch (MXNET_TPU_RESTART_COUNT=0)
     unless @every_restart is appended."""

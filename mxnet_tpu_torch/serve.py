@@ -62,7 +62,9 @@ The request lifecycle, as in the JAX package:
     with one ordinary token.
   * **fault drills** — `resilience.FaultInjector`'s `slow_client:ms`
     (stream consumer stalls), `burst:N@step:K` (`on_burst(N)` at
-    scheduler step K) and `cancel@req:N`.
+    scheduler step K), `cancel@req:N`, and the fleet's `kill_replica`
+    (SIGKILL of this process) and `wedge_replica` (the scheduler parks,
+    lock released, until `stop()`), each `@step:K` of the scheduler.
 
 Where the port differs from the JAX package: a drafter whose vocabulary
 differs from the target's raises at construction (the JAX package
@@ -105,7 +107,9 @@ synchronisation.
 from __future__ import annotations
 
 import collections
+import os
 import queue as _pyqueue
+import signal
 import sys
 import threading
 import time
@@ -266,11 +270,13 @@ class Request:
                 "is the server running? (Server.start() or drain())")
         return np.asarray(self.tokens, np.int32)
 
-    def stream(self):
+    def stream(self, idle_s=None):
         """Iterate tokens as the scheduler generates them, ending when
         the request reaches a terminal state (partial on expiry/cancel).
         A `slow_client:ms` fault spec injects a per-token consumer stall
-        here — the CLIENT side — which never slows the scheduler."""
+        here — the CLIENT side — which never slows the scheduler. With
+        `idle_s`, the iteration also yields None after every `idle_s`
+        seconds without a token (the fleet endpoint's keep-alive cue)."""
         delay = None
         inj = _resilience._injector if _resilience._enabled else None
         if inj is not None:
@@ -284,7 +290,11 @@ class Request:
             _slo.note_stream_start(self)
         try:
             while True:
-                tok = self._stream_q.get()
+                try:
+                    tok = self._stream_q.get(timeout=idle_s)
+                except _pyqueue.Empty:
+                    yield None
+                    continue
                 if tok is _EOS_SENTINEL:
                     return
                 if delay:
@@ -643,8 +653,12 @@ class Server:
         """What a router needs to PREDICT this server's admission verdict
         without a round trip: the headroom next to the analytic cache
         cost of every bucket admission could newly allocate (dense), or
-        the free-page count (paged). A None `headroom_bytes` means the
-        capacity is unknown (the CPU) — nothing to predict."""
+        the free-page count (paged) and, beside it, the count of pages
+        only the prefix tree holds, which admission evicts on demand
+        (`pool_pages_reclaimable`: the JAX package's hints lack it, and
+        its router predicts a 429 that the server would not give). A
+        None `headroom_bytes` means the capacity is unknown (the CPU) —
+        nothing to predict."""
         out = {"max_len": self._max_len, "slots": self._slots,
                "queue_depth": self._queue_depth,
                "buckets": self._buckets,       # None => pow2 policy
@@ -658,6 +672,9 @@ class Server:
                 resident = self._params_bytes + self._pool.pool_bytes()
                 out["page_size"] = self._page_size
                 out["pool_pages_free"] = self._pool.free_pages()
+                # tree-only pages: admission evicts them on demand
+                # (`_paged_alloc`), so a router counts them as free
+                out["pool_pages_reclaimable"] = self._tree.reclaimable()
             else:
                 resident = self._params_bytes + sum(
                     g.cache_bytes for g in self._groups.values())
@@ -865,6 +882,28 @@ class Server:
                   f"scheduler step {sched_step}", file=sys.stderr)
             if rid is not None:
                 self.cancel(int(rid))
+        # the fleet drills, fired from the scheduler so they land mid-
+        # generation: kill_replica is the SIGKILLed-worker failover drill
+        # (the router replays the in-flight requests on a survivor);
+        # wedge_replica parks the scheduler WITHOUT holding the lock, so
+        # health checks keep answering while tokens stop: the stalled
+        # but alive replica of the router's per-read stall bound. The
+        # park ends only when the server stops (the JAX package's never
+        # ends; from the router's side the two are alike)
+        hit = inj.take("kill_replica", step=sched_step)
+        if hit is not None:
+            print(f"mx.serve: fault injection: kill_replica at scheduler "
+                  f"step {sched_step} (pid {os.getpid()})", file=sys.stderr)
+            sys.stderr.flush()
+            os.kill(os.getpid(), signal.SIGKILL)
+        hit = inj.take("wedge_replica", step=sched_step)
+        if hit is not None:
+            print(f"mx.serve: fault injection: wedge_replica at scheduler "
+                  f"step {sched_step} — scheduler parked, process alive",
+                  file=sys.stderr)
+            sys.stderr.flush()
+            while not self._stop.wait(3600):
+                pass
 
     def _apply_cancels(self):
         pending, self._pending_cancels = self._pending_cancels, []
@@ -1772,3 +1811,7 @@ class Server:
             _slo.note_finish(req, self._OUTCOME[state], verdict)
         req._stream_q.put(_EOS_SENTINEL)
         req._done.set()
+
+
+if _config.get("serve"):
+    enable()

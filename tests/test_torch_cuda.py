@@ -1863,3 +1863,67 @@ def test_control_flow_and_accessors_on_card(dev):
     import chip_smoke
     res = chip_smoke.control_flow_phase(dev)
     assert res["accessors"]["data_context"] == "gpu(0)"
+
+
+@pytest.mark.parametrize("n_pg", [8, 16, 32])
+def test_paged_kernel_float32_at_the_fleet_replicas_layout(dev, n_pg):
+    """Float32 paged attention at the layout of chip_smoke phase 54's GPT-2
+    replicas (8 slots, 12 heads of 64, pages of 16, a pool of 512 data +
+    8 scratch pages; tables of the 128-, 256- and 512-token buckets)
+    against its plain version, one launch."""
+    case = list(_paged_case(dev, torch.float32, B=8, H=12, D=64, ps=16,
+                            n_pg=n_pg, P=520, seed=n_pg))
+    n0 = pa.launches
+    got = pa.paged_attention(*case)
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_reference(*case)
+    assert pa.launches == n0 + 1
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
+
+
+def test_two_replica_fleet_on_card_streams_solo_tokens(dev):
+    """Two in-process gpt_tiny replicas on the card (float32, paged, each
+    a Server behind a fleet.ReplicaEndpoint) behind one Router: every
+    routed stream, greedy and sampled, equals a solo server's tokens on
+    the same weights, both replicas serve, and the paged kernel ran."""
+    from mxnet_tpu_torch import fleet, serve
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.models import gpt
+
+    models = []
+    for _ in range(3):
+        m = gpt.GPTForCausalLM(gpt.gpt_tiny_config())
+        m.initialize(generator=mxrandom.seed(0))
+        models.append(m)
+    kw = dict(slots=4, pages="on", page_size=4, prefill_chunk=4)
+    rng = np.random.RandomState(3)
+    specs = [(rng.randint(0, 128, (int(n),)).astype(np.int32),
+              dict(max_new_tokens=12, seed=i,
+                   temperature=0.8 if i % 3 == 2 else 0.0,
+                   top_k=20 if i % 3 == 2 else 0))
+             for i, n in enumerate(rng.randint(4, 40, 12))]
+    solo = serve.Server(models[0], **kw)
+    ref = [solo.submit(p, **k) for p, k in specs]
+    solo.drain()
+    solo.stop()
+    servers = [serve.Server(m, **kw).start() for m in models[1:]]
+    eps = [fleet.ReplicaEndpoint(s, replica=i)
+           for i, s in enumerate(servers)]
+    router = fleet.Router({i: ep.url for i, ep in enumerate(eps)},
+                          stall_timeout_s=120.0)
+    router.poll_once()
+    pa.launches = 0
+    try:
+        reqs = [router.submit(p, **k) for p, k in specs]
+        got = [r.result(timeout=120) for r in reqs]
+    finally:
+        router.stop()
+        for ep in eps:
+            ep.stop()
+        for s in servers:
+            s.stop()
+        fleet.disable()
+    assert got == [list(r.tokens) for r in ref]
+    assert all(r.state == serve.DONE for r in reqs)
+    assert {r.replicas_tried[0] for r in reqs} == {0, 1}
+    assert pa.launches > 0

@@ -1,6 +1,7 @@
 """PyTorch port held to the JAX package's own unit tests of the serving
 path and the operations layer: `serve` and `pages` (the port's main
-path), and `guard`, `check`, `slo`, `goodput` and `scope`. The same
+path), and `guard`, `check`, `slo`, `goodput`, `scope`, `ledger` and
+`fleet`. The same
 runner as `tests/test_torch_jax_unittests.py` (a file of its own so
 that `--dist loadfile` can put it on another worker): each file runs
 unchanged through `python -m mxnet_tpu_torch.run_example --device cpu
@@ -24,11 +25,22 @@ the port's documented meaning of a rule, or the test's own use of JAX:
     (`serve.py`'s docstring), where the JAX package serves it and only
     its lint flags it;
   * the test's own use of JAX: `jnp` arithmetic on the JAX NDArray's
-    `_data`, `jax.jit` patched to count compiles, `jit_flat_step`.
+    `_data`, `jax.jit` patched to count compiles, `jit_flat_step`;
+  * `ledger.PERF_KNOBS` (the port's ledger docstring): the knobs the
+    port declares, without the JAX package's `kernels` or `zero`.
+
+`test_ledger.py::test_ledger_off_is_a_zero_hook_fast_path` passes: the
+JAX bench's hook it calls (`benchmarks/_provenance.py`) imports
+`mxnet_tpu.ledger`, which the alias resolves to the port's module.
 
 Deselected (neither run nor counted): the test whose child process runs
 `tools/check_graph.py`, which imports the JAX package outside the
-runner's alias, and, as in tier-1, the tests marked slow.
+runner's alias; the five `test_ledger.py` tests that load
+`tools/ledger_report.py`, which exercises the JAX package's `ledger.py`
+by file path (`tests/test_torch_ledger.py` holds the tool against a
+ledger the port wrote); and, as in tier-1, the tests marked slow (the
+fleet's rolling update and launcher; `tests/test_torch_fleet.py` runs
+the port's launcher).
 
 The files run two at a time (one intra-op thread each).
 """
@@ -50,6 +62,18 @@ _PREFETCH = "prefetch/bucketing"
 _PORT_RULE = "a check rule whose port meaning differs"
 _DRAFTER = "the port refuses a drafter of another vocabulary"
 _JNP = "the test's own use of JAX"
+_PORT_KNOB = ("reads the `kernels` knob and sets `zero`: the first has no "
+              "meaning in the port, the second waits for Multi-device")
+
+# the tests that load tools/ledger_report.py, which loads the JAX
+# package's ledger.py by file path: they exercise that file, not the port
+_LEDGER_REPORT = [
+    "test_backfill_import_idempotent_and_anchor_renders",
+    "test_report_parse_pytest_log_and_budget_warning",
+    "test_gate_cli_seeded_regression",
+    "test_gate_cli_nothing_to_judge",
+    "test_render_report_sparklines_and_verdict",
+]
 
 # file -> (tests run, {expected failure: reason}, deselected tests)
 FILES = {
@@ -91,6 +115,10 @@ FILES = {
         "test_off_by_default_zero_hook_calls": _PREFETCH,
     }, []),
     "test_scope.py": (14, {}, []),
+    "test_ledger.py": (16, {
+        "test_config_fingerprint_tracks_perf_knobs": _PORT_KNOB,
+    }, _LEDGER_REPORT),
+    "test_fleet.py": (17, {}, []),
 }
 
 

@@ -148,12 +148,20 @@ def test_admission_budget_rides_memsafe(sides):
 
 
 def test_admission_hints_match_jax(sides):
+    """The JAX package's hints, and (paged) the port's one more key:
+    `pool_pages_reclaimable`, the pages only the prefix tree holds (fault
+    21; none on a fresh server)."""
+    reclaimable = []
+
     def run(s):
         out = {}
         for kw in ({}, _PAGED):
             srv = s["serve"].Server(s["model"], slots=2, **kw)
             s["config"].set("device_bytes_limit", 1 << 30)
-            out[kw.get("pages", "off")] = srv.admission_hints()
+            hints = srv.admission_hints()
+            if "pool_pages_reclaimable" in hints:
+                reclaimable.append(hints.pop("pool_pages_reclaimable"))
+            out[kw.get("pages", "off")] = hints
             s["config"].reset("device_bytes_limit")
             srv.stop()
         return out
@@ -161,6 +169,7 @@ def test_admission_hints_match_jax(sides):
     hints = _both(sides, run)
     assert hints["off"]["headroom_bytes"] > 0
     assert hints["on"]["pool_pages_free"] > 0
+    assert reclaimable == [0]          # the port's paged server only
 
 
 # -- the dense ladder ---------------------------------------------------------
