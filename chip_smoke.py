@@ -250,8 +250,9 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      by name makes one Adam launch and equals `Adam.update` bit for
      bit;
  46. the JAX package's unit-test files of `tests/test_torch_jax_unittests.py`,
-     `tests/test_torch_jax_unittests_more.py` and
-     `tests/test_torch_jax_unittests_flow.py` (`FILES`), unchanged,
+     `tests/test_torch_jax_unittests_more.py`,
+     `tests/test_torch_jax_unittests_flow.py` and
+     `tests/test_torch_jax_unittests_data.py` (`FILES`), unchanged,
      through `python -m mxnet_tpu_torch.run_example --pytest` with the
      card as the default device, the first harness's each in a process
      of its own, the second's three a process, all at once: each must
@@ -324,7 +325,26 @@ Builds the hand-written CUDA kernels from `mxnet_tpu_torch/csrc`, then:
      v1 under traffic, SIGTERM (rc 143, each replica drained); each
      replica's launch counters (paged attention in every one that
      served); the phase's row recorded with `ledger.record_run` and
-     read back as `platform=gpu|devices=1`.
+     read back as `platform=gpu|devices=1`;
+ 55. the input-to-device layer on host-fed batches (`dataflow_phase`):
+     (a) `bench.py`'s headline loop, BERT-base bf16 at 32 x 512 on 8
+     host numpy batches cycled, `step` on each host batch against
+     `prefetch_to_mesh(..., trainer, depth=2)` with `step_async`, each
+     on a fresh trainer (2 + 16 steps, `trainer_async_fence_every=4`):
+     losses bit equal, exactly 12 flash forwards, dq and dkv and 1 + 1
+     LAMB a step, tokens/s, idle share, the staging wait and bytes, the
+     fences; (b) ResNet-50 v1 float32 through `Estimator.fit` from a
+     256-image host `ArrayDataset` (DataLoader batch 64) at
+     `device_prefetch_depth` 2 and 0: per-batch losses bit equal (cuDNN
+     deterministic), images/s, batch wait, idle share; (c)
+     `dataflow.autofit` on (a)'s trainer under a 24 GB
+     `device_bytes_limit` (buckets 128, 256, 512), then 3 steps of a
+     varlen stream padded by its `bucket_pad()`: within the capacity,
+     the next larger batch over it, at most one new signature a bucket;
+     (d) a `stall_input:250` fault seen as a staging wait of 0.25 s or
+     more with the losses unchanged, 64 staged host arrays summed on the
+     consumer's stream equal to the host's sums, and the host cost of
+     staging a 38.5 MB batch, first and steady.
 
 Phase 1 also holds the training kernels against their plain versions at
 the training shapes: the flash forward with dropout 0.1 (its keep mask
@@ -6094,8 +6114,9 @@ def examples_phase(dev):
     momentum 0.9 wd 1e-4), gpt/generate.py at its defaults (200 Adam
     steps, then `generate` of 16 tokens: exactly one Adam launch per
     weight dtype a step, the flash forward at least once), the others at
-    small step counts, all at once (the first two alone: their rates are
-    read); train_mnist_module.py at its defaults binds
+    small step counts, all at once (so the first two's rates are read
+    beside the others' load); train_mnist_module.py at its defaults
+    binds
     with context=mx.cpu(): it launches nothing and prints its final
     validation accuracy. Then the CIFAR-10 DataLoader alone on the
     card, num_workers 0 and 2. Examples that cannot run here are listed
@@ -6106,8 +6127,7 @@ def examples_phase(dev):
     with tempfile.TemporaryDirectory(prefix="mxt_examples_") as tmp:
         runs = [(path, tuple(a.format(tmp=tmp) for a in args))
                 for path, args in EXAMPLES]
-        results = run_examples(runs[:2]) + run_examples(runs[2:],
-                                                        width=len(runs) - 2)
+        results = run_examples(runs, width=len(runs))
         for (path, args), (lines, res, secs) in zip(runs, results):
             counts = {k: v for k, v in res["launches"].items() if v}
             for key in EXAMPLE_KERNELS.get(path, ()):
@@ -8565,15 +8585,20 @@ UNIT_GROUPS = (("test_telemetry.py", "test_trace.py", "test_profiler.py"),
 # report tools), also with -m 'not slow'
 FLOW_GROUPS = (("test_control_flow.py", "test_symbol_control_flow.py"),
                ("test_bert_finetune.py", "test_report_tools.py"))
+# the fourth's (dataflow, the Estimator, gluon.contrib), with -m 'not slow'
+DATA_GROUPS = (("test_dataflow.py", "test_estimator.py",
+                "test_gluon_contrib.py"),)
 
 
 def jax_unittests_phase(width=8, timeout=300, device=None):
     """Phase 46: the JAX package's unit-test files of
     `tests/test_torch_jax_unittests.py`,
-    `tests/test_torch_jax_unittests_more.py` and
-    `tests/test_torch_jax_unittests_flow.py` (the latter two's with "-m
+    `tests/test_torch_jax_unittests_more.py`,
+    `tests/test_torch_jax_unittests_flow.py` and
+    `tests/test_torch_jax_unittests_data.py` (the latter three's with "-m
     'not slow'" and their deselections, as on the CPU), two or three a
-    process (`BASE_GROUPS`, `UNIT_GROUPS`, `FLOW_GROUPS`), through `run_example --pytest` on
+    process (`BASE_GROUPS`, `UNIT_GROUPS`, `FLOW_GROUPS`,
+    `DATA_GROUPS`), through `run_example --pytest` on
     the card (no --device; `device="cpu"` rehearses it on the CPU),
     `width` processes at a time. Each file must fail exactly its CPU
     exclusions, and the second harness's on the card also its
@@ -8583,6 +8608,7 @@ def jax_unittests_phase(width=8, timeout=300, device=None):
     from test_torch_jax_unittests import FILES as BASE
     from test_torch_jax_unittests_more import FILES as MORE, ON_CARD
     from test_torch_jax_unittests_flow import FILES as FLOW
+    from test_torch_jax_unittests_data import FILES as DATA
     # a test's own use of JAX (`jnp` helpers) stays on the CPU: a JAX that
     # finds the card preallocates most of its memory and starves the
     # other processes (CUBLAS_STATUS_ALLOC_FAILED in theirs)
@@ -8592,15 +8618,15 @@ def jax_unittests_phase(width=8, timeout=300, device=None):
     FILES = {name: (total, list(excluded)) for name, (total, excluded)
              in BASE.items()}
     jobs = [(group, []) for group in BASE_GROUPS]
-    SLOW = {**MORE, **FLOW}
+    SLOW = {**MORE, **FLOW, **DATA}
     for name, (total, excluded, _) in SLOW.items():
         FILES[name] = (total, list(excluded)
                        + list(ON_CARD.get(name, ()) if on_card else ()))
     for groups, files in ((BASE_GROUPS, BASE), (UNIT_GROUPS, MORE),
-                          (FLOW_GROUPS, FLOW)):
+                          (FLOW_GROUPS, FLOW), (DATA_GROUPS, DATA)):
         check(sorted(n for g in groups for n in g) == sorted(files),
               f"phase 46's groups {groups} against {sorted(files)}")
-    for group in UNIT_GROUPS + FLOW_GROUPS:
+    for group in DATA_GROUPS + UNIT_GROUPS + FLOW_GROUPS:
         jobs.append((group, ["-m", "not slow"] + [
             a for name in group for t in SLOW[name][2]
             for a in ("--deselect", f"tests/unittest/{name}::{t}")]))
@@ -9241,6 +9267,465 @@ def fleet_phase(model="gpt2_117m", replicas=2, startup_timeout=300,
         shutil.rmtree(diag, ignore_errors=True)
     row["tracebacks_in_output"] = out.count("Traceback")
     return row
+
+
+# ---------------------------------------------------------------------------
+# phase 55: the input-to-device layer (dataflow, step_async, autofit, the
+# Estimator) on host-fed batches
+# ---------------------------------------------------------------------------
+
+def _prefetch_loop(kind, trainer, batches):
+    """The losses of `batches` through the serialized loop (`step` on each
+    host batch: its copy runs on the compute stream) or `bench.py`'s
+    (`prefetch_to_mesh(..., trainer, depth=2)` and `step_async`)."""
+    from mxnet_tpu_torch import dataflow
+    if kind == "serial":
+        return [trainer.step(d, l) for d, l in batches]
+    with dataflow.prefetch_to_mesh(batches, trainer, depth=2) as pf:
+        return [trainer.step_async(d, l) for d, l in pf]
+
+
+def _loop_idle_share(kind, trainer, batches, steps):
+    """The idle share of `steps` steady steps of a loop of
+    `_prefetch_loop` under torch.profiler: for the prefetched loop the
+    prefetcher is running, its queue full, before the window opens."""
+    from mxnet_tpu_torch import dataflow
+    pf = None
+    if kind == "serial":
+        def window():
+            float(_prefetch_loop(kind, trainer,
+                                 (next(batches) for _ in range(steps)))[-1])
+    else:
+        pf = dataflow.prefetch_to_mesh(batches, trainer, depth=2)
+        float(trainer.step_async(*next(pf)))
+        time.sleep(0.5)                 # the queue fills
+
+        def window():
+            for _ in range(steps):
+                loss = trainer.step_async(*next(pf))
+            float(loss)
+    try:
+        prof, prof_ms, _ = profile_once(window, attempts=2)
+    finally:
+        if pf is not None:
+            pf.close()
+    busy, _, _, _ = device_profile(prof, steps, 0)
+    return None if busy is None else 1 - busy / (prof_ms / steps)
+
+
+def prefetch_bert_phase(dev, batch=32, seq_len=512, masked=76, n_host=8,
+                        warmup=2, steps=16, tele_steps=4, profile_steps=3,
+                        **cfg_overrides):
+    """Phase 55(a): `bench.py`'s headline loop fed from host memory.
+    BERT-base (bf16, dropout 0.1, LAMB lr 1e-3, wd 0.01) at `batch` x
+    `seq_len` with `masked` positions, on `n_host` distinct synthetic
+    numpy batches (`make_synthetic_batch` seeds 0..n_host-1) cycled,
+    `trainer_async_fence_every=4`: each loop on a fresh trainer from
+    seed 0 with the random streams reset, `warmup` plain steps, `steps`
+    timed steps ended by one host fetch; then `tele_steps` more with
+    telemetry on (which fences every step) for the wait and byte series,
+    and `profile_steps` steady ones under torch.profiler for the idle
+    share (`_loop_idle_share`). The
+    losses of the warm-up and timed steps must be bit equal between the
+    loops, the timed steps' launches exact. Returns (the result, the
+    prefetch loop's trainer, its config)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import config as mxconfig
+    from mxnet_tpu_torch import parallel, telemetry
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.models import bert
+    cfg = bert.bert_base_config(dtype="bfloat16", **cfg_overrides)
+    host = []
+    for s in range(n_host):
+        b = bert.make_synthetic_batch(cfg, batch, seq_len, masked, seed=s)
+        host.append(([b[k] for k in _DATA], [b[k] for k in _LABELS]))
+    host_bytes = sum(a.nbytes for d, l in host[:1] for a in d + l)
+
+    def stream(n, start):
+        return (host[(start + i) % n_host] for i in range(n))
+    on_card = torch.device(dev).type == "cuda"
+    L = cfg["num_layers"]
+    want = expect(flash_attention_fwd=L * steps, flash_attention_dq=L * steps,
+                  flash_attention_dkv=L * steps, lamb_pass1=steps,
+                  lamb_pass2=steps)
+    out, trainer = {}, None
+    mxconfig.set("trainer_async_fence_every", 4)
+    try:
+        for kind in ("serial", "prefetch"):
+            del trainer
+            if on_card:
+                torch.cuda.empty_cache()
+            model = build_bert(cfg, 0, dev)
+            trainer = parallel.ShardedTrainer(
+                model, bert.bert_pretrain_loss, "lamb",
+                {"learning_rate": 1e-3, "wd": 0.01}, device=dev)
+            mxrandom.seed(1, dev)
+            losses = _prefetch_loop("serial", trainer, stream(warmup, 0))
+            float(losses[-1])
+            trainer.fences = 0
+            reset_counts()
+            t0 = time.perf_counter()
+            losses += _prefetch_loop(kind, trainer, stream(steps, warmup))
+            float(losses[-1])
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            fences = trainer.fences
+            check(counts == want, f"{kind} loop launches {counts} != {want}")
+            telemetry.reset()
+            telemetry.enable()
+            try:
+                float(_prefetch_loop(kind, trainer, stream(tele_steps, 0))[-1])
+                wait = telemetry.histogram("device_prefetch_wait_seconds")
+                step_h = telemetry.histogram("trainer_step_seconds")
+                tele = {"steps": tele_steps,
+                        "device_prefetch_wait_seconds": {
+                            "count": wait.count, "sum": wait.sum,
+                            "max": wait.percentile(100) if wait.count
+                            else None},
+                        "h2d_bytes_total":
+                            telemetry.counter("h2d_bytes_total").value,
+                        "trainer_step_seconds_sum": step_h.sum,
+                        "input_stall_fraction": wait.sum / (
+                            wait.sum + step_h.sum) if step_h.sum else None}
+            finally:
+                telemetry.disable()
+                telemetry.reset()
+            idle = None
+            if on_card:
+                idle = _loop_idle_share(kind, trainer, stream(10 ** 6, 0),
+                                        profile_steps)
+            vals = [float(x) for x in losses]
+            check(np.isfinite(vals).all(), f"{kind} loop losses {vals}")
+            out[kind] = {"losses": vals, "seconds": secs,
+                         "ms_per_step": secs * 1e3 / steps,
+                         "tokens_per_s": batch * seq_len * steps / secs,
+                         "fences": fences, "launches": counts,
+                         "device_idle_share": idle, "telemetry": tele}
+    finally:
+        mxconfig.reset("trainer_async_fence_every")
+    check(out["serial"]["losses"] == out["prefetch"]["losses"],
+          f"prefetched losses {out['prefetch']['losses']} != serialized "
+          f"{out['serial']['losses']}")
+    res = {"model": "bert_base_config(dtype='bfloat16')", "batch": batch,
+           "seq_len": seq_len, "masked": masked, "host_batches": n_host,
+           "host_bytes_per_batch": host_bytes, "warmup": warmup,
+           "steps": steps, "trainer_async_fence_every": 4,
+           "losses_bit_equal": True, **out}
+    return res, trainer, cfg
+
+
+def estimator_resnet_phase(dev, n_images=256, batch=64, size=224,
+                           classes=1000, epochs=5, net_fn=None):
+    """Phase 55(b): MXNet's eager loop through the Estimator.
+    `gluon.model_zoo.vision.resnet50_v1(classes)` (float32, TF32 off as
+    the script runs it, cuDNN deterministic for the pair), `gluon.Trainer`
+    SGD lr 0.1 momentum 0.9, SoftmaxCrossEntropyLoss, `Estimator.fit` on
+    an `ArrayDataset` of `n_images` synthetic images held in host memory
+    through a DataLoader (`batch`, num_workers 0), `epochs` epochs, with
+    `device_prefetch_depth` 2 and then 0, each on a fresh net and trainer
+    from seed 0: the per-batch losses must be bit equal; images/s over
+    the batches after the first epoch, the batch wait (between one
+    batch's end and the next one's start, by a handler), the idle share
+    of one more profiled epoch."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import config as mxconfig
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.contrib import estimator as est_mod
+    rng = np.random.RandomState(0)
+    x = rng.rand(n_images, 3, size, size).astype(np.float32)
+    y = rng.randint(0, classes, n_images).astype(np.float32)
+    ds = gluon.data.ArrayDataset(x, y)
+    per_epoch = n_images // batch
+    on_card = torch.device(dev).type == "cuda"
+    net_fn = net_fn or (lambda: gluon.model_zoo.vision.resnet50_v1(
+        classes=classes))
+
+    class Clock(est_mod.BatchBegin, est_mod.BatchEnd):
+        def __init__(self):
+            self.begin, self.end, self.losses = [], [], []
+
+        def batch_begin(self, est):
+            self.begin.append(time.perf_counter())
+
+        def batch_end(self, est):
+            self.losses.append(float(est.last_loss.mean().asscalar()))
+            self.end.append(time.perf_counter())
+
+    out = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for depth in (2, 0):
+            mxconfig.set("device_prefetch_depth", depth)
+            try:
+                mxrandom.seed(0, dev)
+                with mxctx(dev):
+                    net = net_fn()
+                    net.initialize()
+                    trainer = gluon.Trainer(net.collect_params(), "sgd", {
+                        "learning_rate": 0.1, "momentum": 0.9})
+                    est = est_mod.Estimator(
+                        net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                        trainer=trainer)
+                    loader = gluon.data.DataLoader(ds, batch_size=batch)
+                    clock = Clock()
+                    reset_counts()
+                    est.fit(loader, epochs=epochs, event_handlers=[clock])
+                    counts = read_counts()
+                    idle = None
+                    if on_card:
+                        prof, prof_ms, _ = profile_once(lambda: est.fit(
+                            loader, epochs=est.num_epoch + 1), attempts=2)
+                        busy, _, by_class, _ = device_profile(
+                            prof, per_epoch, 0)
+                        idle = None if busy is None \
+                            else 1 - busy / (prof_ms / per_epoch)
+            finally:
+                mxconfig.reset("device_prefetch_depth")
+            n = len(clock.losses)
+            check(n == epochs * per_epoch, f"{n} batches")
+            check(counts == expect(), f"Estimator launched {counts}")
+            check(np.isfinite(clock.losses).all(), f"losses {clock.losses}")
+            waits = [b - e for e, b in zip(clock.end[per_epoch - 1:-1],
+                                           clock.begin[per_epoch:])]
+            timed = clock.end[-1] - clock.end[per_epoch - 1]
+            out[f"depth_{depth}"] = {
+                "losses": clock.losses,
+                "images_per_s": (n - per_epoch) * batch / timed,
+                "ms_per_batch": timed * 1e3 / (n - per_epoch),
+                "batch_wait_s": {"sum": sum(waits), "max": max(waits)},
+                "device_idle_share": idle}
+            del est, trainer, net, loader
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    check(out["depth_2"]["losses"] == out["depth_0"]["losses"],
+          f"Estimator losses at depth 2 {out['depth_2']['losses']} != "
+          f"depth 0 {out['depth_0']['losses']}")
+    return {"model": "model_zoo.vision.resnet50_v1(classes=%d), float32"
+            % classes, "images": n_images, "batch": batch,
+            "image": [3, size, size], "batch_bytes": batch * 3 * size * size
+            * 4, "epochs": epochs, "timed_batches": (epochs - 1) * per_epoch,
+            "losses_bit_equal": True, **out}
+
+
+def mxctx(dev):
+    """`with` the port's context of `dev` (the card's or the CPU's)."""
+    import mxnet_tpu_torch as mx
+    import torch
+    d = torch.device(dev)
+    return mx.gpu(d.index or 0) if d.type == "cuda" else mx.cpu()
+
+
+def autofit_phase(dev, trainer, cfg, capacity=24e9, max_batch=128,
+                  buckets=(128, 256, 512), masked=76, steps=3, seed=3,
+                  lengths=(64, 512)):
+    """Phase 55(c): `dataflow.autofit` on phase 55(a)'s BERT-base trainer
+    under a simulated capacity (`device_bytes_limit`), batches a multiple
+    of 8 (each probe is a real forward and backward: at most 8 of them),
+    then `steps` steps at the chosen batch on a varlen host stream
+    (`lengths`: 64-512) padded in the prefetch worker by the result's
+    `bucket_pad(append_valid_length=False)`, which pads every axis 1 of
+    the batch, the `masked` positions to their bucket too (so the probes
+    run with that bucket's count of masked positions: the shapes the
+    padded stream gives), with memsafe armed (its
+    check at each new signature): the chosen batch's plan fits,
+    `next_larger`'s does not, the steps' resident bytes plus their
+    measured peak stay within the capacity, and they touch at most one
+    new step signature a fitting bucket."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import config as mxconfig
+    from mxnet_tpu_torch import dataflow, memsafe
+    from mxnet_tpu_torch.models import bert
+    cap = int(capacity)
+    on_card = torch.device(dev).type == "cuda"
+
+    def make_batch(b, seq_len, num_masked=None):
+        bb = bert.make_synthetic_batch(cfg, b, seq_len,
+                                       num_masked or padded_masked,
+                                       seed=seed + b + seq_len)
+        return ([bb[k] for k in _DATA], [bb[k] for k in _LABELS])
+
+    padded_masked = dataflow.bucket_length(masked, sorted(buckets))
+
+    mxconfig.set("device_bytes_limit", cap)
+    memsafe.maybe_enable()
+    try:
+        t0 = time.perf_counter()
+        r = dataflow.autofit(trainer, make_batch, max_batch=max_batch,
+                             buckets=list(buckets), multiple_of=8,
+                             verbose=False)
+        search_s = time.perf_counter() - t0
+        check(len(r.probes) <= 8, f"autofit ran {len(r.probes)} probes")
+        check(r.predicted_bytes <= cap, f"chosen plan {r}")
+        check(r.next_larger is not None
+              and r.next_larger["predicted_bytes"] > cap,
+              f"next larger {r.next_larger} against {cap}")
+        rng = np.random.RandomState(seed)
+        lengths = [int(rng.randint(lengths[0], lengths[1] + 1))
+                   for _ in range(steps)]
+        sigs = set(trainer._step_cache)
+        resident = memsafe.resident_bytes(trainer._resident())
+        if on_card:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        losses, peak = [], None
+        with dataflow.prefetch_to_mesh(
+                (make_batch(r.batch_size, n, masked) for n in lengths),
+                trainer,
+                depth=2,
+                transform=r.bucket_pad(append_valid_length=False)) as pf:
+            for d, l in pf:
+                losses.append(float(trainer.step_async(d, l)))
+                if on_card:
+                    # read after each step: memsafe's check at a new
+                    # signature resets the peak at its start
+                    peak = max(peak or 0, int(
+                        torch.cuda.max_memory_allocated()) - base)
+        new_sigs = set(trainer._step_cache) - sigs
+    finally:
+        mxconfig.reset("device_bytes_limit")
+        memsafe.disable()
+    check(np.isfinite(losses).all(), f"autofit steps' losses {losses}")
+    if peak is not None:
+        check(resident + peak <= cap, f"resident {resident} + peak {peak} "
+              f"over the capacity {cap}")
+    check(len(new_sigs) <= len(r.buckets),
+          f"{len(new_sigs)} new step signatures for buckets {r.buckets}")
+    return {"capacity_bytes": cap, "batch_size": r.batch_size,
+            "buckets": r.buckets, "probed_masked": padded_masked, "predicted_bytes": r.predicted_bytes,
+            "exec_peak_bytes": r.exec_peak_bytes,
+            "resident_bytes": r.resident_bytes,
+            "next_larger": r.next_larger,
+            "probes": [{k: p[k] for k in ("batch_size", "seq_len",
+                                          "predicted_bytes", "fits")}
+                       for p in r.probes],
+            "search_seconds": search_s, "lengths": lengths,
+            "steps_resident_bytes": resident, "steps_peak_bytes": peak,
+            "new_step_signatures": len(new_sigs), "losses": losses}
+
+
+def staging_phase(dev, n_batches=64, stall_ms=250, big=(64, 3, 224, 224)):
+    """Phase 55(d): the stall fault and staging safety. A small float32
+    MLP trained 6 steps through `prefetch_to_mesh` twice from the same
+    seed, the second with resilience on and `stall_input:<stall_ms>`
+    (and telemetry): one batch wait of at least the stall in
+    `device_prefetch_wait_seconds`, the losses bit equal. Then
+    `n_batches` random int32 host arrays of up to 4 MB staged two ahead
+    while the consumer's stream runs matrix products before reading each:
+    every sum on the card equals the host's. Then the host cost of
+    staging one `big` float32 batch: the first call (pinned memory
+    allocated) and the steady one."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import config as mxconfig
+    from mxnet_tpu_torch import dataflow, parallel, resilience, telemetry
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon import nn
+    on_card = torch.device(dev).type == "cuda"
+    rng = np.random.RandomState(5)
+    batches = [([rng.randn(64, 256).astype(np.float32)],
+                [rng.randn(64, 16).astype(np.float32)]) for _ in range(6)]
+    runs = {}
+    for stalled in (False, True):
+        mxrandom.seed(2, dev)
+        with mxctx(dev):
+            net = nn.HybridSequential()
+            net.add(nn.Dense(512, activation="relu", in_units=256),
+                    nn.Dense(16, in_units=512))
+            net.initialize()
+        lfn = gloss.L2Loss()
+        tr = parallel.ShardedTrainer(net, lambda o, l: lfn(o, l), "sgd",
+                                     {"learning_rate": 0.05}, device=dev)
+        if stalled:
+            mxconfig.set("fault_inject", f"stall_input:{stall_ms}")
+            resilience.enable()
+            telemetry.reset()
+            telemetry.enable()
+        try:
+            with dataflow.prefetch_to_mesh(iter(batches), tr) as pf:
+                runs[stalled] = [float(tr.step_async(d, l)) for d, l in pf]
+            if stalled:
+                wait = telemetry.histogram("device_prefetch_wait_seconds")
+                max_wait = wait.percentile(100)
+                wait_n = wait.count
+        finally:
+            if stalled:
+                telemetry.disable()
+                telemetry.reset()
+                resilience.disable()
+                mxconfig.reset("fault_inject")
+    check(runs[True] == runs[False], f"stalled losses {runs[True]} != "
+          f"{runs[False]}")
+    check(wait_n == len(batches) and max_wait >= stall_ms / 1e3,
+          f"longest staging wait {max_wait} s of {wait_n}, stall "
+          f"{stall_ms} ms")
+    arrays = [rng.randint(0, 1000, int(rng.randint(1, 1 << 20)))
+              .astype(np.int32) for _ in range(n_batches)]
+    work = torch.randn(1024, 1024, device=dev)
+    sums = []
+    with dataflow.prefetch_to_mesh(iter([[a] for a in arrays]),
+                                   [torch.device(dev)], depth=2) as pf:
+        for (t,) in pf:
+            for _ in range(4):
+                work = torch.tanh(work @ work)
+            sums.append(t._t.long().sum())
+    got = [int(s) for s in sums]
+    want = [int(a.astype(np.int64).sum()) for a in arrays]
+    check(got == want, "staged sums differ from the host's at "
+          f"{[i for i, (g, w) in enumerate(zip(got, want)) if g != w]}")
+    staged_bytes = sum(a.nbytes for a in arrays)
+    host_ms = []
+    if on_card:
+        x = np.random.RandomState(1).rand(*big).astype(np.float32)
+        stage = dataflow._Stager([torch.device(dev)])
+        for _ in range(5):
+            t0 = time.perf_counter()
+            stage([x])
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+    return {"stall_ms": stall_ms, "longest_wait_s": max_wait,
+            "losses_bit_equal": True, "staged_batches": n_batches,
+            "staged_bytes": staged_bytes, "sums_equal": True,
+            "stage_host_ms": {"batch": list(big),
+                              "first": host_ms[0] if host_ms else None,
+                              "steady": sorted(host_ms[1:])[
+                                  len(host_ms[1:]) // 2] if host_ms
+                              else None}}
+
+
+def dataflow_phase(dev, bert_kw=None, resnet_kw=None, autofit_kw=None):
+    """Phase 55: (a) `prefetch_bert_phase`, (b) `estimator_resnet_phase`,
+    (c) `autofit_phase` on (a)'s trainer, (d) `staging_phase`; the `*_kw`
+    cut them for a rehearsal on the CPU."""
+    import torch
+    t0 = time.perf_counter()
+    res = {}
+
+    def done(key, part):
+        # each part's line as it ends: a later part's failure keeps it
+        res[key] = part
+        print(f"chip_smoke: 55 {key} " + json.dumps(
+            {"seconds": time.perf_counter() - t0, **part}), flush=True)
+    a, trainer, cfg = prefetch_bert_phase(dev, **(bert_kw or {}))
+    done("a_prefetch_bert", a)
+    done("c_autofit", autofit_phase(dev, trainer, cfg,
+                                     **(autofit_kw or {})))
+    del trainer
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    done("b_estimator_resnet50", estimator_resnet_phase(
+        dev, **(resnet_kw or {})))
+    done("d_staging", staging_phase(dev))
+    res["seconds"] = time.perf_counter() - t0
+    return res
 
 
 def main():
@@ -9991,6 +10476,23 @@ def main():
     kernels["flash_attention_fwd"]["fleet_launches"] = \
         flt["fleet_launches"]["flash_attention_fwd"]
     print(f"chip_smoke: fleet phase 54 in {flt['seconds']:.1f} s")
+
+    lap("55")
+    # 55. the input-to-device layer: bench.py's prefetched BERT-base loop
+    # fed from host memory, the Estimator on ResNet-50, autofit, staging
+    torch.cuda.empty_cache()
+    dflow = dataflow_phase(dev)
+    dflow["card"] = card
+    print("chip_smoke: input-to-device layer " + json.dumps(dflow))
+    pre = dflow["a_prefetch_bert"]["prefetch"]["launches"]
+    for row, counter in (("flash_attention_fwd_dropout",
+                          "flash_attention_fwd"),
+                         ("flash_attention_dq", "flash_attention_dq"),
+                         ("flash_attention_dkv", "flash_attention_dkv"),
+                         ("lamb_pass1", "lamb_pass1"),
+                         ("lamb_pass2", "lamb_pass2")):
+        kernels[row]["prefetch_loop_launches"] = pre[counter]
+    print(f"chip_smoke: phase 55 in {dflow['seconds']:.1f} s")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

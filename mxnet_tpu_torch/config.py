@@ -105,6 +105,19 @@ _register(
     "before declaring the workers deadlocked (a CUDA call inside a "
     "forked worker). 0 disables the watchdog.")
 _register(
+    "trainer_async_fence_every", 0,
+    "Fence ShardedTrainer.step every N steps (wait for the step's work on "
+    "the card) to bound how far dispatch runs ahead of the device. 0 "
+    "(default) never fences on the hot path: the fence then only happens "
+    "on an explicit .item()/asscalar() or when telemetry/nan_sentinel "
+    "(which fence) are enabled. step_async never fences.")
+_register(
+    "device_prefetch_depth", 2,
+    "Batches dataflow.prefetch_to_mesh stages onto the device ahead of "
+    "the consumer (the host-to-device copy overlaps device compute). Also "
+    "the depth the Estimator uses when fit() is handed a gluon "
+    "DataLoader. 0 disables device-side prefetch in the estimator.")
+_register(
     "bucket_pad_min", 32,
     "Smallest bucket a varlen axis rounds up to under the default "
     "power-of-two policy; explicit bucket lists override it.")

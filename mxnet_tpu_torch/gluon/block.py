@@ -27,7 +27,9 @@ compile record, a `compile` span, an inspect cost record), mx.check
 records the call (`check.StepRecord`, inside inspect's counting pass
 when both are on) and lints it (`check.check_jit`; under check=error
 the key is forgotten and CheckError propagates), and later calls count
-`hybrid_cache_hits_total`.
+`hybrid_cache_hits_total`. With memsafe armed, that first call is
+budget-checked on its parameters and inputs before it runs
+(`memsafe.check_budget`; a MemoryBudgetError forgets the key).
 
 A block starts in evaluation mode (`training` False), as the JAX
 package runs outside a train step; `train()` (what the trainer's step
@@ -77,6 +79,7 @@ from .. import context
 from .. import diagnostics as _diagnostics
 from .. import initializer as _init
 from .. import inspect as _inspect
+from .. import memsafe as _memsafe
 from .. import telemetry as _telemetry
 from .. import trace as _trace
 from ..ndarray.ndarray import NDArray
@@ -180,6 +183,14 @@ class Block(torch.nn.Module):
         if self.__dict__.get("_active") and not kwargs and all(
                 isinstance(a, NDArray) for a in args):
             key, is_miss = self._note_signature(args)
+            if is_miss and _memsafe._enabled:
+                try:                    # no execution peak before it runs
+                    _memsafe.check_budget(
+                        type(self).__name__, None, _memsafe.resident_bytes(
+                            [a._t for a in args] + list(self.parameters())))
+                except _memsafe.MemoryBudgetError:
+                    self._cache.pop(key, None)  # the next call checks again
+                    raise
             if is_miss and (_telemetry._enabled or _diagnostics._enabled
                             or _trace._enabled or _inspect._enabled
                             or _check._enabled):

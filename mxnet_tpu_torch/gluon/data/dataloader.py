@@ -20,8 +20,9 @@ Both of the JAX package's execution models:
 the JAX package goes through the host: the same values and dtypes) and
 host samples through numpy. `pin_memory=True` stages each host batch in
 pinned memory and copies it to the card with `non_blocking=True`. A dead
-worker is fatal, or with `resilience` enabled respawned, its in-flight
-batches sent again, up to the `RetryPolicy`'s attempts; a worker pool
+worker is fatal, or with `resilience` enabled the pool is replaced, on
+queues of its own, and its in-flight batches sent again, up to the
+`RetryPolicy`'s attempts; a worker pool
 that sends nothing for `dataloader_timeout` seconds raises. With
 telemetry on, the wait for each batch lands in `dataloader_wait_seconds`
 and the batches ready ahead of the consumer in the gauge
@@ -265,13 +266,28 @@ class DataLoader:
                 yield batch
             t.join()
 
-    def _respawn_or_raise(self, workers, dead, respawns, ctx, bfn,
-                          key_q, data_q, inflight):
+    def _spawn_pool(self, ctx, bfn, seeds):
+        """A worker pool on queues of its own: (workers, key_q, data_q)."""
+        key_q = ctx.Queue()
+        data_q = ctx.Queue()
+        workers = [ctx.Process(target=_worker_loop,
+                               args=(self._dataset, bfn, key_q, data_q, s),
+                               daemon=True) for s in seeds]
+        _start(workers)
+        return workers, key_q, data_q
+
+    def _respawn_or_raise(self, pool, dead, respawns, ctx, bfn, inflight):
         """A worker died silently (segfault / OOM-kill) with work
         outstanding. With resilience enabled and retry budget left,
-        replace the dead process(es) and re-enqueue every in-flight batch
-        (duplicates from still-live workers dedupe at receipt); otherwise
-        raise the classic fatal error. Returns (workers, respawns)."""
+        retire the whole pool and its queues, start a fresh pool on fresh
+        queues and send it every in-flight batch; otherwise raise the
+        classic fatal error. Returns (pool, respawns).
+
+        The queues go with the pool because a process that dies inside
+        `data_q.put`'s feeder thread dies holding the queue's
+        cross-process writer lock (or mid-message): a worker forked onto
+        that queue would block on the lock forever and the parent would
+        see no batch until `dataloader_timeout`."""
         from ... import resilience as _resilience
         policy = _resilience.RetryPolicy() if _resilience._enabled else None
         if policy is None or respawns + 1 >= policy.max_attempts:
@@ -285,42 +301,31 @@ class DataLoader:
               f"code {dead[0].exitcode}) died — respawning and re-queuing "
               f"{len(inflight)} in-flight batch(es) (respawn "
               f"{respawns}/{policy.max_attempts - 1})", file=sys.stderr)
-        workers = [w for w in workers if w.is_alive()]
-        for w in dead:
-            w.join(timeout=1)           # reap the corpse
-        fresh = [ctx.Process(target=_worker_loop,
-                             args=(self._dataset, bfn, key_q, data_q,
-                                   int(np.random.randint(0, 2 ** 31 - 1))),
-                             daemon=True) for _ in dead]
-        _start(fresh)
-        workers += fresh
-        for item in list(inflight.items()):
-            key_q.put(item)             # may duplicate: receipt dedupes
-        return workers, respawns
+        _retire_pool(pool)
+        pool = self._spawn_pool(
+            ctx, bfn, [int(np.random.randint(0, 2 ** 31 - 1))
+                       for _ in pool[0]])
+        for item in sorted(inflight.items()):
+            pool[1].put(item)
+        return pool, respawns
 
     def _iter_processes(self):
         """Forked-worker pipeline (reference: _MultiWorkerIter): tasks fan
         out to `num_workers` processes, results reorder by batch index so
         iteration order matches num_workers=0 exactly. A worker that dies
         without reporting (segfault/OOM-kill) is fatal by default; with
-        resilience enabled it is respawned and its in-flight work
-        re-enqueued, up to the RetryPolicy attempt budget."""
+        resilience enabled the pool is replaced and its in-flight work
+        sent again, up to the RetryPolicy attempt budget."""
         import multiprocessing as mp
 
         ctx = mp.get_context("fork")    # fork: closures/lambdas in
         #                                 transforms need no pickling
-        key_q = ctx.Queue()
-        data_q = ctx.Queue()
         bfn = self._batchify_fn
         if bfn is default_batchify_fn:
             bfn = numpy_batchify_fn     # device arrays can't cross fork
         base_seed = int(np.random.randint(0, 2 ** 31 - 1))
-        workers = [ctx.Process(target=_worker_loop,
-                               args=(self._dataset, bfn, key_q, data_q,
-                                     (base_seed + i) % (2 ** 32)),
-                               daemon=True)
-                   for i in range(self._num_workers)]
-        _start(workers)
+        pool = self._spawn_pool(ctx, bfn, [(base_seed + i) % (2 ** 32)
+                                           for i in range(self._num_workers)])
         try:
             batches = iter(enumerate(self._batch_sampler))
             inflight = {}      # idx -> indices: sent to a worker, no result
@@ -332,7 +337,7 @@ class DataLoader:
                 if item is None:
                     return False
                 inflight[item[0]] = item[1]
-                key_q.put(item)
+                pool[1].put(item)
                 return True
 
             for _ in range(max(self._prefetch, 1)):
@@ -356,15 +361,14 @@ class DataLoader:
                 waited = 0.0
                 while True:             # bounded get: a worker that died OR
                     try:                # deadlocked must not hang us forever
-                        idx, batch, err = data_q.get(timeout=1)
+                        idx, batch, err = pool[2].get(timeout=1)
                         break
                     except queue.Empty:
                         waited += 1
-                        dead = [w for w in workers if not w.is_alive()]
+                        dead = [w for w in pool[0] if not w.is_alive()]
                         if dead:
-                            workers, respawns = self._respawn_or_raise(
-                                workers, dead, respawns, ctx, bfn,
-                                key_q, data_q, inflight)
+                            pool, respawns = self._respawn_or_raise(
+                                pool, dead, respawns, ctx, bfn, inflight)
                         if stall_limit > 0 and waited >= stall_limit:
                             raise RuntimeError(
                                 f"DataLoader workers produced no batch for "
@@ -375,20 +379,33 @@ class DataLoader:
                                 "dataloader_timeout config option "
                                 "(MXNET_TPU_DATALOADER_TIMEOUT)."
                             ) from None
-                if idx not in inflight:
-                    continue    # duplicate of work re-enqueued at a respawn
                 inflight.pop(idx)
                 if err is not None:
                     raise RuntimeError(f"DataLoader worker failed: {err}")
                 buf[idx] = batch
                 _send()
         finally:
+            workers, key_q, _ = pool
             for _ in workers:
                 key_q.put(None)
             for w in workers:
                 w.join(timeout=5)
                 if w.is_alive():
                     w.terminate()
+
+
+def _retire_pool(pool):
+    """Stop a pool's live workers and let go of its queues without
+    waiting on them (a dead worker may hold their locks)."""
+    workers, key_q, data_q = pool
+    for w in workers:
+        if w.is_alive():
+            w.terminate()
+    for w in workers:
+        w.join(timeout=1)               # reap
+    for q in (key_q, data_q):
+        q.cancel_join_thread()
+        q.close()
 
 
 def _holds_ndarray(sample):

@@ -33,11 +33,25 @@ degradation ladder.
     Each transition is recorded (`transitions()`, `snapshot()`) and
     printed. `oom_recover="off"` (default) fails fast.
 
+  * **the pre-flight check at a new signature** — with memsafe armed,
+    the first `ShardedTrainer` step at a batch signature measures its
+    forward and backward (`measure_peak`) and `preflight_step` compares
+    resident bytes (parameters, optimizer state, aux tensors, batch)
+    plus that peak with the capacity after the backward and before the
+    optimizer touches state, so it costs no extra pass and a
+    `MemoryBudgetError` enters the ladder with the state intact (the aux
+    tensors a training forward updated are put back). The JAX package
+    predicts the peak before dispatch from XLA's AOT analysis; the port
+    has none and measures the pass it runs. A hybridized block's first
+    call at a signature is checked on its resident bytes (parameters and
+    inputs) alone, before it runs.
+    `ShardedTrainer.predict_step_bytes`, which `dataflow.autofit`
+    searches over, measures the same way without updating anything.
+
 `maybe_enable()` (called at trainer construction) arms the trainer hook
 when `oom_recover="auto"` or `device_bytes_limit` is set; disabled (the
 default), the step's hook is one module-bool read on an already failing
-path. The JAX package's auto-fit and the pre-flight check at a jit-cache
-miss are not ported (XLA's memory analysis has no eager counterpart).
+path.
 
 Observers, as in the JAX package: telemetry's `memory_headroom_bytes`
 gauge (each budget check), `oom_events_total` (device OOMs and budget
@@ -48,6 +62,7 @@ records in the diagnostics flight ring; the post-mortem carries
 """
 from __future__ import annotations
 
+import gc
 import sys
 import threading
 import time
@@ -63,6 +78,7 @@ from . import telemetry as _telemetry
 __all__ = ["enable", "disable", "enabled", "maybe_enable",
            "MemoryBudgetError", "SimulatedResourceExhausted", "is_oom",
            "capacity_bytes", "resident_bytes", "check_budget", "last_check",
+           "measure_peak", "preflight_step",
            "last_headroom_bytes", "reset", "POLICIES", "LADDER",
            "validate_policy", "effective_policy", "policy_marker",
            "block_wrap_policy", "recover_trainer", "note_eager_oom",
@@ -269,6 +285,65 @@ def check_budget(executable, exec_peak, resident, capacity=None):
                 "memsafe_warning", executable=executable,
                 headroom_bytes=headroom, predicted_bytes=predicted)
     return _last_check
+
+
+def measure_peak(fn, device):
+    """(fn(), the peak bytes fn allocated above what was allocated when
+    it began): the caching allocator's peak on the card (after a peak
+    reset, with a sync on each side); on the CPU the memory events of a
+    `torch.profiler` run, as `inspect.count_step` reads them (None
+    when a profiler is running already). A garbage collection runs
+    first: unreachable tensors that a collection inside fn would free
+    would lower the allocation under fn's own and hide its peak."""
+    gc.collect()
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        out = fn()
+        torch.cuda.synchronize(device)
+        return out, int(torch.cuda.max_memory_allocated(device)) - base
+    if torch.autograd.profiler._is_profiler_enabled:
+        return fn(), None
+    from .inspect import _cpu_peak
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU],
+        profile_memory=True)
+    prof.start()
+    try:
+        out = fn()
+    finally:
+        prof.stop()
+    return out, _cpu_peak(prof)
+
+
+def preflight_step(trainer, fn, batch):
+    """The check of a `ShardedTrainer` step at a new signature: `fn` is
+    the step's forward and backward, run here and measured; its peak plus
+    the resident state and `batch` is checked against the capacity
+    (`check_budget`, which raises MemoryBudgetError on an overrun) before
+    fn's result goes back to the optimizer. On a raise the aux tensors
+    (BatchNorm's running statistics) are put back as fn found them. With
+    no capacity known, fn runs unmeasured and the resident bytes are
+    recorded."""
+    name = f"ShardedTrainer({type(trainer.block).__name__})"
+    resident = resident_bytes(trainer._resident() + list(batch))
+    capacity = capacity_bytes(trainer.device)
+    if capacity is None:
+        check_budget(name, None, resident, capacity=None)
+        return fn()
+    aux = [trainer.block.get_parameter(n) for n in trainer._aux_names]
+    saved = [a.detach().clone() for a in aux]
+    out, peak = measure_peak(fn, trainer.device)
+    try:
+        check_budget(name, peak, resident, capacity=capacity)
+    except MemoryBudgetError:
+        with torch.no_grad():
+            for a, s in zip(aux, saved):
+                a.copy_(s)
+        raise
+    return out
 
 
 def last_check():

@@ -21,6 +21,20 @@ device, on one of two paths, as the JAX package chooses them:
 The step counter goes up first; the bias-correction constants and the
 learning rate are host floats.
 
+The async half, as in the JAX package: `step_async` is `step` without
+the periodic fence that the `trainer_async_fence_every` knob asks of
+`step` (`_fence`, which waits on the trainer's current stream and counts
+in `fences`); `_t_dev` is the step counter as a 0-d int32 tensor on the
+trainer's device, advanced only by a completed step (a failed one
+leaves it equal to `num_update`) and re-seeded by `load_states`;
+`_batch_shardings` gives the trainer's device for every leaf of a batch
+(what `dataflow.prefetch_to_mesh` stages to); `_step_cache` holds the
+step signatures seen (the JAX package's jit cache keys, with no
+executable). `predict_step_bytes` is the memory plan `dataflow.autofit`
+searches over: one measured forward and backward at the batch's shapes,
+with nothing updated (the JAX package analyses the compiled step
+instead).
+
 The user's boundary is the JAX package's: `loss_fn` gets the model's
 outputs and the labels as NDArrays and may return an NDArray (or a
 tensor), and `step` takes NDArrays, tensors or numpy arrays and returns
@@ -65,7 +79,10 @@ resident flat layout in place. `save_checkpoint(prefix)` writes the
 parameters to `prefix.params` (`Block.save_parameters`).
 
 Hooks, as in the JAX package's step: with memsafe armed (`oom_recover`
-or `device_bytes_limit` set) an out-of-memory raised before the
+or `device_bytes_limit` set) the first step at a signature is checked
+against the capacity between its backward and its update
+(`memsafe.preflight_step`), and an out-of-memory (or the check's
+MemoryBudgetError) raised before the
 optimizer touched any state walks the degradation ladder
 (`memsafe.recover_trainer`), the failed attempt's frames released and
 its random draws rewound; with resilience enabled the `oom` fault fires
@@ -221,7 +238,16 @@ class ShardedTrainer:
         self._ready = False
         self._state_touched = False
         self._host_bufs = {}            # dtype -> pinned host buffer
-        self._sigs = set()              # step signatures seen (misses)
+        # the step signatures seen (the JAX package's jit cache keys)
+        self._step_cache = set()
+        # the step counter on the device: advanced only by a completed
+        # step, re-seeded by load_states
+        self._t_dev = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.fences = 0                 # trainer_async_fence_every fences
+        # the JAX package's flag for a learning rate computed inside the
+        # jitted step: the port's learning rate is always a host float
+        self._lr_inside = False
+        self._observer_fenced = False   # the last step fenced for observers
         self._tele_sig = None           # last new signature (telemetry)
         # construction-time knob reads only: the step keeps one module
         # bool a subsystem
@@ -290,11 +316,42 @@ class ShardedTrainer:
         self._accum = accum
         return self
 
+    def _batch_shardings(self, n_data, n_label, shapes):
+        """Where each leaf of a `(data, labels)` batch goes (the JAX
+        package's shardings): the trainer's device, for every leaf."""
+        return [self.device] * (n_data + n_label)
+
     def step(self, data, labels):
         """One train step on a batch: `data` and `labels` are NDArrays,
         tensors or numpy arrays (or lists of them), moved to the
         trainer's device. Returns the float32 loss: an NDArray of a 0-d
-        tensor, not synchronised."""
+        tensor, not synchronised. The `trainer_async_fence_every` knob
+        adds a fence every N steps (`_fence`) to bound how far dispatch
+        runs ahead of the card."""
+        loss = self._step_outer(data, labels)
+        every = int(_config.get("trainer_async_fence_every") or 0)
+        if every and not self._observer_fenced \
+                and self.num_update % every == 0:
+            self._fence()
+        return loss
+
+    def step_async(self, data, labels):
+        """`step` without the periodic fence: nothing waits for the card
+        until the loss is read (`.asscalar()`, `asnumpy()`) or an
+        observer that fences (telemetry, nan_sentinel) is on. Pair it
+        with `dataflow.prefetch_to_mesh`, so that neither the batch's
+        copy to the card nor host bookkeeping sits between two steps."""
+        return self._step_outer(data, labels)
+
+    def _fence(self):
+        """The periodic fence of `step`: wait for the work queued on the
+        trainer's current stream (nothing to wait for on the CPU); each
+        call counts in `fences`."""
+        self.fences += 1
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _step_outer(self, data, labels):
         data = data if isinstance(data, (list, tuple)) else [data]
         labels = labels if isinstance(labels, (list, tuple)) else [labels]
         data = [_as_tensor(x, self.device) for x in data]
@@ -341,7 +398,7 @@ class ShardedTrainer:
         key = (len(data), len(labels), shapes, self._accum,
                _memsafe.policy_marker(self.block) if _memsafe._enabled
                else None)
-        is_miss = key not in self._sigs
+        is_miss = key not in self._step_cache
         step_no = self.num_update + 1
         # per-step config read so mx.config.set("nan_sentinel", ...)
         # takes effect mid-run
@@ -366,6 +423,10 @@ class ShardedTrainer:
         # the JAX package fences for these, not for diagnostics alone
         fencing = _telemetry._enabled or sentinel or _inspect._enabled \
             or tracing or accounting
+        self._observer_fenced = fencing
+        # memsafe's check at a new signature, between the backward and
+        # the optimizer update
+        preflight = batch if is_miss and _memsafe._enabled else None
         record = None
         if is_miss and _check._enabled:
             resident = self._resident()
@@ -389,23 +450,24 @@ class ShardedTrainer:
                 if is_miss and _inspect._enabled:
                     loss = _inspect.count_step(
                         self._cost_name(), _inspect.key_repr(key),
-                        lambda: self._update(micro, step_no, lr),
+                        lambda: self._update(micro, step_no, lr, preflight),
                         args=self._resident() + batch, observer=record)
                 elif record is not None:
                     loss = record.run(
-                        lambda: self._update(micro, step_no, lr))
+                        lambda: self._update(micro, step_no, lr, preflight))
                 else:
-                    loss = self._update(micro, step_no, lr)
+                    loss = self._update(micro, step_no, lr, preflight)
             t_disp = time.perf_counter() if tracing else None
             self.num_update = step_no
-            self._sigs.add(key)
+            self._t_dev.fill_(step_no)
+            self._step_cache.add(key)
             if record is not None:
                 try:
                     _check.check_step(self, key, record, batch=batch)
                 except _check.CheckError:
                     # check=error: forget the signature, so the next step
                     # at it records and raises again
-                    self._sigs.discard(key)
+                    self._step_cache.discard(key)
                     raise
             if observing:
                 if events is not None:
@@ -435,18 +497,33 @@ class ShardedTrainer:
                 _diagnostics._scope_end()
         return NDArray(loss.detach())
 
-    def _update(self, micro, t, lr):
-        """Forward, backward and the optimizer update of step t; returns
-        the float32 loss tensor."""
+    def _leaves(self):
+        """(the leaves the gradient is taken with respect to, the
+        function that builds the block's parameter tensors from them)."""
         if self._fl is None:
             leaves = [p.detach().requires_grad_(True) for p in self.params]
-            loss, grads = self._accumulate(leaves, lambda: leaves, micro)
+            return leaves, lambda: leaves
+        master = self.params.detach().requires_grad_(True)
+        return [master], lambda: self._fl.unflatten(master)
+
+    def _update(self, micro, t, lr, preflight=None):
+        """Forward, backward and the optimizer update of step t; returns
+        the float32 loss tensor. With `preflight` (the step's batch; a
+        new signature with memsafe armed) the forward and backward are
+        measured and `memsafe.preflight_step` checks the budget before
+        the optimizer touches any state."""
+        leaves, views = self._leaves()
+        if preflight is None:
+            loss, grads = self._accumulate(leaves, views, micro)
+        else:
+            loss, grads = _memsafe.preflight_step(
+                self, lambda: self._accumulate(leaves, views, micro),
+                preflight)
+        if self._fl is None:
             self._state_touched = True
             self.fopt.apply(self.params, grads, self.opt_state, t, lr)
         else:
-            master = self.params.detach().requires_grad_(True)
-            loss, (grad,) = self._accumulate(
-                [master], lambda: self._fl.unflatten(master), micro)
+            (grad,) = grads
             m, v = self.opt_state
             self._state_touched = True
             self._fl.apply_flat(self.params, grad, m, v, t, lr)
@@ -720,7 +797,68 @@ class ShardedTrainer:
             for name, src in zip(self._aux_names, state["aux"]):
                 self.block.get_parameter(name).copy_(src)
         self.num_update = int(state["num_update"])
+        self._t_dev.fill_(self.num_update)
         _random.set_state(state["rng"])
+
+    def predict_step_bytes(self, data, labels):
+        """The memory plan of one train step at these batch shapes:
+        {"exec_peak_bytes", "resident_bytes", "predicted_bytes",
+        "capacity_bytes", "headroom_bytes", "fits"}, as the JAX
+        package's. `resident_bytes` is the train state (parameters,
+        optimizer state, aux tensors) plus the batch; `exec_peak_bytes`
+        is what one forward and backward at these shapes allocate above
+        that (`memsafe.measure_peak`: the caching allocator's peak on the
+        card, a profiler's memory events on the CPU). The JAX package
+        predicts it from XLA's ahead-of-time analysis without running
+        anything; the port has no such analysis and runs the pass (the
+        batch is copied to the device), with no optimizer update: the
+        parameters, optimizer state, aux tensors, `num_update` and the
+        random streams are left exactly as they were. A pass that runs
+        out of memory on the card is not retried: it gives `"oom": True`,
+        `fits` False and `exec_peak_bytes` None. Capacity, headroom and
+        fits are None when no capacity is known. This is what
+        `dataflow.autofit` searches over."""
+        data = data if isinstance(data, (list, tuple)) else [data]
+        labels = labels if isinstance(labels, (list, tuple)) else [labels]
+        if not self._ready:
+            raise RuntimeError(
+                "predict_step_bytes needs materialized parameters: run one "
+                "step before planning (the block has deferred shapes)")
+        data = [_as_tensor(x, self.device) for x in data]
+        labels = [_as_tensor(x, self.device) for x in labels]
+        resident = _memsafe.resident_bytes(self._resident() + data + labels)
+        rng = _random.get_state()
+        aux = [self.block.get_parameter(n) for n in self._aux_names]
+        saved = [a.detach().clone() for a in aux]
+        oom = False
+        try:
+            leaves, views = self._leaves()
+            micro = self._microbatches(data, labels)
+            _, exec_peak = _memsafe.measure_peak(
+                lambda: self._accumulate(leaves, views, micro), self.device)
+        except torch.cuda.OutOfMemoryError as e:
+            _memsafe._release(e)
+            oom, exec_peak = True, None
+        finally:
+            _random.set_state(rng)
+            with torch.no_grad():
+                for a, s in zip(aux, saved):
+                    a.copy_(s)
+        capacity = _memsafe.capacity_bytes(self.device)
+        predicted = int(resident) + int(exec_peak or 0)
+        out = {
+            "exec_peak_bytes": exec_peak,
+            "resident_bytes": int(resident),
+            "predicted_bytes": predicted,
+            "capacity_bytes": capacity,
+            "headroom_bytes": None if capacity is None
+            else int(capacity) - predicted,
+            "fits": None if capacity is None
+            else not oom and predicted <= capacity,
+        }
+        if oom:
+            out["oom"] = True
+        return out
 
     @property
     def _fused(self):

@@ -42,10 +42,18 @@
     `slow_client:ms`, `burst:N@step:K` and `cancel@req:N`, and fires the
     fleet's `kill_replica` and `wedge_replica` (`Server._fire_faults`);
     the fleet's replica endpoint consumes `slow_replica:ms`
-    (`fleet.ReplicaEndpoint._maybe_slow_ms`). The other kinds of the
-    grammar parse, but no port code fires them: `stall_input` needs the
-    prefetch stager, and `shrink`/`grow` the elastic resize (queue 1's
-    "Multi-device").
+    (`fleet.ReplicaEndpoint._maybe_slow_ms`); the prefetch stager
+    (`dataflow`) fires `stall_input:ms` at its input point. `shrink` and
+    `grow` parse, but no port code fires them: they need the elastic
+    resize (queue 1's "Multi-device").
+  * **estimator checkpoints** — `save_estimator(est, base_dir)` writes
+    an Estimator fit loop's epoch-boundary state (the net's parameters,
+    the gluon Trainer's optimizer state, the epoch and batch counters,
+    the random streams) as a verified checkpoint under
+    `base_dir/step_<epoch>`; `restore_estimator` restores the newest
+    verified one (or an explicit path), falling back past corrupt ones.
+    The random state is `random.get_state()` in `rng.pt` (the JAX
+    package writes its key data into the JSON).
 
 Disabled (the default) the trainer hook is one module-bool check, no
 signal handler is installed, and `ShardedTrainer.save_states` writes
@@ -56,8 +64,7 @@ both. The `resilience` knob installs at import.
 One process: the port trains on one device, so the JAX package's
 multi-host branch (the writer running against the final directory, the
 manifest written by process 0) is not here. Elastic reshape
-(`request_shrink` raises `NotPortedError`) and estimator checkpoints
-are not ported yet.
+(`request_shrink` raises `NotPortedError`) is not ported yet.
 
 Observers, as in the JAX package (each behind its module bool):
 mx.guard heartbeats at a save's start and end and after a restore (a
@@ -98,7 +105,7 @@ __all__ = [
     "check_fingerprint", "trainer_fingerprint", "CheckpointManager",
     "manager_for", "on_trainer_init", "on_step", "FaultInjector",
     "fault_point", "restart_count", "last_resume", "note_preemption",
-    "request_shrink"]
+    "request_shrink", "save_estimator", "restore_estimator"]
 
 # "preempted: state saved, exiting on request": outside the shell's
 # (126..128+N) and the common errno ranges, so a supervisor can tell it
@@ -882,10 +889,10 @@ class FaultInjector:
       slow_replica:30       — every token a fleet replica endpoint
                               streams leaves 30 ms late
                               (fleet.ReplicaEndpoint)
-      stall_input, shrink, grow
-                            — parsed; no port code fires them (the
-                              prefetch stager and elastic resize are
-                              not ported)
+      stall_input:250       — one 250 ms stall at the prefetch
+                              stager's input point (dataflow)
+      shrink, grow          — parsed; no port code fires them (the
+                              elastic resize is not ported)
     Any spec may append @rank:N to fire on that rank only. Specs fire at
     most once, and only on the FIRST launch (MXNET_TPU_RESTART_COUNT=0)
     unless @every_restart is appended."""
@@ -941,7 +948,8 @@ class FaultInjector:
         """Run every armed spec that matches this fault point: "step" (a
         trainer step boundary; `trainer` handed through so corrupt_grad
         reaches its parameters), "dispatch" (a step about to run, nothing
-        touched yet) or "ckpt" (a checkpoint just written at `path`)."""
+        touched yet), "ckpt" (a checkpoint just written at `path`) or
+        "input" (the prefetch stager, before it stages a batch)."""
         rank = _process_index()
         for spec in self._specs:
             if not self._armed(spec, spec["kind"], rank):
@@ -965,6 +973,12 @@ class FaultInjector:
             elif point == "ckpt" and kind == "corrupt_ckpt" and due:
                 spec["fired"] = True
                 self.corrupt_checkpoint(path)
+            elif point == "input" and kind == "stall_input":
+                spec["fired"] = True
+                ms = float(spec["arg"] or 100)
+                print(f"mx.resilience: fault injection: stalling input "
+                      f"{ms:.0f} ms", file=sys.stderr)
+                time.sleep(ms / 1000.0)
 
     @staticmethod
     def _fire_process_fault(kind, step):
@@ -1064,6 +1078,92 @@ class FaultInjector:
                 spec["fired"] = True
                 return spec["arg"] or ""
         return None
+
+
+# ---------------------------------------------------------------------------
+# estimator checkpoints (epoch-granularity fit-loop state)
+# ---------------------------------------------------------------------------
+
+_FIT_STATE = "fit_state.json"
+_FIT_RNG = "rng.pt"
+
+
+def save_estimator(est, base_dir):
+    """Atomic verified checkpoint of an Estimator fit loop: the net's
+    parameters, the gluon Trainer's optimizer state, the epoch and batch
+    counters and the random streams. Called at epoch boundaries only: a
+    mid-epoch save would be replayed from the epoch's start and apply
+    the partial epoch twice."""
+    import torch
+
+    from . import random as _random
+
+    epoch = int(est.num_epoch)
+
+    def _writer(tmp):
+        est.net.save_parameters(os.path.join(tmp, "net.params"))
+        est.trainer.save_states(os.path.join(tmp, "trainer.states"))
+        torch.save(_random.get_state(), os.path.join(tmp, _FIT_RNG))
+        with open(os.path.join(tmp, _FIT_STATE), "w") as f:
+            json.dump({"num_epoch": epoch, "num_batch": int(est.num_batch)},
+                      f)
+    t0 = time.perf_counter()
+    path = RetryPolicy().call(
+        write_checkpoint,
+        os.path.join(str(base_dir), f"{_STEP_PREFIX}{epoch:010d}"),
+        _writer, step=epoch, fingerprint={"trainer": "Estimator"},
+        site="checkpoint-io")
+    if _telemetry._enabled:
+        _M_SAVE_SECONDS.observe(time.perf_counter() - t0)
+        _telemetry.event("checkpoint", step=epoch, path=path,
+                         dur_s=round(time.perf_counter() - t0, 6))
+    keep = int(_config.get("checkpoint_keep"))
+    if keep > 0:
+        _recover_displaced(base_dir)
+        for _step, old in list_checkpoints(base_dir)[:-keep]:
+            shutil.rmtree(old, ignore_errors=True)
+    return path
+
+
+def restore_estimator(est, base_dir, resume="auto"):
+    """Restore the newest verified Estimator checkpoint (or the explicit
+    `resume` path), falling back past corrupt ones. Returns the restored
+    epoch or None; the fit loop then skips the epochs already consumed."""
+    import torch
+
+    from . import random as _random
+
+    _recover_displaced(base_dir)
+    if resume != "auto":
+        candidates = [(None, str(resume))]
+    else:
+        candidates = list(reversed(list_checkpoints(base_dir)))
+    fallbacks = 0
+    for _step, path in candidates:
+        try:
+            manifest = verify_checkpoint(path)
+            check_fingerprint(manifest, {"trainer": "Estimator"}, path)
+            with open(os.path.join(path, _FIT_STATE)) as f:
+                state = json.load(f)
+            rng = torch.load(os.path.join(path, _FIT_RNG),
+                             weights_only=True)
+            est.net.load_parameters(os.path.join(path, "net.params"))
+            est.trainer.load_states(os.path.join(path, "trainer.states"))
+        except (CheckpointCorruptError, OSError, ValueError) as e:
+            if resume != "auto":
+                raise
+            fallbacks += 1
+            if _telemetry._enabled:
+                _M_VERIFY_FAILURES.inc()
+            print(f"mx.resilience: rejecting checkpoint: {e} — falling "
+                  "back to the previous one", file=sys.stderr)
+            continue
+        est.num_epoch = int(state["num_epoch"])
+        est.num_batch = int(state["num_batch"])
+        _random.set_state(rng)
+        _note_resume(path, est.num_epoch, fallbacks)
+        return est.num_epoch
+    return None
 
 
 def fault_point(point, step=None, path=None):

@@ -28,13 +28,17 @@ module of the JAX package loaded, and prints one JSON line: `passed`,
 (each passed test's id: more files may follow the first among the
 pytest arguments) and `launches`.
 Run it in a fresh process: one that holds the JAX package already is
-refused.
+refused. With `RUN_EXAMPLE_STACKS_AFTER=<seconds>` in the environment,
+the process writes every thread's stack to stderr once that many
+seconds have passed (`faulthandler.dump_traceback_later`), so a run cut
+by its caller's time limit shows where it waited.
 
 Importing this module installs nothing: the alias exists only while
 `run` runs a script, and is removed after it.
 """
 from __future__ import annotations
 
+import faulthandler
 import importlib
 import importlib.abc
 import importlib.util
@@ -178,6 +182,9 @@ def run_pytest(path, args=(), device=None):
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    if os.environ.get("RUN_EXAMPLE_STACKS_AFTER"):
+        faulthandler.dump_traceback_later(
+            float(os.environ["RUN_EXAMPLE_STACKS_AFTER"]), exit=False)
     device = None
     if argv[:1] == ["--device"]:
         device, argv = argv[1], argv[2:]

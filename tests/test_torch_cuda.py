@@ -1927,3 +1927,109 @@ def test_two_replica_fleet_on_card_streams_solo_tokens(dev):
     assert all(r.state == serve.DONE for r in reqs)
     assert {r.replicas_tried[0] for r in reqs} == {0, 1}
     assert pa.launches > 0
+
+
+def test_prefetched_batches_equal_plain_copies(dev):
+    """Host batches staged by `prefetch_to_mesh` on its own stream equal
+    `.to(dev)` copies, dtypes mapped as `nd.array` maps them; a leaf
+    already on the card passes through."""
+    from mxnet_tpu_torch import dataflow
+    rng = np.random.RandomState(0)
+    src = [([rng.randn(32, 512).astype(np.float32),
+             rng.randint(0, 9, (32, 7)).astype(np.int64)],
+            [torch.arange(32, device=dev)]) for _ in range(6)]
+    with dataflow.prefetch_to_mesh(iter(src), [dev] * 3, depth=2) as pf:
+        got = [(d, l) for d, l in pf]
+    for (d, l), (sd, sl) in zip(got, src):
+        assert d[0]._t.device.type == "cuda" and d[1]._t.dtype == torch.int32
+        assert torch.equal(d[0]._t, torch.from_numpy(sd[0]).to(dev))
+        assert torch.equal(d[1]._t, torch.from_numpy(sd[1]).to(dev).int())
+        assert l[0]._t.data_ptr() == sl[0].data_ptr()
+
+
+def test_prefetch_stress_no_stale_or_reused_block(dev):
+    """200 host arrays of varied sizes staged two ahead while the
+    consumer's stream is kept busy before it reads each one and frees it
+    at once: every sum on the card equals the host's, so no batch was
+    read half-copied and no freed block was handed back to the staging
+    stream while the consumer still read it."""
+    from mxnet_tpu_torch import dataflow
+    rng = np.random.RandomState(1)
+    arrays = [rng.randint(-1000, 1000, int(rng.randint(1, 1 << 21)))
+              .astype(np.int32) for _ in range(200)]
+    work = torch.randn(1024, 1024, device=dev)
+    got = []
+    with dataflow.prefetch_to_mesh(iter([[a] for a in arrays]), [dev],
+                                   depth=2) as pf:
+        for i, (t,) in enumerate(pf):
+            for _ in range(1 + i % 4):
+                work = torch.tanh(work @ work)
+            got.append(t._t.long().sum())
+            del t
+    assert [int(g) for g in got] == [int(a.astype(np.int64).sum())
+                                    for a in arrays]
+
+
+def _card_bert_trainer(dev, dropout=0.1):
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.models import bert
+    cfg = bert.bert_tiny_config(dropout=dropout)
+    model = bert.BERTForPretraining(cfg, device=dev)
+    model.initialize(generator=mxrandom.seed(0, dev))
+    tr = parallel.ShardedTrainer(model, bert.bert_pretrain_loss, "lamb",
+                                 {"learning_rate": 1e-3, "wd": 0.01},
+                                 device=dev)
+    batches = []
+    for s in range(4):
+        b = bert.make_synthetic_batch(cfg, 8, 32, 6, seed=s)
+        batches.append(([b[k] for k in ("input_ids", "token_types",
+                                        "valid_length", "masked_positions")],
+                        [b[k] for k in ("mlm_labels", "mlm_weights",
+                                        "nsp_labels")]))
+    return tr, batches
+
+
+def test_step_async_through_prefetch_equals_step_on_card(dev):
+    """Host batches through `prefetch_to_mesh` and `step_async` give the
+    losses of `step` on the same host batches, bit for bit (dropout on,
+    the random streams reset between the two runs)."""
+    from mxnet_tpu_torch import dataflow
+    from mxnet_tpu_torch import random as mxrandom
+    runs = []
+    for prefetch in (False, True):
+        tr, batches = _card_bert_trainer(dev)
+        mxrandom.seed(3, dev)
+        if prefetch:
+            with dataflow.prefetch_to_mesh(iter(batches), tr) as pf:
+                runs.append([float(tr.step_async(d, l)) for d, l in pf])
+        else:
+            runs.append([float(tr.step(d, l)) for d, l in batches])
+        assert int(tr._t_dev) == tr.num_update == 4
+    assert runs[0] == runs[1]
+
+
+def test_predict_step_bytes_leaves_state_and_streams_on_card(dev):
+    """`predict_step_bytes` runs a measured forward and backward and
+    leaves the LAMB master, the moments, `num_update` and the random
+    streams bit equal; its peak rises with the batch."""
+    from mxnet_tpu_torch import random as mxrandom
+    tr, batches = _card_bert_trainer(dev)
+    tr.step(*batches[0])
+    before = [t.clone() for t in [tr.params, *tr.opt_state]]
+    state = mxrandom.get_state()
+    small = tr.predict_step_bytes(*batches[1])
+    from mxnet_tpu_torch.models import bert
+    b = bert.make_synthetic_batch(bert.bert_tiny_config(), 32, 64, 6, seed=9)
+    big = tr.predict_step_bytes(
+        [b[k] for k in ("input_ids", "token_types", "valid_length",
+                        "masked_positions")],
+        [b[k] for k in ("mlm_labels", "mlm_weights", "nsp_labels")])
+    assert 0 < small["exec_peak_bytes"] < big["exec_peak_bytes"]
+    assert small["capacity_bytes"] > 0 and small["fits"]
+    assert all(torch.equal(a, b) for a, b in zip(
+        before, [tr.params, *tr.opt_state]))
+    assert tr.num_update == 1 and int(tr._t_dev) == 1
+    after = mxrandom.get_state()
+    assert after[0] == state[0] and torch.equal(after[1], state[1])
+    assert all(torch.equal(after[2][k], v) for k, v in state[2].items())

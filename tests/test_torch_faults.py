@@ -44,6 +44,9 @@ the JAX package's 0.44101596, each within 1e-6, and the gradient
 reaches its Dense layer. `io.LibSVMIter`'s refusal names what is
 missing and the ROADMAP.md list that carries it.
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -697,3 +700,63 @@ def test_fault20_port_anchors_feed_its_own_multibox_target():
     assert cls_t.context == mxt.cpu()
     assert int((cls_t.asnumpy() > 0).sum()) >= 3
     assert mask.shape == (2, anchors.shape[0], 1)
+
+
+class _DiesHoldingResultLock:
+    """A dataset whose worker, at index 3 of the first pass, takes the
+    result queue's cross-process writer lock and dies: what a worker
+    killed while its queue's feeder thread writes a batch leaves
+    behind."""
+
+    def __init__(self, marker):
+        self.marker = marker
+
+    def __len__(self):
+        return 8
+
+    def __getitem__(self, i):
+        if i == 3 and not os.path.exists(self.marker):
+            open(self.marker, "w").close()
+            frame = sys._getframe()
+            while "data_q" not in frame.f_locals:
+                frame = frame.f_back
+            frame.f_locals["data_q"]._wlock.acquire()
+            os._exit(9)
+        return np.full((2,), i, np.float32)
+
+
+def test_fault24_respawned_worker_gets_a_fresh_result_queue(tmp_path):
+    """Fault 24: a worker that dies holding the result queue's writer
+    lock. The JAX DataLoader forks the replacement onto the same queue,
+    whose feeder blocks on that lock, so no batch comes until
+    `dataloader_timeout` (here 3 s) raises; the port's replaces the pool
+    with its queues and gives every batch, in order."""
+    from mxnet_tpu import config as config_j
+    from mxnet_tpu import resilience as resilience_j
+    from mxnet_tpu_torch import config as config_t
+    from mxnet_tpu_torch import resilience as resilience_t
+    for config, resilience in ((config_j, resilience_j),
+                               (config_t, resilience_t)):
+        config.set("retry_backoff_s", 0.01)
+        resilience.enable()
+    # only the JAX side needs a short watchdog to show its hang; the
+    # port's fresh pool keeps the default bound (a loaded machine can take
+    # seconds to fork it)
+    config_j.set("dataloader_timeout", 3)
+    try:
+        with pytest.raises(RuntimeError, match="produced no batch"):
+            list(gluon_j.data.DataLoader(
+                _DiesHoldingResultLock(str(tmp_path / "jax")),
+                batch_size=2, num_workers=1))
+        with mxt.cpu():
+            got = list(gluon_t.data.DataLoader(
+                _DiesHoldingResultLock(str(tmp_path / "port")),
+                batch_size=2, num_workers=1))
+    finally:
+        for config, resilience in ((config_j, resilience_j),
+                                   (config_t, resilience_t)):
+            resilience.disable()
+            config.reset("retry_backoff_s")
+            config.reset("dataloader_timeout")
+    assert os.path.exists(tmp_path / "port")
+    assert [float(b[0, 0].asscalar()) for b in got] == [0, 2, 4, 6]

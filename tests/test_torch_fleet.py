@@ -512,7 +512,7 @@ def test_fleet_ledger_and_serve_knobs_as_jax():
         a, b = config.option(name), config_j.option(name)
         assert (a.name, a.default, a.typ, a.env, a.choices) == \
             (b.name, b.default, b.typ, b.env, b.choices), name
-    assert len(config.describe()) == 79
+    assert len(config.describe()) == 81   # with the dataflow layer's two
     assert {n: config.option(n).default for n in fleet.DEFAULTS} \
         == fleet.DEFAULTS
     out = subprocess.run(

@@ -26,8 +26,9 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 300
+# a run cut at TIMEOUT has written every thread's stack to stderr first
 ENV = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
-           MKL_NUM_THREADS="1")
+           MKL_NUM_THREADS="1", RUN_EXAMPLE_STACKS_AFTER=str(TIMEOUT - 30))
 
 # file -> (tests in the file, the tests expected to fail)
 FILES = {
@@ -54,8 +55,14 @@ def run_file(name):
     code)."""
     cmd = [sys.executable, "-m", "mxnet_tpu_torch.run_example", "--device",
            "cpu", "--pytest", f"tests/unittest/{name}", "-p", "no:xdist"]
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=TIMEOUT, env=ENV)
+    try:
+        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=TIMEOUT, env=ENV)
+    except subprocess.TimeoutExpired as e:
+        err = e.stderr or b""            # bytes, whatever `text` says
+        raise AssertionError(f"{name} ran past {TIMEOUT} s:\n" + (
+            err.decode(errors="replace") if isinstance(err, bytes)
+            else err)[-8000:]) from None
     lines = out.stdout.strip().splitlines()
     assert lines, out.stderr[-4000:]
     try:

@@ -10,15 +10,13 @@ which fails if any module of the JAX package loaded. One case a file:
 its failures must be exactly the named exclusions, and its pass count
 the file's count less those.
 
-The exclusions, each naming the ROADMAP.md queue 1 item it waits for or
-the test's own use of JAX:
-  * the estimator (`gluon.contrib.estimator`, item 4);
+The exclusions, each naming the ROADMAP.md queue 1 item it waits for, the
+test's own use of JAX, or a knob of the JAX package's own:
   * the kvstore (item "Multi-device");
   * multi-device: a mesh of more than one device, its collectives and
     their traffic estimate, fsdp, resharding;
-  * prefetch and autofit (item 5): `dataflow.prefetch_to_mesh` and its
-    stager, `predict_step_bytes`, memsafe's pre-flight check at a new
-    shape, the async step's device-resident counter `_t_dev`;
+  * the `fused_lamb` knob, which the port does not declare: it has no
+    switch away from its LAMB kernels;
   * the test's own use of JAX: a `jnp` array handed to the port, or
     XLA's out-of-memory text (`RESOURCE_EXHAUSTED`) raised by the test.
 
@@ -48,12 +46,12 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 300
+# a run cut at TIMEOUT has written every thread's stack to stderr first
 ENV = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
-           MKL_NUM_THREADS="1")
+           MKL_NUM_THREADS="1", RUN_EXAMPLE_STACKS_AFTER=str(TIMEOUT - 30))
 
-_ESTIMATOR = "estimator"
 _MULTI = "multi-device"
-_PREFETCH = "prefetch/autofit"
+_FUSED_LAMB = "the JAX package's `fused_lamb` knob"
 _JNP = "the test's own use of JAX"
 
 # file -> (tests run, {expected failure: reason}, deselected tests)
@@ -62,15 +60,9 @@ FILES = {
         "test_dataloader_wait_and_kvstore_bytes": _MULTI,
         "test_kvstore_failed_push_not_counted": _MULTI,
         "test_kvstore_compressed_push_counts_wire_bytes": _MULTI,
-        "test_estimator_telemetry_handler_throughput": _ESTIMATOR,
     }, []),
-    "test_trace.py": (18, {
-        "test_disabled_fast_path_zero_calls_and_zero_alloc": _PREFETCH,
-        "test_trainer_and_dataflow_spans": _PREFETCH,
-    }, []),
-    "test_diagnostics.py": (24, {
-        "test_estimator_diagnostics_handler": _ESTIMATOR,
-    }, ["test_forced_crash_in_toy_train_loop_leaves_postmortem",
+    "test_trace.py": (18, {}, []),
+    "test_diagnostics.py": (24, {}, ["test_forced_crash_in_toy_train_loop_leaves_postmortem",
         "test_two_rank_launch_leaves_postmortems_and_report_names_rank1"]),
     "test_profiler.py": (9, {}, []),
     "test_inspect.py": (16, {
@@ -80,26 +72,11 @@ FILES = {
         "test_telemetry_report_cost_section_and_verdict": _MULTI,
     }, ["test_two_rank_launch_then_inspect_report"]),
     "test_memsafe.py": (15, {
-        "test_budget_error_pre_dispatch_and_message": _PREFETCH,
-        "test_budget_accounting_matches_state_bytes": _PREFETCH,
-        "test_headroom_gauge_and_warning_event": _PREFETCH,
-        "test_preflight_covers_hybrid_block_path": _PREFETCH,
-        "test_autofit_monotonic_and_chosen_config_fits": _PREFETCH,
-        "test_autofit_nothing_fits_raises_budget_error": _PREFETCH,
         "test_eager_trainer_oom_counts_and_annotates": _JNP,
     }, []),
     "test_resilience.py": (37, {
-        "test_manager_save_retention_restore": _PREFETCH,
         "test_mesh_mismatch_raises_only_when_reshard_off": _MULTI,
-        "test_fused_lamb_rng_counter_roundtrip_bit_exact": _PREFETCH,
-        "test_stall_input_injection": _PREFETCH,
-        "test_estimator_fit_resume_bit_exact": _ESTIMATOR,
-        "test_estimator_resume_skips_corrupt_checkpoint": _ESTIMATOR,
-        "test_estimator_midepoch_preempt_keeps_boundary_checkpoint":
-            _ESTIMATOR,
-        "test_estimator_knob_paths_gated_on_enable": _ESTIMATOR,
-        "test_prefetch_close_idempotent_and_reentrant": _PREFETCH,
-        "test_prefetch_stage_retry_under_resilience": _PREFETCH,
+        "test_fused_lamb_rng_counter_roundtrip_bit_exact": _FUSED_LAMB,
     }, []),
     "test_ctc.py": (5, {}, []),
     "test_detection_ops.py": (8, {}, []),
@@ -143,8 +120,14 @@ def run_file(name, files=None):
            "-m", "not slow"]
     for test in deselected:
         cmd += ["--deselect", f"tests/unittest/{name}::{test}"]
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=TIMEOUT, env=ENV)
+    try:
+        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=TIMEOUT, env=ENV)
+    except subprocess.TimeoutExpired as e:
+        err = e.stderr or b""            # bytes, whatever `text` says
+        raise AssertionError(f"{name} ran past {TIMEOUT} s:\n" + (
+            err.decode(errors="replace") if isinstance(err, bytes)
+            else err)[-8000:]) from None
     lines = out.stdout.strip().splitlines()
     assert lines, out.stderr[-4000:]
     try:

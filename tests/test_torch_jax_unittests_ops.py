@@ -15,8 +15,6 @@ the port's documented meaning of a rule, or the test's own use of JAX:
   * multi-device: per-replica digests over an 8-device mesh (the port
     holds one copy of the parameters a process, so its in-process vote
     has one voter), replicated parameters on a data mesh;
-  * prefetch and bucketing (item 5): `dataflow.prefetch_to_mesh` and
-    `dataflow.BucketPad`;
   * a check rule whose port meaning differs (`check.py`'s docstring,
     ROADMAP.md "Not faults"): `donate=False` changes nothing in the
     port's in-place step, and the learning rate is no part of a port
@@ -54,11 +52,11 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 300
+# a run cut at TIMEOUT has written every thread's stack to stderr first
 ENV = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
-           MKL_NUM_THREADS="1")
+           MKL_NUM_THREADS="1", RUN_EXAMPLE_STACKS_AFTER=str(TIMEOUT - 30))
 
 _MULTI = "multi-device"
-_PREFETCH = "prefetch/bucketing"
 _PORT_RULE = "a check rule whose port meaning differs"
 _DRAFTER = "the port refuses a drafter of another vocabulary"
 _JNP = "the test's own use of JAX"
@@ -79,7 +77,6 @@ _LEDGER_REPORT = [
 FILES = {
     "test_serve.py": (36, {
         "test_bucketing_bounds_executables_and_check_quiet": _JNP,
-        "test_bucket_length_shared_policy": _PREFETCH,
     }, []),
     "test_pages.py": (20, {
         "test_copy_page_copies_every_stream": _JNP,
@@ -94,15 +91,12 @@ FILES = {
         "test_sdc_replayed_round_ignores_stale_digest_files": _MULTI,
         "test_sdc_partial_exchange_never_convicts": _MULTI,
         "test_corrupt_grad_fires_at_step_via_fault_point": _MULTI,
-        "test_guard_off_zero_call_zero_alloc": _PREFETCH,
     }, []),
     "test_check.py": (29, {
         "test_donation_miss_fires_on_donate_false_and_not_on_default":
             _PORT_RULE,
         "test_retrace_hazard_fires_on_baked_lr_scalar": _PORT_RULE,
         "test_degenerate_sharding_fires_on_replicated_params": _MULTI,
-        "test_retrace_hazard_fires_on_varlen_axis_and_not_when_bucketed":
-            _PREFETCH,
         "test_donation_miss_fires_on_undonated_state_threading": _JNP,
         "test_large_constant_fires_and_names_block": _JNP,
         "test_dtype_promotion_fires_on_nonweak_scalar_only": _JNP,
@@ -111,9 +105,7 @@ FILES = {
         "test_dump_and_check_graph_report": _JNP,
     }, ["test_check_graph_zoo_error_mode_reports_per_model"]),
     "test_slo.py": (19, {}, []),
-    "test_goodput.py": (11, {
-        "test_off_by_default_zero_hook_calls": _PREFETCH,
-    }, []),
+    "test_goodput.py": (11, {}, []),
     "test_scope.py": (14, {}, []),
     "test_ledger.py": (16, {
         "test_config_fingerprint_tracks_perf_knobs": _PORT_KNOB,
@@ -131,8 +123,14 @@ def run_file(name):
            "-m", "not slow"]
     for test in deselected:
         cmd += ["--deselect", f"tests/unittest/{name}::{test}"]
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=TIMEOUT, env=ENV)
+    try:
+        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=TIMEOUT, env=ENV)
+    except subprocess.TimeoutExpired as e:
+        err = e.stderr or b""            # bytes, whatever `text` says
+        raise AssertionError(f"{name} ran past {TIMEOUT} s:\n" + (
+            err.decode(errors="replace") if isinstance(err, bytes)
+            else err)[-8000:]) from None
     lines = out.stdout.strip().splitlines()
     assert lines, out.stderr[-4000:]
     try:
